@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (your_voice_tts_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases, each fatal on failure:
+1. build: compile every CUDA source of the serving path (one nvcc each, in
+   parallel) and print the build seconds and ptxas resource lines;
+2. kernels: hold each kernel against its plain PyTorch version at serving
+   shapes and time kernel, plain version and a library yardstick:
+   - decode: configs/ljspeech_tacotron2.json at full width (r=2 of r_init 7),
+     seeded random weights, B=8, text ~150 symbols, 250 steps, dropout on;
+   - Griffin-Lim: B=8, T=500, n_fft 1024 / hop 256, 24 iterations,
+     momentum 0.95, injected phase;
+3. small input: the trained smoke checkpoint through Tacotron2.inference and
+   Griffin-Lim on the kernels against the plain versions on the CPU;
+4. main path: Synthesizer.tts_many at full width (max_decoder_steps 250, so
+   500 frames a row) answers one batch of 8 sentences and 5 batch-1
+   requests, with every launch counter set to 0 just before and read just
+   after; prints mel frames/s, real-time factor and p50 batch-1 latency.
+
+Then the kernel line (JSON), the card's name and power limit, and the
+contract line {"ok": true, "device": {...}}. Details also go to
+chip_smoke.json in the output directory (--out, default build/chip_smoke).
+Exits nonzero, printing no result, without CUDA or outside the repository.
+
+    python3 chip_smoke.py --profile
+
+adds, after the main path, one batch-of-8 call under torch.profiler: device
+time by kernel, device busy share of the wall time, and the trace in
+profile_trace.json in the output directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
+BF16_FLOPS = 989e12              # dense bf16 tensor-core peak
+F32_FLOPS = 67e12                # float32 outside the tensor cores
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of fn() over `reps` runs, CUDA events, after one
+    warm-up run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(bytes_moved: float, seconds_of_ops: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    return (max(t_bytes, seconds_of_ops) * 1e3,
+            "bytes" if t_bytes >= seconds_of_ops else "operations")
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def phase_build(report):
+    from your_voice_tts_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    seconds = cuda_build.build_all()
+    report["build_s"] = time.perf_counter() - t0
+    print(f"[build] {report['build_s']:.1f} s wall; per source {seconds}")
+    for name, log in cuda_build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+def full_width_config():
+    """ljspeech_tacotron2.json at r=2 (r_init 7 from its gradual schedule),
+    250 decoder steps."""
+    from your_voice_tts_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs/ljspeech_tacotron2.json"))
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, r=2, max_decoder_steps=250))
+
+
+def no_chance_stops(model):
+    """Random weights: set the stopnet bias to -10 so that no row stops by
+    chance and every row decodes all its steps."""
+    import torch
+
+    with torch.no_grad():
+        model.decoder.stopnet.bias.fill_(-10.0)
+    return model
+
+
+def phase_decode(report):
+    import torch
+
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.models.common import sequence_mask
+    from your_voice_tts_torch.ops.taco2_decode import (tacotron2_decode_cuda,
+                                                       tacotron2_decode_plain)
+    from your_voice_tts_torch.text import symbols
+
+    cfg = full_width_config()
+    model = no_chance_stops(setup_model(len(symbols), cfg, device="cuda"))
+    B, T, steps = 8, 152, 250
+    g = torch.Generator().manual_seed(1)
+    lengths = torch.tensor([150, 146, 142, 138, 134, 130, 126, 122])
+    text = torch.randint(1, model.embedding.num_embeddings, (B, T), generator=g)
+    dec = model.decoder
+    with torch.no_grad():
+        enc = model.encoder(model.embedding(text.cuda()), lengths.cuda())
+        # row 0: the folded stop row's context direction, so it stops at once
+        w32 = dec.decode_weights(torch.float32)
+        H2, E = w32["dims"]["H2"], w32["dims"]["E"]
+        c = w32["o_w"][-1, H2:H2 + E]
+        enc[0] += 20.0 * c / (c @ c)
+        pinp = dec.attention.preprocess_inputs(enc)
+    mask = sequence_mask(lengths.cuda(), T)
+    w = dec.decode_weights(torch.bfloat16)
+    kw = dict(r=2, max_steps=steps, seed=7, prenet_dropout=True, thresh=cfg.model.stop_threshold)
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3])]
+    # tolerances: both sides round the same bf16 inputs and accumulate in
+    # f32 in other orders; over 250 recurrent steps a rare 1-ulp bf16 flip
+    # of an input moves a frame by ~1e-3 (the Pallas kernel-vs-scan bounds)
+    tol = (5e-3, 2e-3, 2e-3)
+    print(f"[decode] B={B} T={T} steps={steps} lengths kernel {got[3].tolist()} "
+          f"plain {ref[3].tolist()}")
+    print(f"[decode] max_abs_err frames {errs[0]:.3e} (tol {tol[0]}), alignments "
+          f"{errs[1]:.3e} (tol {tol[1]}), stops {errs[2]:.3e} (tol {tol[2]})")
+    check(torch.equal(got[3].cpu(), ref[3].cpu()), "decode lengths differ")
+    check(int(got[3][0]) == 1 and int(got[3][1:].min()) == steps, "decode stop pattern")
+    check(all(e <= t for e, t in zip(errs, tol)), "decode kernel disagrees with plain")
+    ms = cuda_ms(lambda: tacotron2_decode_cuda(w, enc, pinp, mask, **kw), 5)
+    plain_ms = cuda_ms(lambda: tacotron2_decode_plain(w, enc, pinp, mask, **kw), 2)
+    d = w["dims"]
+    NM, P, H1, A, K, OW = (d[k] for k in ("n_in", "P", "H1", "A", "K", "OW"))
+    macs = (P * NM + P * P + 4 * H1 * (P + E + H1) + A * H1
+            + 4 * H2 * (H1 + E + H2) + (OW + 1) * (H2 + E))
+    f32_ops = T * A * (4 * K + 4) + 2 * T * E            # location, energies, context
+    ops_s = steps * B * (2 * macs / BF16_FLOPS + f32_ops / F32_FLOPS)
+    wbytes = sum(v.nbytes for v in w.values() if isinstance(v, torch.Tensor))
+    io_bytes = (wbytes + enc.numel() * 2 + pinp.numel() * 4 + mask.numel()
+                + 4 * steps * B * (OW + T + 1))
+    bound_ms, bound_by = bound(io_bytes, ops_s)
+    stream_ms = steps * wbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[decode] kernel_ms {ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms {bound_ms:.3f} "
+          f"({bound_by}; weights read once)  weights-streamed-every-step_ms {stream_ms:.2f} "
+          f"({wbytes / 1e6:.1f} MB bf16 weights x {steps} steps; they fit the 50 MB L2)  "
+          f"library_ms none (no single PyTorch call computes the decode)")
+    report["decode"] = dict(errs=errs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, weight_mb=wbytes / 1e6,
+                            weights_streamed_ms=stream_ms)
+    return {"name": "tacotron2_decode_cuda", "route": "cuda",
+            "source": "your_voice_tts_torch/csrc/taco2_decode.cu",
+            "replaces": "your_voice_tts_tpu/ops/pallas/taco2_decode.py:438",
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def speech_like(B: int, T: int, n_fft: int, hop: int, sr: int):
+    """|STFT| [B, T, n_fft/2 + 1] of B harmonic signals with vibrato and a
+    syllable-rate envelope: a consistent spectrogram, as a decoder's mel
+    gives one, unlike random magnitudes."""
+    import numpy as np
+    import torch
+
+    t = torch.arange(hop * (T - 1), dtype=torch.float64) / sr
+    rows = []
+    for b in range(B):
+        f0 = 100.0 + 20.0 * b
+        ph = 2 * np.pi * torch.cumsum(f0 * (1 + 0.03 * torch.sin(2 * np.pi * 5 * t)) / sr, 0)
+        env = 0.2 + torch.sin(2 * np.pi * (1.1 + 0.2 * b) * t) ** 2
+        rows.append(sum(torch.sin(k * ph) / k for k in range(1, 25)) * env)
+    win = torch.hann_window(n_fft, periodic=True, dtype=torch.float64)
+    S = torch.stft(torch.stack(rows), n_fft, hop, window=win, center=True,
+                   return_complex=True).abs().transpose(1, 2)
+    return S[:, :T].float()
+
+
+def spectral_convergence(y, mag, n_fft: int, hop: int) -> list[float]:
+    """||(|STFT(y)| - mag)|| / ||mag|| per row, the repo's Griffin-Lim gate."""
+    import torch
+
+    win = torch.hann_window(n_fft, periodic=True, device=y.device)
+    S2 = torch.stft(y, n_fft, hop, window=win, center=True,
+                    return_complex=True).abs().transpose(1, 2)[:, :mag.shape[1]]
+    return ((S2 - mag).flatten(1).norm(dim=1) / mag.flatten(1).norm(dim=1)).tolist()
+
+
+def phase_griffin_lim(report):
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.ops.filters import hann_window
+    from your_voice_tts_torch.ops.griffin_lim import (griffin_lim_wave_cuda,
+                                                      griffin_lim_wave_plain,
+                                                      packed_constants)
+
+    B, T, n_fft, hop, iters, mom = 8, 500, 1024, 256, 24, 0.95
+    Kf = n_fft // 2 + 1
+    mag = speech_like(B, T, n_fft, hop, 22050).cuda()
+    g = torch.Generator().manual_seed(2)
+    phase = (torch.rand(T, Kf, generator=g) * 2 * np.pi).cuda()
+    consts = packed_constants(n_fft, hop, hann_window(n_fft, n_fft), torch.bfloat16, "cuda")
+    out = {}
+    for n in (1, iters):
+        got = griffin_lim_wave_cuda(mag, phase, consts, n_iters=n, momentum=mom)
+        ref = griffin_lim_wave_plain(mag, phase, consts, n_iters=n, momentum=mom)
+        check(got.shape == (B, hop * (T - 1)) and bool(torch.isfinite(got).all()),
+              "Griffin-Lim output shape / finiteness")
+        out[n] = (got, ref)
+    # the loop's own sensitivity: the plain version from magnitudes nudged
+    # by a relative 1e-4
+    nudged = mag * (1 + 1e-4 * torch.randn(mag.shape, generator=g).cuda())
+    y_n = griffin_lim_wave_plain(nudged, phase, consts, n_iters=iters, momentum=mom)
+    sens = float((y_n - out[iters][1]).norm() / out[iters][1].norm())
+    got, ref = out[1]
+    rel1 = float((got - ref).norm() / ref.norm())
+    err1 = float((got - ref).abs().max())
+    conv_k = spectral_convergence(out[iters][0], mag, n_fft, hop)
+    conv_p = spectral_convergence(out[iters][1], mag, n_fft, hop)
+    gap = max(abs(a - b) for a, b in zip(conv_k, conv_p))
+    # tolerances: after one iteration both sides hold the same bf16 loop
+    # state up to f32 sum order (rel L2 1e-2); over 24 FGLA iterations the
+    # loop amplifies any rounding difference (printed below: the waveform
+    # moved by a 1e-4 nudge of the magnitudes), so there the kernel is held
+    # to the plain version's reconstruction quality: spectral convergence
+    # within 0.02 of it on every row, and under the repo's 0.25 gate
+    print(f"[griffin-lim] 1 iteration: rel L2 err {rel1:.3e} (tol 1e-2), max_abs_err "
+          f"{err1:.3e} of peak {float(ref.abs().max()):.3e}")
+    print(f"[griffin-lim] {iters} iterations: spectral convergence kernel "
+          f"{[round(x, 4) for x in conv_k]} plain {[round(x, 4) for x in conv_p]}; "
+          f"largest gap {gap:.4f} (tol 0.02); waveform rel L2 kernel vs plain "
+          f"{float((out[iters][0] - out[iters][1]).norm() / out[iters][1].norm()):.3e}, "
+          f"plain vs plain from magnitudes nudged by 1e-4 {sens:.3e}")
+    check(rel1 <= 1e-2, "Griffin-Lim kernel disagrees with plain after one iteration")
+    check(gap <= 0.02 and max(conv_k) <= 0.25, "Griffin-Lim kernel quality differs from plain")
+    ms = cuda_ms(lambda: griffin_lim_wave_cuda(mag, phase, consts, n_iters=iters,
+                                               momentum=mom), 5)
+    plain_ms = cuda_ms(lambda: griffin_lim_wave_plain(mag, phase, consts, n_iters=iters,
+                                                      momentum=mom), 3)
+    M = B * T
+    a = torch.randn(M, n_fft, device="cuda").to(torch.bfloat16)
+    m = consts["Mw"]
+
+    def library():
+        for _ in range(2 * iters + 1):
+            torch.matmul(a, m)
+
+    lib_ms = cuda_ms(library, 5)
+    ops_s = (2 * iters + 1) * 2 * M * n_fft * n_fft / BF16_FLOPS
+    io_bytes = (mag.numel() * 4 + phase.numel() * 4 + 2 * n_fft * n_fft * 2
+                + B * hop * (T - 1) * 4)
+    bound_ms, bound_by = bound(io_bytes, ops_s)
+    print(f"[griffin-lim] B={B} T={T} iters={iters} kernel_ms {ms:.2f}  plain_ms "
+          f"{plain_ms:.2f}  bound_ms {bound_ms:.3f} ({bound_by})  library_ms {lib_ms:.2f} "
+          f"(torch.matmul bf16 on the same {2 * iters + 1} [{M}x{n_fft}]x[{n_fft}x{n_fft}] "
+          f"products; a yardstick for the products only)")
+    report["griffin_lim"] = dict(rel_l2_1iter=rel1, max_abs_err_1iter=err1, sensitivity=sens,
+                                 conv_kernel=conv_k, conv_plain=conv_p, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                 library_ms=lib_ms)
+    return {"name": "griffin_lim_wave_cuda", "route": "cuda",
+            "source": "your_voice_tts_torch/csrc/griffin_lim.cu",
+            "replaces": "your_voice_tts_tpu/ops/pallas/griffin_lim.py:450",
+            "max_abs_err": err1, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def phase_small_input(report):
+    """Trained smoke checkpoint: the kernels on the card against the plain
+    versions on the CPU, same bf16 working type and seeds."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.audio import AudioProcessor
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.text import symbols
+    from your_voice_tts_torch.train.checkpoint import load_checkpoint
+
+    cfg = load_config(os.path.join(ROOT, "configs/smoke_synthetic.json"))
+    texts = ["The quick brown fox jumps over the lazy dog.", "Hello world, this is a test",
+             "A cat sat."]
+    text, lengths = _pad_texts([text_to_seq(t, cfg) for t in texts])
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = setup_model(len(symbols), cfg, device=dev)
+        load_checkpoint(model, os.path.join(ROOT, "assets/bench_trained_smoke.npz"))
+        o = model.inference(text, lengths, seed=3)
+        mel = o["postnet_outputs"].cpu()
+        wavs = AudioProcessor(cfg.audio, dev, seed=4).inv_melspectrogram_batch(
+            [m.T.numpy() for m in mel[:, :96]])
+        outs[dev] = (mel, o["mel_lengths"].cpu(), torch.from_numpy(np.stack(wavs)))
+    (mg, lg, wg), (mc, lc, wc) = outs["cuda"], outs["cpu"]
+    mel_err = float((mg - mc).abs().max())
+    wav_rel = float((wg - wc).norm() / wc.norm())
+    print(f"[small] smoke checkpoint: mel lengths card {lg.tolist()} cpu {lc.tolist()}; "
+          f"postnet max_abs_err {mel_err:.3e} (tol 5e-2); wav rel L2 err {wav_rel:.3e} (tol 5e-2)")
+    check(torch.equal(lg, lc), "smoke mel lengths differ between card and CPU")
+    check(mel_err <= 5e-2 and wav_rel <= 5e-2 and bool(torch.isfinite(wg).all()),
+          "smoke outputs differ between card and CPU")
+    report["small"] = dict(mel_err=mel_err, wav_rel=wav_rel, lengths=lg.tolist())
+
+
+SENTENCES = [
+    "Printing, in the only sense with which we are at present concerned, differs "
+    "from most if not from all the arts and crafts represented in the exhibition.",
+    "The earliest book printed with movable types, the Gutenberg Bible, was printed "
+    "in Latin and differs in many respects from the later books of the period.",
+    "It was a fine summer morning when the travellers set out from the village, "
+    "carrying with them little more than bread, water and a map of the hills.",
+    "Scientists at the observatory reported that the comet would pass within sight "
+    "of the earth next spring, and invited the public to watch from the hills.",
+    "The committee met again on Tuesday to discuss the budget for the new library, "
+    "but the members could not agree on the cost of the building or its design.",
+    "Along the river the old mills had fallen silent, and only the sound of water "
+    "over the stones reminded the town of the work that had once been done there.",
+    "She opened the letter slowly, read it twice without a word, and then folded it "
+    "carefully before placing it in the drawer beside the window of her study.",
+    "Every morning the baker rose before dawn to light the ovens, and by six o'clock "
+    "the smell of fresh bread had filled every street of the little harbour town.",
+]
+
+
+def phase_main_path(report):
+    import torch
+
+    from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.ops.griffin_lim import griffin_lim_wave_cuda
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
+
+    synth = Synthesizer(full_width_config(), device="cuda")
+    no_chance_stops(synth.model)
+    synth.tts_many(SENTENCES[:1])                  # one-time set-up, not measured
+    torch.cuda.synchronize()
+
+    tacotron2_decode_cuda.launches = 0
+    griffin_lim_wave_cuda.launches = 0
+    t0 = time.perf_counter()
+    batch = synth.tts_many(SENTENCES)
+    t_batch = time.perf_counter() - t0
+    lat = []
+    for s in SENTENCES[:5]:
+        t0 = time.perf_counter()
+        one = synth.tts_many([s])
+        lat.append(time.perf_counter() - t0)
+    launches = {"tacotron2_decode_cuda": tacotron2_decode_cuda.launches,
+                "griffin_lim_wave_cuda": griffin_lim_wave_cuda.launches}
+
+    # mel frames of the batch, counted from the decode (the waveforms are
+    # trimmed): no row of the random weights stops, so 250 steps x r=2 each
+    text, lengths = _pad_texts([text_to_seq(t, synth.cfg) for t in SENTENCES])
+    mel_lengths = synth.model.inference(text, lengths)["mel_lengths"]
+    frames = int(mel_lengths.sum())
+    check(mel_lengths.tolist() == [500] * len(SENTENCES), "main path mel lengths")
+    sr, hop = synth.ap.sample_rate, synth.ap.hop_length
+    audio_s = sum(len(w) for w in batch) / sr
+    check(all(w.ndim == 1 and len(w) > 0 and bool(torch.isfinite(torch.from_numpy(w)).all())
+              for w in batch + one), "main path waveforms")
+    check(all(len(w) <= hop * (500 - 1) for w in batch), "main path waveform lengths")
+    p50 = statistics.median(lat)
+    print(f"[main] batch of 8: {t_batch * 1e3:.1f} ms, {frames / t_batch:.0f} mel frames/s, "
+          f"{audio_s:.2f} s of audio, real-time factor {audio_s / t_batch:.1f}x realtime")
+    print(f"[main] batch-1 latency p50 {p50 * 1e3:.1f} ms (all: "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms)")
+    print(f"[main] launches on the main path: {launches}")
+    check(all(n > 0 for n in launches.values()), "a kernel of the main path never launched")
+    report["main"] = dict(batch_ms=t_batch * 1e3, mel_frames_per_s=frames / t_batch,
+                          rtf_x_realtime=audio_s / t_batch, p50_batch1_ms=p50 * 1e3,
+                          batch1_ms=[x * 1e3 for x in lat], launches=launches)
+    return launches
+
+
+def phase_profile(report, out_dir: str):
+    """One batch-of-8 tts_many call under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+
+    synth = Synthesizer(full_width_config(), device="cuda")
+    no_chance_stops(synth.model)
+    synth.tts_many(SENTENCES[:2])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        synth.tts_many(SENTENCES)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(os.path.join(out_dir, "profile_trace.json"))
+    dev = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # noqa: E731
+    rows = sorted((e for e in prof.key_averages() if dev(e) > 0), key=dev, reverse=True)
+    busy_ms = sum(dev(e) for e in rows)
+    print(f"[profile] batch of 8: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"(idle share {1 - busy_ms / wall_ms:.3f})")
+    for e in rows[:16]:
+        print(f"[profile]   {dev(e):8.2f} ms  {e.count:6d} calls  {e.key[:90]}")
+    report["profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                             kernels={e.key: [dev(e), e.count] for e in rows[:40]})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="add a torch.profiler breakdown of one batch-of-8 call")
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "chip_smoke"),
+                    help="directory for chip_smoke.json and the profiler trace")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import your_voice_tts_torch  # noqa: F401  (fails outside the repository)
+
+    report: dict = {"device": torch.cuda.get_device_name(0)}
+    phase_build(report)
+    kernels = [phase_decode(report), phase_griffin_lim(report)]
+    phase_small_input(report)
+    launches = phase_main_path(report)
+    os.makedirs(args.out, exist_ok=True)
+    if args.profile:
+        phase_profile(report, args.out)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    report["nvidia_smi"] = smi
+    report["kernels"] = [{k: kern[k] for k in keys} for kern in kernels]
+    with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(json.dumps({"kernels": report["kernels"]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,90 @@
+"""Guards on the port's boundaries: it imports neither JAX nor the JAX
+package, and its entry points never drop to the CPU by themselves."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import your_voice_tts_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "your_voice_tts_torch")
+BLOCKED = ("jax", "jaxlib", "your_voice_tts_tpu")
+
+
+def _blocked(name: str) -> bool:
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
+def test_every_module_imports_with_jax_blocked():
+    modules = ["your_voice_tts_torch"] + [
+        m.name for m in pkgutil.walk_packages([PKG], "your_voice_tts_torch.")]
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if any(name == b or name.startswith(b + '.') for b in {BLOCKED!r}):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import importlib\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(modules) >= 20
+
+
+def test_no_source_imports_jax():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    for fn in files:
+        with open(fn, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), fn)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_blocked(n) for n in names), f"{fn}:{node.lineno} imports {names}"
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Synthesizer(load_config(os.path.join(ROOT, "configs/smoke_synthetic.json")))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        your_voice_tts_torch.resolve_device()
+    assert your_voice_tts_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers take CUDA tensors only; CPU tensors go to the
+    plain versions through the dispatching entry points."""
+    from your_voice_tts_torch.ops.griffin_lim import griffin_lim_wave_cuda, packed_constants
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        griffin_lim_wave_cuda(torch.ones(1, 4, 129), torch.zeros(4, 129),
+                              packed_constants(256, 64, torch.ones(256).numpy()), n_iters=1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tacotron2_decode_cuda({}, torch.ones(1, 4, 8), torch.ones(1, 4, 8),
+                              torch.ones(1, 4, dtype=torch.bool), r=1, max_steps=1)

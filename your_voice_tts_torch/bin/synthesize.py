@@ -1,0 +1,41 @@
+"""Synthesis CLI (the JAX package's bin/synthesize.py).
+
+python -m your_voice_tts_torch.bin.synthesize "Text to speak." config.json \
+    checkpoint.npz out_dir/ [--device cpu]
+
+The checkpoint is a JAX-package `.npz`; the port runs on CUDA unless
+--device names another device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def main(argv: list[str] | None = None) -> None:
+    p = argparse.ArgumentParser(description="Synthesize speech from text")
+    p.add_argument("text", help="text, or path to a file with one sentence per line")
+    p.add_argument("config_path")
+    p.add_argument("checkpoint_path")
+    p.add_argument("out_path")
+    p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    args = p.parse_args(argv)
+
+    from ..infer.synthesizer import Synthesizer
+
+    synth = Synthesizer(args.config_path, args.checkpoint_path, device=args.device)
+    if os.path.isfile(args.text):
+        with open(args.text, encoding="utf-8") as f:
+            texts = [line.strip() for line in f if line.strip()]
+    else:
+        texts = [args.text]
+    os.makedirs(args.out_path, exist_ok=True)
+    for i, (text, wav) in enumerate(zip(texts, synth.tts_many(texts))):
+        out = os.path.join(args.out_path, f"out_{i:03d}.wav")
+        synth.ap.save_wav(wav, out)
+        print(f" > {out}  ({len(wav) / synth.ap.sample_rate:.2f}s)  <- {text[:60]!r}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,66 @@
+"""Synthesis (the JAX package's infer/synthesis.py), Griffin-Lim route:
+texts -> symbol ids -> one padded batch -> Tacotron2.inference -> each row
+trimmed to its stop -> one batched Griffin-Lim pass -> waveforms."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..audio import AudioProcessor
+from ..config import Config
+from ..text import text_to_sequence
+
+TEXT_PAD = 8
+
+
+def text_to_seq(text: str, cfg: Config) -> np.ndarray:
+    """Cleaner + grapheme ids (the phoneme path comes with a later slice)."""
+    if cfg.data.use_phonemes:
+        raise NotImplementedError("the phoneme frontend arrives with a later "
+                                  "slice of the port")
+    return text_to_sequence(text, cfg.data.text_cleaner)
+
+
+def _pad_texts(seqs: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+    max_len = max(len(s) for s in seqs)
+    bucket = -(-max_len // TEXT_PAD) * TEXT_PAD
+    text = np.zeros((len(seqs), bucket), np.int64)
+    lengths = np.zeros((len(seqs),), np.int64)
+    for i, s in enumerate(seqs):
+        text[i, : len(s)] = s
+        lengths[i] = len(s)
+    return text, lengths
+
+
+def synthesis_batch(model, texts: list[str], cfg: Config, ap: AudioProcessor,
+                    trim_silence: bool = False,
+                    max_decoder_steps: int | None = None, seed: int = 0,
+                    decode_dtype=torch.bfloat16) -> list[dict]:
+    """Batched synthesis; one result dict per text (wav, postnet mel
+    [n_mels, T], alignment, stop tokens). `seed` seeds the decode's prenet
+    dropout."""
+    text_arr, lengths = _pad_texts([text_to_seq(t, cfg) for t in texts])
+    out = model.inference(text_arr, lengths, max_decoder_steps=max_decoder_steps,
+                          seed=seed, decode_dtype=decode_dtype)
+    mels = out["postnet_outputs"].cpu().numpy()
+    aligns = out["alignments"].cpu().numpy()
+    stops = out["stop_probs"].cpu().numpy()
+    mel_lens = out["mel_lengths"].cpu().numpy()
+    results, specs = [], []
+    for i, text in enumerate(texts):
+        spec = mels[i, : max(int(mel_lens[i]), model.r)].T
+        results.append({"text": text, "mel_postnet_spec": spec,
+                        "alignment": aligns[i], "stop_tokens": stops[i]})
+        specs.append(spec)
+    for res, wav in zip(results, ap.inv_melspectrogram_batch(specs)):
+        res["wav"] = wav[: ap.find_endpoint(wav)] if trim_silence else wav
+    return results
+
+
+def synthesis(model, text: str, cfg: Config, ap: AudioProcessor,
+              trim_silence: bool = False, seed: int = 0,
+              decode_dtype=torch.bfloat16) -> dict:
+    """Single-utterance synthesis."""
+    return synthesis_batch(model, [text], cfg, ap, trim_silence=trim_silence,
+                           seed=seed, decode_dtype=decode_dtype)[0]

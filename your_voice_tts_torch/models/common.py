@@ -1,0 +1,80 @@
+"""Shared model blocks (the JAX package's models/common.py): Prenet, conv+BN
+blocks, sequence masks and the prenet fold the decode kernel needs."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..nn.core import BatchNorm1d, Conv1d, Dense
+
+
+def sequence_mask(lengths, max_len: int):
+    """[B] lengths -> [B, max_len] bool validity mask."""
+    return torch.arange(max_len, device=lengths.device)[None, :] < lengths[:, None]
+
+
+class Prenet(nn.Module):
+    """2-layer bottleneck ahead of the decoder. prenet_type="original" is
+    Linear+ReLU (+ dropout 0.5 that stays on at inference, applied by the
+    decode from its hash PRNG); "bn" is Linear(no bias)+BatchNorm+ReLU.
+    `forward` is the dropout-free layer."""
+
+    def __init__(self, in_dim: int, prenet_type: str = "original",
+                 prenet_dropout: bool = True, out_dims=(256, 256)):
+        super().__init__()
+        self.prenet_type = prenet_type
+        self.dropout_enabled = prenet_dropout
+        dims = (in_dim,) + tuple(out_dims)
+        self.linears = nn.ModuleList(
+            Dense(dims[i], dims[i + 1], bias=(prenet_type == "original"))
+            for i in range(len(out_dims)))
+        if prenet_type == "bn":
+            self.bns = nn.ModuleList(BatchNorm1d(d) for d in out_dims)
+
+    def forward(self, x):
+        for i, lin in enumerate(self.linears):
+            x = lin(x)
+            if self.prenet_type == "bn":
+                x = self.bns[i](x)
+            x = torch.relu(x)
+        return x
+
+
+def fold_bn_prenet(prenet: Prenet, eps: float = 1e-5):
+    """Inference-mode BN prenet -> plain Linear (weight [out, in], bias)
+    pairs: each BN affine folds into its Linear."""
+    out = []
+    for lin, bn in zip(prenet.linears, prenet.bns):
+        k = bn.weight * torch.rsqrt(bn.running_var + eps)
+        out.append((lin.weight * k[:, None], bn.bias - bn.running_mean * k))
+    return out
+
+
+def kernel_prenet(prenet: Prenet, prenet_dropout: bool):
+    """(Linear (weight, bias) pairs, dropout flag) for the decode kernel.
+    BN prenets fold their running-stats affine into the Linears and never
+    apply dropout."""
+    if prenet.prenet_type == "bn":
+        return fold_bn_prenet(prenet), False
+    return ([(lin.weight, lin.bias) for lin in prenet.linears],
+            prenet_dropout and prenet.dropout_enabled)
+
+
+class ConvBNBlock(nn.Module):
+    """conv(k) + BatchNorm + activation (inference; dropout is train-only)."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
+                 activation: str | None = "relu"):
+        super().__init__()
+        self.conv = Conv1d(in_dim, out_dim, kernel_size)
+        self.bn = BatchNorm1d(out_dim)
+        self.activation = activation
+
+    def forward(self, x):
+        x = self.bn(self.conv(x))
+        if self.activation == "relu":
+            return torch.relu(x)
+        if self.activation == "tanh":
+            return torch.tanh(x)
+        return x

@@ -1,0 +1,194 @@
+"""Tacotron2 inference (the JAX package's models/tacotron2.py):
+embedding -> 3 x conv5+BN+ReLU -> BiLSTM encoder -> free-running decoder
+(prenet, attention LSTM, location-sensitive attention, decoder LSTM, mel x r
+projection and stop token) -> 5-conv postnet residual.
+
+The decode loop follows the reference's kernel route (`Decoder.
+inference_pallas`): it runs on the decode kernel (ops/taco2_decode.py), with
+prenet dropout from the hash PRNG seeded by `seed`, and a row that has
+stopped keeps advancing its state with zeroed frames until the chunk's end.
+Speaker and style conditioning and the bidirectional decoder come with later
+slices of the port.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .. import resolve_device
+from ..nn.core import GAINS, Conv1d, Dense, Embedding, xavier_uniform_
+from ..nn.rnn import LSTMCell, bilstm
+from ..ops.taco2_decode import prepare_weights, tacotron2_decode
+from .attention import init_attn
+from .common import ConvBNBlock, Prenet, kernel_prenet, sequence_mask
+
+
+class Encoder(nn.Module):
+    """3 conv blocks + BiLSTM."""
+
+    def __init__(self, dim: int = 512):
+        super().__init__()
+        self.blocks = nn.ModuleList(ConvBNBlock(dim, dim, 5, "relu") for _ in range(3))
+        self.lstm = nn.LSTM(dim, dim // 2, batch_first=True, bidirectional=True)
+
+    def forward(self, x, lengths):
+        mask = sequence_mask(lengths, x.shape[1])
+        for blk in self.blocks:
+            x = blk(x)
+        return bilstm(self.lstm, x * mask[..., None], lengths)
+
+
+class Postnet(nn.Module):
+    """5 conv blocks refining the decoder output."""
+
+    def __init__(self, n_mels: int, dim: int = 512, n_blocks: int = 5):
+        super().__init__()
+        blocks = [ConvBNBlock(n_mels, dim, 5, "tanh")]
+        blocks += [ConvBNBlock(dim, dim, 5, "tanh") for _ in range(n_blocks - 2)]
+        blocks += [ConvBNBlock(dim, n_mels, 5, None)]
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x):
+        for blk in self.blocks:
+            x = blk(x)
+        return x
+
+
+class Decoder(nn.Module):
+    """Free-running decoder. r_init is the largest reduction factor the
+    model is trained with: the projection and stopnet are sized for it and
+    the active r takes a prefix slice."""
+
+    def __init__(self, in_dim: int, n_mels: int, r_init: int, cfg):
+        super().__init__()
+        self.n_mels, self.r_init, self.cfg = n_mels, r_init, cfg
+        self.prenet = Prenet(n_mels, cfg.prenet_type, cfg.prenet_dropout,
+                             (cfg.prenet_dim, cfg.prenet_dim))
+        self.attention_rnn = LSTMCell(cfg.prenet_dim + in_dim, cfg.attention_rnn_dim)
+        self.attention = init_attn(cfg, cfg.attention_rnn_dim, in_dim)
+        self.decoder_rnn = LSTMCell(cfg.attention_rnn_dim + in_dim, cfg.decoder_rnn_dim)
+        self.projection = Dense(cfg.decoder_rnn_dim + in_dim, n_mels * r_init)
+        self.stopnet = Dense(cfg.decoder_rnn_dim + n_mels * r_init, 1)
+        self._prepared: dict = {}
+
+    def decode_weights(self, dtype) -> dict:
+        """The decode kernel's weight layout in `dtype`, built once per
+        (dtype, device, parameter version): loading new weights rebuilds
+        it, repeated inference reuses it."""
+        version = tuple(t._version for t in self.state_dict().values())
+        key = (dtype, self.projection.weight.device)
+        hit = self._prepared.get(key)
+        if hit is None or hit[0] != version:
+            prenet, _ = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
+            a = self.attention
+            w = prepare_weights(
+                prenet,
+                (self.attention_rnn.weight_ih, self.attention_rnn.weight_hh,
+                 self.attention_rnn.bias),
+                a.query.weight, a.location_kernel() if a.location_attention else None,
+                a.v.weight, a.v.bias,
+                (self.decoder_rnn.weight_ih, self.decoder_rnn.weight_hh,
+                 self.decoder_rnn.bias),
+                (self.projection.weight, self.projection.bias),
+                (self.stopnet.weight, self.stopnet.bias), dtype=dtype)
+            hit = self._prepared[key] = (version, w)
+        return hit[1]
+
+    @torch.no_grad()
+    def inference(self, inputs, input_lengths, max_steps: int, r: int,
+                  seed: int = 0, dtype=torch.bfloat16):
+        """inputs [B, T, E] encoder memory -> (frames [B, max_steps * r,
+        n_mels], alignments [B, max_steps, T], stop probabilities
+        [B, max_steps], lengths [B] in mel frames)."""
+        B = inputs.shape[0]
+        mask = sequence_mask(input_lengths, inputs.shape[1])
+        pinp = self.attention.preprocess_inputs(inputs)
+        _, dropout = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
+        out, aligns, stops, lengths = tacotron2_decode(
+            self.decode_weights(dtype), inputs, pinp, mask, r=r,
+            max_steps=max_steps, norm=self.attention.norm,
+            thresh=self.cfg.stop_threshold, prenet_dropout=dropout, seed=seed)
+        dec_out = out[..., : self.n_mels * r].transpose(0, 1) \
+            .reshape(B, max_steps * r, self.n_mels)
+        return dec_out, aligns.transpose(0, 1), stops.transpose(0, 1), lengths * r
+
+
+class Tacotron2(nn.Module):
+    def __init__(self, num_chars: int, cfg, n_mels: int = 80,
+                 r_init: int | None = None, device=None, seed: int = 0):
+        """Weights start seeded random (`seed`, drawn on the CPU from a
+        torch.Generator); the model then moves to `device` (CUDA unless
+        given)."""
+        super().__init__()
+        if cfg.bidirectional_decoder:
+            raise NotImplementedError(
+                "the bidirectional decoder arrives with the training slice of the port")
+        self.cfg = cfg
+        self.n_mels = n_mels
+        self.r = cfg.r
+        self.r_init = max(r_init or cfg.r, cfg.r)
+        self.embedding = Embedding(num_chars, cfg.embedding_dim)
+        self.encoder = Encoder(cfg.encoder_dim)
+        self.decoder = Decoder(cfg.encoder_dim, n_mels, self.r_init, cfg)
+        self.postnet = Postnet(n_mels, cfg.postnet_dim)
+        self._init_random(torch.Generator().manual_seed(seed))
+        self.to(resolve_device(device))
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.embedding.weight.device
+
+    def set_r(self, r: int) -> None:
+        if r > self.r_init:
+            raise ValueError(f"r={r} exceeds r_init={self.r_init}")
+        self.r = r
+
+    @torch.no_grad()
+    def _init_random(self, generator: torch.Generator) -> None:
+        """Seeded random weights with the JAX package's init families:
+        xavier-uniform Linear/Conv weights (nonlinearity gains), zero
+        biases, N(0, 0.3) embeddings, U(-1/sqrt(H), 1/sqrt(H)) LSTMs."""
+        gain = {id(m.conv): GAINS[m.activation or "linear"]
+                for m in self.modules() if isinstance(m, ConvBNBlock)}
+        for mod in self.modules():
+            if isinstance(mod, (Dense, Conv1d)):
+                xavier_uniform_(mod.weight, gain.get(id(mod), 1.0), generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, Embedding):
+                mod.weight.normal_(0.0, 0.3, generator=generator)
+            elif isinstance(mod, (LSTMCell, nn.LSTM)):
+                s = 1.0 / math.sqrt(mod.hidden if isinstance(mod, LSTMCell)
+                                    else mod.hidden_size)
+                for name, p in mod.named_parameters():
+                    if name.startswith("bias_hh"):
+                        p.zero_()
+                    else:
+                        p.uniform_(-s, s, generator=generator)
+
+    @torch.no_grad()
+    def inference(self, text, text_lengths, max_decoder_steps: int | None = None,
+                  r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16):
+        """Free-running synthesis on the model's device. text [B, T] symbol
+        ids, text_lengths [B]. Output lengths are in mel frames; frames past
+        a row's length are zero. decode_dtype is the decode's working type
+        (the kernel runs bf16; the plain version also takes float32)."""
+        r = r or self.r
+        max_steps = max_decoder_steps or self.cfg.max_decoder_steps
+        dev = self.device
+        text = torch.as_tensor(text, dtype=torch.long, device=dev)
+        text_lengths = torch.as_tensor(text_lengths, dtype=torch.long, device=dev)
+        enc_out = self.encoder(self.embedding(text), text_lengths)
+        dec_out, aligns, stops, lengths = self.decoder.inference(
+            enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype)
+        return {
+            "decoder_outputs": dec_out,
+            "postnet_outputs": dec_out + self.postnet(dec_out),
+            "alignments": aligns,
+            "stop_probs": stops,
+            "mel_lengths": lengths,
+        }

@@ -1,0 +1,65 @@
+"""Core layers, channel-last like the JAX package's nn/core.py.
+
+Activations are [B, ..., C]. Weights use PyTorch's own layouts (Linear
+[out, in], Conv1d [out, in, k]); train/checkpoint.params_from_jax converts the
+JAX package's layouts into them. Dense and Embedding are torch's own
+nn.Linear and nn.Embedding.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+Dense = nn.Linear
+Embedding = nn.Embedding
+
+GAINS = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0}
+
+
+class Conv1d(nn.Module):
+    """Channel-last 1D convolution [B, T, C_in] -> [B, T, C_out] with
+    'same' padding (stride 1), the JAX package's Conv1d(padding="same")."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
+                 use_bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_dim, in_dim, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
+        total = kernel_size - 1
+        self.pad = (total // 2, total - total // 2)
+
+    def forward(self, x):
+        x = F.pad(x.transpose(1, 2), self.pad)
+        return F.conv1d(x, self.weight, self.bias).transpose(1, 2)
+
+
+class BatchNorm1d(nn.Module):
+    """Inference-mode BatchNorm over the last (channel) axis:
+    (x - mean) * rsqrt(var + eps) * scale + bias, the JAX package's op
+    order. Running statistics are buffers, loaded from checkpoints."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x):
+        return ((x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+                * self.weight + self.bias)
+
+
+def xavier_uniform_(w: torch.Tensor, gain: float, generator: torch.Generator):
+    """Xavier-uniform init of a Linear [out, in] or Conv1d [out, in, k]
+    weight, drawn from `generator` (JAX package nn/core.xavier_uniform)."""
+    rf = w.shape[2] if w.dim() == 3 else 1
+    fan_out, fan_in = w.shape[0] * rf, w.shape[1] * rf
+    a = gain * math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        w.uniform_(-a, a, generator=generator)

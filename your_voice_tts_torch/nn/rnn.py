@@ -1,0 +1,41 @@
+"""Recurrent layers (the JAX package's nn/rnn.py).
+
+`LSTMCell` keeps the reference's gate order (i, f, g, o) and ONE summed bias.
+`bilstm` runs the encoder's bidirectional LSTM over padded sequences: packing
+the sequences makes the backward direction start at each row's own last
+valid step, which is what the JAX package gets by right-aligning each row's
+valid region before its reverse scan and rolling it back afterwards.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+
+class LSTMCell(nn.Module):
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.weight_ih = nn.Parameter(torch.zeros(4 * hidden, in_dim))
+        self.weight_hh = nn.Parameter(torch.zeros(4 * hidden, hidden))
+        self.bias = nn.Parameter(torch.zeros(4 * hidden))
+
+    def forward(self, x, state):
+        h, c = state
+        gates = x @ self.weight_ih.T + h @ self.weight_hh.T + self.bias
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c), c
+
+
+def bilstm(lstm: nn.LSTM, x, lengths):
+    """Bidirectional batch-first `lstm` over [B, T, C] with valid `lengths`
+    [B] -> [B, T, 2H], zero at padded positions."""
+    packed = pack_padded_sequence(x, lengths.to("cpu", torch.int64),
+                                  batch_first=True, enforce_sorted=False)
+    out, _ = lstm(packed)
+    out, _ = pad_packed_sequence(out, batch_first=True,
+                                 total_length=x.shape[1])
+    return out

@@ -1,0 +1,154 @@
+"""Checkpoint bridge: the JAX package's `.npz` checkpoints, read without JAX.
+
+The format (JAX package train/checkpoint.py) is one `.npz` whose entries are
+``<section>::<keypath>`` leaves — section ``params`` or ``model_state``,
+keypath a ``jax.tree_util.keystr`` string such as
+``['decoder']['attention_rnn']['wx']`` or ``['blocks'][0]['bn']['mean']`` —
+plus a ``__meta__`` JSON blob (``r``, ``step``, ...).
+
+`read_checkpoint` rebuilds the nested dict/list trees from those key paths;
+`params_from_jax` turns the trees into the port's Tacotron2 ``state_dict``,
+running the layout map of the JAX package's utils/torch_import.py in
+reverse:
+
+- Dense ``w`` [in, out] -> ``weight`` [out, in];
+- Conv1d ``w`` [k, in, out] -> ``weight`` [out, in, k];
+- LSTM ``wx`` [in, 4H] / ``wh`` [H, 4H] / one summed ``b`` -> ``weight_ih``,
+  ``weight_hh``, ``bias`` (the encoder's nn.LSTM gets the summed bias as
+  ``bias_ih`` and a zero ``bias_hh``);
+- BatchNorm ``scale``/``bias`` + state ``mean``/``var`` -> ``weight``/``bias``
+  + ``running_mean``/``running_var``.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+
+import numpy as np
+import torch
+
+_KEY_RE = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
+def parse_keypath(key: str) -> list[str | int]:
+    """``"['blocks'][0]['bn']['mean']"`` -> ``['blocks', 0, 'bn', 'mean']``."""
+    parts: list[str | int] = []
+    pos = 0
+    for m in _KEY_RE.finditer(key):
+        if m.start() != pos:
+            raise ValueError(f"malformed checkpoint key path {key!r}")
+        parts.append(m.group(1) if m.group(1) is not None else int(m.group(2)))
+        pos = m.end()
+    if pos != len(key) or not parts:
+        raise ValueError(f"malformed checkpoint key path {key!r}")
+    return parts
+
+
+def _insert(tree, path, value):
+    node = tree
+    for i, part in enumerate(path):
+        last = i == len(path) - 1
+        child = [] if (not last and isinstance(path[i + 1], int)) else {}
+        if isinstance(part, int):
+            if not isinstance(node, list):
+                raise ValueError(f"index {part} into a non-list at {path}")
+            while len(node) <= part:
+                node.append(None)
+            if last:
+                node[part] = value
+            elif node[part] is None:
+                node[part] = child
+            node = node[part]
+        else:
+            if last:
+                node[part] = value
+            else:
+                node = node.setdefault(part, child)
+    return tree
+
+
+def read_checkpoint(path: str) -> tuple[dict, dict, dict]:
+    """Read a JAX-package checkpoint -> (params, model_state, meta) as nested
+    dicts/lists of numpy arrays. Optimizer state, if any, is ignored."""
+    with np.load(path, allow_pickle=False) as z:
+        blobs = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(blobs.pop("__meta__")).decode())
+    trees: dict[str, dict] = {"params": {}, "model_state": {}}
+    for key, value in blobs.items():
+        section, _, keypath = key.partition("::")
+        if section in trees:
+            _insert(trees[section], parse_keypath(keypath), value)
+    return trees["params"], trees["model_state"], meta
+
+
+def _walk(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _walk(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+_ENCODER_LSTM = {"lstm_fwd": "", "lstm_bwd": "_reverse"}
+
+
+def params_from_jax(params: dict, state: dict) -> dict[str, torch.Tensor]:
+    """JAX-layout Tacotron2 params/state (numpy trees) -> the port's
+    Tacotron2 ``state_dict`` (float32 CPU tensors)."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def put(name, arr):
+        sd[name] = torch.from_numpy(np.array(arr, np.float32))
+
+    for path, arr in _walk(params):
+        *mods, leaf = path
+        arr = np.asarray(arr)
+        if len(mods) >= 2 and mods[-2] == "encoder" and mods[-1] in _ENCODER_LSTM:
+            sfx = _ENCODER_LSTM[mods[-1]]
+            base = ".".join(map(str, mods[:-1] + ["lstm"]))
+            if leaf == "wx":
+                put(f"{base}.weight_ih_l0{sfx}", arr.T)
+            elif leaf == "wh":
+                put(f"{base}.weight_hh_l0{sfx}", arr.T)
+            elif leaf == "b":
+                put(f"{base}.bias_ih_l0{sfx}", arr)
+                put(f"{base}.bias_hh_l0{sfx}", np.zeros_like(arr))
+            else:
+                raise KeyError(f"unexpected encoder LSTM leaf {path}")
+            continue
+        base = ".".join(map(str, mods))
+        if leaf == "w" and arr.ndim == 2:
+            put(f"{base}.weight", arr.T)
+        elif leaf == "w" and arr.ndim == 3:
+            put(f"{base}.weight", arr.transpose(2, 1, 0))
+        elif leaf in ("b", "bias"):
+            put(f"{base}.bias", arr)
+        elif leaf in ("table", "scale"):
+            put(f"{base}.weight", arr)
+        elif leaf == "wx":
+            put(f"{base}.weight_ih", arr.T)
+        elif leaf == "wh":
+            put(f"{base}.weight_hh", arr.T)
+        else:
+            raise KeyError(f"unexpected parameter leaf {path}")
+    for path, arr in _walk(state):
+        *mods, leaf = path
+        base = ".".join(map(str, mods))
+        if leaf == "mean":
+            put(f"{base}.running_mean", arr)
+        elif leaf == "var":
+            put(f"{base}.running_var", arr)
+        else:
+            raise KeyError(f"unexpected model-state leaf {path}")
+    return sd
+
+
+def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
+    """Load a JAX-package checkpoint into `model` (strict); returns meta."""
+    params, state, meta = read_checkpoint(path)
+    model.load_state_dict(params_from_jax(params, state), strict=True)
+    return meta
