@@ -19,6 +19,21 @@ Phases, each fatal on failure:
    requests, with every launch counter set to 0 just before and read just
    after; prints mel frames/s, real-time factor and p50 batch-1 latency.
 
+5. train-fwd: the training decoder's forward kernel at config #3's shape
+   (configs/ljspeech_tacotron2.json at full width, r=2: B=32, T_in=128,
+   200 decoder steps, bf16) with the same injected dropout masks as its
+   plain version; max abs error of every stack, kernel, plain and bound ms;
+6. train-bwd: the backward kernel on phase 5's residuals and seeded random
+   cotangents against its plain version, rel L2 of every output, times;
+7. train main path: (b) Trainer(cfg, device="cuda").fit(max_steps=5) on a
+   64-item synthetic corpus (sr 22050, up to 15 words, as bench.py makes
+   it), batch 32, r=2, gradual training off: finite losses and gradient
+   norms, moved parameters, a checkpoint, with the launch counters set to 0
+   just before and read just after; (a) one train step at the bench shape
+   (B=32, 128 symbols, 400 mel frames), dropout off, on the kernels and on
+   the plain versions: loss and every gradient leaf compared; (c) the timed
+   train step at that shape (train step ms, mel frames/s, launches).
+
 Then the kernel line (JSON), the card's name and power limit, and the
 contract line {"ok": true, "device": {...}}. Details also go to
 chip_smoke.json in the output directory (--out, default build/chip_smoke).
@@ -28,7 +43,8 @@ Exits nonzero, printing no result, without CUDA or outside the repository.
 
 adds, after the main path, one batch-of-8 call under torch.profiler: device
 time by kernel, device busy share of the wall time, and the trace in
-profile_trace.json in the output directory.
+profile_trace.json in the output directory; and the same for one train
+step at the bench shape (train_profile_trace.json).
 """
 
 from __future__ import annotations
@@ -36,10 +52,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
@@ -396,6 +414,21 @@ def phase_main_path(report):
     return launches
 
 
+def dev(e) -> float:
+    """A profiler row's own device time, ms."""
+    return getattr(e, "self_device_time_total", 0.0) / 1e3
+
+
+def device_rows(prof):
+    """The profile's kernel rows (device events), longest first. The rows
+    of CPU operators also carry the device time of the kernels launched
+    under them, so summing every row would count those kernels twice."""
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and dev(e) > 0), key=dev, reverse=True)
+
+
 def phase_profile(report, out_dir: str):
     """One batch-of-8 tts_many call under torch.profiler."""
     import torch
@@ -413,8 +446,7 @@ def phase_profile(report, out_dir: str):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(os.path.join(out_dir, "profile_trace.json"))
-    dev = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3  # noqa: E731
-    rows = sorted((e for e in prof.key_averages() if dev(e) > 0), key=dev, reverse=True)
+    rows = device_rows(prof)
     busy_ms = sum(dev(e) for e in rows)
     print(f"[profile] batch of 8: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"(idle share {1 - busy_ms / wall_ms:.3f})")
@@ -422,6 +454,420 @@ def phase_profile(report, out_dir: str):
         print(f"[profile]   {dev(e):8.2f} ms  {e.count:6d} calls  {e.key[:90]}")
     report["profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
                              kernels={e.key: [dev(e), e.count] for e in rows[:40]})
+
+
+# ------------------------------------------------------------------ training
+
+TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL = 32, 128, 400     # bench.py's config #3 shape
+
+
+def train_config():
+    """ljspeech_tacotron2.json at r=2, batch 32, gradual training off."""
+    from your_voice_tts_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs/ljspeech_tacotron2.json"))
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, r=2),
+        training=dataclasses.replace(cfg.training, gradual_training=None, batch_size=TRAIN_B))
+
+
+def core_inputs(model, steps: int, B: int, T: int, seed: int):
+    """The decoder core's bf16 weights laid out for the kernels, and seeded
+    inputs at full width: prenet stack (post-ReLU), encoder memory in
+    (-1, 1), its projection, lengths T .. T - 28, dropout multipliers."""
+    import torch
+
+    from your_voice_tts_torch.models.common import sequence_mask
+    from your_voice_tts_torch.ops.taco2_train import prepare_train_weights
+
+    dec = model.decoder
+    bf = lambda t: None if t is None else t.detach().to(torch.bfloat16)  # noqa: E731
+    ar, dr, a = dec.attention_rnn, dec.decoder_rnn, dec.attention
+    w = prepare_train_weights(tuple(map(bf, (ar.weight_ih, ar.weight_hh, ar.bias))),
+                              *map(bf, a.energy_weights()),
+                              tuple(map(bf, (dr.weight_ih, dr.weight_hh, dr.bias))))
+    g = torch.Generator().manual_seed(seed)
+    P, E, H1, H2 = (w["dims"][k] for k in ("P", "E", "H1", "H2"))
+    x = {"prenet_t": torch.relu(torch.randn(steps, B, P, generator=g)),
+         "enc": torch.tanh(torch.randn(B, T, E, generator=g))}
+    x = {k: v.to(torch.bfloat16).cuda() for k, v in x.items()}
+    with torch.no_grad():
+        x["pinp"] = x["enc"] @ bf(a.inputs.weight).T
+    lengths = T - 4 * (torch.arange(B) % 8)
+    x["maskf"] = sequence_mask(lengths, T).float().cuda()
+    x["m_a"], x["m_d"] = (torch.where(torch.rand(steps, B, H, generator=g) < 0.9, 1 / 0.9, 0.0)
+                          .to(torch.bfloat16).cuda() for H in (H1, H2))
+    return w, x
+
+
+def core_bound(w, B: int, T: int, steps: int, io_bytes: float, backward: bool):
+    """(bound ms, bound_by) of one scan, per row-step. Products of bf16
+    operands at the bf16 tensor-core peak: the LSTM products (forward, or
+    with the transposed weights), the query projection, the location
+    features (the rounded [att, cum] against the bf16 folded filter u; the
+    Pallas kernel's band matmul) and, backward, the location correlation
+    (rounded d_tanh against u) and d_q2 (rounded d_pq against q_w). Float32
+    work outside the tensor cores: the energies (adds, tanh, the float32 v),
+    the context weighted by the float32 alignments (backward: d_align's
+    context term) and, backward, d_tanh, d_pq and the band sums. Bytes read
+    and written once."""
+    P, E, H1, H2, A, K = (w["dims"][k] for k in ("P", "E", "H1", "H2", "A", "K"))
+    macs = 4 * H1 * (P + E + H1) + 4 * H2 * (H1 + E + H2) + A * H1 + T * A * 2 * K
+    f32_ops = T * A * 5 + 2 * T * E
+    if backward:
+        macs += A * H1 + T * A * 2 * K
+        f32_ops += T * A * 5 + 2 * T * K
+    ops_s = steps * B * (2 * macs / BF16_FLOPS + f32_ops / F32_FLOPS)
+    return bound(io_bytes, ops_s)
+
+
+def nbytes(*ts) -> int:
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
+
+def phase_train_fwd(report, state):
+    import torch
+
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.ops.taco2_train import (taco2_train_fwd_cuda,
+                                                      taco2_train_fwd_plain)
+    from your_voice_tts_torch.text import symbols
+
+    steps, B, T = TRAIN_T_MEL // 2, TRAIN_B, TRAIN_T_TEXT
+    model = setup_model(len(symbols), train_config(), device="cuda", seed=1)
+    w, x = core_inputs(model, steps, B, T, seed=11)
+    args = (w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"])
+    got = taco2_train_fwd_cuda(*args)
+    ref = taco2_train_fwd_plain(*args)
+    torch.cuda.synchronize()
+    # tolerances: both sides round the same bf16 inputs at the same points
+    # and sum in float32 in other orders; a 1-ulp flip of a stored bf16
+    # value (2^-8 of it) feeds later steps, so each stack is held to 8 ulps
+    # of its largest magnitude (2^-5 of it) in max abs error and 1e-2 in rel
+    # L2; the float32 alignments to 2e-3 (the decode kernel's bound)
+    errs, ok = {}, True
+    for k in ref:
+        e = float((got[k].float() - ref[k].float()).abs().max())
+        peak = float(ref[k].float().abs().max())
+        rel = float((got[k].float() - ref[k].float()).norm() / ref[k].float().norm())
+        tol = 2e-3 if k == "align" else peak / 32
+        errs[k] = dict(max_abs_err=e, tol=tol, peak=peak, rel_l2=rel)
+        ok = ok and e <= tol and rel <= 1e-2
+        print(f"[train-fwd] {k:5s} max_abs_err {e:.3e} (tol {tol:.3e}, peak {peak:.3e}) "
+              f"rel L2 {rel:.3e} (tol 1e-2)")
+    check(ok, "training forward kernel disagrees with plain")
+    ms = cuda_ms(lambda: taco2_train_fwd_cuda(*args), 5)
+    plain_ms = cuda_ms(lambda: taco2_train_fwd_plain(*args), 2)
+    io = nbytes(x["prenet_t"], x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"],
+                *(w[k] for k in ("a_w", "a_b", "d_w", "d_b", "q_w", "u", "v_w", "v_b")),
+                *got.values())
+    bound_ms, bound_by = core_bound(w, B, T, steps, io, backward=False)
+    print(f"[train-fwd] B={B} T_in={T} steps={steps} kernel_ms {ms:.2f}  plain_ms "
+          f"{plain_ms:.2f}  bound_ms {bound_ms:.3f} ({bound_by}; {io / 1e6:.0f} MB moved)  "
+          f"library_ms none (no single PyTorch call computes the scan)")
+    report["train_fwd"] = dict(errs=errs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, io_mb=io / 1e6)
+    state.update(model=model, w=w, x=x, fwd=got)
+    return {"name": "taco2_train_fwd_cuda", "route": "cuda",
+            "source": "your_voice_tts_torch/csrc/taco2_train.cu",
+            "replaces": "your_voice_tts_tpu/ops/pallas/taco2_train.py:172",
+            "max_abs_err": max(v["max_abs_err"] for v in errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def phase_train_bwd(report, state):
+    import torch
+
+    from your_voice_tts_torch.ops.taco2_train import (taco2_train_bwd_cuda,
+                                                      taco2_train_bwd_plain)
+
+    w, x, fwd = state["w"], state["x"], state["fwd"]
+    steps, B, T = fwd["align"].shape
+    sh = lambda s: torch.cat([torch.zeros_like(s[:1]), s[:-1]])  # noqa: E731
+    res = {k: fwd[k] for k in ("g_a", "g_d", "c_a", "c_d")}
+    res.update(c_a_prev=sh(fwd["c_a"]), c_d_prev=sh(fwd["c_d"]), att_prev=sh(fwd["align"]),
+               cum_prev=sh(torch.cumsum(fwd["align"], 0)))
+    g = torch.Generator().manual_seed(12)
+    cot = [torch.randn(*fwd[k].shape, generator=g).to(fwd[k].dtype).cuda()
+           for k in ("dech", "ctx", "align")]
+    args = (w, res, *cot, x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"])
+    got = taco2_train_bwd_cuda(*args)
+    ref = taco2_train_bwd_plain(*args)
+    torch.cuda.synchronize()
+    # tolerance: rel L2 5e-2 per output. The reverse scan stores every gate
+    # cotangent in bf16 and feeds it to the next step's products, so the
+    # forward's 1-ulp flips compound over 200 reverse steps; the plain and
+    # kernel versions differ only in float32 sum order
+    errs, ok = {}, True
+    for k in ref:
+        rel = float((got[k].float() - ref[k].float()).norm() / ref[k].float().norm())
+        e = float((got[k].float() - ref[k].float()).abs().max())
+        errs[k] = dict(rel_l2=rel, max_abs_err=e)
+        ok = ok and rel <= 5e-2
+        print(f"[train-bwd] {k:8s} rel L2 {rel:.3e} (tol 5e-2)  max_abs_err {e:.3e}")
+    check(ok, "training backward kernel disagrees with plain")
+    ms = cuda_ms(lambda: taco2_train_bwd_cuda(*args), 5)
+    plain_ms = cuda_ms(lambda: taco2_train_bwd_plain(*args), 2)
+    io = nbytes(*cot, x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"], *res.values(),
+                w["a_wT"], w["d_wT"], w["q_w"], w["u"], w["v_w"], *got.values())
+    bound_ms, bound_by = core_bound(w, B, T, steps, io, backward=True)
+    print(f"[train-bwd] kernel_ms {ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms {bound_ms:.3f} "
+          f"({bound_by}; {io / 1e6:.0f} MB moved)  library_ms none")
+    report["train_bwd"] = dict(errs=errs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, io_mb=io / 1e6)
+    return {"name": "taco2_train_bwd_cuda", "route": "cuda",
+            "source": "your_voice_tts_torch/csrc/taco2_train.cu",
+            "replaces": "your_voice_tts_tpu/ops/pallas/taco2_train.py:468",
+            "max_abs_err": max(v["max_abs_err"] for v in errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def bench_batch(seed: int = 0) -> dict:
+    """bench.py's config #3 batch: random symbols and N(0, 1) mels, every row
+    full length."""
+    import numpy as np
+
+    from your_voice_tts_torch.text import symbols
+
+    rng = np.random.default_rng(seed)
+    B, Tt, Tm = TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL
+    return {"text": rng.integers(1, len(symbols), (B, Tt)).astype(np.int32),
+            "text_lengths": np.full((B,), Tt, np.int32),
+            "mel": rng.standard_normal((B, Tm, 80)).astype(np.float32),
+            "mel_lengths": np.full((B,), Tm, np.int32),
+            "stop_targets": np.zeros((B, Tm // 2), np.float32)}
+
+
+def first_update_off(before, grads, after, lr0: float, clip: float, wd: float):
+    """The first optimizer update against the schedule. RAdam's first step
+    is the unrectified m_hat = g, so p1 = p0 - lr(0) * (clip(g) + wd * p0),
+    here in float64 and rounded once to float32. Returns (parameters off
+    that prediction by more than one float32 spacing plus 1e-6 of their
+    move, the float32 rounding of the step's own scalars; parameters
+    predicted to move by a spacing or more, which show the step was taken;
+    parameters; the gradient norm)."""
+    import torch
+
+    g64 = [g.double() for g in grads]
+    gnorm = math.sqrt(sum(float((g * g).sum()) for g in g64))
+    scale = clip / gnorm if clip and gnorm >= clip else 1.0
+    off = n_big = n_el = 0
+    for p0, g, p1 in zip(before, g64, after):
+        move = -lr0 * (g * scale + (wd or 0.0) * p0.double())
+        pred = (p0.double() + move).float()
+        spacing = torch.nextafter(pred.abs(), torch.full_like(pred, math.inf)) - pred.abs()
+        off += int(((p1 - pred).abs().double() > spacing + 1e-6 * move.abs()).sum())
+        n_big += int(((pred - p0).abs() >= spacing).sum())
+        n_el += p0.numel()
+    return off, n_big, n_el, gnorm
+
+
+def phase_train_main(report, tmp: str):
+    import torch
+
+    import your_voice_tts_torch.models.decoder_grad as dg
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.nn.core import BatchNorm1d
+    from your_voice_tts_torch.ops.taco2_train import (taco2_train_bwd_cuda,
+                                                      taco2_train_bwd_plain,
+                                                      taco2_train_fwd_cuda,
+                                                      taco2_train_fwd_plain)
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    counters = (taco2_train_fwd_cuda, taco2_train_bwd_cuda)
+    # (b) fit on a synthetic corpus
+    cfg = train_config()
+    corpus = make_synthetic_corpus(os.path.join(tmp, "corpus"), n_items=64, sr=22050,
+                                   max_words=15)
+    ds = dataclasses.replace(cfg.data.datasets[0], name="synthetic", path=corpus)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)))
+    out_dir = os.path.join(tmp, "run")
+    trainer = Trainer(cfg, output_path=out_dir, device="cuda")
+    before = [p.detach().clone() for p in trainer.params]
+    steps_seen: list[dict] = []
+    train_step = trainer.train_step
+    trainer.train_step = lambda batch, r: steps_seen.append(train_step(batch, r)) or \
+        steps_seen[-1]
+    opt = trainer.optimizer
+    opt_step, first, applied = opt.step, {}, []
+
+    def step_and_keep_the_first(grads):
+        """The optimizer's step; keeps the first step's gradients and the
+        parameters after it."""
+        keep = not first
+        if keep:
+            first["grads"] = [g.detach().clone() for g in grads]
+        applied.append(opt_step(grads))
+        if keep:
+            first["after"] = [p.detach().clone() for p in opt.params]
+        return applied[-1]
+
+    opt.step = step_and_keep_the_first
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(max_steps=5)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = {c.__name__: c.launches for c in counters}
+    trainer.train_step, opt.step = train_step, opt_step
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(trainer.params, before))
+    ckpts = sorted(f for f in os.listdir(out_dir) if f.endswith(".npz"))
+    print(f"[train] fit(max_steps=5): {fit_s:.1f} s; per step loss "
+          f"{[round(m['loss'], 4) for m in steps_seen]} grad_norm "
+          f"{[round(m['grad_norm'], 4) for m in steps_seen]}; largest parameter move "
+          f"{moved:.3e}; checkpoints {ckpts}; launches {fit_launches}")
+    check(len(steps_seen) == 5 and all(math.isfinite(m[k]) for m in steps_seen
+                                       for k in ("loss", "grad_norm")),
+          "fit losses / gradient norms not finite")
+    check(moved > 0 and "checkpoint_5.npz" in ckpts, "fit moved no parameter or saved nothing")
+    check(all(n > 0 for n in fit_launches.values()), "fit never launched a training kernel")
+    lr0 = trainer.lr_fn(0)
+    off, n_big, n_el, gnorm = first_update_off(before, first["grads"], first["after"], lr0,
+                                               cfg.training.grad_clip, cfg.training.wd)
+    print(f"[train] optimizer: {opt.count} updates applied ({applied}); first update at "
+          f"lr(0) {lr0:.3e}, |g| {gnorm:.4f} (clip {cfg.training.grad_clip}): {off} of {n_el} "
+          f"parameters off the prediction (tol 0); {n_big} predicted to move by one float32 "
+          f"spacing or more")
+    check(opt.count == 5 and all(applied) and off == 0 and n_big > 0,
+          "the optimizer's steps do not follow the schedule")
+
+    # (a) one train step, dropout off, on the kernels (twice: the card's own
+    # run-to-run spread) and on the plain versions
+    # Each BatchNorm's output is kept too: its bias gradient is the sum of
+    # the output's cotangent over every (row, frame), which the readings
+    # below set beside the cotangent's own agreement
+    b = trainer._tensors(bench_batch())
+    grads, d_bn = {}, {}
+    bns = {n: m for n, m in trainer.model.named_modules() if isinstance(m, BatchNorm1d)}
+    seen: dict = {}
+    hooks = [m.register_forward_hook(lambda _m, _i, y, n=n: seen.__setitem__(n, y))
+             for n, m in bns.items()]
+    routes = (("kernel", (dg.taco2_train_fwd, dg.taco2_train_bwd)),
+              ("kernel again", (dg.taco2_train_fwd, dg.taco2_train_bwd)),
+              ("plain", (taco2_train_fwd_plain, taco2_train_bwd_plain)))
+    for route, (fwd, bwd) in routes:
+        kept = dg.taco2_train_fwd, dg.taco2_train_bwd
+        dg.taco2_train_fwd, dg.taco2_train_bwd = fwd, bwd
+        try:
+            total, _, _ = trainer._loss_fn(b, 2, None)
+            g = torch.autograd.grad(total, trainer.params + [seen[n] for n in bns])
+            grads[route] = (total.item(), [x.float() for x in g[:len(trainer.params)]])
+            d_bn[route] = [x.float() for x in g[len(trainer.params):]]
+        finally:
+            dg.taco2_train_fwd, dg.taco2_train_bwd = kept
+    for h in hooks:
+        h.remove()
+    (lk, gk), (_, gk2), (lp, gp) = grads["kernel"], grads["kernel again"], grads["plain"]
+    rel = lambda a, c: float((a - c).norm() / c.norm().clamp_min(1e-30))  # noqa: E731
+    names = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+    gscale = max(float(c.abs().max()) for c in gp)
+    # a leaf's error as the JAX package's _grad_check measures it
+    # (tests/test_taco2_train_kernel.py:55-78): max abs error over the
+    # leaf's own largest magnitude, or over 1e-2 of the largest gradient
+    # anywhere for a leaf near zero (a conv bias ahead of batch-statistics
+    # BatchNorm has an exact gradient of 0 and holds rounding noise only)
+    leaf = {n: float((a - c).abs().max()) / max(float(c.abs().max()), 1e-2 * gscale)
+            for n, a, c in zip(names, gk, gp)}
+    # BatchNorm bias readings: rel L2 kernel vs plain and kernel vs kernel,
+    # the _grad_check measure, the gradient's norm; the cotangent summed
+    # into it (rel L2 kernel vs plain) and its cancellation, the norm of
+    # the per-channel sums of |cotangent| over the norm of the per-channel
+    # sums
+    by_name = dict(zip(names, zip(gk, gk2, gp)))
+    big = max(names, key=lambda n: float(by_name[n][2].norm()))
+    bn_read = {}
+    for n, dk, dp in zip(bns, d_bn["kernel"], d_bn["plain"]):
+        a, a2, c = by_name[n + ".bias"]
+        axes = tuple(range(dp.dim() - 1))
+        bn_read[n + ".bias"] = dict(
+            rel_l2=rel(a, c), rel_l2_kernel_again=rel(a2, a), grad_check=leaf[n + ".bias"],
+            norm=float(c.norm()), cotangent_rel_l2=rel(dk, dp),
+            cancellation=float(dp.abs().sum(axes).norm() / dp.sum(axes).norm()))
+    print(f"[train] BatchNorm bias gradients, kernel vs plain (largest gradient leaf {big}, "
+          f"norm {float(by_name[big][2].norm()):.3e}):")
+    for n, v in bn_read.items():
+        print(f"[train]   {n}: rel L2 {v['rel_l2']:.3e} (kernel vs kernel "
+              f"{v['rel_l2_kernel_again']:.1e}), _grad_check {v['grad_check']:.3e}, norm "
+              f"{v['norm']:.3e}; its cotangent rel L2 {v['cotangent_rel_l2']:.3e}, "
+              f"cancellation {v['cancellation']:.1f}")
+    noise = max(float((a - a2).abs().max()) for a, a2 in zip(gk, gk2))
+    cat = lambda gs: torch.cat([x.flatten() for x in gs])  # noqa: E731
+    glob = rel(cat(gk), cat(gp))
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst = max(leaf, key=leaf.get)
+    # tolerances: loss rel 1e-3; all gradients together rel L2 5e-2 (the
+    # backward kernel's own bound); every leaf within 0.08 (the JAX
+    # package's bf16 bound for its kernel route against autodiff)
+    top = sorted(leaf.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[train] one step at B={TRAIN_B} T_text={TRAIN_T_TEXT} T_mel={TRAIN_T_MEL}, "
+          f"dropout off: loss kernel {lk:.6f} plain {lp:.6f} (rel {loss_rel:.2e}, tol 1e-3); "
+          f"all gradients rel L2 kernel vs plain {glob:.3e} (tol 5e-2); {len(leaf)} leaves, "
+          f"largest leaf error {leaf[worst]:.3e} ({worst}; tol 0.08), median "
+          f"{statistics.median(leaf.values()):.3e}; kernel vs kernel max abs difference "
+          f"{noise:.3e}")
+    print("[train] largest leaf errors: " + "; ".join(f"{n} {d:.2e}" for n, d in top))
+    check(loss_rel <= 1e-3 and glob <= 5e-2 and leaf[worst] <= 0.08,
+          "kernel and plain train steps disagree")
+
+    # (c) the timed train step at the bench shape
+    batch = bench_batch()
+    for _ in range(2):
+        trainer.train_step(batch, 2)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch, 2)          # ends in a host read of the metrics
+        times.append(time.perf_counter() - t0)
+    launches = {c.__name__: c.launches for c in counters}
+    step_ms = statistics.median(times) * 1e3
+    frames_s = TRAIN_B * TRAIN_T_MEL / (step_ms / 1e3)
+    print(f"[train] timed train step (B={TRAIN_B}, T_text={TRAIN_T_TEXT}, T_mel={TRAIN_T_MEL}, "
+          f"bf16 mixed precision, dropout on): train_step_ms {step_ms:.1f} (all "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in times)}), train_mel_frames_per_s "
+          f"{frames_s:.0f}, loss {m['loss']:.4f}; launches {launches}")
+    check(all(n > 0 for n in launches.values()) and math.isfinite(m["loss"]),
+          "timed train step")
+    report["train"] = dict(fit_s=fit_s, fit_steps=steps_seen, fit_launches=fit_launches,
+                           loss_kernel=lk, loss_plain=lp, grad_rel_l2=glob,
+                           grad_leaf_err=leaf, bn_bias=bn_read,
+                           first_update=dict(lr0=lr0, off=off, n_big=n_big, n_el=n_el),
+                           kernel_vs_kernel_max_abs=noise,
+                           train_step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+                           train_mel_frames_per_s=frames_s, launches=launches)
+    return trainer, launches
+
+
+def phase_train_profile(report, trainer, out_dir: str):
+    """One train step at the bench shape under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = bench_batch()
+    trainer.train_step(batch, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, 2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(os.path.join(out_dir, "train_profile_trace.json"))
+    rows = device_rows(prof)
+    busy_ms = sum(dev(e) for e in rows)
+    print(f"[train-profile] one train step: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f})")
+    for e in rows[:20]:
+        print(f"[train-profile]   {dev(e):8.2f} ms  {e.count:6d} calls  {e.key[:90]}")
+    report["train_profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                                   kernels={e.key: [dev(e), e.count] for e in rows[:40]})
 
 
 def main() -> int:
@@ -447,6 +893,14 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     if args.profile:
         phase_profile(report, args.out)
+    state: dict = {}
+    kernels += [phase_train_fwd(report, state), phase_train_bwd(report, state)]
+    state.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, train_launches = phase_train_main(report, tmp)
+        if args.profile:
+            phase_train_profile(report, trainer, args.out)
+    launches.update(train_launches)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -86,3 +86,83 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="bf16"):
         tacotron2_decode_cuda(w32, enc, torch.zeros(1, 4, 24, device=cuda),
                               torch.ones(1, 4, dtype=torch.bool, device=cuda), r=2, max_steps=2)
+
+
+def train_case(dtype, norm, location, dropout, cuda, widths=(24, 32, 48, 40, 24), B=11, T=13,
+               steps=9):
+    """Smoke widths (P, E, H1, H2, A; filter 15) with odd batch and text
+    sizes, seeded random weights and inputs, on the card. Widths that are
+    not multiples of 8 take the kernels' element-by-element staging."""
+    from your_voice_tts_torch.ops.taco2_train import prepare_train_weights
+
+    g = torch.Generator().manual_seed(3)
+    r = lambda *s, k=0.3: (k * torch.randn(*s, generator=g)).to(dtype).to(cuda)  # noqa: E731
+    P, E, H1, H2, A = widths
+    w = prepare_train_weights((r(4 * H1, P + E), r(4 * H1, H1), r(4 * H1)), r(A, H1),
+                              r(8, 2, 15) if location else None, r(A, 8) if location else None,
+                              r(1, A), r(1), (r(4 * H2, H1 + E), r(4 * H2, H2), r(4 * H2)))
+    x = {"prenet_t": r(steps, B, P, k=1.0), "enc": r(B, T, E, k=1.0), "pinp": r(B, T, A),
+         "maskf": sequence_mask(torch.arange(T, T - B, -1).clamp_min(2), T).float().to(cuda)}
+    masks = [None, None]
+    if dropout:
+        masks = [torch.where(torch.rand(steps, B, H, generator=g) < 0.9, 1 / 0.9, 0.0)
+                 .to(dtype).to(cuda) for H in (H1, H2)]
+    return w, x, masks
+
+
+TRAIN_CASES = [(torch.bfloat16, "sigmoid", True, True, (24, 32, 48, 40, 24)),
+               (torch.bfloat16, "softmax", True, False, (24, 32, 48, 40, 24)),
+               (torch.float32, "sigmoid", False, True, (24, 32, 48, 40, 24)),
+               (torch.float32, "softmax", True, True, (24, 32, 48, 40, 24)),
+               (torch.bfloat16, "sigmoid", True, True, (20, 28, 44, 36, 22))]
+
+
+def rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype,norm,location,dropout,widths", TRAIN_CASES)
+def test_train_fwd_kernel_matches_plain(cuda, dtype, norm, location, dropout, widths):
+    """Every forward stack: rel L2 within 1e-5 in float32 (sum order only)
+    and 1e-2 in bf16 (1-ulp flips of stored bf16 values, 2^-8 relative)."""
+    from your_voice_tts_torch.ops.taco2_train import (taco2_train_fwd, taco2_train_fwd_cuda,
+                                                      taco2_train_fwd_plain)
+
+    w, x, (m_a, m_d) = train_case(dtype, norm, location, dropout, cuda, widths)
+    args = (w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], m_a, m_d)
+    got = taco2_train_fwd_cuda(*args, norm=norm)
+    ref = taco2_train_fwd_plain(*args, norm=norm)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
+        assert rel_l2(got[k], ref[k]) <= tol, (k, rel_l2(got[k], ref[k]))
+    assert torch.equal(taco2_train_fwd(*args, norm=norm)["align"], got["align"])
+
+
+@pytest.mark.parametrize("dtype,norm,location,dropout,widths", TRAIN_CASES)
+def test_train_bwd_kernel_matches_plain(cuda, dtype, norm, location, dropout, widths):
+    """The plain forward's residuals and seeded cotangents on both sides;
+    every output rel L2 within 1e-4 in float32 and 2e-2 in bf16."""
+    from your_voice_tts_torch.ops.taco2_train import (taco2_train_bwd_cuda,
+                                                      taco2_train_bwd_plain,
+                                                      taco2_train_fwd_plain)
+
+    w, x, (m_a, m_d) = train_case(dtype, norm, location, dropout, cuda, widths)
+    fwd = taco2_train_fwd_plain(w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], m_a, m_d,
+                                norm=norm)
+    sh = lambda s: torch.cat([torch.zeros_like(s[:1]), s[:-1]])  # noqa: E731
+    res = {k: fwd[k] for k in ("g_a", "g_d", "c_a", "c_d")}
+    res.update(c_a_prev=sh(fwd["c_a"]), c_d_prev=sh(fwd["c_d"]), att_prev=sh(fwd["align"]),
+               cum_prev=sh(torch.cumsum(fwd["align"], 0)))
+    g = torch.Generator().manual_seed(4)
+    cot = [torch.randn(*s.shape, generator=g).to(s.dtype).to(cuda)
+           for s in (fwd["dech"], fwd["ctx"], fwd["align"])]
+    args = (w, res, *cot, x["enc"], x["pinp"], x["maskf"], m_a, m_d)
+    got = taco2_train_bwd_cuda(*args, norm=norm)
+    ref = taco2_train_bwd_plain(*args, norm=norm)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
+        assert rel_l2(got[k], ref[k]) <= tol, (k, rel_l2(got[k], ref[k]))

@@ -69,6 +69,15 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         your_voice_tts_torch.resolve_device()
     assert your_voice_tts_torch.resolve_device("cpu").type == "cpu"
+    from your_voice_tts_torch.bin import train
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(load_config(os.path.join(ROOT, "configs/smoke_synthetic.json")))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--config_path", os.path.join(ROOT, "configs/smoke_synthetic.json"),
+                    "--output_path", os.path.join(ROOT, "build", "never")])
+    assert not os.path.exists(os.path.join(ROOT, "build", "never"))
 
 
 def test_tf32_is_off():
@@ -88,3 +97,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tacotron2_decode_cuda({}, torch.ones(1, 4, 8), torch.ones(1, 4, 8),
                               torch.ones(1, 4, dtype=torch.bool), r=1, max_steps=1)
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_bwd_cuda, taco2_train_fwd_cuda
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        taco2_train_fwd_cuda({}, torch.ones(2, 1, 8), torch.ones(1, 4, 8), torch.ones(1, 4, 8),
+                             torch.ones(1, 4))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        taco2_train_bwd_cuda({}, {}, torch.ones(2, 1, 8), torch.ones(2, 1, 8),
+                             torch.ones(2, 1, 4), torch.ones(1, 4, 8), torch.ones(1, 4, 8),
+                             torch.ones(1, 4))

@@ -1,7 +1,10 @@
-"""AudioProcessor, inverse half (the JAX package's audio.py): normalized mel
-spectrograms -> waveforms through batched Griffin-Lim, plus `find_endpoint`
-and `save_wav`. Numpy in, numpy out, spectrograms in the reference's
-[F, T] layout at this boundary.
+"""AudioProcessor (the JAX package's audio.py). Forward half: WAV loading
+(stdlib `wave`, scipy's polyphase resampler when the rate differs),
+silence trimming and normalized mel spectrograms, one batched call per
+length bucket. Inverse half: normalized mel spectrograms -> waveforms
+through batched Griffin-Lim, plus `find_endpoint` and `save_wav`. Numpy in,
+numpy out, spectrograms in the reference's [F, T] layout at this boundary
+(`melspectrogram_batch` returns time-major [T, F], as the JAX package's).
 
 Batching follows the reference: mel lengths round up to FRAME_BUCKET frames,
 the batch to a power of two (at most _INV_BATCH_CAP rows per launch), pad
@@ -22,6 +25,7 @@ from .ops import dsp
 from .ops.filters import hann_window, inv_mel_basis, mel_basis
 from .ops.griffin_lim import griffin_lim_wave, packed_constants
 
+SIG_BUCKET = 128     # wav lengths padded to multiples of hop * SIG_BUCKET
 FRAME_BUCKET = 32    # mel frame counts padded to multiples of FRAME_BUCKET
 
 
@@ -43,9 +47,110 @@ class AudioProcessor:
         self.inv_mel_basis = torch.from_numpy(
             inv_mel_basis(basis.astype(np.float64)).astype(np.float32)).to(self.device)
         self.window = hann_window(self.win_length, config.fft_size).astype(np.float32)
+        self.mel_basis = torch.from_numpy(basis).to(self.device)
+        self.window_t = torch.from_numpy(self.window).to(self.device)
         self.gl_consts = packed_constants(config.fft_size, self.hop_length,
                                           self.window, torch.bfloat16, self.device)
         self.generator = torch.Generator().manual_seed(seed)
+
+    # --- forward transforms ---------------------------------------------
+
+    def _sig_bucket(self, n: int) -> int:
+        q = self.hop_length * SIG_BUCKET
+        return max(q, -(-n // q) * q)
+
+    def _mel(self, y, lengths):
+        c = self.cfg
+        return dsp.melspectrogram(
+            y, lengths, mel_basis=self.mel_basis, window=self.window_t, n_fft=c.fft_size,
+            hop=self.hop_length, preemph=c.preemphasis, ref_level_db=c.ref_level_db,
+            min_level_db=c.min_level_db, spec_gain=c.spec_gain, max_norm=c.max_norm,
+            symmetric=c.symmetric_norm, clip=c.clip_norm, signal_norm=c.signal_norm)
+
+    def melspectrogram(self, y: np.ndarray) -> np.ndarray:
+        """wav [T] -> normalized mel [num_mels, n_frames]."""
+        return self.melspectrogram_batch([y])[0].T
+
+    def melspectrogram_batch(self, wavs: list[np.ndarray]) -> list[np.ndarray]:
+        """N wavs -> N time-major mels [n_frames_i, num_mels], n_frames_i =
+        len // hop + 1: one batched call per length bucket (lengths round
+        up to hop * SIG_BUCKET samples, the batch to a power of two, at
+        most 64 rows; phantom rows are dropped)."""
+        by_bucket: dict[int, list[int]] = {}
+        for i, y in enumerate(wavs):
+            by_bucket.setdefault(self._sig_bucket(len(y)), []).append(i)
+        out: list = [None] * len(wavs)
+        for lb, idxs in by_bucket.items():
+            nb = 1
+            while nb < min(len(idxs), 64):
+                nb *= 2
+            for s in range(0, len(idxs), nb):
+                group = idxs[s: s + nb]
+                buf = np.zeros((nb, lb), np.float32)
+                lens = [self.hop_length] * nb
+                for j, i in enumerate(group):
+                    buf[j, : len(wavs[i])] = wavs[i]
+                    lens[j] = len(wavs[i])
+                y = torch.from_numpy(buf).to(self.device)
+                mels = self._mel(y, lens).cpu().numpy()
+                for j, i in enumerate(group):
+                    out[i] = mels[j, : lens[j] // self.hop_length + 1].astype(np.float32)
+        return out
+
+    def load_wav(self, path: str, sr: int | None = None) -> np.ndarray:
+        """WAV (PCM 16 or 32 bit) -> mono float32 in [-1, 1], resampled to
+        the sample rate with scipy's resample_poly when it differs."""
+        from math import gcd
+
+        target_sr = sr or self.sample_rate
+        with wave.open(path, "rb") as f:
+            n_ch, width, file_sr = f.getnchannels(), f.getsampwidth(), f.getframerate()
+            raw = f.readframes(f.getnframes())
+        if width == 2:
+            x = np.frombuffer(raw, dtype=np.int16).astype(np.float32) / 32768.0
+        elif width == 4:
+            x = np.frombuffer(raw, dtype=np.int32).astype(np.float32) / 2147483648.0
+        else:
+            raise ValueError(f"unsupported WAV sample width: {width}")
+        if n_ch > 1:
+            x = x.reshape(-1, n_ch).mean(axis=1)
+        if file_sr != target_sr:
+            from scipy.signal import resample_poly
+
+            g = gcd(file_sr, target_sr)
+            x = resample_poly(x, target_sr // g, file_sr // g).astype(np.float32)
+        if self.cfg.do_sound_norm:
+            x = self.sound_norm(x)
+        return x.astype(np.float32)
+
+    def load_wav_batch(self, paths: list[str], sr: int | None = None) -> list[np.ndarray]:
+        return [self.load_wav(p, sr) for p in paths]
+
+    def sound_norm(self, x: np.ndarray) -> np.ndarray:
+        return x / (np.abs(x).max() + 1e-8) * 0.9
+
+    def trim_silence(self, wav: np.ndarray) -> np.ndarray:
+        """librosa.effects.trim semantics (top_db = trim_db, win / hop
+        framing), after a 10 ms margin off both ends."""
+        margin = int(self.sample_rate * 0.01)
+        if margin > 0:
+            wav = wav[margin:-margin]
+        yp = np.pad(wav, self.win_length // 2)
+        n_frames = max(0, 1 + (len(yp) - self.win_length) // self.hop_length)
+        if n_frames == 0:
+            return wav
+        idx = (np.arange(n_frames) * self.hop_length)[:, None] + np.arange(self.win_length)[None, :]
+        rms = np.sqrt(np.mean(yp[idx] ** 2, axis=1))
+        ref = max(float(np.max(rms)), 1e-10)
+        db = 20.0 * np.log10(np.maximum(rms, 1e-10) / ref)
+        keep = np.flatnonzero(db > -self.cfg.trim_db)
+        if len(keep) == 0:
+            return wav[:0]
+        start = int(keep[0]) * self.hop_length
+        end = min(len(wav), int(keep[-1] + 1) * self.hop_length)
+        return wav[start:end]
+
+    # --- inverse transforms ---------------------------------------------
 
     def _frame_bucket(self, n: int) -> int:
         return max(FRAME_BUCKET, -(-n // FRAME_BUCKET) * FRAME_BUCKET)

@@ -32,32 +32,12 @@
 #include <cstdint>
 
 #include "hash_prng.cuh"
+#include "taco2_common.cuh"
 
 namespace {
 
-constexpr int kBT = 8;      // batch rows per block tile
-constexpr int kWarps = 8;   // warps per matrix-vector block
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    return v;
-}
-
-__device__ __forceinline__ float sigmoidf_(float x) { return 1.f / (1.f + expf(-x)); }
-
 __device__ __forceinline__ float round_bf16(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void unpack8(const uint4& v, float f[8]) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        float2 t = __bfloat1622float2(p[i]);
-        f[2 * i] = t.x;
-        f[2 * i + 1] = t.y;
-    }
 }
 
 // acc[bb] += sum_i w[i] * xs[bb * ld + i] over one warp (partial per lane).
@@ -97,14 +77,6 @@ __device__ void load_inputs(__nv_bfloat16* xs, int ld, int b0, int B,
         }
         xs[idx] = __float2bfloat16_rn(v);
     }
-}
-
-// value of acc[lane] without dynamic register indexing
-__device__ __forceinline__ float pick(const float acc[kBT], int lane) {
-    float v = 0.f;
-#pragma unroll
-    for (int bb = 0; bb < kBT; ++bb) v = (bb == lane) ? acc[bb] : v;
-    return v;
 }
 
 // Prenet: two Linear+ReLU layers, each followed by the hash-PRNG dropout
@@ -187,32 +159,6 @@ __global__ void lstm_kernel(const __nv_bfloat16* W, const float* bias, int ld,
         c[k] = cn;
         h_out[k] = go * tanhf(cn);
     }
-}
-
-// block-wide reduction through `red` (>= 32 floats); all threads get it
-template <bool kMax>
-__device__ float block_reduce(float v, float* red) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int nw = (blockDim.x + 31) >> 5;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-        const float other = __shfl_xor_sync(0xffffffffu, v, o);
-        v = kMax ? fmaxf(v, other) : v + other;
-    }
-    __syncthreads();
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-        v = lane < nw ? red[lane] : (kMax ? -INFINITY : 0.f);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-            const float other = __shfl_xor_sync(0xffffffffu, v, o);
-            v = kMax ? fmaxf(v, other) : v + other;
-        }
-        if (lane == 0) red[0] = v;
-    }
-    __syncthreads();
-    return red[0];
 }
 
 // Location-sensitive attention for one batch row per block: query
@@ -339,14 +285,6 @@ __global__ void project_kernel(const __nv_bfloat16* W, const float* bias, int ld
         stop_out[b] = p;
         done_out[b] = fmaxf(done_in[b], p > thresh ? 1.f : 0.f);
     }
-}
-
-int launch_status() { return (int)cudaGetLastError(); }
-
-int set_smem(const void* fn, size_t bytes) {
-    if (bytes <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)bytes);
 }
 
 }  // namespace

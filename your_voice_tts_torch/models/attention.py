@@ -7,11 +7,28 @@ Graves attention come with the attention-variants slice and raise here."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..nn.core import Conv1d, Dense
 
 _LATER = "arrives with the attention-variants slice of the port (see ROADMAP.md)"
+
+
+def energies(query, processed_inputs, attention, attention_cum, q_w, conv_w,
+             dense_w, v_w, v_b):
+    """Raw energies [B, T] (the JAX package's `_energies`): query [B, Q];
+    processed_inputs [B, T, A]; attention / attention_cum [B, T] f32;
+    q_w [A, Q], conv_w [F, 2, K] or None (no location features),
+    dense_w [A, F], v_w [1, A], v_b [1]. The alignment state is cast to the
+    weights' dtype at the conv, as the reference does."""
+    processed = (query @ q_w.T)[:, None, :]
+    if conv_w is not None:
+        total = conv_w.shape[2] - 1
+        cat = torch.stack([attention, attention_cum], dim=1).to(conv_w.dtype)
+        f = F.conv1d(F.pad(cat, (total // 2, total - total // 2)), conv_w)
+        processed = processed + f.transpose(1, 2) @ dense_w.T
+    return (torch.tanh(processed + processed_inputs) @ v_w.T + v_b)[..., 0]
 
 
 class LocationSensitiveAttention(nn.Module):
@@ -42,16 +59,19 @@ class LocationSensitiveAttention(nn.Module):
         return torch.einsum("fck,af->cka", self.loc_conv.weight,
                             self.loc_dense.weight)
 
+    def energy_weights(self):
+        """(q_w, conv_w, dense_w, v_w, v_b) as `energies` takes them."""
+        loc = self.location_attention
+        return (self.query.weight, self.loc_conv.weight if loc else None,
+                self.loc_dense.weight if loc else None, self.v.weight, self.v.bias)
+
     def forward(self, query, inputs, processed_inputs, attention, attention_cum,
                 mask=None):
         """One step. query [B, Q]; inputs [B, T, E]; processed_inputs
         [B, T, A]; attention / attention_cum [B, T]; mask [B, T] True where
         valid. Returns (context [B, E], alignment [B, T])."""
-        processed = self.query(query)[:, None, :]
-        if self.location_attention:
-            cat = torch.stack([attention, attention_cum], dim=-1)
-            processed = processed + self.loc_dense(self.loc_conv(cat))
-        e = self.v(torch.tanh(processed + processed_inputs))[..., 0]
+        e = energies(query, processed_inputs, attention, attention_cum,
+                     *self.energy_weights())
         if mask is not None:
             e = e.masked_fill(~mask, float("-inf"))
         if self.norm == "softmax":

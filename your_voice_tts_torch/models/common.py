@@ -1,12 +1,16 @@
 """Shared model blocks (the JAX package's models/common.py): Prenet, conv+BN
-blocks, sequence masks and the prenet fold the decode kernel needs."""
+blocks, sequence masks and the prenet fold the decode kernel needs.
+
+Training mode follows the module's `training` flag for BatchNorm; dropout
+is drawn only when a torch.Generator is passed (the JAX package's
+`rng is not None`)."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..nn.core import BatchNorm1d, Conv1d, Dense
+from ..nn.core import BatchNorm1d, Conv1d, Dense, dropout
 
 
 def sequence_mask(lengths, max_len: int):
@@ -18,7 +22,8 @@ class Prenet(nn.Module):
     """2-layer bottleneck ahead of the decoder. prenet_type="original" is
     Linear+ReLU (+ dropout 0.5 that stays on at inference, applied by the
     decode from its hash PRNG); "bn" is Linear(no bias)+BatchNorm+ReLU.
-    `forward` is the dropout-free layer."""
+    `forward` applies the original prenet's dropout only when given a
+    generator (teacher forcing draws it there)."""
 
     def __init__(self, in_dim: int, prenet_type: str = "original",
                  prenet_dropout: bool = True, out_dims=(256, 256)):
@@ -32,12 +37,15 @@ class Prenet(nn.Module):
         if prenet_type == "bn":
             self.bns = nn.ModuleList(BatchNorm1d(d) for d in out_dims)
 
-    def forward(self, x):
+    def forward(self, x, generator: torch.Generator | None = None):
         for i, lin in enumerate(self.linears):
             x = lin(x)
             if self.prenet_type == "bn":
-                x = self.bns[i](x)
-            x = torch.relu(x)
+                x = torch.relu(self.bns[i](x))
+            else:
+                x = torch.relu(x)
+                if self.dropout_enabled:
+                    x = dropout(x, 0.5, generator)
         return x
 
 
@@ -62,7 +70,8 @@ def kernel_prenet(prenet: Prenet, prenet_dropout: bool):
 
 
 class ConvBNBlock(nn.Module):
-    """conv(k) + BatchNorm + activation (inference; dropout is train-only)."""
+    """conv(k) + BatchNorm (statistics over `mask` when training) +
+    activation + dropout 0.5 (training mode with a generator only)."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
                  activation: str | None = "relu"):
@@ -71,10 +80,10 @@ class ConvBNBlock(nn.Module):
         self.bn = BatchNorm1d(out_dim)
         self.activation = activation
 
-    def forward(self, x):
-        x = self.bn(self.conv(x))
+    def forward(self, x, mask=None, generator: torch.Generator | None = None):
+        x = self.bn(self.conv(x), mask)
         if self.activation == "relu":
-            return torch.relu(x)
-        if self.activation == "tanh":
-            return torch.tanh(x)
-        return x
+            x = torch.relu(x)
+        elif self.activation == "tanh":
+            x = torch.tanh(x)
+        return dropout(x, 0.5, generator) if self.training else x

@@ -1,7 +1,14 @@
-"""Tacotron2 inference (the JAX package's models/tacotron2.py):
-embedding -> 3 x conv5+BN+ReLU -> BiLSTM encoder -> free-running decoder
-(prenet, attention LSTM, location-sensitive attention, decoder LSTM, mel x r
-projection and stop token) -> 5-conv postnet residual.
+"""Tacotron2 (the JAX package's models/tacotron2.py): embedding -> 3 x
+conv5+BN+ReLU -> BiLSTM encoder -> decoder (prenet, attention LSTM,
+location-sensitive attention, decoder LSTM, mel x r projection and stop
+token) -> 5-conv postnet residual.
+
+`Tacotron2.forward` is the teacher-forced training pass: BatchNorm takes
+batch statistics in training mode (the encoder's masked by the text
+lengths, the postnet's by the mel lengths), dropout is drawn from the
+torch.Generator passed in, and the decoder recurrence runs on the training
+kernels through the custom backward of models/decoder_grad.py, with the
+projection and stopnet applied over the whole sequence outside it.
 
 The decode loop follows the reference's kernel route (`Decoder.
 inference_pallas`): it runs on the decode kernel (ops/taco2_decode.py), with
@@ -23,6 +30,7 @@ from ..nn.core import GAINS, Conv1d, Dense, Embedding, xavier_uniform_
 from ..nn.rnn import LSTMCell, bilstm
 from ..ops.taco2_decode import prepare_weights, tacotron2_decode
 from .attention import init_attn
+from .decoder_grad import DecoderCore, dropout_masks
 from .common import ConvBNBlock, Prenet, kernel_prenet, sequence_mask
 
 
@@ -33,12 +41,18 @@ class Encoder(nn.Module):
         super().__init__()
         self.blocks = nn.ModuleList(ConvBNBlock(dim, dim, 5, "relu") for _ in range(3))
         self.lstm = nn.LSTM(dim, dim // 2, batch_first=True, bidirectional=True)
+        # one summed bias per direction, as the JAX package's LSTMCell: the
+        # second stays zero and out of training
+        self.lstm.bias_hh_l0.requires_grad_(False)
+        self.lstm.bias_hh_l0_reverse.requires_grad_(False)
 
-    def forward(self, x, lengths):
+    def forward(self, x, lengths, generator: torch.Generator | None = None):
+        """x [B, T, C] -> [B, T, C]."""
         mask = sequence_mask(lengths, x.shape[1])
         for blk in self.blocks:
-            x = blk(x)
-        return bilstm(self.lstm, x * mask[..., None], lengths)
+            x = blk(x, mask, generator)
+        x = x * mask[..., None].to(x.dtype)
+        return bilstm(self.lstm, x, lengths)
 
 
 class Postnet(nn.Module):
@@ -51,9 +65,9 @@ class Postnet(nn.Module):
         blocks += [ConvBNBlock(dim, n_mels, 5, None)]
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x):
+    def forward(self, x, mask=None, generator: torch.Generator | None = None):
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, mask, generator)
         return x
 
 
@@ -61,6 +75,8 @@ class Decoder(nn.Module):
     """Free-running decoder. r_init is the largest reduction factor the
     model is trained with: the projection and stopnet are sized for it and
     the active r takes a prefix slice."""
+
+    P_DROPOUT = 0.1  # attention / decoder LSTM output dropout in training
 
     def __init__(self, in_dim: int, n_mels: int, r_init: int, cfg):
         super().__init__()
@@ -97,6 +113,41 @@ class Decoder(nn.Module):
             hit = self._prepared[key] = (version, w)
         return hit[1]
 
+    def forward(self, inputs, input_lengths, mels, r: int,
+                generator: torch.Generator | None = None):
+        """Teacher-forced decode. inputs [B, T_in, E] encoder memory; mels
+        [B, T_mel, n_mels] with T_mel % r == 0. The decoder input of step s
+        is the go frame (s = 0) or the last frame of r-group s - 1. Dropout
+        (prenet 0.5, LSTM outputs 0.1) is drawn from `generator` in training
+        mode. Returns (frames [B, T_mel, n_mels], alignments [B, T_r, T_in]
+        float32, stop logits [B, T_r])."""
+        B, T_mel, _ = mels.shape
+        if T_mel % r:
+            raise ValueError(f"mel length {T_mel} is not a multiple of r={r}")
+        T_r = T_mel // r
+        a = self.attention
+        mask = sequence_mask(input_lengths, inputs.shape[1])
+        pinp = a.preprocess_inputs(inputs)
+        memories = torch.cat([torch.zeros_like(mels[:, :1]), mels[:, r - 1::r][:, :-1]], 1)
+        prenet_t = self.prenet(memories, generator).transpose(0, 1)
+        m_a = m_d = None
+        if self.training and generator is not None:
+            m_a, m_d = dropout_masks(T_r, B, self.attention_rnn.hidden,
+                                     self.decoder_rnn.hidden, prenet_t.dtype, generator,
+                                     prenet_t.device, self.P_DROPOUT)
+        ar, dr = self.attention_rnn, self.decoder_rnn
+        dech_t, ctx_t, aligns = DecoderCore.apply(
+            prenet_t, inputs, pinp, mask.float(), m_a, m_d, a.norm,
+            ar.weight_ih, ar.weight_hh, ar.bias, *a.energy_weights(),
+            dr.weight_ih, dr.weight_hh, dr.bias)
+        dec_out = self.projection(torch.cat([dech_t, ctx_t], -1))      # [T_r, B, OW]
+        stop_in = torch.cat([dech_t, dec_out], -1)
+        if self.cfg.separate_stopnet:
+            stop_in = stop_in.detach()
+        stops = self.stopnet(stop_in)[..., 0]
+        frames = dec_out.transpose(0, 1)[..., : self.n_mels * r].reshape(B, T_mel, self.n_mels)
+        return frames, aligns.transpose(0, 1), stops.transpose(0, 1)
+
     @torch.no_grad()
     def inference(self, inputs, input_lengths, max_steps: int, r: int,
                   seed: int = 0, dtype=torch.bfloat16):
@@ -125,7 +176,7 @@ class Tacotron2(nn.Module):
         super().__init__()
         if cfg.bidirectional_decoder:
             raise NotImplementedError(
-                "the bidirectional decoder arrives with the training slice of the port")
+                "the bidirectional decoder arrives with a later slice of the port")
         self.cfg = cfg
         self.n_mels = n_mels
         self.r = cfg.r
@@ -170,24 +221,54 @@ class Tacotron2(nn.Module):
                     else:
                         p.uniform_(-s, s, generator=generator)
 
+    def forward(self, text, text_lengths, mels, mel_lengths=None, r: int | None = None,
+                generator: torch.Generator | None = None) -> dict:
+        """Teacher-forced pass (the JAX package's `Tacotron2.forward`): text
+        [B, T] ids, text_lengths [B], mels [B, T_mel, n_mels] in the working
+        dtype, mel_lengths [B] (masks the postnet's BatchNorm statistics).
+        In training mode BatchNorm takes batch statistics and updates its
+        running ones; dropout is drawn from `generator` (none without one).
+        Returns decoder_outputs / postnet_outputs [B, T_mel, n_mels],
+        alignments [B, T_r, T_in] float32, stop_logits [B, T_r], and "state":
+        the BatchNorm running statistics after the pass."""
+        r = r or self.r
+        enc_out = self.encoder(self.embedding(text), text_lengths, generator)
+        dec_out, aligns, stops = self.decoder(enc_out, text_lengths, mels, r, generator)
+        mel_mask = None if mel_lengths is None else sequence_mask(mel_lengths, dec_out.shape[1])
+        return {
+            "decoder_outputs": dec_out,
+            "postnet_outputs": dec_out + self.postnet(dec_out, mel_mask, generator),
+            "alignments": aligns,
+            "stop_logits": stops,
+            "state": {k: v.detach().clone() for k, v in self.named_buffers()},
+        }
+
     @torch.no_grad()
     def inference(self, text, text_lengths, max_decoder_steps: int | None = None,
                   r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16):
         """Free-running synthesis on the model's device. text [B, T] symbol
         ids, text_lengths [B]. Output lengths are in mel frames; frames past
         a row's length are zero. decode_dtype is the decode's working type
-        (the kernel runs bf16; the plain version also takes float32)."""
+        (the kernel runs bf16; the plain version also takes float32).
+        BatchNorm normalizes with its running statistics whatever the
+        module's mode, as the reference's inference does (train=False)."""
         r = r or self.r
         max_steps = max_decoder_steps or self.cfg.max_decoder_steps
         dev = self.device
         text = torch.as_tensor(text, dtype=torch.long, device=dev)
         text_lengths = torch.as_tensor(text_lengths, dtype=torch.long, device=dev)
-        enc_out = self.encoder(self.embedding(text), text_lengths)
-        dec_out, aligns, stops, lengths = self.decoder.inference(
-            enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype)
+        was_training = self.training
+        self.eval()
+        try:
+            enc_out = self.encoder(self.embedding(text), text_lengths)
+            dec_out, aligns, stops, lengths = self.decoder.inference(
+                enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype)
+            post = dec_out + self.postnet(dec_out)
+        finally:
+            self.train(was_training)
         return {
             "decoder_outputs": dec_out,
-            "postnet_outputs": dec_out + self.postnet(dec_out),
+            "postnet_outputs": post,
             "alignments": aligns,
             "stop_probs": stops,
             "mel_lengths": lengths,

@@ -38,21 +38,54 @@ class Conv1d(nn.Module):
 
 
 class BatchNorm1d(nn.Module):
-    """Inference-mode BatchNorm over the last (channel) axis:
-    (x - mean) * rsqrt(var + eps) * scale + bias, the JAX package's op
-    order. Running statistics are buffers, loaded from checkpoints."""
+    """BatchNorm over the last (channel) axis, the JAX package's op order:
+    (x - mean) * rsqrt(var + eps) * scale + bias, in the activation dtype.
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    In training mode the statistics are the batch's, in float32, over every
+    axis but the last and only where `mask` ([B, T] bool) is true; the
+    running statistics then move by `momentum` towards them. The running
+    variance takes the BIASED batch variance (divided by the count), as the
+    JAX package does; torch.nn.BatchNorm1d would take the unbiased one. In
+    eval mode the running statistics normalize."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
-    def forward(self, x):
-        return ((x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-                * self.weight + self.bias)
+    def forward(self, x, mask=None):
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            xs = x.float()
+            axes = tuple(range(x.dim() - 1))
+            if mask is None:
+                mean = xs.mean(axes)
+                var = xs.var(axes, unbiased=False)
+            else:
+                m = mask[..., None].float()
+                cnt = m.sum().clamp_min(1.0)
+                mean = (xs * m).sum(axes) / cnt
+                var = (((xs - mean) ** 2) * m).sum(axes) / cnt
+            with torch.no_grad():
+                mo = self.momentum
+                self.running_mean.copy_((1 - mo) * self.running_mean + mo * mean)
+                self.running_var.copy_((1 - mo) * self.running_var + mo * var)
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+def dropout(x, rate: float, generator: torch.Generator | None):
+    """Inverted dropout drawn from `generator` (on x's device); the identity
+    when no generator is given, as the JAX package skips it for rng=None."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    m = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def xavier_uniform_(w: torch.Tensor, gain: float, generator: torch.Generator):

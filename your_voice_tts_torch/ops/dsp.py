@@ -1,4 +1,6 @@
-"""Inverse DSP (the inverse half of the JAX package's ops/dsp.py): mel ->
+"""DSP (the JAX package's ops/dsp.py). Forward half: pre-emphasis, framing
+with librosa's center=True reflect padding, STFT, dB map, range
+normalization and the normalized mel spectrogram. Inverse half: mel ->
 linear magnitudes, dB maps, istft, a per-utterance Griffin-Lim on
 torch.fft, and the de-emphasis IIR. Spectrograms are time-major
 [..., T, F]. Plain torch ops; the batched Griffin-Lim kernel is in
@@ -10,6 +12,68 @@ import torch
 import torch.nn.functional as F
 
 from .griffin_lim import banded_ola, ola_wsum_inv
+
+
+def preemphasis(y, coef: float):
+    """y[n] - coef * y[n - 1] (y[0] passes through), along the last axis."""
+    if coef == 0.0:
+        return y
+    return y - coef * F.pad(y[..., :-1], (1, 0))
+
+
+def mirror_indices(length: int, l_max: int, n_fft: int, hop: int):
+    """[l_max // hop + 1, n_fft] positions into a signal buffer of l_max
+    samples implementing center=True reflect padding for a clip of `length`
+    samples (the JAX package's `_mirror_indices`; its banded framing is the
+    same gather for clips of at least n_fft / 2 samples). Frames past the
+    clip's own count read mirrored or clamped samples the caller drops."""
+    t = torch.arange(l_max // hop + 1)[:, None]
+    p = (t * hop + torch.arange(n_fft)[None, :] - n_fft // 2).abs()
+    p = torch.where(p >= length, 2 * length - 2 - p, p)
+    return p.clamp(0, l_max - 1)
+
+
+def frame_signal(y, lengths, n_fft: int, hop: int, window):
+    """Signals [B, L_max] with true lengths `lengths` (B ints) -> windowed
+    frames [B, L_max // hop + 1, n_fft]."""
+    idx = torch.stack([mirror_indices(int(n), y.shape[-1], n_fft, hop) for n in lengths])
+    rows = torch.arange(y.shape[0])[:, None, None]
+    return y[rows.to(y.device), idx.to(y.device)] * window
+
+
+def stft(y, lengths, n_fft: int, hop: int, window):
+    """Complex STFT, time-major [B, L_max // hop + 1, n_fft // 2 + 1]."""
+    return torch.fft.rfft(frame_signal(y, lengths, n_fft, hop, window), dim=-1)
+
+
+def amp_to_db(x, spec_gain: float = 20.0, min_level_db: float = -100.0):
+    min_level = torch.exp(min_level_db / 20.0 * torch.log(torch.tensor(10.0)))
+    return spec_gain * torch.log10(torch.maximum(min_level.to(x.device), x))
+
+
+def normalize_spec(S, min_level_db: float, max_norm: float, symmetric: bool, clip: bool,
+                   signal_norm: bool = True):
+    """Range normalization of dB-minus-ref values."""
+    if not signal_norm:
+        return S
+    S_norm = (S - min_level_db) / (-min_level_db)
+    if symmetric:
+        S_norm = 2.0 * max_norm * S_norm - max_norm
+        return S_norm.clamp(-max_norm, max_norm) if clip else S_norm
+    S_norm = max_norm * S_norm
+    return S_norm.clamp(0.0, max_norm) if clip else S_norm
+
+
+def melspectrogram(y, lengths, *, mel_basis, window, n_fft: int, hop: int,
+                   preemph: float, ref_level_db: float, min_level_db: float,
+                   spec_gain: float, max_norm: float, symmetric: bool, clip: bool,
+                   signal_norm: bool = True):
+    """Normalized mel spectrograms of signals [B, L_max] (true lengths
+    `lengths`), time-major [B, L_max // hop + 1, n_mels]: pre-emphasis ->
+    |STFT| -> mel product (float32) -> dB - ref -> normalize."""
+    mag = stft(preemphasis(y, preemph), lengths, n_fft, hop, window).abs()
+    S = amp_to_db(mag @ mel_basis.T, spec_gain, min_level_db) - ref_level_db
+    return normalize_spec(S, min_level_db, max_norm, symmetric, clip, signal_norm)
 
 
 def denormalize_spec(S, min_level_db: float, max_norm: float,

@@ -1,0 +1,472 @@
+"""Tacotron2 teacher-forced training decoder: the CUDA kernels
+(csrc/taco2_train.cu), their plain PyTorch versions, and the weight layout
+both read.
+
+Counterparts of the JAX package's ops/pallas/taco2_train.py:
+
+- `taco2_train_fwd` (`taco2_train_fwd_pallas`): the teacher-forced scan
+  of models/decoder_grad.py forward, attention LSTM -> location-sensitive
+  attention -> context -> decoder LSTM over all steps, emitting the
+  residuals the backward reads;
+- `taco2_train_bwd` (`taco2_train_bwd_pallas`): its reverse-time scan over
+  the activation cotangents, emitting the per-step gate, context, prenet and
+  energy cotangents (the weight gradients are whole-sequence products
+  outside, in models/decoder_grad.py).
+
+Rounding points of the Pallas kernels, which both versions keep: h, c and
+the context are held in the working dtype (bf16 on the card) between steps;
+gate math and every sum run in float32; gates, cells, dech and the gate /
+context / prenet cotangents are stored in the working dtype; alignments,
+energy cotangents and the backward carries stay float32; the location
+features read the alignment state rounded to the working dtype.
+
+`taco2_train_fwd` / `taco2_train_bwd` run the plain version for CPU tensors
+and the kernels for CUDA tensors; the kernel wrappers raise on what they do
+not take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+from .taco2_decode import _interleave_gates, _rows
+
+F32 = torch.float32
+BF16 = torch.bfloat16
+
+
+@torch.no_grad()
+def prepare_train_weights(attention_rnn, query_w, loc_conv_w, loc_dense_w, v_w, v_b,
+                          decoder_rnn) -> dict:
+    """Lay the decoder core's weights out for both kernels, once per
+    optimizer step. All matrices keep the dtype they come in (the working
+    dtype); biases and v go to float32.
+
+    attention_rnn / decoder_rnn: (weight_ih [4H, in], weight_hh [4H, H],
+    bias [4H]) in gate order (i, f, g, o); query_w [A, H1]; loc_conv_w
+    [F, 2, K] and loc_dense_w [A, F], or None without location features;
+    v_w [1, A], v_b [1].
+
+    Forward: "a_w" / "d_w" [4H, in + H] rows with interleaved gates (row
+    4j + g is unit j's gate g over [x | ctx | h]), padded to 8 columns;
+    backward: "a_wT" / "d_wT" [in + H, 4H], the same weights transposed in
+    block gate order; "u" [2, K, A] is the location conv folded with the
+    location dense."""
+    a_ih, a_hh, a_b = attention_rnn
+    d_ih, d_hh, d_b = decoder_rnn
+    dtype = a_ih.dtype
+    H1, H2, A = a_hh.shape[1], d_hh.shape[1], query_w.shape[0]
+    E = d_ih.shape[1] - H1
+    loc = loc_conv_w is not None
+    if loc:
+        u = torch.einsum("fck,af->cka", loc_conv_w.float(), loc_dense_w.float()).to(dtype)
+    else:
+        u = torch.zeros(2, 1, A, dtype=dtype, device=a_ih.device)
+    a_full, d_full = torch.cat([a_ih, a_hh], 1), torch.cat([d_ih, d_hh], 1)
+    return {
+        "dtype": dtype, "loc": loc,
+        "dims": {"P": a_ih.shape[1] - E, "E": E, "H1": H1, "H2": H2, "A": A,
+                 "K": u.shape[1]},
+        "a_w": _rows(_interleave_gates(a_full), dtype),
+        "a_b": _interleave_gates(a_b.detach()).float().contiguous(),
+        "d_w": _rows(_interleave_gates(d_full), dtype),
+        "d_b": _interleave_gates(d_b.detach()).float().contiguous(),
+        "a_wT": _rows(a_full.T, dtype), "d_wT": _rows(d_full.T, dtype),
+        "q_w": _rows(query_w, dtype), "u": u.contiguous(),
+        "v_w": v_w.detach()[0].float().contiguous(),
+        "v_b": v_b.detach().float().reshape(1).contiguous(),
+    }
+
+
+def _dims(w):
+    d = w["dims"]
+    return tuple(d[k] for k in ("P", "E", "H1", "H2", "A", "K"))
+
+
+def _normalize(e, norm: str):
+    """(alignment, s) from masked energies: softmax, or sigmoid over its
+    sum (s = sigmoid(e), kept for the backward)."""
+    if norm == "softmax":
+        a = torch.softmax(e, -1)
+        return a, a
+    s = torch.sigmoid(e)
+    return s / s.sum(-1, keepdim=True).clamp_min(1e-8), s
+
+
+def _ungate(g, H):
+    """Interleaved gates [B, 4H] (unit-major) -> block layout [B, 4H]."""
+    return g.view(g.shape[0], H, 4).transpose(1, 2).reshape(g.shape[0], 4 * H)
+
+
+def _lstm_bwd_local(g, c_prev, c, d_h, d_c):
+    """decoder_grad._lstm_bwd_local: backward through the gate nonlinearity
+    from the stored pre-activations g [B, 4H] (block layout). Returns
+    (d_gates, d_c_prev)."""
+    i, f, gg, o = g.chunk(4, dim=-1)
+    i, f, gg, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(gg), torch.sigmoid(o)
+    tc = torch.tanh(c)
+    d_o = d_h * tc
+    d_ct = d_c + d_h * o * (1.0 - tc * tc)
+    d_g = torch.cat([(d_ct * gg) * i * (1.0 - i), (d_ct * c_prev) * f * (1.0 - f),
+                     (d_ct * i) * (1.0 - gg * gg), d_o * o * (1.0 - o)], -1)
+    return d_g, d_ct * f
+
+
+class _Plain:
+    """What both plain versions share: float32 views of the layouts and the
+    energy recompute."""
+
+    def __init__(self, w: dict, enc, pinp, maskf, norm: str):
+        P, E, H1, H2, A, K = _dims(w)
+        dt = w["dtype"]
+        self.rnd = (lambda x: x.to(BF16).float()) if dt == BF16 else (lambda x: x)
+        self.w, self.norm, self.K = w, norm, K
+        self.encf = enc.to(dt).float()
+        self.pinpf = pinp.to(dt).float()
+        self.maskadd = torch.where(maskf > 0.5, 0.0, -1e9).to(F32)
+        self.qw = w["q_w"][:, :H1].float()
+        self.u_conv = w["u"].float().permute(2, 0, 1)            # [A, 2, K]
+        self.pad = (K - 1) // 2
+
+    def energies(self, q, att, cum):
+        """(tanh argument's tanh [B, T, A], masked energies [B, T]) of the
+        T-rounded query q [B, H1] and alignment state."""
+        pq = q @ self.qw.T
+        x = pq[:, None, :] + self.pinpf
+        if self.w["loc"]:
+            ac = self.rnd(torch.stack([att, cum], 1))
+            x = x + F.conv1d(F.pad(ac, (self.pad, self.K - 1 - self.pad)),
+                             self.u_conv).transpose(1, 2)
+        th = torch.tanh(x)
+        return th, (th * self.w["v_w"]).sum(-1) + self.w["v_b"] + self.maskadd
+
+
+def taco2_train_fwd_plain(w: dict, prenet_t, enc, pinp, maskf, m_a=None, m_d=None, *,
+                          norm: str = "sigmoid"):
+    """The forward scan in plain PyTorch, step by step: the reference the
+    kernel is held against. Arguments and outputs as `taco2_train_fwd`."""
+    P, E, H1, H2, A, K = _dims(w)
+    dt = w["dtype"]
+    pl = _Plain(w, enc, pinp, maskf, norm)
+    rnd = pl.rnd
+    Ts, B, _ = prenet_t.shape
+    T = enc.shape[1]
+    dev = enc.device
+    Wa = w["a_w"][:, :P + E + H1].float()
+    Wd = w["d_w"][:, :H1 + E + H2].float()
+    z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
+    h1, c1, h2, c2, ctx, att, cum = z(B, H1), z(B, H1), z(B, H2), z(B, H2), z(B, E), \
+        z(B, T), z(B, T)
+    out = {"dech": torch.empty(Ts, B, H2, dtype=dt, device=dev),
+           "ctx": torch.empty(Ts, B, E, dtype=dt, device=dev),
+           "align": torch.empty(Ts, B, T, device=dev),
+           "g_a": torch.empty(Ts, B, 4 * H1, dtype=dt, device=dev),
+           "g_d": torch.empty(Ts, B, 4 * H2, dtype=dt, device=dev),
+           "c_a": torch.empty(Ts, B, H1, dtype=dt, device=dev),
+           "c_d": torch.empty(Ts, B, H2, dtype=dt, device=dev)}
+
+    def lstm(W, b, xs, c):
+        g = torch.cat(xs, 1) @ W.T + b                                 # interleaved
+        gi = g.view(B, -1, 4)
+        cn = torch.sigmoid(gi[..., 1]) * c + torch.sigmoid(gi[..., 0]) * torch.tanh(gi[..., 2])
+        return torch.sigmoid(gi[..., 3]) * torch.tanh(cn), cn, _ungate(g, c.shape[1])
+
+    for t in range(Ts):
+        h1n, c1n, g_a = lstm(Wa, w["a_b"], [rnd(prenet_t[t].float()), ctx, h1], c1)
+        q = rnd(h1n * m_a[t].float() if m_a is not None else h1n)
+        _, e = pl.energies(q, att, cum)
+        align, _ = _normalize(e, norm)
+        ctx = rnd((align[:, :, None] * pl.encf).sum(1))
+        h2n, c2n, g_d = lstm(Wd, w["d_b"], [q, ctx, h2], c2)
+        out["dech"][t] = h2n * m_d[t].float() if m_d is not None else h2n
+        out["ctx"][t], out["align"][t] = ctx, align
+        out["g_a"][t], out["g_d"][t] = g_a, g_d
+        out["c_a"][t], out["c_d"][t] = c1n, c2n
+        h1, c1, h2, c2 = rnd(h1n), rnd(c1n), rnd(h2n), rnd(c2n)
+        att, cum = align, cum + align
+    return out
+
+
+def taco2_train_bwd_plain(w: dict, res: dict, d_dech, d_ctx_out, d_align_out, enc, pinp,
+                          maskf, m_a=None, m_d=None, *, norm: str = "sigmoid"):
+    """The reverse scan in plain PyTorch, step by step. Arguments and
+    outputs as `taco2_train_bwd`."""
+    P, E, H1, H2, A, K = _dims(w)
+    dt = w["dtype"]
+    pl = _Plain(w, enc, pinp, maskf, norm)
+    rnd = pl.rnd
+    Ts, B, _ = d_dech.shape
+    T = enc.shape[1]
+    dev = enc.device
+    WaT = w["a_wT"][:, :4 * H1].float()
+    WdT = w["d_wT"][:, :4 * H2].float()
+    z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
+    dh1, dc1, dh2, dc2, dctx, datt, dcum = z(B, H1), z(B, H1), z(B, H2), z(B, H2), \
+        z(B, E), z(B, T), z(B, T)
+    out = {"d_g_a": torch.empty(Ts, B, 4 * H1, dtype=dt, device=dev),
+           "d_g_d": torch.empty(Ts, B, 4 * H2, dtype=dt, device=dev),
+           "d_ctx": torch.empty(Ts, B, E, dtype=dt, device=dev),
+           "d_prenet": torch.empty(Ts, B, P, dtype=dt, device=dev),
+           "d_e": torch.empty(Ts, B, T, device=dev)}
+    f = lambda k, t: res[k][t].float()  # noqa: E731
+    for t in reversed(range(Ts)):
+        g_a, g_d, c_a, c_d = f("g_a", t), f("g_d", t), f("c_a", t), f("c_d", t)
+        q = torch.sigmoid(g_a[:, 3 * H1:]) * torch.tanh(c_a)
+        if m_a is not None:
+            q = q * m_a[t].float()
+        th, e = pl.energies(rnd(q), f("att_prev", t), f("cum_prev", t))
+        align, s = _normalize(e, norm)
+
+        d_h_d = dh2 + (d_dech[t].float() * m_d[t].float() if m_d is not None
+                       else d_dech[t].float())
+        d_g_d, dc2 = _lstm_bwd_local(g_d, f("c_d_prev", t), c_d, d_h_d, dc2)
+        d_g_d = rnd(d_g_d)
+        dx = d_g_d @ WdT.T
+        d_q, d_ctx_dec, dh2 = dx[:, :H1], dx[:, H1:H1 + E], dx[:, H1 + E:]
+        d_ctx_total = d_ctx_out[t].float() + d_ctx_dec + dctx
+        d_align = (d_align_out[t].float() + (d_ctx_total[:, None, :] * pl.encf).sum(-1)
+                   + datt + dcum)
+        if norm == "softmax":
+            d_e = align * (d_align - (d_align * align).sum(-1, keepdim=True))
+        else:
+            S = s.sum(-1, keepdim=True).clamp_min(1e-8)
+            d_s = (d_align - (d_align * s).sum(-1, keepdim=True) / S) / S
+            d_e = d_s * s * (1.0 - s)
+        d_tanh = d_e[:, :, None] * w["v_w"] * (1.0 - th * th)         # [B, T, A]
+        d_q2 = rnd(d_tanh.sum(1)) @ pl.qw
+        if w["loc"]:
+            full = F.conv_transpose1d(rnd(d_tanh).transpose(1, 2), pl.u_conv)
+            d_prev = full[:, :, pl.pad:pl.pad + T]                      # [B, 2, T]
+            datt, dcum = d_prev[:, 0], dcum + d_prev[:, 1]
+        else:
+            datt = torch.zeros_like(datt)
+        d_q_total = d_q + d_q2
+        if m_a is not None:
+            d_q_total = d_q_total * m_a[t].float()
+        d_g_a, dc1 = _lstm_bwd_local(g_a, f("c_a_prev", t), c_a, dh1 + d_q_total, dc1)
+        d_g_a = rnd(d_g_a)
+        dxa = d_g_a @ WaT.T
+        out["d_prenet"][t], dctx, dh1 = dxa[:, :P], dxa[:, P:P + E], dxa[:, P + E:]
+        out["d_g_a"][t], out["d_g_d"][t] = d_g_a, d_g_d
+        out["d_ctx"][t], out["d_e"][t] = d_ctx_total, d_e
+    return out
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    "taco2_train_lstm_fwd": [_I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
+                             _I, _P],
+    "taco2_train_attn_fwd": [_I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _I, _I, _P],
+    "taco2_train_cell_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    "taco2_train_matT": [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                         _P],
+    "taco2_train_attn_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _P],
+}
+SMEM_LIMIT = 232448          # dynamic shared memory a block may use on the H100
+
+
+def _lib():
+    lib = cuda_build.load("taco2_train")
+    for name, types in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = types, ctypes.c_int
+    lib.taco2_train_attn_bwd_smem.argtypes = [_I, _I, _I, _I, _I]
+    lib.taco2_train_attn_bwd_smem.restype = ctypes.c_size_t
+    return lib
+
+
+def _check_cuda(w: dict, name: str, tensors: dict, shapes: dict):
+    dev = next(iter(tensors.values())).device
+    if w["dtype"] not in (BF16, F32):
+        raise ValueError(f"{name} runs bf16 or float32 weights, got {w['dtype']}")
+    for k, v in tensors.items():
+        if v is None:
+            continue
+        if v.device != dev:
+            raise ValueError(f"{name}: {k} is on {v.device}, expected {dev}")
+        if k in shapes and tuple(v.shape) != shapes[k]:
+            raise ValueError(f"{name}: {k} has shape {tuple(v.shape)}, expected {shapes[k]}")
+    for k, v in w.items():
+        if isinstance(v, torch.Tensor) and v.device != dev:
+            raise ValueError(f"{name}: weight {k} is on {v.device}, inputs on {dev}")
+    return dev
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def taco2_train_fwd_cuda(w: dict, prenet_t, enc, pinp, maskf, m_a=None, m_d=None, *,
+                         norm: str = "sigmoid"):
+    """The forward scan on the CUDA kernels: three launches per step (the
+    attention LSTM, the attention, the decoder LSTM) on the current
+    stream, no host synchronization."""
+    if prenet_t.device.type != "cuda":
+        raise ValueError("taco2_train_fwd_cuda takes CUDA tensors")
+    P, E, H1, H2, A, K = _dims(w)
+    Ts, B, _ = prenet_t.shape
+    T = enc.shape[1]
+    dev = _check_cuda(w, "taco2_train_fwd_cuda",
+                      {"prenet_t": prenet_t, "enc": enc, "pinp": pinp, "maskf": maskf,
+                       "m_a": m_a, "m_d": m_d},
+                      {"prenet_t": (Ts, B, P), "enc": (B, T, E), "pinp": (B, T, A),
+                       "maskf": (B, T), "m_a": (Ts, B, H1), "m_d": (Ts, B, H2)})
+    if norm not in ("sigmoid", "softmax"):
+        raise ValueError(f"unknown attention norm {norm!r}")
+    dt = w["dtype"]
+    lib = _lib()
+    cv = lambda x: None if x is None else x.to(dt).contiguous()  # noqa: E731
+    prenet_t, enc, pinp, m_a, m_d = cv(prenet_t), cv(enc), cv(pinp), cv(m_a), cv(m_d)
+    maskadd = torch.where(maskf > 0.5, 0.0, -1e9).to(F32).contiguous()
+    e = lambda *s, d=dt: torch.empty(*s, dtype=d, device=dev)  # noqa: E731
+    out = {"dech": e(Ts, B, H2), "ctx": e(Ts, B, E), "align": e(Ts, B, T, d=F32),
+           "g_a": e(Ts, B, 4 * H1), "g_d": e(Ts, B, 4 * H2), "c_a": e(Ts, B, H1),
+           "c_d": e(Ts, B, H2)}
+    h1, h2, q = e(2, B, H1), e(2, B, H2), e(B, H1)
+    cum = torch.zeros(B, T, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    bf16 = int(dt == BF16)
+    ld_a, ld_d, ld_q = w["a_w"].shape[1], w["d_w"].shape[1], w["q_w"].shape[1]
+    at = lambda x, t: None if x is None else x[t].data_ptr()  # noqa: E731
+    for t in range(Ts):
+        prev = lambda k: None if t == 0 else out[k][t - 1].data_ptr()  # noqa: E731
+        cur, nxt = h1[t % 2].data_ptr(), h1[(t + 1) % 2].data_ptr()
+        cuda_build.check(lib.taco2_train_lstm_fwd(
+            bf16, w["a_w"].data_ptr(), w["a_b"].data_ptr(), ld_a, prenet_t[t].data_ptr(), P,
+            prev("ctx"), E, None if t == 0 else cur, H1, prev("c_a"), nxt,
+            out["c_a"][t].data_ptr(), out["g_a"][t].data_ptr(), at(m_a, t), q.data_ptr(), B,
+            stream), "taco2_train_lstm_fwd")
+        cuda_build.check(lib.taco2_train_attn_fwd(
+            bf16, q.data_ptr(), w["q_w"].data_ptr(), ld_q, H1, w["u"].data_ptr(), K,
+            int(w["loc"]), w["v_w"].data_ptr(), w["v_b"].data_ptr(), pinp.data_ptr(),
+            maskadd.data_ptr(), enc.data_ptr(), prev("align"), cum.data_ptr(),
+            out["ctx"][t].data_ptr(), out["align"][t].data_ptr(), B, T, A, E,
+            int(norm == "softmax"), stream), "taco2_train_attn_fwd")
+        cur, nxt = h2[t % 2].data_ptr(), h2[(t + 1) % 2].data_ptr()
+        cuda_build.check(lib.taco2_train_lstm_fwd(
+            bf16, w["d_w"].data_ptr(), w["d_b"].data_ptr(), ld_d, q.data_ptr(), H1,
+            out["ctx"][t].data_ptr(), E, None if t == 0 else cur, H2, prev("c_d"), nxt,
+            out["c_d"][t].data_ptr(), out["g_d"][t].data_ptr(), at(m_d, t),
+            out["dech"][t].data_ptr(), B, stream), "taco2_train_lstm_fwd")
+        taco2_train_fwd_cuda.launches += 3
+    return out
+
+
+taco2_train_fwd_cuda.launches = 0
+
+
+def taco2_train_bwd_cuda(w: dict, res: dict, d_dech, d_ctx_out, d_align_out, enc, pinp,
+                         maskf, m_a=None, m_d=None, *, norm: str = "sigmoid"):
+    """The reverse scan on the CUDA kernels: four launches per step (the
+    decoder cell backward, the decoder products with W^T, the attention and
+    attention-cell backward, the attention products with W^T) on the
+    current stream, no host synchronization."""
+    if d_dech.device.type != "cuda":
+        raise ValueError("taco2_train_bwd_cuda takes CUDA tensors")
+    P, E, H1, H2, A, K = _dims(w)
+    Ts, B, _ = d_dech.shape
+    T = enc.shape[1]
+    shapes = {"d_dech": (Ts, B, H2), "d_ctx_out": (Ts, B, E), "d_align_out": (Ts, B, T),
+              "enc": (B, T, E), "pinp": (B, T, A), "maskf": (B, T), "m_a": (Ts, B, H1),
+              "m_d": (Ts, B, H2), "g_a": (Ts, B, 4 * H1), "g_d": (Ts, B, 4 * H2),
+              "c_a": (Ts, B, H1), "c_d": (Ts, B, H2), "att_prev": (Ts, B, T),
+              "cum_prev": (Ts, B, T)}
+    dev = _check_cuda(w, "taco2_train_bwd_cuda",
+                      {"d_dech": d_dech, "d_ctx_out": d_ctx_out, "d_align_out": d_align_out,
+                       "enc": enc, "pinp": pinp, "maskf": maskf, "m_a": m_a, "m_d": m_d,
+                       **{k: res[k] for k in ("g_a", "g_d", "c_a", "c_d", "att_prev",
+                                              "cum_prev")}}, shapes)
+    if norm not in ("sigmoid", "softmax"):
+        raise ValueError(f"unknown attention norm {norm!r}")
+    dt = w["dtype"]
+    bf16 = int(dt == BF16)
+    lib = _lib()
+    ld_q = w["q_w"].shape[1]
+    smem = lib.taco2_train_attn_bwd_smem(T, A, K, ld_q, bf16)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"taco2_train_bwd_cuda: T_in={T}, A={A}, K={K} needs {smem} bytes "
+                         f"of shared memory per block, more than {SMEM_LIMIT}")
+    cv = lambda x: None if x is None else x.to(dt).contiguous()  # noqa: E731
+    c32 = lambda x: x.to(F32).contiguous()  # noqa: E731
+    d_dech, d_ctx_out, enc, pinp, m_a, m_d = (cv(x) for x in (d_dech, d_ctx_out, enc, pinp,
+                                                              m_a, m_d))
+    g_a, g_d, c_a, c_d = (cv(res[k]) for k in ("g_a", "g_d", "c_a", "c_d"))
+    att_prev, cum_prev, d_align_out = c32(res["att_prev"]), c32(res["cum_prev"]), \
+        c32(d_align_out)
+    maskadd = torch.where(maskf > 0.5, 0.0, -1e9).to(F32).contiguous()
+    e = lambda *s, d=dt: torch.empty(*s, dtype=d, device=dev)  # noqa: E731
+    out = {"d_g_a": e(Ts, B, 4 * H1), "d_g_d": e(Ts, B, 4 * H2), "d_ctx": e(Ts, B, E),
+           "d_prenet": e(Ts, B, P), "d_e": e(Ts, B, T, d=F32)}
+    z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
+    dh1, dc1, dh2, dc2, dctx, datt, dcum = z(B, H1), z(B, H1), z(B, H2), z(B, H2), \
+        z(B, E), z(B, T), z(B, T)
+    d_q, d_ctx_tot = z(B, H1), z(B, E)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    at = lambda x, t: None if x is None else x[t].data_ptr()  # noqa: E731
+    ld_a, ld_d = w["a_wT"].shape[1], w["d_wT"].shape[1]
+    softmax = int(norm == "softmax")
+    for t in reversed(range(Ts)):
+        prev = lambda x: None if t == 0 else x[t - 1].data_ptr()  # noqa: E731
+        cuda_build.check(lib.taco2_train_cell_bwd(
+            bf16, g_d[t].data_ptr(), prev(c_d), c_d[t].data_ptr(), dh2.data_ptr(),
+            d_dech[t].data_ptr(), at(m_d, t), dc2.data_ptr(), out["d_g_d"][t].data_ptr(), B,
+            H2, stream), "taco2_train_cell_bwd")
+        cuda_build.check(lib.taco2_train_matT(
+            bf16, w["d_wT"].data_ptr(), ld_d, out["d_g_d"][t].data_ptr(), 4 * H2, H1, E, H2,
+            B, 0, d_q.data_ptr(), None, d_ctx_out[t].data_ptr(), dctx.data_ptr(),
+            d_ctx_tot.data_ptr(), out["d_ctx"][t].data_ptr(), dh2.data_ptr(), stream),
+            "taco2_train_matT")
+        cuda_build.check(lib.taco2_train_attn_bwd(
+            bf16, g_a[t].data_ptr(), c_a[t].data_ptr(), prev(c_a), at(m_a, t),
+            w["q_w"].data_ptr(), ld_q, H1, w["u"].data_ptr(), K, int(w["loc"]),
+            w["v_w"].data_ptr(), w["v_b"].data_ptr(), pinp.data_ptr(), maskadd.data_ptr(),
+            enc.data_ptr(), att_prev[t].data_ptr(), cum_prev[t].data_ptr(),
+            d_align_out[t].data_ptr(), d_ctx_tot.data_ptr(), d_q.data_ptr(),
+            dh1.data_ptr(), datt.data_ptr(), dcum.data_ptr(), dc1.data_ptr(),
+            out["d_e"][t].data_ptr(), out["d_g_a"][t].data_ptr(), B, T, A, E, softmax,
+            stream), "taco2_train_attn_bwd")
+        cuda_build.check(lib.taco2_train_matT(
+            bf16, w["a_wT"].data_ptr(), ld_a, out["d_g_a"][t].data_ptr(), 4 * H1, P, E, H1,
+            B, 1, None, out["d_prenet"][t].data_ptr(), None, dctx.data_ptr(), None, None,
+            dh1.data_ptr(), stream), "taco2_train_matT")
+        taco2_train_bwd_cuda.launches += 4
+    return out
+
+
+taco2_train_bwd_cuda.launches = 0
+
+
+def taco2_train_fwd(w: dict, prenet_t, enc, pinp, maskf, m_a=None, m_d=None, *,
+                    norm: str = "sigmoid") -> dict:
+    """Teacher-forced decoder forward over all steps. w:
+    `prepare_train_weights` output on the inputs' device, in the working
+    dtype; prenet_t [T_r, B, P]; enc [B, T_in, E]; pinp [B, T_in, A] = W_k m;
+    maskf [B, T_in] float (1 = valid); m_a [T_r, B, H1] / m_d [T_r, B, H2]
+    dropout multipliers or None. Returns the stacks dech [T_r, B, H2], ctx
+    [T_r, B, E], align [T_r, B, T_in] (float32), g_a [T_r, B, 4 H1], g_d
+    [T_r, B, 4 H2], c_a [T_r, B, H1], c_d [T_r, B, H2]. CPU tensors run the
+    plain version, CUDA tensors the kernel."""
+    fn = taco2_train_fwd_plain if prenet_t.device.type == "cpu" else taco2_train_fwd_cuda
+    return fn(w, prenet_t, enc, pinp, maskf, m_a, m_d, norm=norm)
+
+
+def taco2_train_bwd(w: dict, res: dict, d_dech, d_ctx_out, d_align_out, enc, pinp, maskf,
+                    m_a=None, m_d=None, *, norm: str = "sigmoid") -> dict:
+    """Reverse scan of the teacher-forced decoder. res: the forward's g_a,
+    g_d, c_a, c_d, their shifts c_a_prev / c_d_prev (zero at step 0), and
+    att_prev / cum_prev, the alignment and its running sum before each step
+    (float32). Cotangents: d_dech [T_r, B, H2], d_ctx_out [T_r, B, E] (both
+    working dtype), d_align_out [T_r, B, T_in] float32. Returns d_g_a
+    [T_r, B, 4 H1], d_g_d [T_r, B, 4 H2], d_ctx (the total context cotangent)
+    [T_r, B, E], d_prenet [T_r, B, P] in the working dtype and d_e
+    [T_r, B, T_in] float32, the raw energies' cotangent. CPU tensors run the
+    plain version, CUDA tensors the kernel."""
+    fn = taco2_train_bwd_plain if d_dech.device.type == "cpu" else taco2_train_bwd_cuda
+    return fn(w, res, d_dech, d_ctx_out, d_align_out, enc, pinp, maskf, m_a, m_d, norm=norm)

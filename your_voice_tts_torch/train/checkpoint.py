@@ -18,11 +18,18 @@ reverse:
   ``bias_ih`` and a zero ``bias_hh``);
 - BatchNorm ``scale``/``bias`` + state ``mean``/``var`` -> ``weight``/``bias``
   + ``running_mean``/``running_var``.
+
+`save_checkpoint` writes the same format from a port model (`params_to_jax`
+is the map above, forwards), so the JAX package's `restore_partial` loads
+it; the port's optimizer state goes into a section of its own,
+``port_optimizer::<name>::<parameter>``, which the JAX package skips.
 """
 
 from __future__ import annotations
 
+import datetime
 import json
+import os
 import re
 
 import numpy as np
@@ -152,3 +159,104 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
     params, state, meta = read_checkpoint(path)
     model.load_state_dict(params_from_jax(params, state), strict=True)
     return meta
+
+
+OPT_SECTION = "port_optimizer"
+
+
+def _keystr(parts) -> str:
+    return "".join(f"[{p}]" if isinstance(p, int) else f"['{p}']" for p in parts)
+
+
+def _path(name: str) -> list[str | int]:
+    return [int(p) if p.isdigit() else p for p in name.split(".")] if name else []
+
+
+def params_to_jax(model: torch.nn.Module) -> tuple[dict, dict]:
+    """The port's Tacotron2 -> (params, model_state) as flat
+    {keystr: numpy float32} in the JAX package's layouts (the inverse of
+    `params_from_jax`)."""
+    from ..nn.core import BatchNorm1d, Conv1d
+    from ..nn.rnn import LSTMCell
+
+    params: dict[str, np.ndarray] = {}
+    state: dict[str, np.ndarray] = {}
+    npy = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+    for name, mod in model.named_modules():
+        path = _path(name)
+        put = lambda leaf, arr, tree=params, p=path: tree.__setitem__(  # noqa: E731
+            _keystr(p + [leaf]), np.ascontiguousarray(arr))
+        if isinstance(mod, torch.nn.Embedding):
+            put("table", npy(mod.weight))
+        elif isinstance(mod, torch.nn.Linear):
+            put("w", npy(mod.weight).T)
+            if mod.bias is not None:
+                put("b", npy(mod.bias))
+        elif isinstance(mod, Conv1d):
+            put("w", npy(mod.weight).transpose(2, 1, 0))
+            if mod.bias is not None:
+                put("b", npy(mod.bias))
+        elif isinstance(mod, BatchNorm1d):
+            put("scale", npy(mod.weight))
+            put("bias", npy(mod.bias))
+            put("mean", npy(mod.running_mean), state)
+            put("var", npy(mod.running_var), state)
+        elif isinstance(mod, LSTMCell):
+            put("wx", npy(mod.weight_ih).T)
+            put("wh", npy(mod.weight_hh).T)
+            put("b", npy(mod.bias))
+        elif isinstance(mod, torch.nn.LSTM):
+            for jax_name, sfx in _ENCODER_LSTM.items():
+                p = path[:-1] + [jax_name]
+                g = lambda k, s=sfx: npy(getattr(mod, f"{k}_l0{s}"))  # noqa: E731
+                params[_keystr(p + ["wx"])] = g("weight_ih").T.copy()
+                params[_keystr(p + ["wh"])] = g("weight_hh").T.copy()
+                params[_keystr(p + ["b"])] = g("bias_ih") + g("bias_hh")
+    return params, state
+
+
+def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None, *, step: int,
+                    epoch: int, r: int, extra: dict | None = None) -> str:
+    """Write `model` (and the optimizer's state) as a JAX-package
+    checkpoint .npz."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    params, state = params_to_jax(model)
+    blobs = {f"params::{k}": v for k, v in params.items()}
+    blobs.update({f"model_state::{k}": v for k, v in state.items()})
+    if optimizer is not None:
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        opt = optimizer.state_dict()
+        for kind in ("mu", "nu"):
+            for n, t in zip(names, opt[kind]):
+                blobs[f"{OPT_SECTION}::{kind}::{n}"] = t.detach().float().cpu().numpy()
+        for k in ("count", "notfinite_count", "total_notfinite"):
+            blobs[f"{OPT_SECTION}::{k}"] = np.asarray(opt[k], np.int64)
+    meta = {"step": int(step), "epoch": int(epoch), "r": int(r),
+            "date": datetime.datetime.now().isoformat(), **(extra or {})}
+    blobs["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **blobs)
+    return path
+
+
+def read_optimizer_state(path: str, model: torch.nn.Module) -> dict | None:
+    """The port optimizer's state from a checkpoint, ordered as the model's
+    trained parameters; None when the file holds none."""
+    with np.load(path, allow_pickle=False) as z:
+        if f"{OPT_SECTION}::count" not in z.files:
+            return None
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        out = {kind: [torch.from_numpy(z[f"{OPT_SECTION}::{kind}::{n}"]) for n in names]
+               for kind in ("mu", "nu")}
+        for k in ("count", "notfinite_count", "total_notfinite"):
+            out[k] = int(z[f"{OPT_SECTION}::{k}"])
+    return out
+
+
+def save_best_model(current_loss: float, best_loss: float, out_path: str,
+                    **ckpt_kwargs) -> float:
+    """Overwrite best_model.npz when the eval loss improves; returns the
+    best loss so far."""
+    if current_loss < best_loss:
+        save_checkpoint(os.path.join(out_path, "best_model.npz"), **ckpt_kwargs)
+        return current_loss
+    return best_loss

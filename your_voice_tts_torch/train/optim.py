@@ -1,0 +1,115 @@
+"""The optimizer stack of the JAX package's train/optim.py, written out with
+optax's semantics:
+
+    apply_if_finite(chain(clip_by_global_norm(grad_clip), scale_by_radam(),
+                          add_decayed_weights(wd), scale_by_learning_rate(lr)))
+
+with the Noam learning-rate schedule. torch.optim.RAdam is not that update:
+it puts eps elsewhere and rectifies from another threshold, so the update
+is spelled out here and held to optax in the tests.
+
+- apply_if_finite: a step whose gradients hold a NaN or an inf changes
+  nothing (no parameter, moment or count moves) unless it is the
+  (max_consecutive_errors + 1)-th such step in a row;
+- clip_by_global_norm: g * clip / ||g|| unless ||g|| < clip;
+- scale_by_radam (b1 0.9, b2 0.999, eps 1e-8, threshold 5): bias-corrected
+  moments; the rectified step r * m_hat / (sqrt(v_hat) + eps) once
+  rho_t >= 5, else m_hat;
+- add_decayed_weights: + wd * p;
+- scale_by_learning_rate: * -lr(count), count = applied updates before this
+  one.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+F32 = np.float32
+
+
+def noam_schedule(lr: float, warmup_steps: int = 4000):
+    """Noam LR: lr * warmup^0.5 * min(s * warmup^-1.5, s^-0.5), s = step + 1,
+    in float32 as the JAX package computes it."""
+    def schedule(step: int) -> float:
+        s = F32(step) + F32(1.0)
+        return float(F32(lr) * F32(warmup_steps ** 0.5)
+                     * min(s * F32(warmup_steps ** -1.5), s ** F32(-0.5)))
+    return schedule
+
+
+class RAdamStack:
+    """The update above over a fixed list of parameters, in place."""
+
+    B1, B2, EPS, THRESHOLD = 0.9, 0.999, 1e-8, 5.0
+    MAX_ERRORS = 10_000        # apply_if_finite's max_consecutive_errors
+
+    def __init__(self, params, cfg):
+        self.params = list(params)
+        self.grad_clip, self.wd = cfg.grad_clip, cfg.wd
+        self.lr_fn = (noam_schedule(cfg.lr, cfg.warmup_steps) if cfg.noam_schedule
+                      else (lambda step: cfg.lr))
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = 0                 # applied updates
+        self.notfinite_count = 0       # consecutive non-finite steps
+        self.total_notfinite = 0
+
+    @torch.no_grad()
+    def step(self, grads) -> bool:
+        """Apply one update from `grads` (one per parameter). Returns
+        whether it was applied."""
+        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        self.notfinite_count = 0 if finite else self.notfinite_count + 1
+        if not finite:
+            self.total_notfinite += 1
+            if self.notfinite_count <= self.MAX_ERRORS:
+                return False
+        g = list(grads)
+        if self.grad_clip and self.grad_clip > 0:
+            norm = torch.sqrt(sum((x.float() ** 2).sum() for x in g))
+            g = [torch.where(norm < self.grad_clip, x, x / norm * self.grad_clip) for x in g]
+        # the step's scalars in float32, as optax computes them: rho_t in
+        # float32 sits up to ~1% off its float64 value at small counts
+        b1, b2 = self.B1, self.B2
+        n = self.count + 1
+        ro_inf = F32(2.0 / (1.0 - b2) - 1.0)
+        b2t = F32(b2) ** F32(n)
+        ro = ro_inf - F32(2 * n) * b2t / (F32(1.0) - b2t)
+        rect = None
+        if ro >= self.THRESHOLD:
+            rect = float(np.sqrt((ro - F32(4.0)) * (ro - F32(2.0)) * ro_inf
+                                 / ((ro_inf - F32(4.0)) * (ro_inf - F32(2.0)) * ro)))
+        bc1 = float(F32(1.0) - F32(b1) ** F32(n))
+        bc2 = float(F32(1.0) - b2t)
+        lr = self.lr_fn(self.count)
+        for p, x, m, v in zip(self.params, g, self.mu, self.nu):
+            m.copy_((1 - b1) * x + b1 * m)
+            v.copy_((1 - b2) * x ** 2 + b2 * v)
+            m_hat = m / bc1
+            u = m_hat
+            if rect is not None:
+                u = rect * m_hat / (torch.sqrt(v / bc2) + self.EPS)
+            if self.wd and self.wd > 0:
+                u = u + self.wd * p
+            p.add_(u * -lr)
+        self.count = n
+        return True
+
+    def state_dict(self) -> dict:
+        return {"mu": self.mu, "nu": self.nu, "count": self.count,
+                "notfinite_count": self.notfinite_count,
+                "total_notfinite": self.total_notfinite}
+
+    def load_state_dict(self, state: dict) -> None:
+        for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+            dst.copy_(torch.as_tensor(src))
+        self.count = int(state["count"])
+        self.notfinite_count = int(state["notfinite_count"])
+        self.total_notfinite = int(state["total_notfinite"])
+
+
+def build_optimizer(params, cfg) -> RAdamStack:
+    """The JAX package's `build_optimizer` chain over `params` for a
+    TrainingConfig."""
+    return RAdamStack(params, cfg)
