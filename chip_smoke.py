@@ -34,8 +34,23 @@ Phases, each fatal on failure:
    the plain versions: loss and every gradient leaf compared; (c) the timed
    train step at that shape (train step ms, mel frames/s, launches).
 
-Then the kernel line (JSON), the card's name and power limit, and the
-contract line {"ok": true, "device": {...}}. Details also go to
+8. wavernn: the WaveRNN sample-loop kernel at full width (WaveRNNConfig
+   defaults: n_mels 80, R = F = 512, 10-bit mu-law; seeded random weights)
+   against its plain version on the folds of a 500-frame mel (22 rows of
+   6,600 steps): mu-law greedy and sampled (classes identical over the
+   first 64 steps of every row, first divergent step and share of
+   identical row-steps printed, mean |x| and std within 5%), MoL and
+   Gaussian over 256 steps (1e-4); kernel ms at that shape and at the
+   bench's 1400-frame mel, plain ms, bound ms, and the whole `generate` on
+   the 1400-frame mel as seconds of audio per wall second;
+9. vocoder main path: Synthesizer(full width, vocoder_config=WaveRNN) answers
+   the batch of 8 and 5 batch-1 requests with the launch counters set to 0
+   just before and read just after; mel frames/s, real-time factor, p50
+   batch-1 latency; the decode and WaveRNN kernels launched, Griffin-Lim
+   did not.
+
+Each phase prints its seconds. Then the kernel line (JSON), the card's
+name and power limit, and the contract line {"ok": true, "device": {...}}. Details also go to
 chip_smoke.json in the output directory (--out, default build/chip_smoke).
 Exits nonzero, printing no result, without CUDA or outside the repository.
 
@@ -43,8 +58,9 @@ Exits nonzero, printing no result, without CUDA or outside the repository.
 
 adds, after the main path, one batch-of-8 call under torch.profiler: device
 time by kernel, device busy share of the wall time, and the trace in
-profile_trace.json in the output directory; and the same for one train
-step at the bench shape (train_profile_trace.json).
+profile_trace.json in the output directory; the same for one train step
+at the bench shape (train_profile_trace.json) and for one batch-1 request
+on the vocoder path (vocoder_profile_trace.json).
 """
 
 from __future__ import annotations
@@ -412,6 +428,193 @@ def phase_main_path(report):
                           rtf_x_realtime=audio_s / t_batch, p50_batch1_ms=p50 * 1e3,
                           batch1_ms=[x * 1e3 for x in lat], launches=launches)
     return launches
+
+
+# ------------------------------------------------------------------ vocoder
+
+SERVE_FRAMES, BENCH_FRAMES = 500, 1400      # a main-path row; bench.py's WaveRNN mel
+
+
+def wavernn_inputs(model, frames: int, seed: int):
+    """Folds of a seeded N(0, 1) mel of `frames` frames (plus the `pad`
+    context frames each side) through the model's conditioning network:
+    (cond, aux) [n_folds, target + 2 overlap, *] on the card."""
+    import torch
+
+    from your_voice_tts_torch.vocoder.config import WaveRNNConfig
+    from your_voice_tts_torch.vocoder.models.wavernn import fold_with_overlap
+
+    w = WaveRNNConfig()
+    g = torch.Generator().manual_seed(seed)
+    mel = torch.randn(frames + 2 * model.pad, model.n_mels, generator=g).cuda()
+    with torch.no_grad():
+        cond, aux = model.upsample(mel[None])
+    return (fold_with_overlap(cond[0], w.target, w.overlap).contiguous(),
+            fold_with_overlap(aux[0], w.target, w.overlap).contiguous())
+
+
+def wavernn_bound(w, B: int, L: int) -> tuple[float, str]:
+    """Float32 multiply-adds of every row-step (input layer, both GRUs'
+    input and hidden products, fc1-3) at 67 TFLOP/s; bytes: the weights,
+    the conditioning stream and the samples, each once."""
+    macs = sum(t.numel() for t in w.values() if t.dim() == 2) + w["i_w0"].numel()
+    wbytes = sum(t.numel() * 4 for t in w.values())
+    C = w["i_wc"].shape[1] + 3 * (w["g2_wx"].shape[1] - w["g2_wh"].shape[1])
+    return bound(wbytes + B * L * (C + 1) * 4, 2 * macs * B * L / F32_FLOPS)
+
+
+def phase_wavernn(report):
+    import torch
+
+    from your_voice_tts_torch.ops.wavernn_gen import (generation_weights, launch_shape,
+                                                      wavernn_generate_cuda,
+                                                      wavernn_generate_plain)
+    from your_voice_tts_torch.vocoder.config import WaveRNNConfig
+    from your_voice_tts_torch.vocoder.models.wavernn import WaveRNN, encode_mulaw
+
+    c = WaveRNNConfig()
+    model = WaveRNN(device="cuda", seed=3)
+    w = generation_weights(model)
+    cond, aux = wavernn_inputs(model, SERVE_FRAMES, seed=4)
+    B, L = cond.shape[:2]
+    shape = launch_shape(B, L, model.n_mels, model.aux_dims, model.rnn_dims,
+                         w["fc1_w"].shape[0], model.n_classes)
+    print(f"[wavernn] {B} folds x {L} steps; launch {shape}")
+    out, plain_ms = {}, None
+    for greedy in (True, False):
+        got = wavernn_generate_cuda(w, cond, aux, 7, bits=c.bits, greedy=greedy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = wavernn_generate_plain(w, cond, aux, 7, bits=c.bits, greedy=greedy)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same = encode_mulaw(got, c.bits) == encode_mulaw(ref, c.bits)
+        first = [int((~r).nonzero()[0]) if not bool(r.all()) else L for r in same]
+        stats = [(float(x.abs().mean()), float(x.std())) for x in (got, ref)]
+        gap = max(abs(a - b) / b for a, b in zip(*stats))
+        ok = (min(first) >= 64 and gap <= 0.05 and bool(torch.isfinite(got).all())
+              and float(got.abs().max()) <= 1.0)
+        name = "greedy" if greedy else "sampled"
+        print(f"[wavernn] mu-law {name}: first divergent step per row {first} (tol: none "
+              f"before 64); identical row-steps {float(same.float().mean()):.5f}; mean |x| / "
+              f"std kernel {stats[0][0]:.4f} / {stats[0][1]:.4f}, plain {stats[1][0]:.4f} / "
+              f"{stats[1][1]:.4f} (tol 5%); max abs err {float((got - ref).abs().max()):.3e}")
+        check(ok, f"WaveRNN kernel disagrees with plain (mu-law {name})")
+        out[name] = dict(first_divergent=first, identical=float(same.float().mean()),
+                         stats=stats, max_abs_err=float((got - ref).abs().max()))
+    # tolerance 1e-4: the same draws on both sides, float32 sums in another
+    # order, 256 steps of continuous feedback (measured ~2e-6)
+    for mode in ("mol", "gauss"):
+        m = WaveRNN(mode=mode, device="cuda", seed=5)
+        wm = generation_weights(m)
+        cm, am = wavernn_inputs(m, SERVE_FRAMES, seed=6)
+        cm, am = cm[:, :256].contiguous(), am[:, :256].contiguous()
+        err = float((wavernn_generate_cuda(wm, cm, am, 7, bits=c.bits, mode=mode)
+                     - wavernn_generate_plain(wm, cm, am, 7, bits=c.bits, mode=mode)).abs().max())
+        print(f"[wavernn] {mode} sampled, {cm.shape[0]} rows x 256 steps: max abs err "
+              f"{err:.3e} (tol 1e-4)")
+        check(err <= 1e-4, f"WaveRNN kernel disagrees with plain ({mode})")
+        out[mode] = err
+    ms = cuda_ms(lambda: wavernn_generate_cuda(w, cond, aux, 7, bits=c.bits), 3)
+    bound_ms, bound_by = wavernn_bound(w, B, L)
+    cb, ab = wavernn_inputs(model, BENCH_FRAMES, seed=8)
+    ms_bench = cuda_ms(lambda: wavernn_generate_cuda(w, cb, ab, 7, bits=c.bits), 2)
+    bound_bench, _ = wavernn_bound(w, cb.shape[0], L)
+    mel = torch.randn(BENCH_FRAMES, model.n_mels, generator=torch.Generator().manual_seed(9))
+    model.generate(mel.cuda(), 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav = model.generate(mel.cuda(), 1)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    rtf = len(wav) / 22050 / gen_s
+    print(f"[wavernn] B={B} L={L}: kernel_ms {ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms "
+          f"{bound_ms:.2f} ({bound_by})  library_ms none (no single PyTorch call feeds a "
+          f"sample back)")
+    print(f"[wavernn] bench mel ({BENCH_FRAMES} frames, {cb.shape[0]} folds): kernel_ms "
+          f"{ms_bench:.2f}  bound_ms {bound_bench:.2f}; generate {gen_s * 1e3:.1f} ms for "
+          f"{len(wav)} samples, wavernn_fold_rtf {rtf:.1f}x realtime at 22050 Hz")
+    report["wavernn"] = dict(launch=shape, comparisons=out, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, bench_folds=cb.shape[0],
+                             bench_ms=ms_bench, bench_bound_ms=bound_bench,
+                             generate_ms=gen_s * 1e3, wavernn_fold_rtf=rtf)
+    return {"name": "wavernn_generate_cuda", "route": "cuda",
+            "source": "your_voice_tts_torch/csrc/wavernn_gen.cu",
+            "replaces": "your_voice_tts_tpu/ops/pallas/wavernn_gen.py:229",
+            "max_abs_err": max(out["greedy"]["max_abs_err"], out["mol"], out["gauss"]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def phase_vocoder_path(report):
+    import torch
+
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.ops.griffin_lim import griffin_lim_wave_cuda
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
+    from your_voice_tts_torch.ops.wavernn_gen import wavernn_generate_cuda
+    from your_voice_tts_torch.vocoder.config import VocoderConfig
+
+    cfg = full_width_config()
+    synth = Synthesizer(cfg, vocoder_config=VocoderConfig(model="wavernn", audio=cfg.audio),
+                        device="cuda")
+    no_chance_stops(synth.model)
+    synth.tts_many(SENTENCES[:1])                  # one-time set-up, not measured
+    torch.cuda.synchronize()
+
+    counters = (tacotron2_decode_cuda, griffin_lim_wave_cuda, wavernn_generate_cuda)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    batch = synth.tts_many(SENTENCES)
+    t_batch = time.perf_counter() - t0
+    lat = []
+    for s in SENTENCES[:5]:
+        t0 = time.perf_counter()
+        one = synth.tts_many([s])
+        lat.append(time.perf_counter() - t0)
+    launches = {c.__name__: c.launches for c in counters}
+
+    sr, hop = synth.ap.sample_rate, synth.ap.hop_length
+    frames = SERVE_FRAMES * len(SENTENCES)        # every row decodes all 250 steps
+    audio_s = sum(len(w) for w in batch) / sr
+    check(all(w.ndim == 1 and len(w) > 0 and bool(torch.isfinite(torch.from_numpy(w)).all())
+              for w in batch + one), "vocoder path waveforms")
+    check(all(len(w) <= SERVE_FRAMES * hop for w in batch), "vocoder path waveform lengths")
+    p50 = statistics.median(lat)
+    print(f"[vocoder] batch of 8 through WaveRNN: {t_batch * 1e3:.1f} ms, "
+          f"{frames / t_batch:.0f} mel frames/s, {audio_s:.2f} s of audio, real-time factor "
+          f"{audio_s / t_batch:.1f}x realtime")
+    print(f"[vocoder] batch-1 latency p50 {p50 * 1e3:.1f} ms (all: "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms)")
+    print(f"[vocoder] launches on the vocoder path: {launches}")
+    check(launches["tacotron2_decode_cuda"] > 0 and launches["wavernn_generate_cuda"] > 0
+          and launches["griffin_lim_wave_cuda"] == 0, "vocoder path kernels")
+    report["vocoder"] = dict(batch_ms=t_batch * 1e3, mel_frames_per_s=frames / t_batch,
+                             rtf_x_realtime=audio_s / t_batch, p50_batch1_ms=p50 * 1e3,
+                             batch1_ms=[x * 1e3 for x in lat], launches=launches)
+    return launches, synth
+
+
+def phase_vocoder_profile(report, synth, out_dir: str):
+    """One batch-1 request on the vocoder path under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        synth.tts_many(SENTENCES[:1])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(os.path.join(out_dir, "vocoder_profile_trace.json"))
+    rows = device_rows(prof)
+    busy_ms = sum(dev(e) for e in rows)
+    print(f"[vocoder-profile] batch-1 request: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f})")
+    for e in rows[:12]:
+        print(f"[vocoder-profile]   {dev(e):8.2f} ms  {e.count:6d} calls  {e.key[:90]}")
+    report["vocoder_profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                                     kernels={e.key: [dev(e), e.count] for e in rows[:40]})
 
 
 def dev(e) -> float:
@@ -885,22 +1088,38 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import your_voice_tts_torch  # noqa: F401  (fails outside the repository)
 
-    report: dict = {"device": torch.cuda.get_device_name(0)}
-    phase_build(report)
-    kernels = [phase_decode(report), phase_griffin_lim(report)]
-    phase_small_input(report)
-    launches = phase_main_path(report)
+    report: dict = {"device": torch.cuda.get_device_name(0), "phase_s": {}}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        result = fn(*a)
+        report["phase_s"][name] = time.perf_counter() - t0
+        print(f"[{name}] phase {report['phase_s'][name]:.1f} s")
+        return result
+
+    timed("build", phase_build, report)
+    kernels = [timed("decode", phase_decode, report),
+               timed("griffin-lim", phase_griffin_lim, report)]
+    timed("small", phase_small_input, report)
+    launches = timed("main", phase_main_path, report)
     os.makedirs(args.out, exist_ok=True)
     if args.profile:
-        phase_profile(report, args.out)
+        timed("profile", phase_profile, report, args.out)
     state: dict = {}
-    kernels += [phase_train_fwd(report, state), phase_train_bwd(report, state)]
+    kernels += [timed("train-fwd", phase_train_fwd, report, state),
+                timed("train-bwd", phase_train_bwd, report, state)]
     state.clear()
     with tempfile.TemporaryDirectory() as tmp:
-        trainer, train_launches = phase_train_main(report, tmp)
+        trainer, train_launches = timed("train", phase_train_main, report, tmp)
         if args.profile:
-            phase_train_profile(report, trainer, args.out)
+            timed("train-profile", phase_train_profile, report, trainer, args.out)
+    del trainer
     launches.update(train_launches)
+    kernels.append(timed("wavernn", phase_wavernn, report))
+    voc_launches, synth = timed("vocoder", phase_vocoder_path, report)
+    launches["wavernn_generate_cuda"] = voc_launches["wavernn_generate_cuda"]
+    if args.profile:
+        timed("vocoder-profile", phase_vocoder_profile, report, synth, args.out)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -166,3 +166,56 @@ def test_train_bwd_kernel_matches_plain(cuda, dtype, norm, location, dropout, wi
     for k in ref:
         assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
         assert rel_l2(got[k], ref[k]) <= tol, (k, rel_l2(got[k], ref[k]))
+
+
+def wavernn_case(mode, bits, cuda, n_mels=20, B=3, L=96):
+    """A small WaveRNN (R = F = 32, aux 4) with seeded random weights and
+    inputs on the card."""
+    from your_voice_tts_torch.ops.wavernn_gen import generation_weights
+    from your_voice_tts_torch.vocoder.models.wavernn import WaveRNN
+
+    model = WaveRNN(n_mels=n_mels, bits=bits, rnn_dims=32, fc_dims=32, compute_dims=16,
+                    res_out_dims=16, num_res_blocks=2, mode=mode, num_mixtures=4,
+                    device=cuda, seed=1)
+    g = torch.Generator().manual_seed(2)
+    return (generation_weights(model), torch.randn(B, L, n_mels, generator=g).to(cuda),
+            torch.randn(B, L, 16, generator=g).to(cuda))
+
+
+@pytest.mark.parametrize("mode,bits,greedy,n_mels", [
+    ("mulaw", 8, True, 20), ("mulaw", 6, False, 20), ("mol", 8, False, 20),
+    ("gauss", 8, False, 20), ("mulaw", 8, False, 18)])
+def test_wavernn_kernel_matches_plain(cuda, mode, bits, greedy, n_mels):
+    """Same hash-PRNG draws on both sides: mu-law classes identical over
+    all 96 steps, samples within 1e-5 (float32 sums in another order).
+    n_mels 18 makes the stream width 34, not a multiple of 4: the kernel's
+    element-by-element staging."""
+    from your_voice_tts_torch.ops.wavernn_gen import (wavernn_generate, wavernn_generate_cuda,
+                                                      wavernn_generate_plain)
+    from your_voice_tts_torch.vocoder.models.wavernn import encode_mulaw
+
+    w, cond, aux = wavernn_case(mode, bits, cuda, n_mels)
+    kw = dict(bits=bits, mode=mode, num_mixtures=4, greedy=greedy)
+    got = wavernn_generate_cuda(w, cond, aux, 7, **kw)
+    ref = wavernn_generate_plain(w, cond, aux, 7, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (3, 96) and bool(torch.isfinite(got).all())
+    if mode == "mulaw":
+        assert torch.equal(encode_mulaw(got, bits), encode_mulaw(ref, bits))
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert torch.equal(wavernn_generate(w, cond, aux, 7, **kw), got)
+
+
+def test_wavernn_kernel_refuses_what_it_does_not_take(cuda):
+    from your_voice_tts_torch.ops.wavernn_gen import wavernn_generate_cuda
+
+    w, cond, aux = wavernn_case("mulaw", 8, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        wavernn_generate_cuda(w, cond.double(), aux, 0, bits=8)
+    with pytest.raises(ValueError, match="must be"):
+        wavernn_generate_cuda(w, cond, aux[:, :, :15], 0, bits=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        wavernn_generate_cuda(w, cond.transpose(0, 1).contiguous().transpose(0, 1), aux, 0,
+                              bits=8)
+    with pytest.raises(ValueError, match="needs"):
+        wavernn_generate_cuda(w, cond, aux, 0, bits=6)

@@ -2,6 +2,7 @@
 package, and its entry points never drop to the CPU by themselves."""
 
 import ast
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -80,6 +81,30 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert not os.path.exists(os.path.join(ROOT, "build", "never"))
 
 
+def test_vocoder_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    from your_voice_tts_torch.bin import synthesize
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.vocoder.config import VocoderConfig
+    from your_voice_tts_torch.vocoder.synthesizer import VocoderSynthesizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    voc = VocoderConfig(model="wavernn")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VocoderSynthesizer(voc)
+    cfg = load_config(os.path.join(ROOT, "configs/smoke_synthetic.json"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Synthesizer(cfg, vocoder_config=dataclasses.replace(voc, audio=cfg.audio))
+    vjson = tmp_path / "voc.json"
+    vjson.write_text('{"model": "wavernn", "audio": {"num_mels": 20}}')
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        synthesize.main(["Hi.", os.path.join(ROOT, "configs/smoke_synthetic.json"),
+                         os.path.join(ROOT, "assets/bench_trained_smoke.npz"),
+                         str(tmp_path / "out"), "--vocoder_config", str(vjson)])
+    assert not (tmp_path / "out").exists()
+    assert VocoderSynthesizer(voc, device="cpu").model.I.weight.device.type == "cpu"
+
+
 def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
@@ -106,3 +131,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         taco2_train_bwd_cuda({}, {}, torch.ones(2, 1, 8), torch.ones(2, 1, 8),
                              torch.ones(2, 1, 4), torch.ones(1, 4, 8), torch.ones(1, 4, 8),
                              torch.ones(1, 4))
+    from your_voice_tts_torch.ops.wavernn_gen import generation_weights, wavernn_generate_cuda
+    from your_voice_tts_torch.vocoder.models.wavernn import WaveRNN
+
+    w = generation_weights(WaveRNN(n_mels=20, bits=8, rnn_dims=32, fc_dims=32, compute_dims=16,
+                                   res_out_dims=16, num_res_blocks=1, device="cpu"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wavernn_generate_cuda(w, torch.zeros(2, 8, 20), torch.zeros(2, 8, 16), 0, bits=8)

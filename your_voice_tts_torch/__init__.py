@@ -1,10 +1,11 @@
 """your_voice_tts_torch — the PyTorch + CUDA port of your_voice_tts_tpu.
 
 The JAX package stays the reference; this package mirrors its layout
-(config, text, nn, models, ops, audio, infer, bin) and never imports it or
-JAX. The two hot loops of batched serving, the Tacotron2 decode and the
-Griffin-Lim loop, run as hand-written CUDA kernels (csrc/) on the GPU and as
-their plain PyTorch versions on the CPU.
+(config, text, nn, models, ops, audio, infer, vocoder, train, bin) and
+never imports it or JAX. The hot loops (the Tacotron2 decode, Griffin-Lim,
+the training decoder's forward and backward, the WaveRNN sample loop) run
+as hand-written CUDA kernels (csrc/) on the GPU and as their plain PyTorch
+versions on the CPU.
 
 Numerics: importing the package turns TF32 off for float32 matmuls and
 cuDNN convolutions, so the encoder and postnet run in full float32 like the

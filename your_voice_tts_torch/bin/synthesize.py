@@ -1,10 +1,12 @@
 """Synthesis CLI (the JAX package's bin/synthesize.py).
 
 python -m your_voice_tts_torch.bin.synthesize "Text to speak." config.json \
-    checkpoint.npz out_dir/ [--device cpu]
+    checkpoint.npz out_dir/ [--vocoder_config voc.json [--vocoder_checkpoint
+    wavernn.npz]] [--device cpu]
 
-The checkpoint is a JAX-package `.npz`; the port runs on CUDA unless
---device names another device.
+The checkpoints are JAX-package `.npz` files; without a vocoder config the
+waveform comes from Griffin-Lim, with one from WaveRNN. The port runs on
+CUDA unless --device names another device.
 """
 
 from __future__ import annotations
@@ -19,12 +21,16 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("config_path")
     p.add_argument("checkpoint_path")
     p.add_argument("out_path")
+    p.add_argument("--vocoder_config", default=None)
+    p.add_argument("--vocoder_checkpoint", default=None)
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = p.parse_args(argv)
 
     from ..infer.synthesizer import Synthesizer
 
-    synth = Synthesizer(args.config_path, args.checkpoint_path, device=args.device)
+    synth = Synthesizer(args.config_path, args.checkpoint_path,
+                        vocoder_config=args.vocoder_config,
+                        vocoder_checkpoint=args.vocoder_checkpoint, device=args.device)
     if os.path.isfile(args.text):
         with open(args.text, encoding="utf-8") as f:
             texts = [line.strip() for line in f if line.strip()]

@@ -1,6 +1,7 @@
-"""Synthesis (the JAX package's infer/synthesis.py), Griffin-Lim route:
-texts -> symbol ids -> one padded batch -> Tacotron2.inference -> each row
-trimmed to its stop -> one batched Griffin-Lim pass -> waveforms."""
+"""Synthesis (the JAX package's infer/synthesis.py): texts -> symbol ids ->
+one padded batch -> Tacotron2.inference -> each row trimmed to its stop ->
+waveforms, through one batched Griffin-Lim pass or, given a neural
+vocoder, through the vocoder one row at a time."""
 
 from __future__ import annotations
 
@@ -36,10 +37,12 @@ def _pad_texts(seqs: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
 def synthesis_batch(model, texts: list[str], cfg: Config, ap: AudioProcessor,
                     trim_silence: bool = False,
                     max_decoder_steps: int | None = None, seed: int = 0,
-                    decode_dtype=torch.bfloat16) -> list[dict]:
+                    decode_dtype=torch.bfloat16, vocoder=None) -> list[dict]:
     """Batched synthesis; one result dict per text (wav, postnet mel
     [n_mels, T], alignment, stop tokens). `seed` seeds the decode's prenet
-    dropout."""
+    dropout. `vocoder` (mel [n_mels, T] -> waveform, e.g.
+    VocoderSynthesizer.mel_to_wav) replaces Griffin-Lim; it runs once per
+    row, in order."""
     text_arr, lengths = _pad_texts([text_to_seq(t, cfg) for t in texts])
     out = model.inference(text_arr, lengths, max_decoder_steps=max_decoder_steps,
                           seed=seed, decode_dtype=decode_dtype)
@@ -53,7 +56,9 @@ def synthesis_batch(model, texts: list[str], cfg: Config, ap: AudioProcessor,
         results.append({"text": text, "mel_postnet_spec": spec,
                         "alignment": aligns[i], "stop_tokens": stops[i]})
         specs.append(spec)
-    for res, wav in zip(results, ap.inv_melspectrogram_batch(specs)):
+    wavs = ([np.asarray(vocoder(spec)) for spec in specs] if vocoder is not None
+            else ap.inv_melspectrogram_batch(specs))
+    for res, wav in zip(results, wavs):
         res["wav"] = wav[: ap.find_endpoint(wav)] if trim_silence else wav
     return results
 

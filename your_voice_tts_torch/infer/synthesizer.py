@@ -1,7 +1,8 @@
 """Synthesizer, the serving facade (the JAX package's infer/synthesizer.py):
-loads a Tacotron2 checkpoint, splits input into sentences, synthesizes every
-sentence of every request in one batch, and joins each request's sentences
-with 0.25 s of silence. Runs on CUDA unless given another device."""
+loads a Tacotron2 checkpoint (and optionally a WaveRNN vocoder), splits
+input into sentences, synthesizes every sentence of every request in one
+batch, and joins each request's sentences with 0.25 s of silence. Runs on
+CUDA unless given another device."""
 
 from __future__ import annotations
 
@@ -30,10 +31,14 @@ def split_into_sentences(text: str) -> list[str]:
 
 class Synthesizer:
     def __init__(self, tts_config: str | Config, tts_checkpoint: str | None = None,
+                 vocoder_config=None, vocoder_checkpoint: str | None = None,
                  rng_seed: int = 0, device=None, decode_dtype=torch.bfloat16):
         """tts_checkpoint: a JAX-package `.npz` checkpoint; without one the
-        model keeps seeded random weights. rng_seed seeds the Griffin-Lim
-        phases; decode_dtype is the decode's working type."""
+        model keeps seeded random weights. vocoder_config (a path or a
+        VocoderConfig) adds a WaveRNN vocoder in place of Griffin-Lim, with
+        the weights of vocoder_checkpoint. rng_seed seeds the Griffin-Lim
+        phases and the vocoder's draws; decode_dtype is the decode's working
+        type."""
         self.cfg = load_config(tts_config) if isinstance(tts_config, str) else tts_config
         self.device = resolve_device(device)
         self.decode_dtype = decode_dtype
@@ -43,6 +48,15 @@ class Synthesizer:
             meta = load_checkpoint(self.model, tts_checkpoint)
             if "r" in meta:
                 self.model.set_r(meta["r"])
+        self.vocoder = None
+        if vocoder_config is not None:
+            self.load_vocoder(vocoder_config, vocoder_checkpoint, rng_seed)
+
+    def load_vocoder(self, vocoder_config, checkpoint: str | None, rng_seed: int = 0) -> None:
+        from ..vocoder.synthesizer import VocoderSynthesizer
+
+        self.vocoder = VocoderSynthesizer(vocoder_config, checkpoint, tts_audio_cfg=self.cfg.audio,
+                                          rng_seed=rng_seed, device=self.device)
 
     def tts(self, text: str) -> np.ndarray:
         """Text -> waveform (float32)."""
@@ -58,8 +72,9 @@ class Synthesizer:
             sentences = split_into_sentences(text) or [text]
             sent_of_req.append(list(range(len(flat), len(flat) + len(sentences))))
             flat += sentences
-        results = synthesis_batch(self.model, flat, self.cfg, self.ap,
-                                  trim_silence=True, decode_dtype=self.decode_dtype)
+        results = synthesis_batch(self.model, flat, self.cfg, self.ap, trim_silence=True,
+                                  decode_dtype=self.decode_dtype,
+                                  vocoder=self.vocoder.mel_to_wav if self.vocoder else None)
         silence = np.zeros(int(0.25 * self.ap.sample_rate), np.float32)
         out = []
         for idxs in sent_of_req:

@@ -21,16 +21,22 @@ GAINS = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0}
 
 
 class Conv1d(nn.Module):
-    """Channel-last 1D convolution [B, T, C_in] -> [B, T, C_out] with
-    'same' padding (stride 1), the JAX package's Conv1d(padding="same")."""
+    """Channel-last 1D convolution [B, T, C_in] -> [B, T', C_out], stride 1,
+    zero padding as the JAX package's Conv1d: "same" keeps T, "valid" pads
+    nothing, an int pads both sides by it."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
-                 use_bias: bool = True):
+                 use_bias: bool = True, padding: str | int = "same"):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(out_dim, in_dim, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
-        total = kernel_size - 1
-        self.pad = (total // 2, total - total // 2)
+        if padding == "same":
+            total = kernel_size - 1
+            self.pad = (total // 2, total - total // 2)
+        elif padding == "valid":
+            self.pad = (0, 0)
+        else:
+            self.pad = (int(padding), int(padding))
 
     def forward(self, x):
         x = F.pad(x.transpose(1, 2), self.pad)

@@ -1,6 +1,8 @@
 """Recurrent layers (the JAX package's nn/rnn.py).
 
 `LSTMCell` keeps the reference's gate order (i, f, g, o) and ONE summed bias.
+`GRUCell` is torch.nn.GRUCell, the reference's GRU; `gru_gates` is its
+update from the two precomputed products.
 `bilstm` runs the encoder's bidirectional LSTM over padded sequences: packing
 the sequences makes the backward direction start at each row's own last
 valid step, which is what the JAX package gets by right-aligning each row's
@@ -28,6 +30,22 @@ class LSTMCell(nn.Module):
         i, f, g, o = gates.chunk(4, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         return torch.sigmoid(o) * torch.tanh(c), c
+
+
+# The JAX package's GRUCell (gates r, z, n; separate input and hidden
+# biases; n = tanh(W_in x + b_in + r * (W_hn h + b_hn))) is torch's own.
+GRUCell = nn.GRUCell
+
+
+def gru_gates(gx, gh, h):
+    """GRU update from the input part gx = W_i x + b_i and the hidden part
+    gh = W_h h + b_h ([B, 3H] each, gates r, z, n)."""
+    rx, zx, nx = gx.chunk(3, dim=-1)
+    rh, zh, nh = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(rx + rh)
+    z = torch.sigmoid(zx + zh)
+    n = torch.tanh(nx + r * nh)
+    return (1.0 - z) * n + z * h
 
 
 def bilstm(lstm: nn.LSTM, x, lengths):

@@ -7,15 +7,17 @@ keypath a ``jax.tree_util.keystr`` string such as
 plus a ``__meta__`` JSON blob (``r``, ``step``, ...).
 
 `read_checkpoint` rebuilds the nested dict/list trees from those key paths;
-`params_from_jax` turns the trees into the port's Tacotron2 ``state_dict``,
-running the layout map of the JAX package's utils/torch_import.py in
-reverse:
+`params_from_jax` turns the trees into the ``state_dict`` of the port's
+Tacotron2 or WaveRNN (whose checkpoints hold no model state), running the
+layout map of the JAX package's utils/torch_import.py in reverse:
 
 - Dense ``w`` [in, out] -> ``weight`` [out, in];
 - Conv1d ``w`` [k, in, out] -> ``weight`` [out, in, k];
 - LSTM ``wx`` [in, 4H] / ``wh`` [H, 4H] / one summed ``b`` -> ``weight_ih``,
   ``weight_hh``, ``bias`` (the encoder's nn.LSTM gets the summed bias as
   ``bias_ih`` and a zero ``bias_hh``);
+- GRU ``wx`` [in, 3H] / ``wh`` [H, 3H] / ``bx`` / ``bh`` -> ``weight_ih``,
+  ``weight_hh``, ``bias_ih``, ``bias_hh`` (WaveRNN's torch.nn.GRUCell);
 - BatchNorm ``scale``/``bias`` + state ``mean``/``var`` -> ``weight``/``bias``
   + ``running_mean``/``running_var``.
 
@@ -104,8 +106,8 @@ _ENCODER_LSTM = {"lstm_fwd": "", "lstm_bwd": "_reverse"}
 
 
 def params_from_jax(params: dict, state: dict) -> dict[str, torch.Tensor]:
-    """JAX-layout Tacotron2 params/state (numpy trees) -> the port's
-    Tacotron2 ``state_dict`` (float32 CPU tensors)."""
+    """JAX-layout params/state (numpy trees) of a Tacotron2 or a WaveRNN ->
+    the port model's ``state_dict`` (float32 CPU tensors)."""
     sd: dict[str, torch.Tensor] = {}
 
     def put(name, arr):
@@ -140,6 +142,8 @@ def params_from_jax(params: dict, state: dict) -> dict[str, torch.Tensor]:
             put(f"{base}.weight_ih", arr.T)
         elif leaf == "wh":
             put(f"{base}.weight_hh", arr.T)
+        elif leaf in ("bx", "bh"):
+            put(f"{base}.bias_{'ih' if leaf == 'bx' else 'hh'}", arr)
         else:
             raise KeyError(f"unexpected parameter leaf {path}")
     for path, arr in _walk(state):
