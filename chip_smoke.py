@@ -12,12 +12,33 @@ Phases, each fatal on failure:
      seeded random weights, B=8, text ~150 symbols, 250 steps, dropout on;
    - Griffin-Lim: B=8, T=500, n_fft 1024 / hop 256, 24 iterations,
      momentum 0.95, injected phase;
+   - taco1-decode: the Tacotron(1) decode, the same config with the model
+     group replaced (Tacotron, width 256, memory 5, r = 7 of r_init 7),
+     B=8 (the sentences below), 250 steps, dropout on;
+   - taco1-decode again at r = 5, the memory size (r > memory and
+     r <= memory roll the queue differently);
+   - gl-iteration: plain Griffin-Lim iterations past the 1,024-frame cap at
+     the Tacotron(1) path's launch shapes: the 1,760-frame bucket of its
+     1,750 frames, n_fft 1024 / hop 256, 24 iterations, B=8 and B=1;
+   - gl-full, beyond the path's shape: the whole FGLA loop returning the
+     spectrum, B=8, T=500, n_fft 2048 / hop 275 / window 1102 (a 12.5 ms
+     hop), 24 iterations;
 3. small input: the trained smoke checkpoint through Tacotron2.inference and
-   Griffin-Lim on the kernels against the plain versions on the CPU;
+   Griffin-Lim on the kernels against the plain versions on the CPU; its
+   hop 64 takes the gl-full kernel, whose launches this path counts; then
+   the gl-full kernel against its plain version on the same card
+   magnitudes at this path's launch shape (the 3 rows padded to 4, 96
+   frames, n_fft 256 / hop 64, the config's 15 iterations), timed;
 4. main path: Synthesizer.tts_many at full width (max_decoder_steps 250, so
    500 frames a row) answers one batch of 8 sentences and 5 batch-1
    requests, with every launch counter set to 0 just before and read just
-   after; prints mel frames/s, real-time factor and p50 batch-1 latency.
+   after; prints mel frames/s, real-time factor and p50 batch-1 latency;
+   Griffin-Lim stays on the wave route.
+4b. taco1-main: Synthesizer on the Tacotron(1) config (250 steps x r=7 =
+   1,750 frames a row) answers the batch of 8 and 5 batch-1 requests, the
+   counters set to 0 just before and read just after: the Tacotron(1)
+   decode and the per-iteration Griffin-Lim kernels launched, the
+   Tacotron2 decode did not; mel frames/s, real-time factor, p50 latency.
 
 5. train-fwd: the training decoder's forward kernel at config #3's shape
    (configs/ljspeech_tacotron2.json at full width, r=2: B=32, T_in=128,
@@ -46,8 +67,8 @@ Phases, each fatal on failure:
 9. vocoder main path: Synthesizer(full width, vocoder_config=WaveRNN) answers
    the batch of 8 and 5 batch-1 requests with the launch counters set to 0
    just before and read just after; mel frames/s, real-time factor, p50
-   batch-1 latency; the decode and WaveRNN kernels launched, Griffin-Lim
-   did not.
+   batch-1 latency; the decode and WaveRNN kernels launched, no
+   Griffin-Lim kernel did.
 
 Each phase prints its seconds. Then the kernel line (JSON), the card's
 name and power limit, and the contract line {"ok": true, "device": {...}}. Details also go to
@@ -58,7 +79,8 @@ Exits nonzero, printing no result, without CUDA or outside the repository.
 
 adds, after the main path, one batch-of-8 call under torch.profiler: device
 time by kernel, device busy share of the wall time, and the trace in
-profile_trace.json in the output directory; the same for one train step
+profile_trace.json in the output directory; the same for one batch of 8 on
+the Tacotron(1) path (taco1_profile_trace.json), for one train step
 at the bench shape (train_profile_trace.json) and for one batch-1 request
 on the vocoder path (vocoder_profile_trace.json).
 """
@@ -109,6 +131,15 @@ def bound(bytes_moved: float, seconds_of_ops: float) -> tuple[float, str]:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+def gl_counters():
+    """The three Griffin-Lim routes' kernel wrappers (wave, full, per
+    iteration), whose `.launches` count their launches."""
+    from your_voice_tts_torch.ops.griffin_lim import (gl_iteration_cuda, griffin_lim_full_cuda,
+                                                      griffin_lim_wave_cuda)
+
+    return (griffin_lim_wave_cuda, griffin_lim_full_cuda, gl_iteration_cuda)
 
 
 def phase_build(report):
@@ -213,10 +244,11 @@ def phase_decode(report):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def speech_like(B: int, T: int, n_fft: int, hop: int, sr: int):
+def speech_like(B: int, T: int, n_fft: int, hop: int, sr: int, window=None):
     """|STFT| [B, T, n_fft/2 + 1] of B harmonic signals with vibrato and a
     syllable-rate envelope: a consistent spectrogram, as a decoder's mel
-    gives one, unlike random magnitudes."""
+    gives one, unlike random magnitudes. `window` (length n_fft) defaults
+    to the periodic Hann of n_fft."""
     import numpy as np
     import torch
 
@@ -227,17 +259,20 @@ def speech_like(B: int, T: int, n_fft: int, hop: int, sr: int):
         ph = 2 * np.pi * torch.cumsum(f0 * (1 + 0.03 * torch.sin(2 * np.pi * 5 * t)) / sr, 0)
         env = 0.2 + torch.sin(2 * np.pi * (1.1 + 0.2 * b) * t) ** 2
         rows.append(sum(torch.sin(k * ph) / k for k in range(1, 25)) * env)
-    win = torch.hann_window(n_fft, periodic=True, dtype=torch.float64)
+    win = (torch.hann_window(n_fft, periodic=True, dtype=torch.float64) if window is None
+           else torch.as_tensor(window, dtype=torch.float64))
     S = torch.stft(torch.stack(rows), n_fft, hop, window=win, center=True,
                    return_complex=True).abs().transpose(1, 2)
     return S[:, :T].float()
 
 
-def spectral_convergence(y, mag, n_fft: int, hop: int) -> list[float]:
-    """||(|STFT(y)| - mag)|| / ||mag|| per row, the repo's Griffin-Lim gate."""
+def spectral_convergence(y, mag, n_fft: int, hop: int, window=None) -> list[float]:
+    """||(|STFT(y)| - mag)|| / ||mag|| per row, the repo's Griffin-Lim gate;
+    `window` as for `speech_like`."""
     import torch
 
-    win = torch.hann_window(n_fft, periodic=True, device=y.device)
+    win = (torch.hann_window(n_fft, periodic=True, device=y.device) if window is None
+           else torch.as_tensor(window, dtype=torch.float32, device=y.device))
     S2 = torch.stft(y, n_fft, hop, window=win, center=True,
                     return_complex=True).abs().transpose(1, 2)[:, :mag.shape[1]]
     return ((S2 - mag).flatten(1).norm(dim=1) / mag.flatten(1).norm(dim=1)).tolist()
@@ -341,6 +376,8 @@ def phase_small_input(report):
              "A cat sat."]
     text, lengths = _pad_texts([text_to_seq(t, cfg) for t in texts])
     outs = {}
+    for c in gl_counters():
+        c.launches = 0
     for dev in ("cuda", "cpu"):
         model = setup_model(len(symbols), cfg, device=dev)
         load_checkpoint(model, os.path.join(ROOT, "assets/bench_trained_smoke.npz"))
@@ -349,6 +386,7 @@ def phase_small_input(report):
         wavs = AudioProcessor(cfg.audio, dev, seed=4).inv_melspectrogram_batch(
             [m.T.numpy() for m in mel[:, :96]])
         outs[dev] = (mel, o["mel_lengths"].cpu(), torch.from_numpy(np.stack(wavs)))
+    gl_launches = {c.__name__: c.launches for c in gl_counters()}
     (mg, lg, wg), (mc, lc, wc) = outs["cuda"], outs["cpu"]
     mel_err = float((mg - mc).abs().max())
     wav_rel = float((wg - wc).norm() / wc.norm())
@@ -357,7 +395,34 @@ def phase_small_input(report):
     check(torch.equal(lg, lc), "smoke mel lengths differ between card and CPU")
     check(mel_err <= 5e-2 and wav_rel <= 5e-2 and bool(torch.isfinite(wg).all()),
           "smoke outputs differ between card and CPU")
-    report["small"] = dict(mel_err=mel_err, wav_rel=wav_rel, lengths=lg.tolist())
+    # the smoke config's hop 64 puts its waveform columns off 128-sample
+    # boundaries: the whole-loop route that returns the spectrum (kernel 3)
+    print(f"[small] Griffin-Lim launches (3 rows, batch bucket 4, hop 64): {gl_launches}")
+    check(gl_launches["griffin_lim_full_cuda"] > 0 and gl_launches["griffin_lim_wave_cuda"] == 0
+          and gl_launches["gl_iteration_cuda"] == 0, "smoke path Griffin-Lim route")
+
+    # kernel 3 against its plain version on the same card inputs, at the
+    # launch shape of this path: the card's mels padded to the batch bucket
+    # with normalized silence, as AudioProcessor pads them, through its own
+    # magnitudes
+    ap = AudioProcessor(cfg.audio, "cuda")
+    tb = 96
+    buf = torch.full((4, tb, mg.shape[-1]), ap._silence_fill(), device="cuda")
+    buf[:len(texts)] = mg[:, :tb].cuda()
+    mag = ap.gl_magnitudes("mel", buf)
+    phase = torch.rand(mag.shape[1:], generator=torch.Generator().manual_seed(5)) * 2 * np.pi
+    held = hold_gl_full("small", mag, phase.cuda(), ap.gl_consts["packed"], ap.window,
+                        cfg.audio.griffin_lim_iters, cfg.audio.griffin_lim_momentum,
+                        rows=len(texts), gate=None)
+    report["small"] = dict(mel_err=mel_err, wav_rel=wav_rel, lengths=lg.tolist(),
+                           launches=gl_launches, gl_full=held)
+    return ({"griffin_lim_full_cuda": gl_launches["griffin_lim_full_cuda"]},
+            {"name": "griffin_lim_full_cuda", "route": "cuda",
+             "source": "your_voice_tts_torch/csrc/griffin_lim.cu",
+             "replaces": "your_voice_tts_tpu/ops/pallas/griffin_lim.py:353",
+             "max_abs_err": held["max_abs_err_1iter"], "ms": held["ms"],
+             "plain_ms": held["plain_ms"], "bound_ms": held["bound_ms"],
+             "bound_by": held["bound_by"], "library_ms": held["library_ms"]})
 
 
 SENTENCES = [
@@ -394,7 +459,8 @@ def phase_main_path(report):
     torch.cuda.synchronize()
 
     tacotron2_decode_cuda.launches = 0
-    griffin_lim_wave_cuda.launches = 0
+    for c in gl_counters():
+        c.launches = 0
     t0 = time.perf_counter()
     batch = synth.tts_many(SENTENCES)
     t_batch = time.perf_counter() - t0
@@ -405,6 +471,7 @@ def phase_main_path(report):
         lat.append(time.perf_counter() - t0)
     launches = {"tacotron2_decode_cuda": tacotron2_decode_cuda.launches,
                 "griffin_lim_wave_cuda": griffin_lim_wave_cuda.launches}
+    other_routes = {c.__name__: c.launches for c in gl_counters()[1:]}
 
     # mel frames of the batch, counted from the decode (the waveforms are
     # trimmed): no row of the random weights stops, so 250 steps x r=2 each
@@ -424,10 +491,377 @@ def phase_main_path(report):
           f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms)")
     print(f"[main] launches on the main path: {launches}")
     check(all(n > 0 for n in launches.values()), "a kernel of the main path never launched")
+    check(not any(other_routes.values()), f"main path left the wave route: {other_routes}")
     report["main"] = dict(batch_ms=t_batch * 1e3, mel_frames_per_s=frames / t_batch,
                           rtf_x_realtime=audio_s / t_batch, p50_batch1_ms=p50 * 1e3,
                           batch1_ms=[x * 1e3 for x in lat], launches=launches)
     return launches
+
+
+# ------------------------------------------------- Tacotron(1), Griffin-Lim routes
+
+TACO1_STEPS, TACO1_R = 250, 7           # 1,750 frames a row: the per-iteration route
+TACO1_MEMORY = 5
+
+
+def taco1_config():
+    """configs/ljspeech_tacotron2.json with the model group replaced by
+    Tacotron(1) at the reference's width 256: memory 5, r = 7 of r_init 7
+    (its gradual schedule), 250 decoder steps."""
+    from your_voice_tts_torch.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "configs/ljspeech_tacotron2.json"))
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, model="Tacotron", tacotron_width=256, memory_size=TACO1_MEMORY, r=TACO1_R,
+        max_decoder_steps=TACO1_STEPS))
+
+
+def phase_taco1_decode(report):
+    import torch
+
+    from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.models.common import sequence_mask
+    from your_voice_tts_torch.ops.taco1_decode import (tacotron1_decode_cuda,
+                                                       tacotron1_decode_plain)
+    from your_voice_tts_torch.text import symbols
+
+    cfg = taco1_config()
+    model = no_chance_stops(setup_model(len(symbols), cfg, device="cuda"))
+    text, lengths = _pad_texts([text_to_seq(t, cfg) for t in SENTENCES])
+    text, lengths = torch.as_tensor(text).cuda(), torch.as_tensor(lengths).cuda()
+    B, T, steps = text.shape[0], text.shape[1], TACO1_STEPS
+    dec = model.decoder
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        enc = model.encoder_cbhg(model.enc_prenet(model.embedding(text), gen))
+        # row 0: the folded stop row's direction through the projection's
+        # context columns, so that it stops at once
+        w32 = dec.decode_weights(torch.float32)
+        H, E, D = (w32["dims"][k] for k in ("H", "E", "D"))
+        v = w32["pj_w"][:, H:H + E].T @ w32["m_w"][-1, :D]
+        enc[0] += 60.0 * v / (v @ v)
+        pinp = dec.attention.preprocess_inputs(enc)
+    mask = sequence_mask(lengths, T)
+    w = dec.decode_weights(torch.bfloat16)
+    # r = 7 above the memory of 5 frames (the path's r: the queue keeps the
+    # step's last 5 frames), then r = 5 (the whole queue replaced each step)
+    held = {}
+    for r in (TACO1_R, TACO1_MEMORY):
+        kw = dict(r=r, max_steps=steps, seed=7, prenet_dropout=True,
+                  thresh=cfg.model.stop_threshold)
+        got = tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
+        ref = tacotron1_decode_plain(w, enc, pinp, mask, **kw)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3])]
+        # tolerances as for the Tacotron2 decode: the same bf16 inputs on
+        # both sides, f32 sums in other orders, the same hash-PRNG dropout
+        # masks
+        tol = (5e-3, 2e-3, 2e-3)
+        print(f"[taco1-decode] B={B} T={T} steps={steps} r={r} memory={TACO1_MEMORY} lengths "
+              f"(r-groups) kernel {got[3].tolist()} plain {ref[3].tolist()}")
+        print(f"[taco1-decode] r={r} max_abs_err frames {errs[0]:.3e} (tol {tol[0]}), "
+              f"alignments {errs[1]:.3e} (tol {tol[1]}), stops {errs[2]:.3e} (tol {tol[2]})")
+        check(torch.equal(got[3].cpu(), ref[3].cpu()), f"taco1 decode lengths differ (r={r})")
+        check(int(got[3][0]) == 1 and int(got[3][1:].min()) == steps,
+              f"taco1 decode stop pattern (r={r})")
+        check(all(e <= t for e, t in zip(errs, tol)),
+              f"taco1 decode kernel disagrees with plain (r={r})")
+        held[r] = errs
+    kw["r"] = TACO1_R
+    ms = cuda_ms(lambda: tacotron1_decode_cuda(w, enc, pinp, mask, **kw), 5)
+    plain_ms = cuda_ms(lambda: tacotron1_decode_plain(w, enc, pinp, mask, **kw), 2)
+    d = w["dims"]
+    NQ, P1, P2, A, K, OW = (d[k] for k in ("NQ", "P1", "P2", "A", "K", "OW"))
+    macs = (P1 * NQ + P2 * P1 + 3 * H * (P2 + E + H) + A * H + D * (H + E)
+            + 2 * 6 * D * D + (OW + 1) * D)
+    f32_ops = T * A * (4 * K + 4) + 2 * T * E            # location, energies, context
+    ops_s = steps * B * (2 * macs / BF16_FLOPS + f32_ops / F32_FLOPS)
+    wbytes = sum(v.nbytes for v in w.values() if isinstance(v, torch.Tensor))
+    io_bytes = (wbytes + enc.numel() * 2 + pinp.numel() * 4 + mask.numel()
+                + 4 * steps * B * (OW + T + 1))
+    bound_ms, bound_by = bound(io_bytes, ops_s)
+    print(f"[taco1-decode] kernel_ms {ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms "
+          f"{bound_ms:.3f} ({bound_by}; {wbytes / 1e6:.1f} MB bf16 weights read once)  "
+          f"library_ms none (no single PyTorch call computes the decode)")
+    report["taco1_decode"] = dict(errs={f"r{r}": e for r, e in held.items()}, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                  weight_mb=wbytes / 1e6, T=T)
+    return {"name": "tacotron1_decode_cuda", "route": "cuda",
+            "source": "your_voice_tts_torch/csrc/taco1_decode.cu",
+            "replaces": "your_voice_tts_tpu/ops/pallas/taco1_decode.py:211",
+            "max_abs_err": max(max(e) for e in held.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def hold_gl_full(tag: str, mag, phase, consts: dict, window, iters: int, mom: float, *,
+                 rows: int, gate: float | None) -> dict:
+    """Kernel 3 against its plain version on the same card inputs (mag
+    [B, T, Kf], shared phase [T, Kf], packed constants): the spectrum after
+    one iteration to rel L2 1e-2, as the wave route is held (phase
+    griffin-lim); after `iters` FGLA iterations and the istft, spectral
+    convergence within 0.02 of the plain version's on the first `rows` rows
+    (the real ones), and under `gate` where given; kernel, plain, library
+    and bound ms. Returns the readings."""
+    import torch
+
+    from your_voice_tts_torch.ops.dsp import istft
+    from your_voice_tts_torch.ops.griffin_lim import griffin_lim_full_cuda, griffin_lim_full_plain
+
+    B, T, Kf = mag.shape
+    n_fft, hop = consts["n_fft"], consts["hop"]
+    win = torch.as_tensor(window, dtype=torch.float32, device=mag.device)
+    run = lambda fn, m, n: fn(m, phase, consts, n_iters=n, momentum=mom)  # noqa: E731
+    out = {}
+    for n in (1, iters):
+        got, ref = run(griffin_lim_full_cuda, mag, n), run(griffin_lim_full_plain, mag, n)
+        check(got.shape == (B, T, Kf) and got.dtype == torch.complex64
+              and bool(torch.isfinite(torch.view_as_real(got)).all()),
+              f"{tag}: gl-full output shape / type / finiteness")
+        out[n] = (got, ref)
+    got, ref = out[1]
+    rel1 = float((got - ref).abs().norm() / ref.abs().norm())
+    err1 = float((got - ref).abs().max())
+    y_k, y_p = (istft(x, n_fft, hop, win) for x in out[iters])
+    g = torch.Generator().manual_seed(3)
+    nudged = mag * (1 + 1e-4 * torch.randn(mag.shape, generator=g).to(mag.device))
+    y_n = istft(run(griffin_lim_full_plain, nudged, iters), n_fft, hop, win)
+    sens = float((y_n - y_p).norm() / y_p.norm())
+    conv_k = spectral_convergence(y_k, mag, n_fft, hop, win)
+    conv_p = spectral_convergence(y_p, mag, n_fft, hop, win)
+    gap = max(abs(a - b) for a, b in list(zip(conv_k, conv_p))[:rows])
+    print(f"[{tag}] gl-full B={B} T={T} n_fft={n_fft} hop={hop}: 1 iteration: spectrum rel L2 "
+          f"err {rel1:.3e} (tol 1e-2), max_abs_err {err1:.3e} of peak "
+          f"{float(ref.abs().max()):.3e}")
+    print(f"[{tag}] gl-full {iters} iterations (momentum {mom}) + istft: spectral convergence "
+          f"kernel {[round(x, 4) for x in conv_k]} plain {[round(x, 4) for x in conv_p]}; "
+          f"largest gap over the first {rows} rows {gap:.4f} (tol 0.02"
+          f"{'' if gate is None else f'; kernel under {gate}'}); waveform rel L2 kernel vs "
+          f"plain {float((y_k - y_p).norm() / y_p.norm()):.3e}, plain vs plain from "
+          f"magnitudes nudged by 1e-4 {sens:.3e}")
+    check(rel1 <= 1e-2, f"{tag}: gl-full kernel disagrees with plain after one iteration")
+    check(gap <= 0.02 and (gate is None or max(conv_k[:rows]) <= gate),
+          f"{tag}: gl-full kernel quality differs from plain")
+    ms = cuda_ms(lambda: run(griffin_lim_full_cuda, mag, iters), 5)
+    plain_ms = cuda_ms(lambda: run(griffin_lim_full_plain, mag, iters), 3)
+    M = B * T
+    a = torch.randn(M, n_fft, device=mag.device).to(torch.bfloat16)
+    m = consts["Mw"]
+
+    def library():
+        for _ in range(2 * iters):
+            torch.matmul(a, m)
+
+    lib_ms = cuda_ms(library, 5)
+    ops_s = 2 * iters * 2 * M * n_fft * n_fft / BF16_FLOPS
+    io_bytes = mag.numel() * 4 + phase.numel() * 4 + 2 * n_fft * n_fft * 2 + M * Kf * 8
+    bound_ms, bound_by = bound(io_bytes, ops_s)
+    print(f"[{tag}] gl-full B={B} T={T} n_fft={n_fft} hop={hop} iters={iters} kernel_ms "
+          f"{ms:.3f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} ({bound_by})  library_ms "
+          f"{lib_ms:.3f} (torch.matmul bf16 on the same {2 * iters} [{M}x{n_fft}]x"
+          f"[{n_fft}x{n_fft}] products; a yardstick for the products only)")
+    return dict(shape=[B, T, n_fft, hop, iters], rel_l2_1iter=rel1, max_abs_err_1iter=err1,
+                sensitivity=sens, conv_kernel=conv_k, conv_plain=conv_p, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def phase_gl_full(report):
+    """Kernel 3 beyond the smoke path's shape (phase small holds it there):
+    a 12.5 ms hop (n_fft 2048, hop 275, window 1102 at 22,050 Hz), B=8,
+    T=500, 24 FGLA iterations at momentum 0.95, on consistent magnitudes."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.ops.filters import hann_window
+    from your_voice_tts_torch.ops.griffin_lim import packed_constants
+
+    B, T, n_fft, hop, win_len, iters, mom = 8, 500, 2048, 275, 1102, 24, 0.95
+    window = hann_window(win_len, n_fft).astype(np.float32)
+    mag = speech_like(B, T, n_fft, hop, 22050, window).cuda()
+    g = torch.Generator().manual_seed(3)
+    phase = (torch.rand(T, n_fft // 2 + 1, generator=g) * 2 * np.pi).cuda()
+    consts = packed_constants(n_fft, hop, window, torch.bfloat16, "cuda")
+    report["gl_full_12ms_hop"] = hold_gl_full("gl-full", mag, phase, consts, window, iters,
+                                              mom, rows=B, gate=0.25)
+
+
+def phase_gl_iteration(report):
+    """Kernel 4 at the Tacotron(1) path's launch shapes: the frame bucket of
+    its 250 steps x r=7 = 1,750 frames (1,760), the config's n_fft / hop /
+    window and Griffin-Lim iterations, for the batch of 8 and for one row
+    (the batch-1 requests), from one shared phase."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.audio import FRAME_BUCKET
+    from your_voice_tts_torch.ops.dsp import istft
+    from your_voice_tts_torch.ops.filters import hann_window
+    from your_voice_tts_torch.ops.griffin_lim import (gl_iteration_cuda, gl_iteration_plain,
+                                                      gl_route, unpacked_constants)
+
+    a = taco1_config().audio
+    n_fft, (hop, win_len), iters = a.fft_size, a.resolved_hop_win(), a.griffin_lim_iters
+    T = -(-TACO1_STEPS * TACO1_R // FRAME_BUCKET) * FRAME_BUCKET
+    check(gl_route(T, n_fft, hop) == "iteration", "the Tacotron(1) path's Griffin-Lim route")
+    Kf = n_fft // 2 + 1
+    window = hann_window(win_len, n_fft).astype(np.float32)
+    win = torch.from_numpy(window).cuda()
+    mags = speech_like(8, T, n_fft, hop, a.sample_rate, window).cuda()
+    g = torch.Generator().manual_seed(4)
+    phase = (torch.rand(T, Kf, generator=g) * 2 * np.pi).cuda()
+    nudge = 1 + 1e-4 * torch.randn(mags.shape, generator=g).cuda()
+    consts = unpacked_constants(n_fft, hop, window, torch.bfloat16, "cuda")
+    start = lambda m: (m * torch.cos(phase), m * torch.sin(phase))  # noqa: E731
+    run = lambda fn, m, n: fn(*start(m), m, consts, n_iters=n)  # noqa: E731
+    wav = lambda F_: istft(torch.complex(*F_), n_fft, hop, win)  # noqa: E731
+    held = {}
+    for B in (8, 1):
+        mag = mags[:B]
+        out = {n: (run(gl_iteration_cuda, mag, n), run(gl_iteration_plain, mag, n))
+               for n in (1, iters)}
+        for n, (got, _) in out.items():
+            check(all(x.shape == (B, T, Kf) and bool(torch.isfinite(x).all()) for x in got),
+                  "gl-iteration output shape / finiteness")
+        (gr, gi), (rr, ri) = out[1]
+        rel1 = float(torch.cat([gr - rr, gi - ri]).norm() / torch.cat([rr, ri]).norm())
+        err1 = float(torch.maximum((gr - rr).abs(), (gi - ri).abs()).max())
+        y_k, y_p = wav(out[iters][0]), wav(out[iters][1])
+        y_n = wav(run(gl_iteration_plain, mag * nudge[:B], iters))
+        sens = float((y_n - y_p).norm() / y_p.norm())
+        conv0 = spectral_convergence(wav(start(mag)), mag, n_fft, hop, win)
+        conv_k = spectral_convergence(y_k, mag, n_fft, hop, win)
+        conv_p = spectral_convergence(y_p, mag, n_fft, hop, win)
+        gap = max(abs(x - y) for x, y in zip(conv_k, conv_p))
+        # held as the wave route is: one iteration to rel L2 1e-2; after the
+        # config's plain iterations the kernel's reconstruction is within
+        # 0.02 of the plain version's spectral convergence on every row, and
+        # better than the starting phase's on every row
+        print(f"[gl-iteration] B={B} T={T} (M={B * T} rows) 1 iteration: rel L2 err "
+              f"{rel1:.3e} (tol 1e-2), max_abs_err {err1:.3e} of peak {float(mag.max()):.3e}")
+        print(f"[gl-iteration] B={B} {iters} iterations: spectral convergence start "
+              f"{[round(x, 4) for x in conv0]} kernel {[round(x, 4) for x in conv_k]} plain "
+              f"{[round(x, 4) for x in conv_p]}; largest gap {gap:.4f} (tol 0.02); waveform "
+              f"rel L2 kernel vs plain {float((y_k - y_p).norm() / y_p.norm()):.3e}, plain vs "
+              f"plain from magnitudes nudged by 1e-4 {sens:.3e}")
+        check(rel1 <= 1e-2, f"gl-iteration kernel disagrees with plain after one iteration "
+                            f"(B={B})")
+        check(gap <= 0.02 and all(k < c for k, c in zip(conv_k, conv0)),
+              f"gl-iteration kernel quality differs from plain (B={B})")
+        ms = cuda_ms(lambda: run(gl_iteration_cuda, mag, iters), 5)
+        plain_ms = cuda_ms(lambda: run(gl_iteration_plain, mag, iters), 3)
+        M = B * T
+        fb = torch.randn(M, consts["syn"].shape[0], device="cuda").to(torch.bfloat16)
+        gb = torch.randn(M, n_fft, device="cuda").to(torch.bfloat16)
+
+        def library():
+            for _ in range(iters):
+                torch.matmul(fb, consts["syn"])
+                torch.matmul(gb, consts["ana"])
+
+        lib_ms = cuda_ms(library, 5)
+        ops_s = iters * 2 * 2 * M * (2 * Kf) * n_fft / BF16_FLOPS
+        io_bytes = 5 * M * Kf * 4 + 2 * (2 * Kf) * n_fft * 2
+        bound_ms, bound_by = bound(io_bytes, ops_s)
+        print(f"[gl-iteration] B={B} T={T} n_fft={n_fft} hop={hop} iters={iters} kernel_ms "
+              f"{ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms {bound_ms:.3f} ({bound_by}; the "
+              f"{Kf} bins, not the padded {consts['Kp']})  library_ms {lib_ms:.2f} "
+              f"(torch.matmul bf16 on the same {2 * iters} padded products; a yardstick for "
+              f"the products only)")
+        held[B] = dict(rel_l2_1iter=rel1, max_abs_err_1iter=err1, sensitivity=sens,
+                       conv_start=conv0, conv_kernel=conv_k, conv_plain=conv_p, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib_ms)
+    report["gl_iteration"] = dict(T=T, n_fft=n_fft, hop=hop, iters=iters,
+                                  **{f"B{B}": v for B, v in held.items()})
+    b8 = held[8]
+    return {"name": "gl_iteration_cuda", "route": "cuda",
+            "source": "your_voice_tts_torch/csrc/griffin_lim.cu",
+            "replaces": "your_voice_tts_tpu/ops/pallas/griffin_lim.py:72",
+            "max_abs_err": max(v["max_abs_err_1iter"] for v in held.values()),
+            "ms": b8["ms"], "plain_ms": b8["plain_ms"], "bound_ms": b8["bound_ms"],
+            "bound_by": b8["bound_by"], "library_ms": b8["library_ms"]}
+
+
+def phase_taco1_main(report):
+    """Synthesizer on a Tacotron(1) config: text -> linear spectrogram ->
+    Griffin-Lim past the whole-loop cap (per-iteration kernel) -> wav."""
+    import torch
+
+    from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.ops.taco1_decode import tacotron1_decode_cuda
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
+
+    synth = Synthesizer(taco1_config(), device="cuda")
+    no_chance_stops(synth.model)
+    synth.tts_many(SENTENCES[:1])                  # one-time set-up, not measured
+    torch.cuda.synchronize()
+
+    counters = (tacotron1_decode_cuda, tacotron2_decode_cuda) + gl_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    batch = synth.tts_many(SENTENCES)
+    t_batch = time.perf_counter() - t0
+    lat = []
+    for s in SENTENCES[:5]:
+        t0 = time.perf_counter()
+        one = synth.tts_many([s])
+        lat.append(time.perf_counter() - t0)
+    seen = {c.__name__: c.launches for c in counters}
+
+    n_frames = TACO1_STEPS * TACO1_R
+    text, lengths = _pad_texts([text_to_seq(t, synth.cfg) for t in SENTENCES])
+    mel_lengths = synth.model.inference(text, lengths)["mel_lengths"]
+    check(mel_lengths.tolist() == [n_frames] * len(SENTENCES), "taco1 path mel lengths")
+    frames = int(mel_lengths.sum())
+    sr, hop = synth.ap.sample_rate, synth.ap.hop_length
+    audio_s = sum(len(w) for w in batch) / sr
+    check(all(w.ndim == 1 and len(w) > 0 and bool(torch.isfinite(torch.from_numpy(w)).all())
+              for w in batch + one), "taco1 path waveforms")
+    check(all(len(w) <= hop * (n_frames - 1) for w in batch), "taco1 path waveform lengths")
+    p50 = statistics.median(lat)
+    # random weights make quiet noise, which the silence trim cuts short:
+    # the factor over the decoded frames is the one that compares
+    decoded_s = frames * hop / sr
+    print(f"[taco1-main] batch of 8 (r={TACO1_R}, {n_frames} frames a row): "
+          f"{t_batch * 1e3:.1f} ms, {frames / t_batch:.0f} mel frames/s, real-time factor "
+          f"{decoded_s / t_batch:.1f}x realtime over the {decoded_s:.2f} s decoded "
+          f"({audio_s / t_batch:.1f}x over the {audio_s:.2f} s left after the silence trim)")
+    print(f"[taco1-main] batch-1 latency p50 {p50 * 1e3:.1f} ms (all: "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms)")
+    print(f"[taco1-main] launches on the Tacotron(1) path: {seen}")
+    check(seen["tacotron1_decode_cuda"] > 0 and seen["gl_iteration_cuda"] > 0
+          and seen["tacotron2_decode_cuda"] == 0 and seen["griffin_lim_wave_cuda"] == 0
+          and seen["griffin_lim_full_cuda"] == 0, "Tacotron(1) path kernels")
+    report["taco1_main"] = dict(batch_ms=t_batch * 1e3, mel_frames_per_s=frames / t_batch,
+                                rtf_x_realtime=decoded_s / t_batch,
+                                rtf_trimmed_x_realtime=audio_s / t_batch,
+                                p50_batch1_ms=p50 * 1e3,
+                                batch1_ms=[x * 1e3 for x in lat], launches=seen)
+    launches = {k: seen[k] for k in ("tacotron1_decode_cuda", "gl_iteration_cuda")}
+    return launches, synth
+
+
+def phase_taco1_profile(report, synth, out_dir: str):
+    """One batch-of-8 call on the Tacotron(1) path under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        synth.tts_many(SENTENCES)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(os.path.join(out_dir, "taco1_profile_trace.json"))
+    rows = device_rows(prof)
+    busy_ms = sum(dev(e) for e in rows)
+    print(f"[taco1-profile] batch of 8: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"(idle share {1 - busy_ms / wall_ms:.3f})")
+    for e in rows[:16]:
+        print(f"[taco1-profile]   {dev(e):8.2f} ms  {e.count:6d} calls  {e.key[:90]}")
+    report["taco1_profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                                   kernels={e.key: [dev(e), e.count] for e in rows[:40]})
 
 
 # ------------------------------------------------------------------ vocoder
@@ -550,7 +984,6 @@ def phase_vocoder_path(report):
     import torch
 
     from your_voice_tts_torch.infer.synthesizer import Synthesizer
-    from your_voice_tts_torch.ops.griffin_lim import griffin_lim_wave_cuda
     from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
     from your_voice_tts_torch.ops.wavernn_gen import wavernn_generate_cuda
     from your_voice_tts_torch.vocoder.config import VocoderConfig
@@ -562,7 +995,7 @@ def phase_vocoder_path(report):
     synth.tts_many(SENTENCES[:1])                  # one-time set-up, not measured
     torch.cuda.synchronize()
 
-    counters = (tacotron2_decode_cuda, griffin_lim_wave_cuda, wavernn_generate_cuda)
+    counters = (tacotron2_decode_cuda, wavernn_generate_cuda) + gl_counters()
     for c in counters:
         c.launches = 0
     t0 = time.perf_counter()
@@ -589,7 +1022,7 @@ def phase_vocoder_path(report):
           f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms)")
     print(f"[vocoder] launches on the vocoder path: {launches}")
     check(launches["tacotron2_decode_cuda"] > 0 and launches["wavernn_generate_cuda"] > 0
-          and launches["griffin_lim_wave_cuda"] == 0, "vocoder path kernels")
+          and not any(c.launches for c in gl_counters()), "vocoder path kernels")
     report["vocoder"] = dict(batch_ms=t_batch * 1e3, mel_frames_per_s=frames / t_batch,
                              rtf_x_realtime=audio_s / t_batch, p50_batch1_ms=p50 * 1e3,
                              batch1_ms=[x * 1e3 for x in lat], launches=launches)
@@ -1099,12 +1532,22 @@ def main() -> int:
 
     timed("build", phase_build, report)
     kernels = [timed("decode", phase_decode, report),
-               timed("griffin-lim", phase_griffin_lim, report)]
-    timed("small", phase_small_input, report)
+               timed("griffin-lim", phase_griffin_lim, report),
+               timed("taco1-decode", phase_taco1_decode, report),
+               timed("gl-iteration", phase_gl_iteration, report)]
+    timed("gl-full", phase_gl_full, report)
+    small_launches, gl_full_kernel = timed("small", phase_small_input, report)
+    kernels.append(gl_full_kernel)
     launches = timed("main", phase_main_path, report)
+    launches.update(small_launches)
     os.makedirs(args.out, exist_ok=True)
     if args.profile:
         timed("profile", phase_profile, report, args.out)
+    taco1_launches, taco1_synth = timed("taco1-main", phase_taco1_main, report)
+    launches.update(taco1_launches)
+    if args.profile:
+        timed("taco1-profile", phase_taco1_profile, report, taco1_synth, args.out)
+    del taco1_synth
     state: dict = {}
     kernels += [timed("train-fwd", phase_train_fwd, report, state),
                 timed("train-bwd", phase_train_bwd, report, state)]

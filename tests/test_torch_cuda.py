@@ -219,3 +219,126 @@ def test_wavernn_kernel_refuses_what_it_does_not_take(cuda):
                               bits=8)
     with pytest.raises(ValueError, match="needs"):
         wavernn_generate_cuda(w, cond, aux, 0, bits=6)
+
+
+def taco1_case(cuda, norm="sigmoid", r=2, memory=5, B=11, T=13, push_row=3, seed=1):
+    """A small Tacotron(1) decoder (width 32, 20 mels, attention 24, filter
+    15, r_init 5) with seeded random weights, on the card; one row pushed to
+    stop at once through the folded stop row's context direction."""
+    from your_voice_tts_torch.models.tacotron import Tacotron
+
+    cfg = ModelConfig(model="Tacotron", r=r, memory_size=memory, tacotron_width=32,
+                      attention_dim=24, attention_location_filters=8,
+                      attention_location_kernel_size=15, attention_norm=norm)
+    dec = Tacotron(30, cfg, n_mels=20, num_freq=129, r_init=5, device=cuda, seed=seed).decoder
+    w = dec.decode_weights(torch.bfloat16)
+    d = w["dims"]
+    g = torch.Generator().manual_seed(seed)
+    enc = (0.5 * torch.randn(B, T, d["E"], generator=g)).to(cuda)
+    s = w["m_w"][-1, :d["D"]].float()
+    v = w["pj_w"][:, d["H"]:d["H"] + d["E"]].float().T @ s
+    enc[push_row] += 20.0 * v / (v @ v)
+    pinp = dec.attention.preprocess_inputs(enc).detach()
+    mask = sequence_mask(torch.arange(T, T - B, -1, device=cuda).clamp_min(2), T)
+    return w, enc, pinp, mask
+
+
+@pytest.mark.parametrize("norm,r,memory,dropout", [("sigmoid", 2, 5, True),
+                                                   ("softmax", 5, 5, True),
+                                                   ("sigmoid", 3, 5, False),
+                                                   ("sigmoid", 4, 2, True)])
+def test_taco1_decode_kernel_matches_plain(cuda, norm, r, memory, dropout):
+    """Odd sizes (B 11, T 13, width 32, 20 mels): bf16 on both sides, the
+    same hash-PRNG dropout masks, f32 sums in other orders; r past the
+    memory keeps the step's last frames."""
+    from your_voice_tts_torch.ops.taco1_decode import (tacotron1_decode, tacotron1_decode_cuda,
+                                                       tacotron1_decode_plain)
+
+    w, enc, pinp, mask = taco1_case(cuda, norm, r, memory)
+    kw = dict(r=r, max_steps=30, seed=5, chunk=7, norm=norm, prenet_dropout=dropout)
+    got = tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
+    ref = tacotron1_decode_plain(w, enc, pinp, mask, **kw)
+    torch.cuda.synchronize()
+    assert int(got[3][3]) == 1
+    assert torch.equal(got[3], ref[3])
+    for a, b, tol in zip(got[:3], ref[:3], (5e-3, 2e-3, 2e-3)):
+        assert float((a - b).abs().max()) <= tol
+    assert torch.equal(tacotron1_decode(w, enc, pinp, mask, **kw)[0], got[0])
+
+
+@pytest.mark.parametrize("n_fft,win,hop,B,T", [(256, 256, 64, 3, 37), (2048, 1102, 275, 2, 20)])
+def test_griffin_lim_full_kernel_matches_plain(cuda, n_fft, win, hop, B, T):
+    """One and three FGLA iterations to the complex spectrum: bf16 loop
+    state on both sides."""
+    from your_voice_tts_torch.ops.griffin_lim import (griffin_lim_full, griffin_lim_full_cuda,
+                                                      griffin_lim_full_plain)
+
+    g = torch.Generator().manual_seed(0)
+    mag = (torch.randn(B, T, n_fft // 2 + 1, generator=g).abs() + 0.1).to(cuda)
+    phase = (torch.rand(T, n_fft // 2 + 1, generator=g) * 2 * np.pi).to(cuda)
+    consts = packed_constants(n_fft, hop, hann_window(win, n_fft), torch.bfloat16, cuda)
+    for n in (1, 3):
+        got = griffin_lim_full_cuda(mag, phase, consts, n_iters=n, momentum=0.95)
+        ref = griffin_lim_full_plain(mag, phase, consts, n_iters=n, momentum=0.95)
+        assert got.shape == ref.shape == mag.shape and got.dtype == torch.complex64
+        assert float((got - ref).abs().norm() / ref.abs().norm()) <= 1e-2
+    assert torch.equal(griffin_lim_full(mag, phase, consts, n_iters=3, momentum=0.95), got)
+
+
+@pytest.mark.parametrize("n_fft,hop,B,T", [(256, 64, 3, 37), (1024, 256, 2, 40)])
+def test_gl_iteration_kernel_matches_plain(cuda, n_fft, hop, B, T):
+    """One and three plain iterations on the unpacked layout: bf16 products
+    on both sides."""
+    from your_voice_tts_torch.ops.griffin_lim import (gl_iteration, gl_iteration_cuda,
+                                                      gl_iteration_plain, unpacked_constants)
+
+    g = torch.Generator().manual_seed(1)
+    mag = (torch.randn(B, T, n_fft // 2 + 1, generator=g).abs() + 0.1).to(cuda)
+    ph = (torch.rand(T, n_fft // 2 + 1, generator=g) * 2 * np.pi).to(cuda)
+    Fr, Fi = mag * torch.cos(ph), mag * torch.sin(ph)
+    consts = unpacked_constants(n_fft, hop, hann_window(n_fft, n_fft), torch.bfloat16, cuda)
+    for n in (1, 3):
+        got = gl_iteration_cuda(Fr, Fi, mag, consts, n_iters=n)
+        ref = gl_iteration_plain(Fr, Fi, mag, consts, n_iters=n)
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape == mag.shape
+            assert float((a - b).norm() / b.norm()) <= 1e-2
+    assert torch.equal(gl_iteration(Fr, Fi, mag, consts, n_iters=3)[0], got[0])
+
+
+@pytest.mark.parametrize("B,T,n_fft,hop", [(2, 64, 1024, 256), (3, 64, 256, 64),
+                                           (1, 1056, 256, 64)])
+def test_griffin_lim_router_on_the_card(cuda, B, T, n_fft, hop):
+    """Each route on the card against the same route's plain versions on the
+    CPU: the waveforms agree (bf16 loop state, one iteration)."""
+    from your_voice_tts_torch.ops.griffin_lim import gl_constants, griffin_lim_batch
+
+    g = torch.Generator().manual_seed(2)
+    mag = torch.randn(B, T, n_fft // 2 + 1, generator=g).abs() + 0.1
+    ph = torch.rand(T, n_fft // 2 + 1, generator=g) * 2 * np.pi
+    w = hann_window(n_fft, n_fft)
+    got = griffin_lim_batch(mag.to(cuda), ph.to(cuda), gl_constants(n_fft, hop, w, device=cuda),
+                            n_iters=1, momentum=0.9).cpu()
+    ref = griffin_lim_batch(mag, ph, gl_constants(n_fft, hop, w), n_iters=1, momentum=0.9)
+    assert got.shape == ref.shape == (B, hop * (T - 1))
+    assert float((got - ref).norm() / ref.norm()) <= 1e-2
+
+
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    from your_voice_tts_torch.ops.griffin_lim import (gl_iteration_cuda, griffin_lim_full_cuda,
+                                                      unpacked_constants)
+    from your_voice_tts_torch.ops.taco1_decode import tacotron1_decode_cuda
+
+    consts32 = packed_constants(256, 64, hann_window(256, 256), torch.float32, cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        griffin_lim_full_cuda(torch.ones(1, 4, 129, device=cuda),
+                              torch.zeros(4, 129, device=cuda), consts32, n_iters=1)
+    u = unpacked_constants(256, 64, hann_window(256, 256), torch.bfloat16, "cpu")
+    x = torch.ones(1, 4, 129, device=cuda)
+    with pytest.raises(ValueError, match="bf16 constants"):
+        gl_iteration_cuda(x, x, x, u)
+    w, enc, pinp, mask = taco1_case(cuda)
+    with pytest.raises(ValueError, match="r_init"):
+        tacotron1_decode_cuda(w, enc, pinp, mask, r=6, max_steps=2)
+    with pytest.raises(ValueError, match="shape"):
+        tacotron1_decode_cuda(w, enc[:, :, :8], pinp, mask, r=2, max_steps=2)

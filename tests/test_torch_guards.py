@@ -138,3 +138,58 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    res_out_dims=16, num_res_blocks=1, device="cpu"))
     with pytest.raises(ValueError, match="CUDA tensors"):
         wavernn_generate_cuda(w, torch.zeros(2, 8, 20), torch.zeros(2, 8, 16), 0, bits=8)
+
+
+@pytest.mark.parametrize("module", ["your_voice_tts_torch.models.tacotron",
+                                    "your_voice_tts_torch.ops.taco1_decode",
+                                    "your_voice_tts_torch.ops.griffin_lim"])
+def test_tacotron_slice_modules_import_with_jax_blocked(module):
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if any(name == b or name.startswith(b + '.') for b in {BLOCKED!r}):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"import {module}\n"
+        f"assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_tacotron_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    from your_voice_tts_torch.config import ModelConfig, load_config
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.models.tacotron import Tacotron
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = ModelConfig(model="Tacotron", r=2, memory_size=5, tacotron_width=32,
+                        attention_dim=24)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Tacotron(30, small, n_mels=20, num_freq=129)
+    cfg = load_config(os.path.join(ROOT, "configs/smoke_synthetic.json"))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, model="Tacotron", memory_size=5, tacotron_width=32, attention_dim=24))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        setup_model(30, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Synthesizer(cfg)
+    assert setup_model(30, cfg, device="cpu").device.type == "cpu"
+
+
+def test_tacotron_slice_kernel_wrappers_refuse_cpu_tensors():
+    from your_voice_tts_torch.ops.griffin_lim import (gl_iteration_cuda, griffin_lim_full_cuda,
+                                                      packed_constants, unpacked_constants)
+    from your_voice_tts_torch.ops.taco1_decode import tacotron1_decode_cuda
+
+    win = torch.ones(256).numpy()
+    x = torch.ones(1, 4, 129)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        griffin_lim_full_cuda(x, torch.zeros(4, 129), packed_constants(256, 64, win), n_iters=1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gl_iteration_cuda(x, x, x, unpacked_constants(256, 64, win))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tacotron1_decode_cuda({}, torch.ones(1, 4, 8), torch.ones(1, 4, 8),
+                              torch.ones(1, 4, dtype=torch.bool), r=1, max_steps=1)

@@ -99,3 +99,41 @@ def test_text_frontend_matches_jax(text):
 @pytest.mark.parametrize("path", [CONFIG, "configs/ljspeech_tacotron2.json"])
 def test_config_matches_jax(path):
     assert dataclasses.asdict(load_config(path)) == dataclasses.asdict(jax_load_config(path))
+
+
+def tacotron_config(loader, **kw):
+    """The smoke config's audio with a small Tacotron(1) (width 32, memory 5,
+    attention 24), dropout off, 12 decode steps."""
+    cfg = loader(CONFIG)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, model="Tacotron", memory_size=5, tacotron_width=32, attention_dim=24,
+        prenet_dropout=False, max_decoder_steps=12, **kw))
+
+
+def test_tacotron_synthesis_matches_jax(tmp_path):
+    """Text -> linear spectrogram -> wav through a JAX-saved Tacotron(1)
+    checkpoint (its stopnet bias at -10, so every row decodes all its
+    steps): the linear outputs match the JAX `synthesis_batch` within 1e-3
+    (float32, sum order only), the wav lengths exactly."""
+    from your_voice_tts_tpu.infer.synthesis import synthesis_batch as jax_synthesis_batch
+    from your_voice_tts_tpu.train.checkpoint import save_checkpoint
+    from your_voice_tts_torch.infer.synthesis import synthesis_batch
+
+    jax_s = JaxSynthesizer(tacotron_config(jax_load_config))
+    params = jax_s.variables["params"]
+    stop = params["decoder"]["stopnet"]
+    stop["b"] = jnp.full_like(stop["b"], -10.0)
+    ckpt = save_checkpoint(str(tmp_path / "taco1.npz"), params=params,
+                           model_state=jax_s.variables["state"], opt_state={}, step=1,
+                           epoch=0, r=2)
+    port = Synthesizer(tacotron_config(load_config), ckpt, device="cpu",
+                       decode_dtype=torch.float32)
+    assert port.model.output_type == "linear" and port.model.r == 2
+    texts = ["Hi there.", "The quick brown fox jumps.", "Go home now."]
+    ref = jax_synthesis_batch(jax_s.model, jax_s.variables, texts, jax_s.cfg, jax_s.ap)
+    got = synthesis_batch(port.model, texts, port.cfg, port.ap, decode_dtype=torch.float32)
+    for g, r in zip(got, ref):
+        assert g["mel_postnet_spec"].shape == r["mel_postnet_spec"].shape == (129, 24)
+        np.testing.assert_allclose(g["mel_postnet_spec"], r["mel_postnet_spec"], atol=1e-3)
+        assert g["wav"].shape == r["wav"].shape
+        assert np.isfinite(g["wav"]).all() and np.abs(g["wav"]).max() > 0

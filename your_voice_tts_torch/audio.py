@@ -1,8 +1,10 @@
 """AudioProcessor (the JAX package's audio.py). Forward half: WAV loading
 (stdlib `wave`, scipy's polyphase resampler when the rate differs),
 silence trimming and normalized mel spectrograms, one batched call per
-length bucket. Inverse half: normalized mel spectrograms -> waveforms
-through batched Griffin-Lim, plus `find_endpoint` and `save_wav`. Numpy in,
+length bucket. Inverse half: normalized mel or linear spectrograms ->
+waveforms through batched Griffin-Lim (`ops/griffin_lim.py
+griffin_lim_batch`, which routes by the padded frame count), plus
+`find_endpoint` and `save_wav`. Numpy in,
 numpy out, spectrograms in the reference's [F, T] layout at this boundary
 (`melspectrogram_batch` returns time-major [T, F], as the JAX package's).
 
@@ -23,7 +25,7 @@ import torch
 from .config import AudioConfig
 from .ops import dsp
 from .ops.filters import hann_window, inv_mel_basis, mel_basis
-from .ops.griffin_lim import griffin_lim_wave, packed_constants
+from .ops.griffin_lim import gl_constants, griffin_lim_batch
 
 SIG_BUCKET = 128     # wav lengths padded to multiples of hop * SIG_BUCKET
 FRAME_BUCKET = 32    # mel frame counts padded to multiples of FRAME_BUCKET
@@ -49,8 +51,10 @@ class AudioProcessor:
         self.window = hann_window(self.win_length, config.fft_size).astype(np.float32)
         self.mel_basis = torch.from_numpy(basis).to(self.device)
         self.window_t = torch.from_numpy(self.window).to(self.device)
-        self.gl_consts = packed_constants(config.fft_size, self.hop_length,
-                                          self.window, torch.bfloat16, self.device)
+        # both Griffin-Lim layouts' constants (packed for the whole-loop
+        # routes, unpacked for the per-iteration route), built once
+        self.gl_consts = gl_constants(config.fft_size, self.hop_length, self.window,
+                                      torch.bfloat16, self.device)
         self.generator = torch.Generator().manual_seed(seed)
 
     # --- forward transforms ---------------------------------------------
@@ -164,40 +168,60 @@ class AudioProcessor:
             return -c.max_norm if c.symmetric_norm else 0.0
         return c.min_level_db
 
-    def inv_melspectrogram_batch(self, mels: list[np.ndarray]) -> list[np.ndarray]:
-        """N normalized mels [num_mels, T_i] -> N waveforms of
+    def _inverse_batch(self, kind: str, specs: list[np.ndarray]) -> list[np.ndarray]:
+        """N normalized spectrograms [F, T_i] -> N waveforms of
         hop * (T_i - 1) samples, one Griffin-Lim launch per (frame bucket,
         batch bucket)."""
-        out: list = [None] * len(mels)
+        out: list = [None] * len(specs)
         groups: dict[int, list[int]] = {}
-        for i, S in enumerate(mels):
+        for i, S in enumerate(specs):
             groups.setdefault(self._frame_bucket(np.asarray(S).shape[1]), []).append(i)
         for tb, idxs in sorted(groups.items()):
             for lo in range(0, len(idxs), self._INV_BATCH_CAP):
                 chunk = idxs[lo:lo + self._INV_BATCH_CAP]
                 bb = 1 << (len(chunk) - 1).bit_length()
-                n_bins = np.asarray(mels[chunk[0]]).shape[0]
+                n_bins = np.asarray(specs[chunk[0]]).shape[0]
                 buf = np.full((bb, tb, n_bins), self._silence_fill(), np.float32)
                 for j, i in enumerate(chunk):
-                    S = np.asarray(mels[i], np.float32).T
+                    S = np.asarray(specs[i], np.float32).T
                     buf[j, : S.shape[0]] = S
-                wavs = self._inverse(torch.from_numpy(buf).to(self.device)).cpu().numpy()
+                wavs = self._inverse(kind, torch.from_numpy(buf).to(self.device)).cpu().numpy()
                 for j, i in enumerate(chunk):
-                    t = np.asarray(mels[i]).shape[1]
+                    t = np.asarray(specs[i]).shape[1]
                     out[i] = wavs[j, : self.hop_length * (t - 1)].astype(np.float32)
         return out
 
-    def _inverse(self, mel_norm):
-        """[B, T, n_mels] normalized mel -> [B, hop * (T - 1)] waveforms."""
+    def inv_melspectrogram_batch(self, mels: list[np.ndarray]) -> list[np.ndarray]:
+        """N normalized mels [num_mels, T_i] -> N waveforms of
+        hop * (T_i - 1) samples."""
+        return self._inverse_batch("mel", mels)
+
+    def inv_spectrogram_batch(self, specs: list[np.ndarray]) -> list[np.ndarray]:
+        """N normalized linear spectrograms [num_freq, T_i] (Tacotron(1)'s
+        head) -> N waveforms: the mel path without the pseudo-inverse."""
+        return self._inverse_batch("linear", specs)
+
+    def gl_magnitudes(self, kind: str, spec_norm):
+        """[B, T, F] normalized mel or linear spectrogram -> the magnitudes
+        Griffin-Lim inverts, [B, T, n_fft/2 + 1]: denormalize, dB ->
+        amplitude (mel -> linear for a mel), ** power."""
         c = self.cfg
-        D = dsp.denormalize_spec(mel_norm, c.min_level_db, c.max_norm,
+        D = dsp.denormalize_spec(spec_norm, c.min_level_db, c.max_norm,
                                  c.symmetric_norm, c.clip_norm, c.signal_norm)
-        S = dsp.mel_to_linear(dsp.db_to_amp(D + c.ref_level_db, c.spec_gain),
-                              self.inv_mel_basis)
+        S = dsp.db_to_amp(D + c.ref_level_db, c.spec_gain)
+        if kind == "mel":
+            S = dsp.mel_to_linear(S, self.inv_mel_basis)
+        return S ** c.power
+
+    def _inverse(self, kind: str, spec_norm):
+        """[B, T, F] normalized mel or linear spectrogram -> [B, hop * (T - 1)]
+        waveforms: `gl_magnitudes`, batched Griffin-Lim from one phase
+        pattern shared by every row, de-emphasis."""
+        c = self.cfg
+        S = self.gl_magnitudes(kind, spec_norm)
         phase = torch.rand(S.shape[1:], generator=self.generator) * (2.0 * np.pi)
-        y = griffin_lim_wave(S ** c.power, phase.to(self.device), self.gl_consts,
-                             n_iters=c.griffin_lim_iters,
-                             momentum=c.griffin_lim_momentum)
+        y = griffin_lim_batch(S, phase.to(self.device), self.gl_consts,
+                              n_iters=c.griffin_lim_iters, momentum=c.griffin_lim_momentum)
         return dsp.inv_preemphasis(y, c.preemphasis)
 
     def find_endpoint(self, wav: np.ndarray, threshold_db: float = -40.0,

@@ -1,7 +1,9 @@
 """Synthesis (the JAX package's infer/synthesis.py): texts -> symbol ids ->
-one padded batch -> Tacotron2.inference -> each row trimmed to its stop ->
+one padded batch -> model.inference -> each row trimmed to its stop ->
 waveforms, through one batched Griffin-Lim pass or, given a neural
-vocoder, through the vocoder one row at a time."""
+vocoder, through the vocoder one row at a time. A linear-spectrogram model
+(Tacotron(1)) always inverts through Griffin-Lim, vocoder or not, as the
+reference does."""
 
 from __future__ import annotations
 
@@ -38,11 +40,11 @@ def synthesis_batch(model, texts: list[str], cfg: Config, ap: AudioProcessor,
                     trim_silence: bool = False,
                     max_decoder_steps: int | None = None, seed: int = 0,
                     decode_dtype=torch.bfloat16, vocoder=None) -> list[dict]:
-    """Batched synthesis; one result dict per text (wav, postnet mel
-    [n_mels, T], alignment, stop tokens). `seed` seeds the decode's prenet
-    dropout. `vocoder` (mel [n_mels, T] -> waveform, e.g.
-    VocoderSynthesizer.mel_to_wav) replaces Griffin-Lim; it runs once per
-    row, in order."""
+    """Batched synthesis; one result dict per text (wav, postnet spectrogram
+    [F, T]: mel, or linear for Tacotron(1), alignment, stop tokens). `seed`
+    seeds the prenets' dropout. `vocoder` (mel [n_mels, T] -> waveform, e.g.
+    VocoderSynthesizer.mel_to_wav) replaces Griffin-Lim for a mel model; it
+    runs once per row, in order."""
     text_arr, lengths = _pad_texts([text_to_seq(t, cfg) for t in texts])
     out = model.inference(text_arr, lengths, max_decoder_steps=max_decoder_steps,
                           seed=seed, decode_dtype=decode_dtype)
@@ -56,8 +58,12 @@ def synthesis_batch(model, texts: list[str], cfg: Config, ap: AudioProcessor,
         results.append({"text": text, "mel_postnet_spec": spec,
                         "alignment": aligns[i], "stop_tokens": stops[i]})
         specs.append(spec)
-    wavs = ([np.asarray(vocoder(spec)) for spec in specs] if vocoder is not None
-            else ap.inv_melspectrogram_batch(specs))
+    if getattr(model, "output_type", "mel") == "linear":
+        wavs = ap.inv_spectrogram_batch(specs)
+    elif vocoder is not None:
+        wavs = [np.asarray(vocoder(spec)) for spec in specs]
+    else:
+        wavs = ap.inv_melspectrogram_batch(specs)
     for res, wav in zip(results, wavs):
         res["wav"] = wav[: ap.find_endpoint(wav)] if trim_silence else wav
     return results

@@ -1,5 +1,6 @@
 """Synthesizer, the serving facade (the JAX package's infer/synthesizer.py):
-loads a Tacotron2 checkpoint (and optionally a WaveRNN vocoder), splits
+loads a Tacotron2 or Tacotron(1) checkpoint (and optionally a WaveRNN
+vocoder, which serves Tacotron2's mels), splits
 input into sentences, synthesizes every sentence of every request in one
 batch, and joins each request's sentences with 0.25 s of silence. Runs on
 CUDA unless given another device."""

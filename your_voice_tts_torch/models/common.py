@@ -69,6 +69,18 @@ def kernel_prenet(prenet: Prenet, prenet_dropout: bool):
             prenet_dropout and prenet.dropout_enabled)
 
 
+def cached_decode_weights(decoder: nn.Module, dtype, build) -> dict:
+    """`build(dtype)`, the decode kernel's weight layout, kept in
+    `decoder._prepared` per (dtype, device, parameter version): loading new
+    weights rebuilds it, repeated inference reuses it."""
+    version = tuple(t._version for t in decoder.state_dict().values())
+    key = (dtype, next(decoder.parameters()).device)
+    hit = decoder._prepared.get(key)
+    if hit is None or hit[0] != version:
+        hit = decoder._prepared[key] = (version, build(dtype))
+    return hit[1]
+
+
 class ConvBNBlock(nn.Module):
     """conv(k) + BatchNorm (statistics over `mask` when training) +
     activation + dropout 0.5 (training mode with a generator only)."""

@@ -31,7 +31,8 @@ from ..nn.rnn import LSTMCell, bilstm
 from ..ops.taco2_decode import prepare_weights, tacotron2_decode
 from .attention import init_attn
 from .decoder_grad import DecoderCore, dropout_masks
-from .common import ConvBNBlock, Prenet, kernel_prenet, sequence_mask
+from .common import (ConvBNBlock, Prenet, cached_decode_weights, kernel_prenet,
+                     sequence_mask)
 
 
 class Encoder(nn.Module):
@@ -91,27 +92,23 @@ class Decoder(nn.Module):
         self._prepared: dict = {}
 
     def decode_weights(self, dtype) -> dict:
-        """The decode kernel's weight layout in `dtype`, built once per
-        (dtype, device, parameter version): loading new weights rebuilds
-        it, repeated inference reuses it."""
-        version = tuple(t._version for t in self.state_dict().values())
-        key = (dtype, self.projection.weight.device)
-        hit = self._prepared.get(key)
-        if hit is None or hit[0] != version:
-            prenet, _ = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
-            a = self.attention
-            w = prepare_weights(
-                prenet,
-                (self.attention_rnn.weight_ih, self.attention_rnn.weight_hh,
-                 self.attention_rnn.bias),
-                a.query.weight, a.location_kernel() if a.location_attention else None,
-                a.v.weight, a.v.bias,
-                (self.decoder_rnn.weight_ih, self.decoder_rnn.weight_hh,
-                 self.decoder_rnn.bias),
-                (self.projection.weight, self.projection.bias),
-                (self.stopnet.weight, self.stopnet.bias), dtype=dtype)
-            hit = self._prepared[key] = (version, w)
-        return hit[1]
+        """The decode kernel's weight layout in `dtype`, cached
+        (`cached_decode_weights`)."""
+        return cached_decode_weights(self, dtype, self._build_decode_weights)
+
+    def _build_decode_weights(self, dtype) -> dict:
+        prenet, _ = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
+        a = self.attention
+        return prepare_weights(
+            prenet,
+            (self.attention_rnn.weight_ih, self.attention_rnn.weight_hh,
+             self.attention_rnn.bias),
+            a.query.weight, a.location_kernel() if a.location_attention else None,
+            a.v.weight, a.v.bias,
+            (self.decoder_rnn.weight_ih, self.decoder_rnn.weight_hh,
+             self.decoder_rnn.bias),
+            (self.projection.weight, self.projection.bias),
+            (self.stopnet.weight, self.stopnet.bias), dtype=dtype)
 
     def forward(self, inputs, input_lengths, mels, r: int,
                 generator: torch.Generator | None = None):

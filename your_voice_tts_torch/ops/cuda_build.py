@@ -19,7 +19,7 @@ import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "cuda")
-SOURCES = ("taco2_decode", "griffin_lim", "taco2_train", "wavernn_gen")
+SOURCES = ("taco2_decode", "griffin_lim", "taco2_train", "wavernn_gen", "taco1_decode")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _loaded: dict[str, ctypes.CDLL] = {}

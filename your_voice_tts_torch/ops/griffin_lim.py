@@ -1,12 +1,21 @@
-"""Griffin-Lim with the final inverse STFT: the CUDA kernel
-(csrc/griffin_lim.cu), its plain PyTorch version, and their host helpers.
+"""Batched Griffin-Lim: the CUDA kernels (csrc/griffin_lim.cu), their plain
+PyTorch versions, their host helpers, and the router that picks among them.
 
-Counterpart of the JAX package's ops/pallas/griffin_lim.py
-`griffin_lim_pallas_wave` with an injected initial phase (the serving
-path's batch-invariant shared phase). Magnitudes [B, T, n_fft/2 + 1] ->
-waveforms [B, hop * (T - 1)].
+Counterparts of the JAX package's ops/pallas/griffin_lim.py with an
+injected initial phase (the serving path's batch-invariant shared phase),
+and of the route `ops/dsp.py griffin_lim_batch` takes between them for a
+batch (`griffin_lim_batch` here):
+- `griffin_lim_wave` (`griffin_lim_pallas_wave`): the FGLA loop with the
+  final inverse STFT fused, magnitudes [B, T, n_fft/2 + 1] -> waveforms
+  [B, hop * (T - 1)];
+- `griffin_lim_full` (`griffin_lim_pallas_full`): the same FGLA loop,
+  returning the complex spectrum [B, T, n_fft/2 + 1]; the caller runs the
+  istft;
+- `gl_iteration` (`gl_iteration_pallas`, driven by
+  `griffin_lim_pallas_batch`): PLAIN Griffin-Lim iterations on the unpacked
+  [T, n_fft/2 + 1] layout, momentum ignored.
 
-The loop runs on the PACKED layout of the JAX kernel: the complex
+The FGLA loop runs on the PACKED layout of the JAX kernel: the complex
 spectrogram's first n_fft/2 bins as one [T, n_fft] real plane (real parts,
 then imaginary parts) plus the real Nyquist bin as one column; window, OLA
 normalization and DFT scales are folded into two [n_fft, n_fft] matrices
@@ -28,20 +37,6 @@ from . import cuda_build
 
 F32 = torch.float32
 BF16 = torch.bfloat16
-
-
-def inverse_dft_matrices(n_fft: int):
-    """Real inverse-DFT matrices (iC [K, N], iS [K, N]) with
-    irfft(Fr, Fi) = Fr@iC - Fi@iS (numpy f32; the JAX package's
-    ops/dsp.py `_dft_matrices`, inverse half)."""
-    K = n_fft // 2 + 1
-    ang = 2.0 * np.pi * np.arange(K)[:, None] * np.arange(n_fft)[None, :] / n_fft
-    w = np.full((K, 1), 2.0)
-    w[0] = 1.0
-    if n_fft % 2 == 0:
-        w[-1] = 1.0
-    return ((w * np.cos(ang)) / n_fft).astype(np.float32), \
-        ((w * np.sin(ang)) / n_fft).astype(np.float32)
 
 
 def ola_wsum_inv(window: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
@@ -69,7 +64,7 @@ def packed_constants(n_fft: int, hop: int, window, dtype=BF16,
     if n_fft % 2:
         raise ValueError("the packed Griffin-Lim loop needs an even n_fft")
     half = n_fft // 2
-    iC, iS = inverse_dft_matrices(n_fft)
+    _, _, iC, iS = dft_matrices(n_fft)
     M = np.concatenate([iC[:half], -iS[:half]], 0)
     win = np.asarray(window, np.float32)
     wsi = ola_wsum_inv(win, n_fft, hop)
@@ -87,6 +82,47 @@ def packed_constants(n_fft: int, hop: int, window, dtype=BF16,
         "nyq": t(wsiwin * alt), "altw": t(win * alt / n_fft),
         "wsic": t(wsi[c0:c0 + hop]),
     }
+
+
+def dft_matrices(n_fft: int):
+    """Real DFT matrices (numpy f32; the JAX package's ops/dsp.py
+    `_dft_matrices`): C [N, K], S [N, K], iC [K, N], iS [K, N] with
+    rfft(x) = x@C - i x@S and irfft(Fr, Fi) = Fr@iC - Fi@iS."""
+    K = n_fft // 2 + 1
+    ang = 2.0 * np.pi * np.arange(n_fft)[:, None] * np.arange(K)[None, :] / n_fft
+    C, S = np.cos(ang), np.sin(ang)
+    w = np.full((K,), 2.0)
+    w[0] = 1.0
+    if n_fft % 2 == 0:
+        w[-1] = 1.0
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    return f32(C), f32(S), f32(w[:, None] * C.T / n_fft), f32(w[:, None] * S.T / n_fft)
+
+
+def unpacked_constants(n_fft: int, hop: int, window, dtype=BF16, device="cpu") -> dict:
+    """The plain iteration's DFT matrices in `dtype`, with the Kf = n_fft/2
+    + 1 bins padded to Kp (a multiple of 64) by zero rows and columns:
+    `syn` [2 Kp, N] = [iC ; -iS] (xw = [Fr | Fi] @ syn) and `ana` [N, 2 Kp]
+    = [C | -S] ([gr | gi] = g @ ana), plus the window and the interior OLA
+    normalization, f32."""
+    Kf = n_fft // 2 + 1
+    Kp = -(-Kf // 64) * 64
+    C, S, iC, iS = dft_matrices(n_fft)
+    syn = np.zeros((2 * Kp, n_fft), np.float32)
+    syn[:Kf], syn[Kp:Kp + Kf] = iC, -iS
+    ana = np.zeros((n_fft, 2 * Kp), np.float32)
+    ana[:, :Kf], ana[:, Kp:Kp + Kf] = C, -S
+    win = np.asarray(window, np.float32)
+    t = lambda a, dt=F32: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)  # noqa: E731
+    return {"n_fft": n_fft, "hop": hop, "dtype": dtype, "Kp": Kp, "window": win,
+            "syn": t(syn, dtype), "ana": t(ana, dtype), "win": t(win),
+            "wsi": t(ola_wsum_inv(win, n_fft, hop))}
+
+
+def gl_constants(n_fft: int, hop: int, window, dtype=BF16, device="cpu") -> dict:
+    """Both layouts' constants, built once: what `griffin_lim_batch` takes."""
+    return {"packed": packed_constants(n_fft, hop, window, dtype, device),
+            "unpacked": unpacked_constants(n_fft, hop, window, dtype, device)}
 
 
 def istft_edge_correction(T: int, n_fft: int, hop: int, window: np.ndarray,
@@ -143,13 +179,16 @@ def _check(mag, consts):
     return n_fft, hop, B, T
 
 
-def griffin_lim_wave_plain(mag, init_phase, consts: dict, *, n_iters: int,
-                           momentum: float = 0.0):
-    """The loop in plain PyTorch ops, on any device: the reference the
-    kernel is held against. Arguments as `griffin_lim_wave`."""
-    n_fft, hop, B, T = _check(mag, consts)
-    half, c0 = n_fft // 2, n_fft // 2 - hop
-    rnd = (lambda x: x.to(BF16).float()) if consts["dtype"] == BF16 else (lambda x: x)
+def _rounding(dtype):
+    return (lambda x: x.to(BF16).float()) if dtype == BF16 else (lambda x: x)
+
+
+def _fgla_plain(mag, init_phase, consts: dict, n_iters: int, momentum: float):
+    """The packed FGLA loop in plain PyTorch ops: (P [B, T, N] rounded to the
+    loop dtype, held in f32; Nyquist channel [B, T])."""
+    n_fft, hop = consts["n_fft"], consts["hop"]
+    half = n_fft // 2
+    rnd = _rounding(consts["dtype"])
     Mw, MfT = consts["Mw"].float(), consts["MfT"].float()
     nyq, altw = consts["nyq"], consts["altw"]
     m = mag.to(F32)
@@ -168,10 +207,31 @@ def griffin_lim_wave_plain(mag, init_phase, consts: dict, *, n_iters: int,
         P = rnd(m2 * Tt * torch.cat([inv, inv], -1))
         frN = mn * tN * torch.rsqrt(torch.clamp(tN * tN, min=1e-30))
         pP, pN = rnd(G), gn
-    acc = banded_ola(P @ Mw + frN[..., None] * altw, n_fft, hop)
+    return P, frN
+
+
+def griffin_lim_wave_plain(mag, init_phase, consts: dict, *, n_iters: int,
+                           momentum: float = 0.0):
+    """The wave route in plain PyTorch ops, on any device: the reference the
+    kernel is held against. Arguments as `griffin_lim_wave`."""
+    n_fft, hop, B, T = _check(mag, consts)
+    c0 = n_fft // 2 - hop
+    P, frN = _fgla_plain(mag, init_phase, consts, n_iters, momentum)
+    acc = banded_ola(P @ consts["Mw"].float() + frN[..., None] * consts["altw"], n_fft, hop)
     y = (acc[..., c0:c0 + hop] * consts["wsic"]).reshape(B, T * hop)[:, hop:]
     corr = istft_edge_correction(T, n_fft, hop, consts["window"], consts["wsi"])
     return y * torch.from_numpy(corr).to(y.device)
+
+
+def griffin_lim_full_plain(mag, init_phase, consts: dict, *, n_iters: int,
+                           momentum: float = 0.0):
+    """The full route in plain PyTorch ops, on any device. Arguments as
+    `griffin_lim_full`."""
+    n_fft, _, _, _ = _check(mag, consts)
+    half = n_fft // 2
+    P, frN = _fgla_plain(mag, init_phase, consts, n_iters, momentum)
+    return torch.complex(torch.cat([P[..., :half], frN[..., None]], -1),
+                         torch.cat([P[..., half:], torch.zeros_like(frN)[..., None]], -1))
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -180,6 +240,10 @@ _ARGTYPES = {
     "gl_analysis": [_P, _P, _P, _I, _P, _P, _I, _I, _F, _P],
     "gl_ola": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "gl_emit": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gl_unpack": [_P, _P, _P, _I, _I, _P],
+    "gli_synth": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "gli_ola": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gli_analysis": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -191,59 +255,101 @@ def _lib():
     return lib
 
 
+def _check_cuda(mag, consts: dict, what: str):
+    if mag.device.type != "cuda":
+        raise ValueError(f"{what} takes CUDA tensors")
+    if consts["dtype"] != BF16 or any(v.device != mag.device for v in consts.values()
+                                      if isinstance(v, torch.Tensor)):
+        raise ValueError(f"{what} takes bf16 constants on the magnitudes' device")
+    n_fft, hop = consts["n_fft"], consts["hop"]
+    if n_fft % 128 or hop > 1024:
+        raise ValueError(f"the Griffin-Lim kernels need n_fft % 128 == 0 and "
+                         f"hop <= 1024 (got {n_fft}, {hop})")
+
+
+class _FglaCuda:
+    """The packed FGLA loop on the CUDA kernels, per iteration a synthesis
+    product, the banded OLA and an analysis product with the FGLA update
+    fused. After `run`, P [B * T, N] bf16 and frN [B * T] hold the final
+    projection."""
+
+    def __init__(self, mag, init_phase, consts: dict, what: str):
+        n_fft, hop, B, T = _check(mag, consts)
+        _check_cuda(mag, consts, what)
+        self.lib, self.c = _lib(), consts
+        dev = mag.device
+        self.M, self.N, self.T, self.Kf = B * T, n_fft, T, n_fft // 2 + 1
+        self.K = -(-n_fft // hop) - 1
+        self.m = mag.to(F32).contiguous()
+        p0, n0 = pack_init(self.m, init_phase.to(dev), n_fft)
+        self.P = p0.reshape(self.M, n_fft).to(BF16).contiguous()
+        self.pP = self.P.clone()
+        self.frN = n0.reshape(self.M).contiguous()
+        self.pN = self.frN.clone()
+        self.xw = torch.empty(self.M, n_fft, device=dev)
+        self.g = torch.empty(self.M, n_fft, device=dev, dtype=BF16)
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def synth(self):
+        c = self.c
+        cuda_build.check(self.lib.gl_synth(self.P.data_ptr(), c["Mw"].data_ptr(),
+                                           self.frN.data_ptr(), c["altw"].data_ptr(),
+                                           self.xw.data_ptr(), self.M, self.N, self.stream),
+                         "gl_synth")
+
+    def run(self, n_iters: int, momentum: float) -> int:
+        """The loop's launches; returns how many it made."""
+        c, lib, mom = self.c, self.lib, float(momentum)
+        for _ in range(n_iters):
+            self.synth()
+            cuda_build.check(lib.gl_ola(self.xw.data_ptr(), c["nyq"].data_ptr(),
+                                        self.m.data_ptr(), self.Kf, self.g.data_ptr(),
+                                        self.frN.data_ptr(), self.pN.data_ptr(), self.M,
+                                        self.T, self.N, c["hop"], self.K, mom, self.stream),
+                             "gl_ola")
+            cuda_build.check(lib.gl_analysis(self.g.data_ptr(), c["MfT"].data_ptr(),
+                                             self.m.data_ptr(), self.Kf, self.P.data_ptr(),
+                                             self.pP.data_ptr(), self.M, self.N, mom,
+                                             self.stream), "gl_analysis")
+        return 3 * n_iters
+
+
 def griffin_lim_wave_cuda(mag, init_phase, consts: dict, *, n_iters: int,
                           momentum: float = 0.0):
-    """The loop on the CUDA kernels: per iteration a synthesis product, the
-    banded OLA and an analysis product with the FGLA update fused; then one
-    more synthesis and the waveform columns."""
-    n_fft, hop, B, T = _check(mag, consts)
-    if mag.device.type != "cuda":
-        raise ValueError("griffin_lim_wave_cuda takes CUDA tensors")
-    if consts["dtype"] != BF16 or consts["Mw"].device != mag.device:
-        raise ValueError("the Griffin-Lim kernel takes bf16 constants on the "
-                         "magnitudes' device")
-    if n_fft % 128 or hop > 1024:
-        raise ValueError(f"the Griffin-Lim kernel needs n_fft % 128 == 0 and "
-                         f"hop <= 1024 (got {n_fft}, {hop})")
-    lib = _lib()
-    dev = mag.device
-    M, N, Kf = B * T, n_fft, n_fft // 2 + 1
-    K, c0 = -(-n_fft // hop) - 1, n_fft // 2 - hop
-    m = mag.to(F32).contiguous()
-    p0, n0 = pack_init(m, init_phase.to(dev), n_fft)
-    P = p0.reshape(M, N).to(BF16).contiguous()
-    pP = P.clone()
-    frN = n0.reshape(M).contiguous()
-    pN = frN.clone()
-    xw = torch.empty(M, N, device=dev)
-    g = torch.empty(M, N, device=dev, dtype=BF16)
-    y = torch.empty(M, hop, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    Mw, MfT = consts["Mw"].data_ptr(), consts["MfT"].data_ptr()
-    altw, nyq = consts["altw"].data_ptr(), consts["nyq"].data_ptr()
-    mom = float(momentum)
-
-    def synth():
-        cuda_build.check(lib.gl_synth(P.data_ptr(), Mw, frN.data_ptr(), altw,
-                                      xw.data_ptr(), M, N, stream), "gl_synth")
-
-    for _ in range(n_iters):
-        synth()
-        cuda_build.check(lib.gl_ola(xw.data_ptr(), nyq, m.data_ptr(), Kf,
-                                    g.data_ptr(), frN.data_ptr(), pN.data_ptr(),
-                                    M, T, N, hop, K, mom, stream), "gl_ola")
-        cuda_build.check(lib.gl_analysis(g.data_ptr(), MfT, m.data_ptr(), Kf,
-                                         P.data_ptr(), pP.data_ptr(), M, N, mom,
-                                         stream), "gl_analysis")
-    synth()
-    cuda_build.check(lib.gl_emit(xw.data_ptr(), consts["wsic"].data_ptr(),
-                                 y.data_ptr(), M, T, N, hop, K, c0, stream), "gl_emit")
-    griffin_lim_wave_cuda.launches += 3 * n_iters + 2
+    """The wave route on the CUDA kernels: the FGLA loop, then one more
+    synthesis and the waveform columns."""
+    loop = _FglaCuda(mag, init_phase, consts, "griffin_lim_wave_cuda")
+    n = loop.run(n_iters, momentum)
+    n_fft, hop, T = loop.N, consts["hop"], loop.T
+    y = torch.empty(loop.M, hop, device=mag.device)
+    loop.synth()
+    cuda_build.check(loop.lib.gl_emit(loop.xw.data_ptr(), consts["wsic"].data_ptr(),
+                                      y.data_ptr(), loop.M, T, n_fft, hop, loop.K,
+                                      n_fft // 2 - hop, loop.stream), "gl_emit")
+    griffin_lim_wave_cuda.launches += n + 2
     corr = istft_edge_correction(T, n_fft, hop, consts["window"], consts["wsi"])
-    return y.reshape(B, T * hop)[:, hop:] * torch.from_numpy(corr).to(dev)
+    return y.reshape(-1, T * hop)[:, hop:] * torch.from_numpy(corr).to(mag.device)
 
 
 griffin_lim_wave_cuda.launches = 0
+
+
+def griffin_lim_full_cuda(mag, init_phase, consts: dict, *, n_iters: int,
+                          momentum: float = 0.0):
+    """The full route on the CUDA kernels: the FGLA loop, then one launch
+    that unpacks the plane and the Nyquist channel into the complex
+    spectrum."""
+    loop = _FglaCuda(mag, init_phase, consts, "griffin_lim_full_cuda")
+    n = loop.run(n_iters, momentum)
+    out = torch.empty(loop.M, loop.Kf, device=mag.device, dtype=torch.complex64)
+    cuda_build.check(loop.lib.gl_unpack(loop.P.data_ptr(), loop.frN.data_ptr(),
+                                        out.data_ptr(), loop.M, loop.N, loop.stream),
+                     "gl_unpack")
+    griffin_lim_full_cuda.launches += n + 1
+    return out.reshape(mag.shape)
+
+
+griffin_lim_full_cuda.launches = 0
 
 
 def griffin_lim_wave(mag, init_phase, consts: dict, *, n_iters: int,
@@ -255,3 +361,142 @@ def griffin_lim_wave(mag, init_phase, consts: dict, *, n_iters: int,
     kernel."""
     fn = griffin_lim_wave_plain if mag.device.type == "cpu" else griffin_lim_wave_cuda
     return fn(mag, init_phase, consts, n_iters=n_iters, momentum=momentum)
+
+
+def griffin_lim_full(mag, init_phase, consts: dict, *, n_iters: int,
+                     momentum: float = 0.0):
+    """Batched FGLA magnitudes [B, T, n_fft/2 + 1] -> the complex spectrum
+    S_mag * unit phase [B, T, n_fft/2 + 1] (complex64) of the last
+    projection, for the caller's istft. Arguments as `griffin_lim_wave`."""
+    fn = griffin_lim_full_plain if mag.device.type == "cpu" else griffin_lim_full_cuda
+    return fn(mag, init_phase, consts, n_iters=n_iters, momentum=momentum)
+
+
+# --- plain Griffin-Lim on the unpacked layout (the per-iteration route) -------
+
+def _check_unpacked(Fr, Fi, mag, consts: dict):
+    n_fft = consts["n_fft"]
+    if Fr.shape != mag.shape or Fi.shape != mag.shape or mag.dim() != 3 \
+            or mag.shape[-1] != n_fft // 2 + 1:
+        raise ValueError(f"spectra {tuple(Fr.shape)}, {tuple(Fi.shape)} and magnitudes "
+                         f"{tuple(mag.shape)} must be [B, T, {n_fft // 2 + 1}]")
+    return mag.shape
+
+
+def gl_iteration_plain(Fr, Fi, mag, consts: dict, *, n_iters: int = 1):
+    """`n_iters` plain Griffin-Lim iterations in plain PyTorch ops, on any
+    device: the reference the kernel is held against. Arguments as
+    `gl_iteration`."""
+    _check_unpacked(Fr, Fi, mag, consts)
+    n_fft, hop, Kp = consts["n_fft"], consts["hop"], consts["Kp"]
+    Kf = n_fft // 2 + 1
+    rnd = _rounding(consts["dtype"])
+    syn, ana = consts["syn"].float(), consts["ana"].float()
+    iC, iS = syn[:Kf], -syn[Kp:Kp + Kf]
+    C, S = ana[:, :Kf], -ana[:, Kp:Kp + Kf]
+    win, wsi = consts["win"], consts["wsi"]
+    m = mag.to(F32)
+    Fr, Fi = Fr.to(F32), Fi.to(F32)
+    for _ in range(n_iters):
+        xw = (rnd(Fr) @ iC - rnd(Fi) @ iS) * win
+        g = rnd(banded_ola(xw, n_fft, hop) * wsi * win)
+        gr, gi = g @ C, -(g @ S)
+        inv = torch.rsqrt(torch.clamp(gr * gr + gi * gi, min=1e-30))
+        Fr, Fi = m * gr * inv, m * gi * inv
+    return Fr, Fi
+
+
+def gl_iteration_cuda(Fr, Fi, mag, consts: dict, *, n_iters: int = 1):
+    """`n_iters` plain Griffin-Lim iterations on the CUDA kernels, three
+    launches each (synthesis product, banded OLA, analysis product with the
+    projection fused)."""
+    B, T, Kf = _check_unpacked(Fr, Fi, mag, consts)
+    _check_cuda(mag, consts, "gl_iteration_cuda")
+    lib = _lib()
+    dev = mag.device
+    n_fft, hop, Kp = consts["n_fft"], consts["hop"], consts["Kp"]
+    M, K = B * T, -(-n_fft // hop) - 1
+    Ff = torch.zeros(M, 2 * Kp, device=dev)
+    Ff[:, :Kf] = Fr.reshape(M, Kf)
+    Ff[:, Kp:Kp + Kf] = Fi.reshape(M, Kf)
+    Fb = Ff.to(BF16)
+    m = torch.zeros(M, Kp, device=dev)
+    m[:, :Kf] = mag.reshape(M, Kf)
+    xw = torch.empty(M, n_fft, device=dev)
+    g = torch.empty(M, n_fft, device=dev, dtype=BF16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    c = {k: consts[k].data_ptr() for k in ("syn", "ana", "win", "wsi")}
+    for _ in range(n_iters):
+        cuda_build.check(lib.gli_synth(Fb.data_ptr(), c["syn"], c["win"], xw.data_ptr(), M,
+                                       n_fft, 2 * Kp, stream), "gli_synth")
+        cuda_build.check(lib.gli_ola(xw.data_ptr(), c["wsi"], c["win"], g.data_ptr(), M, T,
+                                     n_fft, hop, K, stream), "gli_ola")
+        cuda_build.check(lib.gli_analysis(g.data_ptr(), c["ana"], m.data_ptr(), Ff.data_ptr(),
+                                          Fb.data_ptr(), M, n_fft, Kp, stream), "gli_analysis")
+    gl_iteration_cuda.launches += 3 * n_iters
+    return (Ff[:, :Kf].reshape(B, T, Kf).contiguous(),
+            Ff[:, Kp:Kp + Kf].reshape(B, T, Kf).contiguous())
+
+
+gl_iteration_cuda.launches = 0
+
+
+def gl_iteration(Fr, Fi, mag, consts: dict, *, n_iters: int = 1):
+    """`n_iters` plain Griffin-Lim iterations (no momentum) on the unpacked
+    layout: spectrum (Fr, Fi) and magnitudes [B, T, n_fft/2 + 1] f32, each
+    row one utterance -> the re-magnituded projection (Fr', Fi'). `consts`
+    from `unpacked_constants` on the magnitudes' device. CPU tensors run the
+    plain version, CUDA tensors the kernels."""
+    fn = gl_iteration_plain if mag.device.type == "cpu" else gl_iteration_cuda
+    return fn(Fr, Fi, mag, consts, n_iters=n_iters)
+
+
+# --- the router -----------------------------------------------------------------
+
+# Frames of the longest utterance the whole-loop routes take: the
+# hardware-validated cap of the JAX package's `capacity.gl_max_tile`, which
+# is what it returns on v5e for n_fft <= 2048. Longer batches take the
+# per-iteration route, as in the reference.
+GL_MAX_TILE = 1024
+
+
+def gl_route(T: int, n_fft: int, hop: int) -> str:
+    """The route `griffin_lim_batch` takes for T frames (the padded frame
+    bucket): "wave" (whole loop, istft fused) when the waveform columns sit
+    on 128-sample boundaries, "full" (whole loop, then an istft) otherwise,
+    "iteration" (plain Griffin-Lim, one launch sequence an iteration) past
+    GL_MAX_TILE frames."""
+    if T > GL_MAX_TILE:
+        return "iteration"
+    c0 = n_fft // 2 - hop
+    if T >= 2 and c0 >= 0 and c0 % 128 == 0 and hop % 128 == 0:
+        return "wave"
+    return "full"
+
+
+def griffin_lim_batch(mag, init_phase, consts: dict, *, n_iters: int,
+                      momentum: float = 0.0):
+    """Batched Griffin-Lim, the reference's `dsp.griffin_lim_batch` in its
+    batch-invariant serving mode: magnitudes [B, T, n_fft/2 + 1] and one
+    initial phase [T, n_fft/2 + 1] shared by every row -> waveforms
+    [B, hop * (T - 1)]. The route follows `gl_route` for every B, one row
+    included, so a row's audio does not depend on its batchmates. The
+    per-iteration route runs plain Griffin-Lim: it ignores the momentum, as
+    the reference's does. `consts` from `gl_constants`."""
+    from .dsp import istft
+
+    p = consts["packed"]
+    n_fft, hop = p["n_fft"], p["hop"]
+    window = torch.from_numpy(p["window"]).to(mag.device)
+    route = gl_route(mag.shape[1], n_fft, hop)
+    if route == "wave":
+        return griffin_lim_wave(mag, init_phase, p, n_iters=n_iters, momentum=momentum)
+    if route == "full":
+        F_ = griffin_lim_full(mag, init_phase, p, n_iters=n_iters, momentum=momentum)
+        return istft(F_, n_fft, hop, window)
+    m = mag.to(F32)
+    ph = init_phase.to(m.device, F32).expand(m.shape)
+    Fr, Fi = gl_iteration(m * torch.cos(ph), m * torch.sin(ph), m, consts["unpacked"],
+                          n_iters=n_iters)
+    ang = torch.complex(Fr, Fi) / torch.clamp(m, min=1e-16)
+    return istft(m * ang, n_fft, hop, window)

@@ -130,6 +130,27 @@ def _finish(out, aligns, stops, ran: int, max_steps: int, thresh: float):
     return out, aligns, stops, lengths
 
 
+def attention_plain(h, att, cum, q_w, u, v_w, v_b: float, pinp, enc, maskadd,
+                    norm: str, rnd):
+    """One location-sensitive attention step of the plain decodes: query
+    h [B, H] against q_w [A, H]; location features from the folded filter
+    u [2, K, A] over the rounded [att, cum]; energies, sigmoid or softmax
+    norm; returns (context [B, E], alignment [B, T])."""
+    K = u.shape[1]
+    pad = (K - 1) // 2
+    pq = rnd(h) @ q_w.T                                   # [B, A]
+    loc = F.conv1d(F.pad(rnd(torch.stack([att, cum], 1)), (pad, K - 1 - pad)),
+                   u.permute(2, 0, 1)).transpose(1, 2)    # [B, T, A]
+    e = (torch.tanh(pq[:, None, :] + loc + pinp) * v_w).sum(-1) + v_b
+    e = e + maskadd
+    if norm == "softmax":
+        align = torch.softmax(e, -1)
+    else:
+        sg = torch.sigmoid(e)
+        align = sg / sg.sum(-1, keepdim=True).clamp_min(1e-8)
+    return (align[:, :, None] * enc).sum(1), align
+
+
 def tacotron2_decode_plain(w: dict, enc_out, pinp, mask, *, r: int,
                            max_steps: int, norm: str = "sigmoid",
                            thresh: float = 0.6, prenet_dropout: bool = True,
@@ -137,8 +158,7 @@ def tacotron2_decode_plain(w: dict, enc_out, pinp, mask, *, r: int,
     """The decode in plain PyTorch ops, on any device: the reference the
     kernel is held against. Arguments as `tacotron2_decode`."""
     d = w["dims"]
-    NM, P, H1, H2, E, A, K, OW = (d[k] for k in ("n_in", "P", "H1", "H2", "E",
-                                                  "A", "K", "OW"))
+    NM, P, H1, H2, E, OW = (d[k] for k in ("n_in", "P", "H1", "H2", "E", "OW"))
     rnd = (lambda x: x.to(BF16).float()) if w["dtype"] == BF16 else (lambda x: x)
     W = {k: v.float() for k, v in w.items() if isinstance(v, torch.Tensor)}
     B, T, _ = enc_out.shape
@@ -149,8 +169,6 @@ def tacotron2_decode_plain(w: dict, enc_out, pinp, mask, *, r: int,
     z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
     h1, c1, h2, c2 = z(B, H1), z(B, H1), z(B, H2), z(B, H2)
     ctx, att, cum, frame, done = z(B, E), z(B, T), z(B, T), z(B, NM), z(B)
-    u_conv = W["u"].permute(2, 0, 1)                      # [A, 2, K]
-    pad = (K - 1) // 2
     n_steps = -(-max_steps // chunk) * chunk
     out = torch.empty(n_steps, B, OW, device=dev)
     aligns = torch.empty(n_steps, B, T, device=dev)
@@ -175,17 +193,8 @@ def tacotron2_decode_plain(w: dict, enc_out, pinp, mask, *, r: int,
         x = torch.relu(rnd(x) @ W["p2_w"][:, :P].T + W["p2_b"])
         x = dropout(x, key, 12)
         h1, c1 = lstm("a_w", "a_b", [x, ctx, h1], c1)
-        pq = rnd(h1) @ W["q_w"][:, :H1].T                  # [B, A]
-        loc = F.conv1d(F.pad(rnd(torch.stack([att, cum], 1)), (pad, K - 1 - pad)),
-                       u_conv).transpose(1, 2)            # [B, T, A]
-        e = (torch.tanh(pq[:, None, :] + loc + pinp) * W["v_w"]).sum(-1) + w["v_b"]
-        e = e + maskadd
-        if norm == "softmax":
-            align = torch.softmax(e, -1)
-        else:
-            sg = torch.sigmoid(e)
-            align = sg / sg.sum(-1, keepdim=True).clamp_min(1e-8)
-        ctx = (align[:, :, None] * enc).sum(1)
+        ctx, align = attention_plain(h1, att, cum, W["q_w"][:, :H1], W["u"], W["v_w"],
+                                     w["v_b"], pinp, enc, maskadd, norm, rnd)
         h2, c2 = lstm("d_w", "d_b", [h1, ctx, h2], c2)
         o = rnd(torch.cat([h2, ctx], 1)) @ W["o_w"][:, :H2 + E].T + W["o_b"]
         stop = torch.sigmoid(o[:, OW])

@@ -8,7 +8,8 @@ plus a ``__meta__`` JSON blob (``r``, ``step``, ...).
 
 `read_checkpoint` rebuilds the nested dict/list trees from those key paths;
 `params_from_jax` turns the trees into the ``state_dict`` of the port's
-Tacotron2 or WaveRNN (whose checkpoints hold no model state), running the
+Tacotron2, Tacotron(1) or WaveRNN (whose checkpoints hold no model state),
+running the
 layout map of the JAX package's utils/torch_import.py in reverse:
 
 - Dense ``w`` [in, out] -> ``weight`` [out, in];
@@ -17,7 +18,9 @@ layout map of the JAX package's utils/torch_import.py in reverse:
   ``weight_hh``, ``bias`` (the encoder's nn.LSTM gets the summed bias as
   ``bias_ih`` and a zero ``bias_hh``);
 - GRU ``wx`` [in, 3H] / ``wh`` [H, 3H] / ``bx`` / ``bh`` -> ``weight_ih``,
-  ``weight_hh``, ``bias_ih``, ``bias_hh`` (WaveRNN's torch.nn.GRUCell);
+  ``weight_hh``, ``bias_ih``, ``bias_hh`` (torch.nn.GRUCell: WaveRNN's, the
+  Tacotron(1) decoder's); a CBHG's ``gru_fwd`` / ``gru_bwd`` pair -> its
+  bidirectional nn.GRU ``gru`` (``..._l0`` and ``..._l0_reverse``);
 - BatchNorm ``scale``/``bias`` + state ``mean``/``var`` -> ``weight``/``bias``
   + ``running_mean``/``running_var``.
 
@@ -103,11 +106,13 @@ def _walk(tree, prefix=()):
 
 
 _ENCODER_LSTM = {"lstm_fwd": "", "lstm_bwd": "_reverse"}
+_CBHG_GRU = {"gru_fwd": "", "gru_bwd": "_reverse"}
+_GRU_LEAF = {"wx": "weight_ih", "wh": "weight_hh", "bx": "bias_ih", "bh": "bias_hh"}
 
 
 def params_from_jax(params: dict, state: dict) -> dict[str, torch.Tensor]:
-    """JAX-layout params/state (numpy trees) of a Tacotron2 or a WaveRNN ->
-    the port model's ``state_dict`` (float32 CPU tensors)."""
+    """JAX-layout params/state (numpy trees) of a Tacotron2, a Tacotron(1)
+    or a WaveRNN -> the port model's ``state_dict`` (float32 CPU tensors)."""
     sd: dict[str, torch.Tensor] = {}
 
     def put(name, arr):
@@ -128,6 +133,13 @@ def params_from_jax(params: dict, state: dict) -> dict[str, torch.Tensor]:
                 put(f"{base}.bias_hh_l0{sfx}", np.zeros_like(arr))
             else:
                 raise KeyError(f"unexpected encoder LSTM leaf {path}")
+            continue
+        if mods and mods[-1] in _CBHG_GRU:
+            if leaf not in _GRU_LEAF:
+                raise KeyError(f"unexpected CBHG GRU leaf {path}")
+            base = ".".join(map(str, mods[:-1] + ["gru"]))
+            put(f"{base}.{_GRU_LEAF[leaf]}_l0{_CBHG_GRU[mods[-1]]}",
+                arr.T if leaf in ("wx", "wh") else arr)
             continue
         base = ".".join(map(str, mods))
         if leaf == "w" and arr.ndim == 2:
@@ -177,7 +189,7 @@ def _path(name: str) -> list[str | int]:
 
 
 def params_to_jax(model: torch.nn.Module) -> tuple[dict, dict]:
-    """The port's Tacotron2 -> (params, model_state) as flat
+    """The port's Tacotron2 or Tacotron(1) -> (params, model_state) as flat
     {keystr: numpy float32} in the JAX package's layouts (the inverse of
     `params_from_jax`)."""
     from ..nn.core import BatchNorm1d, Conv1d
@@ -209,6 +221,16 @@ def params_to_jax(model: torch.nn.Module) -> tuple[dict, dict]:
             put("wx", npy(mod.weight_ih).T)
             put("wh", npy(mod.weight_hh).T)
             put("b", npy(mod.bias))
+        elif isinstance(mod, torch.nn.GRUCell):
+            for leaf, name in _GRU_LEAF.items():
+                t = npy(getattr(mod, name))
+                put(leaf, t.T if leaf in ("wx", "wh") else t)
+        elif isinstance(mod, torch.nn.GRU):
+            for jax_name, sfx in _CBHG_GRU.items():
+                for leaf, name in _GRU_LEAF.items():
+                    t = npy(getattr(mod, f"{name}_l0{sfx}"))
+                    params[_keystr(path[:-1] + [jax_name, leaf])] = np.ascontiguousarray(
+                        t.T if leaf in ("wx", "wh") else t)
         elif isinstance(mod, torch.nn.LSTM):
             for jax_name, sfx in _ENCODER_LSTM.items():
                 p = path[:-1] + [jax_name]
