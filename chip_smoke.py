@@ -56,14 +56,18 @@ Phases, each fatal on failure:
    train step at that shape (train step ms, mel frames/s, launches).
 
 8. wavernn: the WaveRNN sample-loop kernel at full width (WaveRNNConfig
-   defaults: n_mels 80, R = F = 512, 10-bit mu-law; seeded random weights)
-   against its plain version on the folds of a 500-frame mel (22 rows of
-   6,600 steps): mu-law greedy and sampled (classes identical over the
-   first 64 steps of every row, first divergent step and share of
-   identical row-steps printed, mean |x| and std within 5%), MoL and
-   Gaussian over 256 steps (1e-4); kernel ms at that shape and at the
-   bench's 1400-frame mel, plain ms, bound ms, and the whole `generate` on
-   the 1400-frame mel as seconds of audio per wall second;
+   defaults: n_mels 80, R = F = 512, 10-bit mu-law; seeded random weights,
+   packed once) against its plain version on the folds of a 500-frame mel
+   (22 rows of 6,600 steps) and of the bench's 1400-frame mel (60 rows):
+   the launch plan (blocks, tile rows, shared memory, weight slice, barriers
+   a step); mu-law greedy and sampled (classes identical over the first 64
+   steps of every row, first divergent step and share of identical
+   row-steps printed, mean |x| and std within 5%), MoL and Gaussian over
+   256 steps for two input seeds (1e-4 over 22 rows, 2.5e-4 over 60);
+   kernel ms and us a step, the probe launches (dot products, staging
+   copies or sampling left out; the barrier floor, five grid.sync() a step
+   and no work), bound ms; plain ms, and the whole `generate` on the
+   1400-frame mel as seconds of audio per wall second;
 9. vocoder main path: Synthesizer(full width, vocoder_config=WaveRNN) answers
    the batch of 8 and 5 batch-1 requests with the launch counters set to 0
    just before and read just after; mel frames/s, real-time factor, p50
@@ -897,6 +901,60 @@ def wavernn_bound(w, B: int, L: int) -> tuple[float, str]:
     return bound(wbytes + B * L * (C + 1) * 4, 2 * macs * B * L / F32_FLOPS)
 
 
+def hold_wavernn(tag: str, w, cond, aux, bits: int, packed) -> tuple[dict, float]:
+    """The kernel against its plain version on the same draws, mu-law
+    greedy and sampled over every step: no row diverges before step 64
+    (float32 sums in another order flip a near-tie now and then, and a row
+    follows its own samples from there), mean |x| and std within 5%.
+    Returns the readings and the plain version's ms (the last of the two)."""
+    import torch
+
+    from your_voice_tts_torch.ops.wavernn_gen import wavernn_generate_cuda, wavernn_generate_plain
+    from your_voice_tts_torch.vocoder.models.wavernn import encode_mulaw
+
+    out, plain_ms = {}, None
+    L = cond.shape[1]
+    for greedy in (True, False):
+        got = wavernn_generate_cuda(w, cond, aux, 7, bits=bits, greedy=greedy, packed=packed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = wavernn_generate_plain(w, cond, aux, 7, bits=bits, greedy=greedy)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same = encode_mulaw(got, bits) == encode_mulaw(ref, bits)
+        first = [int((~r).nonzero()[0]) if not bool(r.all()) else L for r in same]
+        stats = [(float(x.abs().mean()), float(x.std())) for x in (got, ref)]
+        gap = max(abs(a - b) / b for a, b in zip(*stats))
+        ok = (min(first) >= 64 and gap <= 0.05 and bool(torch.isfinite(got).all())
+              and float(got.abs().max()) <= 1.0)
+        name = "greedy" if greedy else "sampled"
+        print(f"[wavernn] {tag} mu-law {name}: first divergent step per row {first} (tol: "
+              f"none before 64); identical row-steps {float(same.float().mean()):.5f}; mean "
+              f"|x| / std kernel {stats[0][0]:.4f} / {stats[0][1]:.4f}, plain "
+              f"{stats[1][0]:.4f} / {stats[1][1]:.4f} (tol 5%); max abs err "
+              f"{float((got - ref).abs().max()):.3e}")
+        check(ok, f"WaveRNN kernel disagrees with plain ({tag}, mu-law {name})")
+        out[name] = dict(first_divergent=first, identical=float(same.float().mean()),
+                         stats=stats, max_abs_err=float((got - ref).abs().max()))
+    return out, plain_ms
+
+
+def wavernn_breakdown(tag: str, w, cond, aux, bits: int, packed, ms: float) -> dict:
+    """us a step of the full launch and of its probe launches, the same
+    kernel with parts of each step left out (dot products, staging copies,
+    sampling); `barriers_only` is the barrier floor: the same grid, five
+    grid.sync() a step, no work. A part costs about full - probe."""
+    from your_voice_tts_torch.ops.wavernn_gen import PROBES, wavernn_probe_cuda
+
+    L = cond.shape[1]
+    probes = {name: cuda_ms(lambda: wavernn_probe_cuda(w, cond, aux, name, bits=bits,
+                                                       packed=packed), 1) * 1e3 / L
+              for name in PROBES}
+    print(f"[wavernn] {tag} us a step: full {ms * 1e3 / L:.2f}; probes "
+          + ", ".join(f"{k} {v:.2f}" for k, v in probes.items()))
+    return dict(us_per_step=ms * 1e3 / L, probes_us_per_step=probes)
+
+
 def phase_wavernn(report):
     import torch
 
@@ -904,56 +962,59 @@ def phase_wavernn(report):
                                                       wavernn_generate_cuda,
                                                       wavernn_generate_plain)
     from your_voice_tts_torch.vocoder.config import WaveRNNConfig
-    from your_voice_tts_torch.vocoder.models.wavernn import WaveRNN, encode_mulaw
+    from your_voice_tts_torch.vocoder.models.wavernn import WaveRNN
 
     c = WaveRNNConfig()
     model = WaveRNN(device="cuda", seed=3)
     w = generation_weights(model)
-    cond, aux = wavernn_inputs(model, SERVE_FRAMES, seed=4)
-    B, L = cond.shape[:2]
-    shape = launch_shape(B, L, model.n_mels, model.aux_dims, model.rnn_dims,
-                         w["fc1_w"].shape[0], model.n_classes)
-    print(f"[wavernn] {B} folds x {L} steps; launch {shape}")
-    out, plain_ms = {}, None
-    for greedy in (True, False):
-        got = wavernn_generate_cuda(w, cond, aux, 7, bits=c.bits, greedy=greedy)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = wavernn_generate_plain(w, cond, aux, 7, bits=c.bits, greedy=greedy)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        same = encode_mulaw(got, c.bits) == encode_mulaw(ref, c.bits)
-        first = [int((~r).nonzero()[0]) if not bool(r.all()) else L for r in same]
-        stats = [(float(x.abs().mean()), float(x.std())) for x in (got, ref)]
-        gap = max(abs(a - b) / b for a, b in zip(*stats))
-        ok = (min(first) >= 64 and gap <= 0.05 and bool(torch.isfinite(got).all())
-              and float(got.abs().max()) <= 1.0)
-        name = "greedy" if greedy else "sampled"
-        print(f"[wavernn] mu-law {name}: first divergent step per row {first} (tol: none "
-              f"before 64); identical row-steps {float(same.float().mean()):.5f}; mean |x| / "
-              f"std kernel {stats[0][0]:.4f} / {stats[0][1]:.4f}, plain {stats[1][0]:.4f} / "
-              f"{stats[1][1]:.4f} (tol 5%); max abs err {float((got - ref).abs().max()):.3e}")
-        check(ok, f"WaveRNN kernel disagrees with plain (mu-law {name})")
-        out[name] = dict(first_divergent=first, identical=float(same.float().mean()),
-                         stats=stats, max_abs_err=float((got - ref).abs().max()))
-    # tolerance 1e-4: the same draws on both sides, float32 sums in another
-    # order, 256 steps of continuous feedback (measured ~2e-6)
-    for mode in ("mol", "gauss"):
-        m = WaveRNN(mode=mode, device="cuda", seed=5)
-        wm = generation_weights(m)
-        cm, am = wavernn_inputs(m, SERVE_FRAMES, seed=6)
-        cm, am = cm[:, :256].contiguous(), am[:, :256].contiguous()
-        err = float((wavernn_generate_cuda(wm, cm, am, 7, bits=c.bits, mode=mode)
-                     - wavernn_generate_plain(wm, cm, am, 7, bits=c.bits, mode=mode)).abs().max())
-        print(f"[wavernn] {mode} sampled, {cm.shape[0]} rows x 256 steps: max abs err "
-              f"{err:.3e} (tol 1e-4)")
-        check(err <= 1e-4, f"WaveRNN kernel disagrees with plain ({mode})")
-        out[mode] = err
-    ms = cuda_ms(lambda: wavernn_generate_cuda(w, cond, aux, 7, bits=c.bits), 3)
-    bound_ms, bound_by = wavernn_bound(w, B, L)
-    cb, ab = wavernn_inputs(model, BENCH_FRAMES, seed=8)
-    ms_bench = cuda_ms(lambda: wavernn_generate_cuda(w, cb, ab, 7, bits=c.bits), 2)
-    bound_bench, _ = wavernn_bound(w, cb.shape[0], L)
+    packed = model.packed_weights(w)
+    per_shape, errs, plain_ms = {}, [], None
+    for frames, seed, reps in ((SERVE_FRAMES, 4, 3), (BENCH_FRAMES, 8, 2)):
+        cond, aux = wavernn_inputs(model, frames, seed)
+        B, L = cond.shape[:2]
+        tag = f"B={B}"
+        shape = launch_shape(B, L, model.n_mels, model.aux_dims, model.rnn_dims,
+                             w["fc1_w"].shape[0], model.n_classes)
+        print(f"[wavernn] {tag}: {B} folds x {L} steps; launch plan: {shape['blocks']} blocks "
+              f"x {shape['threads']} threads, {shape['blocks_per_sm']} block(s) per SM, "
+              f"shared memory {shape['smem_bytes']} B, tile rows {shape['tile_rows']} "
+              f"({shape['tiles']} tiles), weights streamed from L2 every stage (slice "
+              f"{shape['weight_slice_bytes']} B a block; only the input layer's rows stay "
+              f"resident), {shape['barriers_per_step']} barriers a step")
+        check(shape["barriers_per_step"] <= 5, "five grid barriers a step at most")
+        out, pm = hold_wavernn(tag, w, cond, aux, c.bits, packed)
+        plain_ms = plain_ms or pm
+        errs.append(out["greedy"]["max_abs_err"])
+        # the same draws on both sides, float32 sums in another order, 256
+        # steps of continuous feedback; two input seeds a shape. 1e-4 over 22
+        # rows; over 60 rows the largest of 60 chaotic rows reads higher, and
+        # the six-barrier kernel read 1.74e-4 on these inputs (MoL, input
+        # seed 6) with samples bit-identical to this kernel's: 2.5e-4 there.
+        tol = 1e-4 if frames == SERVE_FRAMES else 2.5e-4
+        for mode in ("mol", "gauss"):
+            m = WaveRNN(mode=mode, device="cuda", seed=5)
+            wm = generation_weights(m)
+            for in_seed in (6, 16):
+                cm, am = wavernn_inputs(m, frames, seed=in_seed)
+                cm, am = cm[:, :256].contiguous(), am[:, :256].contiguous()
+                err = float((wavernn_generate_cuda(wm, cm, am, 7, bits=c.bits, mode=mode)
+                             - wavernn_generate_plain(wm, cm, am, 7, bits=c.bits, mode=mode))
+                            .abs().max())
+                print(f"[wavernn] {tag} {mode} sampled, input seed {in_seed}, {cm.shape[0]} "
+                      f"rows x 256 steps: max abs err {err:.3e} (tol {tol:g})")
+                check(err <= tol, f"WaveRNN kernel disagrees with plain ({tag}, {mode})")
+                out[f"{mode}_seed{in_seed}"] = err
+                errs.append(err)
+        ms = cuda_ms(lambda: wavernn_generate_cuda(w, cond, aux, 7, bits=c.bits, packed=packed),
+                     reps)
+        bound_ms, bound_by = wavernn_bound(w, B, L)
+        parts = wavernn_breakdown(tag, w, cond, aux, c.bits, packed, ms)
+        print(f"[wavernn] {tag} L={L}: kernel_ms {ms:.2f} ({ms * 1e3 / L:.2f} us a step)  "
+              f"bound_ms {bound_ms:.2f} ({bound_by})  barrier floor "
+              f"{parts['probes_us_per_step']['barriers_only'] * L / 1e3:.2f} ms")
+        per_shape[B] = dict(launch=shape, comparisons=out, ms=ms, bound_ms=bound_ms,
+                            bound_by=bound_by, **parts)
+    serve, bench = per_shape.values()
     mel = torch.randn(BENCH_FRAMES, model.n_mels, generator=torch.Generator().manual_seed(9))
     model.generate(mel.cuda(), 1)
     torch.cuda.synchronize()
@@ -962,22 +1023,22 @@ def phase_wavernn(report):
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     rtf = len(wav) / 22050 / gen_s
-    print(f"[wavernn] B={B} L={L}: kernel_ms {ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms "
-          f"{bound_ms:.2f} ({bound_by})  library_ms none (no single PyTorch call feeds a "
-          f"sample back)")
-    print(f"[wavernn] bench mel ({BENCH_FRAMES} frames, {cb.shape[0]} folds): kernel_ms "
-          f"{ms_bench:.2f}  bound_ms {bound_bench:.2f}; generate {gen_s * 1e3:.1f} ms for "
-          f"{len(wav)} samples, wavernn_fold_rtf {rtf:.1f}x realtime at 22050 Hz")
-    report["wavernn"] = dict(launch=shape, comparisons=out, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, bench_folds=cb.shape[0],
-                             bench_ms=ms_bench, bench_bound_ms=bound_bench,
-                             generate_ms=gen_s * 1e3, wavernn_fold_rtf=rtf)
+    print(f"[wavernn] serving shape: kernel_ms {serve['ms']:.2f}  plain_ms {plain_ms:.2f}  "
+          f"bound_ms {serve['bound_ms']:.2f} ({serve['bound_by']})  library_ms none (no single "
+          f"PyTorch call feeds a sample back)")
+    print(f"[wavernn] generate on the {BENCH_FRAMES}-frame mel: {gen_s * 1e3:.1f} ms for "
+          f"{len(wav)} samples, wavernn_fold_rtf {rtf:.1f}x realtime at 22050 Hz "
+          f"(kernel {bench['ms']:.2f} ms of it)")
+    report["wavernn"] = dict(shapes={str(k): v for k, v in per_shape.items()}, ms=serve["ms"],
+                             plain_ms=plain_ms, bound_ms=serve["bound_ms"],
+                             bound_by=serve["bound_by"], bench_ms=bench["ms"],
+                             bench_bound_ms=bench["bound_ms"], generate_ms=gen_s * 1e3,
+                             wavernn_fold_rtf=rtf)
     return {"name": "wavernn_generate_cuda", "route": "cuda",
             "source": "your_voice_tts_torch/csrc/wavernn_gen.cu",
             "replaces": "your_voice_tts_tpu/ops/pallas/wavernn_gen.py:229",
-            "max_abs_err": max(out["greedy"]["max_abs_err"], out["mol"], out["gauss"]),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "max_abs_err": max(errs), "ms": serve["ms"], "plain_ms": plain_ms,
+            "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"], "library_ms": None}
 
 
 def phase_vocoder_path(report):

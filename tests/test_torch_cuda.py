@@ -168,18 +168,105 @@ def test_train_bwd_kernel_matches_plain(cuda, dtype, norm, location, dropout, wi
         assert rel_l2(got[k], ref[k]) <= tol, (k, rel_l2(got[k], ref[k]))
 
 
-def wavernn_case(mode, bits, cuda, n_mels=20, B=3, L=96):
-    """A small WaveRNN (R = F = 32, aux 4) with seeded random weights and
+def wavernn_case(mode, bits, cuda, n_mels=20, B=3, L=96, width=32, model_out=None):
+    """A small WaveRNN (R = F = width, aux 4) with seeded random weights and
     inputs on the card."""
     from your_voice_tts_torch.ops.wavernn_gen import generation_weights
     from your_voice_tts_torch.vocoder.models.wavernn import WaveRNN
 
-    model = WaveRNN(n_mels=n_mels, bits=bits, rnn_dims=32, fc_dims=32, compute_dims=16,
+    model = WaveRNN(n_mels=n_mels, bits=bits, rnn_dims=width, fc_dims=width, compute_dims=16,
                     res_out_dims=16, num_res_blocks=2, mode=mode, num_mixtures=4,
                     device=cuda, seed=1)
+    if model_out is not None:
+        model_out.append(model)
     g = torch.Generator().manual_seed(2)
     return (generation_weights(model), torch.randn(B, L, n_mels, generator=g).to(cuda),
             torch.randn(B, L, 16, generator=g).to(cuda))
+
+
+def hold_wavernn(w, cond, aux, **kw):
+    """Kernel against plain on the same draws: mu-law classes identical at
+    every row-step, samples within 1e-5 (float32 sums in another order)."""
+    from your_voice_tts_torch.ops.wavernn_gen import wavernn_generate_cuda, wavernn_generate_plain
+    from your_voice_tts_torch.vocoder.models.wavernn import encode_mulaw
+
+    got = wavernn_generate_cuda(w, cond, aux, 7, **kw)
+    ref = wavernn_generate_plain(w, cond, aux, 7, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == cond.shape[:2] and bool(torch.isfinite(got).all())
+    if kw["mode"] == "mulaw":
+        assert torch.equal(encode_mulaw(got, kw["bits"]), encode_mulaw(ref, kw["bits"]))
+    assert float((got - ref).abs().max()) <= 1e-5
+    return got
+
+
+@pytest.mark.parametrize("B,bits,mode,greedy", [
+    (1, 8, "mulaw", True), (1, 8, "mulaw", False), (1, 8, "mol", False), (1, 8, "gauss", False),
+    (9, 8, "mulaw", True), (9, 8, "mulaw", False), (9, 8, "mol", False), (9, 8, "gauss", True),
+    (3, 6, "mulaw", False), (3, 6, "mulaw", True)])
+def test_wavernn_kernel_at_batch_edges(cuda, B, bits, mode, greedy):
+    """One row (a sub-tile of 1), 9 rows (a full sub-tile of 8 and a partial
+    one), 6 bits (64 classes in a 128-padded Gumbel row)."""
+    w, cond, aux = wavernn_case(mode, bits, cuda, B=B, L=64)
+    hold_wavernn(w, cond, aux, bits=bits, mode=mode, num_mixtures=4, greedy=greedy)
+
+
+@pytest.mark.parametrize("mode,greedy", [("mulaw", False), ("mulaw", True), ("gauss", False)])
+def test_wavernn_kernel_at_wide_units(cuda, mode, greedy):
+    """R = F = 768: six units a block, so the weight slice leaves room for
+    one 8-row tile and 9 rows take two tiles a stage."""
+    from your_voice_tts_torch.ops.wavernn_gen import launch_shape
+
+    w, cond, aux = wavernn_case(mode, 8, cuda, B=9, L=32, width=768)
+    shape = launch_shape(9, 32, 20, 4, 768, 768, w["fc3_w"].shape[0], mode, 4)
+    assert shape["tile_rows"] == 8 and shape["tiles"] == 2
+    hold_wavernn(w, cond, aux, bits=8, mode=mode, num_mixtures=4, greedy=greedy)
+
+
+def test_wavernn_launch_plan_at_the_default_config(cuda):
+    """WaveRNNConfig's widths: five barriers a step, a 500-frame row's 22
+    folds in one tile, a 1400-frame mel's 60 in two."""
+    from your_voice_tts_torch.ops.wavernn_gen import launch_shape
+
+    for B, tiles in ((22, 1), (60, 2)):
+        shape = launch_shape(B, 6600, 80, 32, 512, 512, 1024)
+        assert shape["barriers_per_step"] == 5 and shape["tiles"] == tiles
+        assert shape["blocks_per_sm"] >= 1 and shape["smem_bytes"] <= 232_448
+
+
+@pytest.mark.parametrize("probe", ["no_dots", "no_staging", "no_sampling", "barriers_only"])
+def test_wavernn_probe_launches_run(cuda, probe):
+    """Each probe launch runs to its end on the grid of the full one, and
+    counts no launch."""
+    from your_voice_tts_torch.ops.wavernn_gen import wavernn_generate_cuda, wavernn_probe_cuda
+
+    w, cond, aux = wavernn_case("mulaw", 8, cuda, B=9, L=32)
+    before = wavernn_generate_cuda.launches
+    wavernn_probe_cuda(w, cond, aux, probe, bits=8)
+    torch.cuda.synchronize()
+    assert wavernn_generate_cuda.launches == before
+
+
+def test_wavernn_model_sees_a_weight_edit_between_calls(cuda):
+    """WaveRNN keeps its packed layout between calls and packs again after
+    an in-place edit: the second call follows the edited weights."""
+    from your_voice_tts_torch.ops.wavernn_gen import generation_weights, wavernn_generate_plain
+    from your_voice_tts_torch.vocoder.models.wavernn import encode_mulaw
+
+    models = []
+    _, cond, aux = wavernn_case("mulaw", 8, cuda, B=3, L=48, model_out=models)
+    model = models[0]
+    first = model._decode(cond, aux, 7)
+    packed = model.packed_weights()
+    assert model.packed_weights() is packed
+    with torch.no_grad():
+        model.fc3.bias[5] += 50.0                       # class 5 wins every draw
+    second = model._decode(cond, aux, 7)
+    assert model.packed_weights() is not packed
+    ref = wavernn_generate_plain(generation_weights(model), cond, aux, 7, bits=8)
+    torch.cuda.synchronize()
+    assert not torch.equal(first, second)
+    assert torch.equal(encode_mulaw(second, 8), encode_mulaw(ref, 8))
 
 
 @pytest.mark.parametrize("mode,bits,greedy,n_mels", [

@@ -106,6 +106,13 @@ def _pad4(n: int) -> int:
     return -(-n // 4) * 4
 
 
+def padded_widths(M: int, A: int, R: int, Fd: int) -> tuple[int, int, int, int, int]:
+    """The kernel's row lengths, each a multiple of 4 floats: the input
+    layer's [mel | a1] columns, the GRU hidden state, GRU2 and fc1 on
+    [x | a], fc2 on [f1 | a4], fc3 on f2."""
+    return _pad4(M + A), _pad4(R), _pad4(R + A), _pad4(Fd + A), _pad4(Fd)
+
+
 def _rows(wt, K: int):
     """[N, k] -> [N, K] float32, zero-padded on the right to K columns."""
     return F.pad(wt, (0, K - wt.shape[1])).contiguous()
@@ -129,11 +136,31 @@ def _lib():
     lib.wavernn_launch_shape.argtypes = [ctypes.POINTER(ctypes.c_int),
                                          ctypes.POINTER(ctypes.c_int)]
     lib.wavernn_launch_shape.restype = ctypes.c_int
+    lib.wavernn_probe.argtypes = [*lib.wavernn_generate.argtypes, ctypes.c_int]
+    lib.wavernn_probe.restype = ctypes.c_int
     return lib
 
 
+def pack_weights(w: dict) -> dict:
+    """The kernel's weight layout from `generation_weights`: every matrix
+    zero-padded on the right to its row length (`padded_widths`); each GRU
+    matrix as [H, 3, K], one unit's three gate rows next to each other, and
+    each GRU bias as [H, 3]. `mats` and `bias` in the order the kernel takes
+    them. Made once per set of weights (`WaveRNN.packed_weights` keeps it)."""
+    R, M_A = w["g1_wh"].shape[1], w["i_wc"].shape[1]
+    A = w["g2_wx"].shape[1] - R
+    KI, KR, K2, KF, KF3 = padded_widths(M_A - A, A, R, w["fc1_w"].shape[0])
+    mats = [_rows(w["i_wc"], KI), _gates(w["g1_wx"], KR), _gates(w["g1_wh"], KR),
+            _gates(w["g2_wx"], K2), _gates(w["g2_wh"], KR), _rows(w["fc1_w"], K2),
+            _rows(w["fc2_w"], KF), _rows(w["fc3_w"], KF3)]
+    bias = [w["i_w0"].contiguous(), w["i_b"].contiguous(),
+            *(w[k].reshape(3, R).T.contiguous() for k in ("g1_bx", "g1_bh", "g2_bx", "g2_bh")),
+            w["fc1_b"].contiguous(), w["fc2_b"].contiguous(), w["fc3_b"].contiguous()]
+    return {"mats": mats, "bias": bias}
+
+
 def _dims(B, L, M, A, R, Fd, NC, mode, greedy, num_mixtures):
-    KI, KR, K2, KF, KF3 = _pad4(M + A), _pad4(R), _pad4(R + A), _pad4(Fd + A), _pad4(Fd)
+    KI, KR, K2, KF, KF3 = padded_widths(M, A, R, Fd)
     W = mulaw_width(NC) if mode == "mulaw" else (num_mixtures if mode == "mol" else 1)
     return [B, L, M, A, M + 4 * A, R, Fd, NC, W, MODES.index(mode), int(greedy),
             num_mixtures, KI, KR, K2, KF, KF3]
@@ -142,23 +169,24 @@ def _dims(B, L, M, A, R, Fd, NC, mode, greedy, num_mixtures):
 def launch_shape(B: int, L: int, M: int, A: int, R: int, Fd: int, NC: int,
                  mode: str = "mulaw", num_mixtures: int = 10) -> dict:
     """The kernel's launch on this card for these sizes: blocks (one per
-    SM), threads a block, batch rows staged per tile, dynamic shared
-    memory bytes, co-resident blocks per SM."""
+    SM), threads a block, batch rows staged per tile and tiles a stage,
+    dynamic shared memory bytes, co-resident blocks per SM, the bytes of a
+    block's weight slice (every stage's rows are copied from L2 each step;
+    only the input layer's are kept in shared memory for the launch), and
+    grid barriers a step."""
     dims = (ctypes.c_int * 17)(*_dims(B, L, M, A, R, Fd, NC, mode, False, num_mixtures))
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 7)()
     cuda_build.check(_lib().wavernn_launch_shape(dims, out), "wavernn_launch_shape")
-    return dict(zip(("blocks", "threads", "tile_rows", "smem_bytes", "blocks_per_sm"), out))
+    shape = dict(zip(("blocks", "threads", "tile_rows", "smem_bytes", "blocks_per_sm",
+                      "weight_slice_bytes", "barriers_per_step"), out))
+    shape["tiles"] = -(-B // shape["tile_rows"]) if shape["tile_rows"] else 0
+    return shape
 
 
-def wavernn_generate_cuda(w: dict, cond, aux, seed: int, *, bits: int,
-                          mode: str = "mulaw", num_mixtures: int = 10,
-                          greedy: bool = False):
-    """The sample loop as ONE cooperative launch of the CUDA kernel: every
-    step of every fold runs inside it, with grid-wide barriers between
-    its six stages. Takes contiguous float32 CUDA tensors and raises on
-    anything else, or when the card cannot hold the grid co-resident."""
+def _launch(w: dict, cond, aux, seed: int, bits: int, mode: str, num_mixtures: int,
+            greedy: bool, packed, probe: int):
     if cond.device.type != "cuda" or aux.device.type != "cuda":
-        raise ValueError("wavernn_generate_cuda takes CUDA tensors")
+        raise ValueError("the WaveRNN kernel takes CUDA tensors")
     B, L, M, A, R = _check(w, cond, aux, mode)
     if cond.dtype != F32 or aux.dtype != F32:
         raise ValueError(f"the WaveRNN kernel takes float32 cond/aux (got {cond.dtype}, "
@@ -172,48 +200,69 @@ def wavernn_generate_cuda(w: dict, cond, aux, seed: int, *, bits: int,
     need = {"mulaw": 2 ** bits, "mol": 3 * num_mixtures, "gauss": 2}[mode]
     if NC != need:
         raise ValueError(f"fc3 has {NC} outputs; mode {mode!r} needs {need}")
+    packed = pack_weights(w) if packed is None else packed
+    if packed["mats"][0].device != cond.device:
+        raise ValueError(f"the packed WaveRNN weights must be on {cond.device}")
     lib = _lib()
     dev = cond.device
     dims = _dims(B, L, M, A, R, Fd, NC, mode, greedy, num_mixtures)
-    KI, KR, K2, KF, KF3 = dims[12:]
     stream = torch.cat([cond, aux], -1).transpose(0, 1).contiguous()       # [L, B, C]
-    packed = [_rows(w["i_wc"], KI), _gates(w["g1_wx"], KR), _gates(w["g1_wh"], KR),
-              _gates(w["g2_wx"], K2), _gates(w["g2_wh"], KR), _rows(w["fc1_w"], K2),
-              _rows(w["fc2_w"], KF), _rows(w["fc3_w"], KF3)]
-    bias = [w["i_w0"].contiguous(), w["i_b"].contiguous(),
-            *(w[k].reshape(3, R).T.contiguous() for k in ("g1_bx", "g1_bh", "g2_bx", "g2_bh")),
-            w["fc1_b"].contiguous(), w["fc2_b"].contiguous(), w["fc3_b"].contiguous()]
     e = lambda *s: torch.empty(*s, device=dev)  # noqa: E731
-    scratch = [e(B, R), e(B, R), e(B, R), torch.zeros(2, B, R, device=dev),
+    scratch = [e(2, B, R), e(B, R), e(B, R), torch.zeros(2, B, R, device=dev),
                torch.zeros(2, B, R, device=dev), e(B, Fd), e(B, Fd), e(B, NC),
                torch.zeros(2, B, dtype=torch.int64, device=dev)]
     out = e(L, B)
-    ptrs = [stream] + packed + bias + scratch + [out]
+    ptrs = [stream] + packed["mats"] + packed["bias"] + scratch + [out]
     c_ptrs = (_P * len(ptrs))(*(t.data_ptr() for t in ptrs))
     mu = float(2 ** bits - 1)
     c_fl = (ctypes.c_float * 3)(mu, math.log1p(mu), LOG_SCALE_MIN)
     c_dims = (ctypes.c_int * len(dims))(*dims)
-    err = lib.wavernn_generate(c_ptrs, c_dims, c_fl, seed & 0xFFFFFFFF,
-                               torch.cuda.current_stream(dev).cuda_stream)
+    args = (c_ptrs, c_dims, c_fl, seed & 0xFFFFFFFF, torch.cuda.current_stream(dev).cuda_stream)
+    err = lib.wavernn_probe(*args, probe) if probe else lib.wavernn_generate(*args)
     if err == -1:
         raise RuntimeError("the WaveRNN kernel's grid cannot be co-resident on this card")
-    cuda_build.check(err, "wavernn_generate")
+    cuda_build.check(err, "wavernn_probe" if probe else "wavernn_generate")
+    return out
+
+
+def wavernn_generate_cuda(w: dict, cond, aux, seed: int, *, bits: int,
+                          mode: str = "mulaw", num_mixtures: int = 10,
+                          greedy: bool = False, packed: dict | None = None):
+    """The sample loop as ONE cooperative launch of the CUDA kernel: every
+    step of every fold runs inside it, with grid-wide barriers between
+    its five stages. `packed`: `pack_weights(w)`, made here when not given.
+    Takes contiguous float32 CUDA tensors and raises on anything else, or
+    when the card cannot hold the grid co-resident."""
+    out = _launch(w, cond, aux, seed, bits, mode, num_mixtures, greedy, packed, 0)
     wavernn_generate_cuda.launches += 1
     return out.T.contiguous()
 
 
 wavernn_generate_cuda.launches = 0
 
+# The kernel's probe launches: parts of every step left out (the bits of
+# csrc/wavernn_gen.cu); "barriers_only" keeps the grid and its five
+# barriers a step and nothing else, the latency floor.
+PROBES = {"no_dots": 1, "no_staging": 2, "no_sampling": 4, "barriers_only": 8}
+
+
+def wavernn_probe_cuda(w: dict, cond, aux, probe: str, *, bits: int, packed: dict | None = None):
+    """One probe launch (`PROBES`) on the mu-law sampled route, for its
+    time alone: its samples mean nothing, and it counts no launch."""
+    _launch(w, cond, aux, 7, bits, "mulaw", 10, False, packed, PROBES[probe])
+
 
 def wavernn_generate(w: dict, cond, aux, seed: int, *, bits: int,
                      mode: str = "mulaw", num_mixtures: int = 10,
-                     greedy: bool = False):
+                     greedy: bool = False, packed: dict | None = None):
     """Decode folds. w: `generation_weights` of a WaveRNN on the inputs'
     device; cond [B, L, n_mels], aux [B, L, 4 aux_dims]; seed: the hash
     PRNG's seed (uint32); mode 'mulaw' (2**bits classes), 'mol' or
     'gauss'; greedy replaces every draw by its argmax / mean. Returns
     samples [B, L] in [-1, 1]. CPU tensors run the plain version, CUDA
-    tensors the kernel."""
-    fn = wavernn_generate_plain if cond.device.type == "cpu" else wavernn_generate_cuda
-    return fn(w, cond, aux, seed, bits=bits, mode=mode, num_mixtures=num_mixtures,
-              greedy=greedy)
+    tensors the kernel (on `packed`, the kernel's layout of w, when given)."""
+    if cond.device.type == "cpu":
+        return wavernn_generate_plain(w, cond, aux, seed, bits=bits, mode=mode,
+                                      num_mixtures=num_mixtures, greedy=greedy)
+    return wavernn_generate_cuda(w, cond, aux, seed, bits=bits, mode=mode,
+                                 num_mixtures=num_mixtures, greedy=greedy, packed=packed)

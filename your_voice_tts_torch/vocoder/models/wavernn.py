@@ -24,7 +24,7 @@ from torch import nn
 
 from ...nn.core import GAINS, Conv1d, Dense, xavier_uniform_
 from ...nn.rnn import GRUCell
-from ...ops.wavernn_gen import generation_weights, wavernn_generate
+from ...ops.wavernn_gen import generation_weights, pack_weights, wavernn_generate
 
 # --- mu-law ------------------------------------------------------------------
 
@@ -133,6 +133,7 @@ class WaveRNN(nn.Module):
         self.fc2 = Dense(fc_dims + self.aux_dims, fc_dims)
         self.fc3 = Dense(fc_dims, self.n_classes)
         self.rnn_dims = rnn_dims
+        self._packed = None
         self._init(torch.Generator().manual_seed(seed))
         self.to(device)
         self.eval()
@@ -172,9 +173,22 @@ class WaveRNN(nn.Module):
         return xfade_and_unfold(samples, target, overlap)[:L]
 
     def _decode(self, cond, aux, seed: int):
-        return wavernn_generate(generation_weights(self), cond.contiguous(), aux.contiguous(),
-                                seed, bits=self.bits, mode=self.mode,
-                                num_mixtures=self.num_mixtures)
+        w = generation_weights(self)
+        packed = self.packed_weights(w) if cond.device.type == "cuda" else None
+        return wavernn_generate(w, cond.contiguous(), aux.contiguous(), seed, bits=self.bits,
+                                mode=self.mode, num_mixtures=self.num_mixtures, packed=packed)
+
+    def packed_weights(self, w: dict | None = None) -> dict:
+        """The sample-loop kernel's layout of the weights (`pack_weights`),
+        kept on the module and made again when a parameter of the sample
+        loop changes: its `_version` (an in-place edit, load_checkpoint, an
+        optimizer step) or its `data_ptr` (a move or a new tensor)."""
+        params = [t for m in (self.I, self.rnn1, self.rnn2, self.fc1, self.fc2, self.fc3)
+                  for t in m.parameters()]
+        key = tuple((t._version, t.data_ptr()) for t in params)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, pack_weights(w or generation_weights(self)))
+        return self._packed[1]
 
 
 # --- folding -----------------------------------------------------------------
