@@ -9,7 +9,12 @@ Phases, each fatal on failure:
 2. kernels: hold each kernel against its plain PyTorch version at serving
    shapes and time kernel, plain version and a library yardstick:
    - decode: configs/ljspeech_tacotron2.json at full width (r=2 of r_init 7),
-     seeded random weights, B=8, text ~150 symbols, 250 steps, dropout on;
+     seeded random weights, B=8, text ~150 symbols, 250 steps, dropout on,
+     and B=1 beside it: the launch plan, launches a decode (one), kernel
+     and plain ms, the probe launches in us a step (the same grid and
+     barriers with only the barriers, only the stage-input copies or only
+     the products' weight reads kept) and each round's work and barrier
+     wait on the SMs' clocks;
    - Griffin-Lim: B=8, T=500, n_fft 1024 / hop 256, 24 iterations,
      momentum 0.95, injected phase;
    - taco1-decode: the Tacotron(1) decode, the same config with the model
@@ -179,52 +184,54 @@ def no_chance_stops(model):
     return model
 
 
-def phase_decode(report):
+DECODE_B, DECODE_T, DECODE_STEPS = 8, 152, 250
+
+
+def decode_inputs(B: int = DECODE_B):
+    """The decode phase's inputs: configs/ljspeech_tacotron2.json at full
+    width (r=2 of r_init 7), seeded random weights (stopnet bias -10), a
+    batch of 8 texts of 122-150 symbols padded to T=152 through the
+    encoder; row 0 gets the folded stop row's context direction, so it
+    stops at once. B=1 takes row 1 alone (it decodes all 250 steps).
+    Returns (bf16 decode weights, enc, pinp, mask, decode keywords)."""
     import torch
 
     from your_voice_tts_torch.models import setup_model
     from your_voice_tts_torch.models.common import sequence_mask
-    from your_voice_tts_torch.ops.taco2_decode import (tacotron2_decode_cuda,
-                                                       tacotron2_decode_plain)
     from your_voice_tts_torch.text import symbols
 
     cfg = full_width_config()
     model = no_chance_stops(setup_model(len(symbols), cfg, device="cuda"))
-    B, T, steps = 8, 152, 250
+    T = DECODE_T
     g = torch.Generator().manual_seed(1)
     lengths = torch.tensor([150, 146, 142, 138, 134, 130, 126, 122])
-    text = torch.randint(1, model.embedding.num_embeddings, (B, T), generator=g)
+    text = torch.randint(1, model.embedding.num_embeddings, (8, T), generator=g)
     dec = model.decoder
     with torch.no_grad():
         enc = model.encoder(model.embedding(text.cuda()), lengths.cuda())
-        # row 0: the folded stop row's context direction, so it stops at once
         w32 = dec.decode_weights(torch.float32)
         H2, E = w32["dims"]["H2"], w32["dims"]["E"]
         c = w32["o_w"][-1, H2:H2 + E]
         enc[0] += 20.0 * c / (c @ c)
+        rows = slice(0, 8) if B == 8 else slice(1, 1 + B)
+        enc, lengths = enc[rows].contiguous(), lengths[rows]
         pinp = dec.attention.preprocess_inputs(enc)
     mask = sequence_mask(lengths.cuda(), T)
-    w = dec.decode_weights(torch.bfloat16)
-    kw = dict(r=2, max_steps=steps, seed=7, prenet_dropout=True, thresh=cfg.model.stop_threshold)
-    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
-    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
-    torch.cuda.synchronize()
-    errs = [float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3])]
-    # tolerances: both sides round the same bf16 inputs and accumulate in
-    # f32 in other orders; over 250 recurrent steps a rare 1-ulp bf16 flip
-    # of an input moves a frame by ~1e-3 (the Pallas kernel-vs-scan bounds)
-    tol = (5e-3, 2e-3, 2e-3)
-    print(f"[decode] B={B} T={T} steps={steps} lengths kernel {got[3].tolist()} "
-          f"plain {ref[3].tolist()}")
-    print(f"[decode] max_abs_err frames {errs[0]:.3e} (tol {tol[0]}), alignments "
-          f"{errs[1]:.3e} (tol {tol[1]}), stops {errs[2]:.3e} (tol {tol[2]})")
-    check(torch.equal(got[3].cpu(), ref[3].cpu()), "decode lengths differ")
-    check(int(got[3][0]) == 1 and int(got[3][1:].min()) == steps, "decode stop pattern")
-    check(all(e <= t for e, t in zip(errs, tol)), "decode kernel disagrees with plain")
-    ms = cuda_ms(lambda: tacotron2_decode_cuda(w, enc, pinp, mask, **kw), 5)
-    plain_ms = cuda_ms(lambda: tacotron2_decode_plain(w, enc, pinp, mask, **kw), 2)
+    kw = dict(r=2, max_steps=DECODE_STEPS, seed=7, prenet_dropout=True,
+              thresh=cfg.model.stop_threshold)
+    return dec.decode_weights(torch.bfloat16), enc, pinp, mask, kw
+
+
+def decode_bound(w, enc, pinp, mask, steps: int) -> tuple[float, str, float, float]:
+    """(bound ms, what bounds it, weight MB, ms to stream the weights every
+    step): a step's products at the bf16 rate, the location, energy and
+    context work at the float32 rate; bytes: weights and inputs read once,
+    outputs written once."""
+    import torch
+
     d = w["dims"]
-    NM, P, H1, A, K, OW = (d[k] for k in ("n_in", "P", "H1", "A", "K", "OW"))
+    NM, P, H1, H2, E, A, K, OW = (d[k] for k in ("n_in", "P", "H1", "H2", "E", "A", "K", "OW"))
+    B, T = mask.shape
     macs = (P * NM + P * P + 4 * H1 * (P + E + H1) + A * H1
             + 4 * H2 * (H1 + E + H2) + (OW + 1) * (H2 + E))
     f32_ops = T * A * (4 * K + 4) + 2 * T * E            # location, energies, context
@@ -233,19 +240,99 @@ def phase_decode(report):
     io_bytes = (wbytes + enc.numel() * 2 + pinp.numel() * 4 + mask.numel()
                 + 4 * steps * B * (OW + T + 1))
     bound_ms, bound_by = bound(io_bytes, ops_s)
-    stream_ms = steps * wbytes / HBM_BYTES_PER_S * 1e3
-    print(f"[decode] kernel_ms {ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms {bound_ms:.3f} "
-          f"({bound_by}; weights read once)  weights-streamed-every-step_ms {stream_ms:.2f} "
-          f"({wbytes / 1e6:.1f} MB bf16 weights x {steps} steps; they fit the 50 MB L2)  "
-          f"library_ms none (no single PyTorch call computes the decode)")
-    report["decode"] = dict(errs=errs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, weight_mb=wbytes / 1e6,
-                            weights_streamed_ms=stream_ms)
+    return bound_ms, bound_by, wbytes / 1e6, steps * wbytes / HBM_BYTES_PER_S * 1e3
+
+
+def one_launch_rows(dims: dict, T: int, sms: int) -> int:
+    """The most batch rows (whole tiles of 8) one decode launch holds at T;
+    a larger batch runs as slices, a launch each."""
+    from your_voice_tts_torch.ops.taco2_decode import launch_plan
+
+    rows = 0
+    while True:
+        try:
+            launch_plan(dims, rows + 8, T, sms)
+        except ValueError:
+            return rows
+        rows += 8
+
+
+def phase_decode(report):
+    import torch
+
+    from your_voice_tts_torch.ops.taco2_decode import (PROBES, launch_plan,
+                                                       tacotron2_decode_cuda,
+                                                       tacotron2_decode_plain,
+                                                       tacotron2_decode_probe_cuda,
+                                                       tacotron2_decode_profile_cuda)
+
+    steps = DECODE_STEPS
+    # tolerances: both sides round the same bf16 inputs and accumulate in
+    # f32 in other orders; over 250 recurrent steps a rare 1-ulp bf16 flip
+    # of an input moves a frame by ~1e-3 (the Pallas kernel-vs-scan bounds)
+    tol = (5e-3, 2e-3, 2e-3)
+    result, errs = {}, []
+    for B in (DECODE_B, 1):
+        w, enc, pinp, mask, kw = decode_inputs(B)
+        T = mask.shape[1]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = launch_plan(w["dims"], B, T, sms)
+        if B == DECODE_B:
+            report["decode_one_launch_rows"] = one_launch_rows(w["dims"], T, sms)
+            print(f"[decode] one launch holds up to {report['decode_one_launch_rows']} rows "
+                  f"at T={T} on {sms} SMs; a larger batch runs as slices, a launch each")
+        print(f"[decode] B={B}: launch plan {plan['blocks']} blocks x {plan['threads']} "
+              f"threads, {plan['tiles']} batch tile(s), shared memory {plan['smem_bytes']} B, "
+              f"{plan['barriers_per_step']} barriers a step, weights read from L2 "
+              f"{plan['weight_bytes_per_block'] / 1e3:.0f} KB a block a step, stage inputs "
+              f"copied {plan['staged_bytes_per_block'] / 1e3:.1f} KB a block a step")
+        before = tacotron2_decode_cuda.launches
+        got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+        per_decode = tacotron2_decode_cuda.launches - before
+        ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+        torch.cuda.synchronize()
+        e = [float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3])]
+        errs += e
+        print(f"[decode] B={B} T={T} steps={steps} lengths kernel {got[3].tolist()} "
+              f"plain {ref[3].tolist()}; launches a decode {per_decode}")
+        print(f"[decode] B={B} max_abs_err frames {e[0]:.3e} (tol {tol[0]}), alignments "
+              f"{e[1]:.3e} (tol {tol[1]}), stops {e[2]:.3e} (tol {tol[2]})")
+        check(torch.equal(got[3].cpu(), ref[3].cpu()), f"decode lengths differ (B={B})")
+        stop_pattern = [1] + [steps] * 7 if B == 8 else [steps]
+        check(got[3].tolist() == stop_pattern, "decode stop pattern")
+        check(all(x <= t for x, t in zip(e, tol)), f"decode kernel disagrees with plain (B={B})")
+        check(per_decode == 1, "one launch a decode")
+        ms = cuda_ms(lambda: tacotron2_decode_cuda(w, enc, pinp, mask, **kw), 5)
+        plain_ms = cuda_ms(lambda: tacotron2_decode_plain(w, enc, pinp, mask, **kw), 2) \
+            if B == DECODE_B else None
+        probes = {name: cuda_ms(lambda: tacotron2_decode_probe_cuda(
+                      w, enc, pinp, mask, name, r=kw["r"], max_steps=steps), 3) * 1e3 / steps
+                  for name in PROBES}
+        rounds = tacotron2_decode_profile_cuda(w, enc, pinp, mask, **kw)["rounds"]
+        bound_ms, bound_by, wmb, stream_ms = decode_bound(w, enc, pinp, mask, steps)
+        print(f"[decode] B={B} us a step: full {ms * 1e3 / steps:.2f}; probes "
+              + ", ".join(f"{k} {v:.2f}" for k, v in probes.items()))
+        print(f"[decode] B={B} rounds, us a step (SM clocks; work mean / largest block, "
+              f"barrier wait mean): " + "; ".join(
+                  f"{k} {v['work_mean_us']:.2f} / {v['work_max_us']:.2f}, {v['wait_mean_us']:.2f}"
+                  for k, v in rounds.items()))
+        print(f"[decode] B={B} kernel_ms {ms:.2f}  plain_ms "
+              f"{'%.2f' % plain_ms if plain_ms else 'not timed'}  bound_ms {bound_ms:.3f} "
+              f"({bound_by}; weights read once)  weights-streamed-every-step_ms {stream_ms:.2f} "
+              f"({wmb:.1f} MB bf16 weights x {steps} steps; they fit the 50 MB L2)  "
+              f"library_ms none (no single PyTorch call computes the decode)")
+        result[B] = dict(errs=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, weight_mb=wmb, weights_streamed_ms=stream_ms,
+                         launches_per_decode=per_decode, probes_us_per_step=probes,
+                         rounds_us_per_step=rounds,
+                         us_per_step=ms * 1e3 / steps, launch=plan)
+    main = result[DECODE_B]
+    report["decode"] = dict(main, b1=result[1])
     return {"name": "tacotron2_decode_cuda", "route": "cuda",
             "source": "your_voice_tts_torch/csrc/taco2_decode.cu",
             "replaces": "your_voice_tts_tpu/ops/pallas/taco2_decode.py:438",
-            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": max(errs), "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None}
 
 
 def speech_like(B: int, T: int, n_fft: int, hop: int, sr: int, window=None):

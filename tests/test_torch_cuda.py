@@ -31,31 +31,248 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("norm", ["sigmoid", "softmax"])
-def test_decode_kernel_matches_plain(cuda, norm):
-    """Smoke widths (odd sizes: 20 mels, attention 24, filter 15), one row
-    pushed to stop at once; bf16 on both sides, f32 sums in other orders."""
+def decode_case(cuda, B, norm="sigmoid", location=True, dropout=True, stop_rows=None, T=13,
+                seed=1, K=15):
+    """Smoke widths (odd sizes: 20 mels, attention 24, filter K=15), seeded
+    random weights and inputs on the card; `stop_rows` (default: row
+    min(3, B - 1)) get the stop row's context direction so they stop at
+    once. Returns (w, enc, pinp, mask)."""
     cfg = ModelConfig(r=2, embedding_dim=32, encoder_dim=32, decoder_rnn_dim=48,
                       attention_rnn_dim=48, attention_dim=24, attention_location_filters=8,
-                      attention_location_kernel_size=15, prenet_dim=24, postnet_dim=32,
-                      attention_norm=norm)
-    model = Tacotron2(30, cfg, n_mels=20, r_init=3, device=cuda, seed=1)
+                      attention_location_kernel_size=K, prenet_dim=24, postnet_dim=32,
+                      attention_norm=norm, location_attn=location, prenet_dropout=dropout)
+    model = Tacotron2(30, cfg, n_mels=20, r_init=3, device=cuda, seed=seed)
     g = torch.Generator().manual_seed(0)
-    B, T = 11, 13
     enc = (0.5 * torch.randn(B, T, 32, generator=g)).to(cuda)
     w = model.decoder.decode_weights(torch.bfloat16)
     c = w["o_w"][-1, 48:80].float()
-    enc[3] += 8.0 * c / (c @ c)
+    for row in (min(3, B - 1),) if stop_rows is None else stop_rows:
+        enc[row] += 8.0 * c / (c @ c)
     pinp = model.decoder.attention.preprocess_inputs(enc).detach()
-    mask = sequence_mask(torch.arange(T, T - B, -1, device=cuda).clamp_min(2), T)
-    kw = dict(r=2, max_steps=30, seed=5, chunk=7)
-    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
-    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
-    assert int(got[3][3]) == 1
+    lengths = (T - torch.arange(B, device=cuda) % T).clamp_min(2)
+    return w, enc, pinp, sequence_mask(lengths, T)
+
+
+def assert_decode_holds(got, ref):
+    """Lengths equal; frames 5e-3, alignments and stops 2e-3 (bf16 inputs
+    on both sides, f32 sums in other orders)."""
     assert torch.equal(got[3], ref[3])
     for a, b, tol in zip(got[:3], ref[:3], (5e-3, 2e-3, 2e-3)):
+        assert a.shape == b.shape
         assert float((a - b).abs().max()) <= tol
+
+
+# B, norm, location features, prenet dropout, filter taps, T
+DECODE_CASES = [(1, "sigmoid", True, True, 15, 13), (3, "softmax", True, True, 15, 13),
+                (8, "sigmoid", False, True, 15, 13), (8, "softmax", True, False, 15, 13),
+                (11, "sigmoid", True, True, 15, 13), (11, "softmax", False, False, 15, 13),
+                (40, "sigmoid", True, False, 15, 13), (40, "softmax", True, True, 15, 13),
+                (11, "sigmoid", True, True, 35, 40), (11, "softmax", True, False, 65, 40)]
+
+
+@pytest.mark.parametrize("B,norm,location,dropout,K,T", DECODE_CASES)
+def test_decode_kernel_matches_plain(cuda, B, norm, location, dropout, K, T):
+    """One persistent launch a decode, held against the plain version;
+    one row pushed to stop at once. Filters past 32 taps: a warp stages
+    the window 32 taps a pass."""
+    w, enc, pinp, mask = decode_case(cuda, B, norm, location, dropout, K=K, T=T)
+    kw = dict(r=2, max_steps=30, seed=5, chunk=7, norm=norm, prenet_dropout=dropout)
+    before = tacotron2_decode_cuda.launches
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    assert tacotron2_decode_cuda.launches == before + 1
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+    assert int(got[3][min(3, B - 1)]) == 1
+    assert_decode_holds(got, ref)
     assert torch.equal(tacotron2_decode(w, enc, pinp, mask, **kw)[0], got[0])
+
+
+def fixed_smem(dec, dims, B, T, sms):
+    """Shared memory of a plan without what it places only where it fits
+    (the weight buffer, the pairs' W_k m)."""
+    plan = dec.launch_plan(dims, B, T, sms)
+    pre = -(-plan["PPB"] * dims["A"] * 4 // 16) * 16 * plan["PRE_SMEM"]
+    return plan["smem_bytes"] - plan["WBUF"] * 512 - pre
+
+
+def test_decode_kernel_in_batch_slices(cuda, monkeypatch):
+    """A batch one launch cannot hold (a smaller limit of shared memory
+    stands in for a larger batch) runs as slices of whole batch tiles; every
+    row of the first slice stops at once, so that slice leaves at the first
+    chunk boundary and runs again to the others' step count: the same
+    outputs as plain over the whole batch, dropout keyed on the batch row."""
+    from your_voice_tts_torch.ops import taco2_decode as dec
+
+    B, T = 40, 13
+    w, enc, pinp, mask = decode_case(cuda, B, stop_rows=range(16))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    monkeypatch.setattr(dec, "SMEM_LIMIT", fixed_smem(dec, w["dims"], 16, T, sms))
+    assert dec.batch_slices(w["dims"], B, T, sms) == [(0, 16), (16, 32), (32, 40)]
+    kw = dict(r=2, max_steps=30, seed=5, chunk=7, prenet_dropout=True)
+    before = tacotron2_decode_cuda.launches
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+    assert_decode_holds(got, ref)
+    # a slice leaves at the first chunk boundary past its longest row (in
+    # steps), at 35 steps at the latest; those that left first run again
+    rans = [min(-(-int(ref[3][b0:b1].max()) // 7) * 7, 35) for b0, b1 in
+            [(0, 16), (16, 32), (32, 40)]]
+    assert rans[0] == 7 < max(rans) and got[3][:16].tolist() == [1] * 16
+    again = sum(r < max(rans) for r in rans)
+    assert tacotron2_decode_cuda.launches == before + 3 + again
+    assert got[1][min(max(rans), 30) - 1, :16].any()      # the first slice ran on
+
+
+@pytest.mark.parametrize("room", ["none", "some"])
+def test_decode_kernel_with_less_shared_memory(cuda, monkeypatch, room):
+    """With less shared memory than the weight buffer wants (a smaller
+    limit stands in for a larger batch or another card), the rounds that do
+    not fit read their weights from L2, and with no room at all `pre` goes
+    to global memory too: the same outputs as plain."""
+    from your_voice_tts_torch.ops import taco2_decode as dec
+
+    B = 11
+    w, enc, pinp, mask = decode_case(cuda, B)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = dec.launch_plan(w["dims"], B, mask.shape[1], sms)
+    pre = -(-plan["PPB"] * w["dims"]["A"] * 4 // 16) * 16 * plan["PRE_SMEM"]
+    base = plan["smem_bytes"] - plan["WBUF"] * 512 - pre
+    monkeypatch.setattr(dec, "SMEM_LIMIT", base + (0 if room == "none" else 512 * 4))
+    small = dec.launch_plan(w["dims"], B, mask.shape[1], sms)
+    assert small["WB_ROUNDS"] != plan["WB_ROUNDS"]
+    if room == "none":
+        assert small["WB_ROUNDS"] == 0 and small["PRE_SMEM"] == 0
+    else:
+        assert small["WB_ROUNDS"] != 0
+    kw = dict(r=2, max_steps=30, seed=5, chunk=7)
+    assert_decode_holds(tacotron2_decode_cuda(w, enc, pinp, mask, **kw),
+                        tacotron2_decode_plain(w, enc, pinp, mask, **kw))
+
+
+@pytest.mark.parametrize("B", [3, 11])
+def test_decode_kernel_exits_early_on_the_device(cuda, B):
+    """Every row stops at its first step, inside the first chunk: the
+    kernel leaves at the first chunk boundary, as `_drive` does, writes 7
+    steps to its device int, and the later chunks come back zero."""
+    from your_voice_tts_torch.ops.taco2_decode import _launch
+
+    w, enc, pinp, mask = decode_case(cuda, B, stop_rows=range(B))
+    kw = dict(r=2, max_steps=30, seed=5, chunk=7, norm="sigmoid", prenet_dropout=True)
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+    assert got[3].tolist() == [1] * B
+    assert_decode_holds(got, ref)
+    assert got[1][:7].any() and not got[1][7:].any() and not got[2][7:].any()
+    ran = _launch(w, enc, pinp, mask, thresh=0.6, probe=0, **kw)[3]
+    assert int(ran.item()) == 7
+    kw["max_steps"] = 7                            # no boundary inside the decode
+    assert int(_launch(w, enc, pinp, mask, thresh=0.6, probe=0, **kw)[3].item()) == 7
+
+
+def full_width_case(cuda, B, stop_rows, T=152):
+    """configs/ljspeech_tacotron2.json's widths (r=2 of r_init 7), seeded
+    random weights, the stop row's bias at -10 and `stop_rows` pushed to
+    stop at once. Returns (w, enc, pinp, mask, stop threshold)."""
+    import dataclasses
+
+    from your_voice_tts_torch.config import load_config
+
+    cfg = load_config("configs/ljspeech_tacotron2.json")
+    model = Tacotron2(60, dataclasses.replace(cfg.model, r=2), n_mels=80, r_init=7,
+                      device=cuda, seed=2)
+    with torch.no_grad():
+        model.decoder.stopnet.bias.fill_(-10.0)
+    g = torch.Generator().manual_seed(4)
+    enc = (0.5 * torch.randn(B, T, 512, generator=g)).to(cuda)
+    w = model.decoder.decode_weights(torch.bfloat16)
+    c = w["o_w"][-1, 1024:1536].float()
+    enc[list(stop_rows)] += 20.0 * c / (c @ c)
+    pinp = model.decoder.attention.preprocess_inputs(enc).detach()
+    lengths = 150 - 4 * (torch.arange(B, device=cuda) % 32)
+    return w, enc, pinp, sequence_mask(lengths, T), cfg.model.stop_threshold
+
+
+def test_decode_kernel_at_full_width(cuda):
+    """Full width, B=8, T=152, 40 steps, dropout on; row 0 stops at once."""
+    w, enc, pinp, mask, thresh = full_width_case(cuda, 8, [0])
+    kw = dict(r=2, max_steps=40, seed=7, thresh=thresh)
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+    assert got[3].tolist() == [1] + [40] * 7
+    assert_decode_holds(got, ref)
+
+
+def test_decode_kernel_past_one_launch_at_full_width(cuda):
+    """Full width past what one launch holds at T=152 (304 rows): B=312
+    runs as two slices, rows 0-159 and 160-311; the first slice's rows stop
+    at once, so it leaves at step 10 and runs again to 40. The same outputs
+    as plain."""
+    from your_voice_tts_torch.ops.taco2_decode import batch_slices
+
+    B = 312
+    w, enc, pinp, mask, thresh = full_width_case(cuda, B, range(160))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert batch_slices(w["dims"], B, 152, sms) == [(0, 160), (160, 312)]
+    kw = dict(r=2, max_steps=40, seed=7, thresh=thresh, chunk=10)
+    before = tacotron2_decode_cuda.launches
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    assert tacotron2_decode_cuda.launches == before + 3
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+    assert got[3].tolist() == [1] * 160 + [40] * 152
+    assert_decode_holds(got, ref)
+
+
+@pytest.mark.parametrize("probe", ["barriers_only", "copies_only", "dots_only"])
+def test_decode_probe_launches_run(cuda, probe):
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_probe_cuda
+
+    w, enc, pinp, mask = decode_case(cuda, 11)
+    before = tacotron2_decode_cuda.launches
+    tacotron2_decode_probe_cuda(w, enc, pinp, mask, probe, r=2, max_steps=20)
+    torch.cuda.synchronize()
+    assert tacotron2_decode_cuda.launches == before     # probes are not counted
+
+
+def test_decode_profile_launch_times_every_round(cuda):
+    """The profiling instantiation serves (the same outputs) and returns
+    each round's work and barrier wait; it is not counted as a launch."""
+    from your_voice_tts_torch.ops.taco2_decode import ROUNDS, tacotron2_decode_profile_cuda
+
+    w, enc, pinp, mask = decode_case(cuda, 11)
+    before = tacotron2_decode_cuda.launches
+    prof = tacotron2_decode_profile_cuda(w, enc, pinp, mask, r=2, max_steps=20, norm="sigmoid",
+                                         thresh=0.6, prenet_dropout=True, seed=0, chunk=50)
+    assert tacotron2_decode_cuda.launches == before and prof["steps"] == 50
+    assert list(prof["rounds"]) == list(ROUNDS)
+    assert all(v["work_max_us"] >= v["work_mean_us"] > 0 and v["wait_mean_us"] >= 0
+               for v in prof["rounds"].values())
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(cuda):
+    """The wrapper raises and does not fall back: no launch is counted and
+    no plain decode runs in its place."""
+    w, enc, pinp, mask = decode_case(cuda, 3)
+    before = tacotron2_decode_cuda.launches
+    kw = dict(r=2, max_steps=4)
+    with pytest.raises(ValueError, match="norm"):
+        tacotron2_decode_cuda(w, enc, pinp, mask, norm="relu", **kw)
+    with pytest.raises(ValueError, match="shape"):
+        tacotron2_decode_cuda(w, enc, pinp[:, :, :8], mask, **kw)
+    with pytest.raises(ValueError, match="chunk"):
+        tacotron2_decode_cuda(w, enc, pinp, mask, chunk=0, **kw)
+    cpu_w = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in w.items()
+             if k != "packed"}
+    with pytest.raises(ValueError, match="is on cpu"):
+        tacotron2_decode_cuda(cpu_w, enc, pinp, mask, **kw)
+    from your_voice_tts_torch.ops import taco2_decode as dec
+
+    with pytest.MonkeyPatch.context() as mp:              # not even one batch tile fits
+        mp.setattr(dec, "SMEM_LIMIT", 8 * 1024)
+        with pytest.raises(ValueError, match="shared memory"):
+            tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    w32 = {**w, "dtype": torch.float32}
+    with pytest.raises(ValueError, match="bf16"):
+        tacotron2_decode_cuda(w32, enc, pinp, mask, **kw)
+    assert tacotron2_decode_cuda.launches == before
 
 
 @pytest.mark.parametrize("n_fft,hop,B,T", [(256, 64, 3, 37), (1024, 256, 2, 20)])

@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
-"""Time the WaveRNN sample-loop kernel of one checkout of the port, so that
-two checkouts can be compared on the same card in one run:
+"""Time the WaveRNN sample-loop kernel, or the Tacotron2 decode kernel, of
+one checkout of the port, so that two checkouts can be compared on the
+same card in one run:
 
     python3 wavernn_ab.py --root OLD
     python3 wavernn_ab.py --root .
+    python3 wavernn_ab.py --root OLD --mode decode [--probes] [--holds]
 
 `--root` is the directory whose `your_voice_tts_torch` is imported (built
 into its own build/cuda). The inputs are those of chip_smoke.py's wavernn
 phase (its `wavernn_inputs`): full width (WaveRNNConfig defaults, seeded
 random weights from WaveRNN(seed=3)), mu-law sampled, on the folds of
 seeded N(0, 1) mels of 500 frames (22 folds) and 1400 frames (60 folds) x
-6,600 steps. Prints one JSON line: kernel ms (median of `--reps` after a
-warm-up, CUDA events) and us a step for each shape. `--probes` adds the
+6,600 steps. Prints one JSON line: kernel ms (median of `--reps`, 5 unless
+given, after a warm-up, CUDA events) and us a step for each shape. `--probes` adds the
 version's probe launches where it has them (`wavernn_probe_cuda`);
 `--holds` adds the largest |kernel - plain| of MoL and Gaussian sampling
 over 256 steps at both shapes for two input seeds.
+
+`--mode decode` times `tacotron2_decode_cuda` instead, on the inputs of
+chip_smoke.py's decode phase (its `decode_inputs`: full width, seeded
+random weights, T=152, 250 steps, dropout on) at B=8 and B=1, median of
+`--reps`; `--probes` adds the version's probe
+launches in us a step and its per-round profile where it has them,
+`--holds` the largest |kernel -
+plain| of frames, alignments and stops and whether the lengths agree.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ import os
 import statistics
 import sys
 
-from chip_smoke import BENCH_FRAMES, SERVE_FRAMES, wavernn_inputs
+from chip_smoke import BENCH_FRAMES, SERVE_FRAMES, decode_inputs, wavernn_inputs
 
 
 def timed(fn, reps: int):
@@ -46,10 +56,41 @@ def timed(fn, reps: int):
     return statistics.median(times), times
 
 
+def decode_ab(args, torch) -> dict:
+    """The decode kernel of the checkout at --root at B=8 and B=1."""
+    from your_voice_tts_torch.ops import taco2_decode as dec
+
+    reps = args.reps
+    result = {"root": args.root, "device": torch.cuda.get_device_name(0), "mode": "decode"}
+    for B in (8, 1):
+        w, enc, pinp, mask, kw = decode_inputs(B)
+        steps = kw["max_steps"]
+        before = dec.tacotron2_decode_cuda.launches
+        got = dec.tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+        res = result[f"B{B}"] = {"launches_a_decode": dec.tacotron2_decode_cuda.launches - before}
+        ms, times = timed(lambda: dec.tacotron2_decode_cuda(w, enc, pinp, mask, **kw), reps)
+        res.update(ms=ms, all_ms=times, us_per_step=ms * 1e3 / steps)
+        if args.probes and hasattr(dec, "tacotron2_decode_probe_cuda"):
+            for probe in dec.PROBES:
+                pms, _ = timed(lambda: dec.tacotron2_decode_probe_cuda(
+                    w, enc, pinp, mask, probe, r=kw["r"], max_steps=steps), 3)
+                res[probe + "_us_per_step"] = pms * 1e3 / steps
+            if hasattr(dec, "tacotron2_decode_profile_cuda"):
+                res["rounds_us_per_step"] = dec.tacotron2_decode_profile_cuda(
+                    w, enc, pinp, mask, **kw)["rounds"]
+        if args.holds:
+            ref = dec.tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+            res["lengths_equal"] = bool(torch.equal(got[3].cpu(), ref[3].cpu()))
+            for name, a, b in zip(("frames", "alignments", "stops"), got[:3], ref[:3]):
+                res[name + "_max_abs_err"] = float((a - b).abs().max())
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
-    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--mode", choices=("wavernn", "decode"), default="wavernn")
+    ap.add_argument("--reps", type=int, default=5, help="timed runs (their median)")
     ap.add_argument("--probes", action="store_true")
     ap.add_argument("--holds", action="store_true")
     args = ap.parse_args()
@@ -61,11 +102,15 @@ def main() -> int:
         print("wavernn_ab: no CUDA device", file=sys.stderr)
         return 2
     import your_voice_tts_torch
+
+    assert os.path.dirname(os.path.dirname(your_voice_tts_torch.__file__)) == root
+    if args.mode == "decode":
+        print(json.dumps(decode_ab(args, torch)))
+        return 0
     from your_voice_tts_torch.ops import wavernn_gen as gen
     from your_voice_tts_torch.vocoder.config import WaveRNNConfig
     from your_voice_tts_torch.vocoder.models.wavernn import WaveRNN
 
-    assert os.path.dirname(os.path.dirname(your_voice_tts_torch.__file__)) == root
     c = WaveRNNConfig()
     model = WaveRNN(device="cuda", seed=3)
     w = gen.generation_weights(model)

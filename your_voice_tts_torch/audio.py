@@ -1,5 +1,6 @@
 """AudioProcessor (the JAX package's audio.py). Forward half: WAV loading
-(stdlib `wave`, scipy's polyphase resampler when the rate differs),
+(`read_wav`, the port's own RIFF reader in numpy, and scipy's polyphase
+resampler when the rate differs; a thread pool for batches),
 silence trimming and normalized mel spectrograms, one batched call per
 length bucket. Inverse half: normalized mel or linear spectrograms ->
 waveforms through batched Griffin-Lim (`ops/griffin_lim.py
@@ -17,6 +18,8 @@ its batchmates. The phases come from the processor's own torch.Generator.
 
 from __future__ import annotations
 
+import os
+import struct
 import wave
 
 import numpy as np
@@ -29,6 +32,63 @@ from .ops.griffin_lim import gl_constants, griffin_lim_batch
 
 SIG_BUCKET = 128     # wav lengths padded to multiples of hop * SIG_BUCKET
 FRAME_BUCKET = 32    # mel frame counts padded to multiples of FRAME_BUCKET
+
+
+_PCM, _FLOAT, _EXTENSIBLE = 1, 3, 0xFFFE
+
+
+def read_wav(path: str) -> tuple[np.ndarray, int]:
+    """Decode a RIFF/WAVE file to (mono float32 [n], sample rate), the
+    channel mean of each frame. Takes PCM 8-bit (unsigned, offset 128),
+    16, 24 and 32-bit, IEEE float32 and float64, and WAVE_FORMAT_EXTENSIBLE
+    with either sub-format; skips other chunks (LIST, fact, bext). Scales as
+    the JAX package's native codec: PCM by 2^(bits - 1), floats as stored.
+    A data chunk cut short by the end of the file decodes its whole frames."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if len(blob) < 12 or blob[:4] != b"RIFF" or blob[8:12] != b"WAVE":
+        raise ValueError(f"{path}: not a RIFF/WAVE file")
+    fmt = data = None
+    pos = 12
+    while pos + 8 <= len(blob):
+        cid, size = blob[pos:pos + 4], struct.unpack_from("<I", blob, pos + 4)[0]
+        body = pos + 8
+        if cid == b"fmt ":
+            if size < 16:
+                raise ValueError(f"{path}: fmt chunk of {size} bytes")
+            tag, channels, rate = struct.unpack_from("<HHI", blob, body)
+            bits = struct.unpack_from("<H", blob, body + 14)[0]
+            if tag == _EXTENSIBLE and size >= 40:     # sub-format GUID's first field
+                tag = struct.unpack_from("<H", blob, body + 24)[0]
+            fmt = (tag, channels, rate, bits)
+        elif cid == b"data":
+            data = blob[body:body + size]
+        pos = body + size + (size & 1)                # chunks pad to even sizes
+    if fmt is None or data is None:
+        raise ValueError(f"{path}: missing {'fmt' if fmt is None else 'data'} chunk")
+    tag, channels, rate, bits = fmt
+    if channels <= 0 or rate <= 0:
+        raise ValueError(f"{path}: {channels} channels at {rate} Hz")
+    if not ((tag == _PCM and bits in (8, 16, 24, 32)) or (tag == _FLOAT and bits in (32, 64))):
+        raise ValueError(f"{path}: unsupported WAV format {tag} with {bits}-bit samples")
+    width = bits // 8
+    n = len(data) // (width * channels) * channels
+    raw = np.frombuffer(data, np.uint8, n * width)
+    if tag == _FLOAT:
+        x = raw.view("<f4" if bits == 32 else "<f8").astype(np.float32)
+    elif bits == 8:
+        x = (raw.astype(np.float32) - 128.0) / 128.0
+    elif bits == 16:
+        x = raw.view("<i2").astype(np.float32) / 32768.0
+    elif bits == 24:
+        b = raw.reshape(-1, 3).astype(np.int32)
+        v = (b[:, 0] << 8) | (b[:, 1] << 16) | (b[:, 2] << 24)
+        x = (v >> 8).astype(np.float32) / 8388608.0
+    else:
+        x = (raw.view("<i4").astype(np.float64) / 2147483648.0).astype(np.float32)
+    if channels > 1:
+        x = x.reshape(-1, channels).sum(axis=1, dtype=np.float32) * np.float32(1.0 / channels)
+    return x, rate
 
 
 class AudioProcessor:
@@ -102,22 +162,14 @@ class AudioProcessor:
         return out
 
     def load_wav(self, path: str, sr: int | None = None) -> np.ndarray:
-        """WAV (PCM 16 or 32 bit) -> mono float32 in [-1, 1], resampled to
-        the sample rate with scipy's resample_poly when it differs."""
+        """WAV (PCM 8/16/24/32-bit, IEEE float 32/64, plain or
+        WAVE_FORMAT_EXTENSIBLE) -> mono float32 in [-1, 1] (the channel
+        mean), resampled to the sample rate with scipy's resample_poly when
+        it differs."""
         from math import gcd
 
         target_sr = sr or self.sample_rate
-        with wave.open(path, "rb") as f:
-            n_ch, width, file_sr = f.getnchannels(), f.getsampwidth(), f.getframerate()
-            raw = f.readframes(f.getnframes())
-        if width == 2:
-            x = np.frombuffer(raw, dtype=np.int16).astype(np.float32) / 32768.0
-        elif width == 4:
-            x = np.frombuffer(raw, dtype=np.int32).astype(np.float32) / 2147483648.0
-        else:
-            raise ValueError(f"unsupported WAV sample width: {width}")
-        if n_ch > 1:
-            x = x.reshape(-1, n_ch).mean(axis=1)
+        x, file_sr = read_wav(path)
         if file_sr != target_sr:
             from scipy.signal import resample_poly
 
@@ -128,7 +180,15 @@ class AudioProcessor:
         return x.astype(np.float32)
 
     def load_wav_batch(self, paths: list[str], sr: int | None = None) -> list[np.ndarray]:
-        return [self.load_wav(p, sr) for p in paths]
+        """`load_wav` over many files on a thread pool of up to 8 threads
+        (numpy's decode and scipy's resampler release the GIL for most of
+        their work)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        if len(paths) <= 1:
+            return [self.load_wav(p, sr) for p in paths]
+        with ThreadPoolExecutor(max_workers=min(len(paths), os.cpu_count() or 1, 8)) as pool:
+            return list(pool.map(lambda p: self.load_wav(p, sr), paths))
 
     def sound_norm(self, x: np.ndarray) -> np.ndarray:
         return x / (np.abs(x).max() + 1e-8) * 0.9

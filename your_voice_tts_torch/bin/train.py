@@ -50,11 +50,12 @@ def main(argv: list[str] | None = None) -> None:
     args = parser.parse_args(argv)
 
     from .. import resolve_device
-    from ..config import load_config
+    from ..config import check_config, load_config
     from ..train.trainer import Trainer
 
-    device = resolve_device(args.device)
     cfg = load_config(args.config_path)
+    check_config(cfg)
+    device = resolve_device(args.device)
     if args.continue_path:
         out_path = args.continue_path
         ckpts = sorted((f for f in os.listdir(out_path)

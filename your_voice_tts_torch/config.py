@@ -330,3 +330,34 @@ def load_config(path: str) -> Config:
     with open(path, "r", encoding="utf-8") as f:
         text = f.read()
     return config_from_dict(json.loads(_strip_json_comments(text)))
+
+
+def check_config(cfg: Config) -> None:
+    """Reject settings the model or the audio front end cannot run (the
+    JAX package's `check_config`, parity with the reference's
+    utils/generic_utils.py::check_config). Raises ValueError."""
+    a = cfg.audio
+    if a.num_mels <= 0 or a.fft_size <= 0 or a.sample_rate <= 0:
+        raise ValueError("audio: num_mels/fft_size/sample_rate must be positive")
+    hop, win = a.resolved_hop_win()
+    if not (0 < hop <= win <= a.fft_size):
+        raise ValueError(f"audio: need 0 < hop({hop}) <= win({win}) <= fft_size({a.fft_size})")
+    if a.mel_fmax is not None and a.mel_fmax > a.sample_rate / 2:
+        raise ValueError("audio: mel_fmax beyond Nyquist")
+    m = cfg.model
+    if m.model not in ("Tacotron", "Tacotron2"):
+        raise ValueError(f"model: unknown model {m.model!r}")
+    if m.r < 1:
+        raise ValueError("model: r must be >= 1")
+    if m.attention_type not in ("original", "graves"):
+        raise ValueError(f"model: unknown attention_type {m.attention_type!r}")
+    if m.prenet_type not in ("original", "bn"):
+        raise ValueError(f"model: unknown prenet_type {m.prenet_type!r}")
+    if m.attention_norm not in ("sigmoid", "softmax"):
+        raise ValueError(f"model: unknown attention_norm {m.attention_norm!r}")
+    if m.inference_compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError("model: inference_compute_dtype must be "
+                         f"float32|bfloat16, got {m.inference_compute_dtype!r}")
+    for row in cfg.training.gradual_training or ():
+        if len(row) != 3:
+            raise ValueError("training: gradual_training rows are [step, r, batch_size]")

@@ -1,218 +1,912 @@
-// Tacotron2 free-running decode step kernels for Hopper (sm_90a).
+// Tacotron2 free-running decode, one persistent cooperative launch, for
+// Hopper (sm_90a).
 //
 // Replaces: your_voice_tts_tpu/ops/pallas/taco2_decode.py
-//           `tacotron2_decode_pallas` (its `_kernel` / `_lstm`), the whole
-//           decode loop as one Pallas launch with every weight in VMEM.
+//           `tacotron2_decode_pallas` (its `_kernel` / `_lstm`): the whole
+//           decode loop as one Pallas launch with every weight in VMEM and
+//           the early exit checked once a chunk.
 //
-// What bounds it on the H100: each decode step is a chain of batched
+// What bounds it on the H100: each step is a chain of dependent batched
 // matrix-vector products (B <= a few dozen rows) over ~19M bf16 weights
-// (~38 MB at full width): every step has to stream all of them, from L2
-// where they stay resident (50 MB) or from HBM, and the ~5 dependent stages
-// of a step cannot overlap. The tensor cores idle at this batch; bytes and
-// the serial dependency chain are the bound.
+// (37.9 MB at full width, which stay in the 50 MB L2), plus the attention
+// over T encoder frames. Read once, the weights bound a 250-step decode at
+// ~0.16 ms; read from L2 every step they take ~7 us a step at L2's rate.
+// Beyond that the step is latency-bound: the grid barriers between its
+// dependent stages (~1.3 us each), and every serial trip to L2 on the
+// chain (~1 us each: the stage inputs other blocks just wrote, weights,
+// the attention's state).
 //
-// What this design does about it (simple first version): weights are
-// converted once to bf16 in [out, in] rows so that a warp streams one
-// contiguous row with 16-byte loads; the four gate rows of each LSTM unit
-// are interleaved so one warp owns i, f, g, o of its unit and the cell
-// update fuses into the product's epilogue; the location features are
-// computed directly from the folded [2, K, A] filter in shared memory (no
-// banded T x T matrix). A step is five launches on one stream (prenet,
-// attention LSTM, attention, decoder LSTM, projection + stop); the host
-// loop in ops/taco2_decode.py drives them. Persistent blocks or a CUDA graph
-// per chunk come later.
+// What this design does about it:
+// - ONE cooperative launch runs the whole decode (the parent's five host
+//   launches a step are gone); the grid is one block of 512 threads per
+//   SM, all co-resident; the early exit is checked on the device. A batch
+//   whose tiles do not fit shared memory is cut by the wrapper into
+//   slices of whole batch tiles, a launch each (`row0` keeps the dropout's
+//   batch row index).
+// - Each step is seven rounds separated by grid.sync(). The chain frame ->
+//   x -> h1 -> pq -> e -> ctx -> h2 -> frame moves one link a round:
+//     R1 the prenet, both layers with the hash-PRNG dropout, on the blocks
+//        that own its second layer's tiles: each computes the whole first
+//        layer (80 columns) itself, so x1 never leaves it;
+//     R2 the attention LSTM's product over x, its cell update -> h1;
+//     R3 the query q_w h1; the decoder LSTM's product over h1;
+//     R4 energies, one warp a (row, t) pair; a_w over h1 (next step's);
+//     R5 the norm over T; the context [B, E] in 8-column chunks spread over
+//        the blocks; alignments, att and cum;
+//     R6 d_w over ctx, its cell update -> h2; the projection over ctx;
+//        a_w over ctx (next step's);
+//     R7 the projection over h2 and the folded stop row: frames, stops,
+//        the done latch, the fed-back frame; d_w over h2 (next step's);
+//        the location features of the next step.
+//   The LSTM products that are not on the chain run where their input is
+//   already staged, so no round waits on more than one short product; a
+//   prologue computes them for the initial state.
+// - Products run on the tensor cores: mma.sync.m16n8k16 (16 weight rows x
+//   8 batch rows x 16 columns, f32 accumulation). pack_weights stores each
+//   matrix in the A operand's register order, so a lane loads a 16 x 16
+//   tile's fragment as one 16-byte vector. Row tiles are dealt to blocks
+//   (tile t -> block t % G; the small matrices, prenet, query and
+//   projection, from the last block down, where the LSTMs leave blocks
+//   with a tile fewer; the prenet's first layer whole to each block of its
+//   second), so an LSTM unit's cell state stays in one block's shared
+//   memory for the launch. A warp takes (row tile, k-slice) items;
+//   each item's sums go to a slot of its own and the block adds the slots
+//   in a fixed order: the same inputs give the same bits.
+// - Weights never wait on the chain: during each round the block copies
+//   the next product round's weight tiles into shared memory (cp.async),
+//   so they land during the epilogue and the barrier; a round that does
+//   not fit the buffer (a large batch, a card with fewer SMs) reads its
+//   tiles from L2 instead.
+// - Stage inputs are kept in global memory as bf16, the only form any
+//   product reads them in, and copied into every block with 16-byte
+//   cp.async.cg once a round. Data other blocks wrote is read through L2
+//   (__ldcg, cp.async.cg), never a stale L1 line. Biases, cell states,
+//   the location features of a block's (row, t) pairs and the cum rows it
+//   writes stay in its shared memory.
+//
+// Probe launches: the same kernel with every part of a step left out but
+// the barriers (the floor), or but the stage-input copies, or but the
+// products (weight copies and mma), for the per-part breakdown; and a
+// profiling instantiation that serves and times each round on the SMs'
+// clocks. The serving instantiation has none of these branches.
 //
 // Numerics follow the Pallas kernel: matrix inputs rounded to bf16, f32
-// accumulation, f32 state, alignments and outputs. The matrix-vector
-// helpers and the attention step live in decode_common.cuh, shared with the
-// Tacotron(1) decode (taco1_decode.cu).
+// accumulation, f32 cell state, attention state, alignments and outputs;
+// dropout from the hash PRNG of hash_prng.cuh (salts 11 and 12, element
+// index row * P + col).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
-#include "decode_common.cuh"
 #include "hash_prng.cuh"
 #include "taco2_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-// Prenet: two Linear+ReLU layers, each followed by the hash-PRNG dropout
-// (salts 11 and 12, element index row * P + col, as the Pallas kernel).
-__global__ void prenet_kernel(const float* frame, int n_in,
-                              const __nv_bfloat16* w1, const float* b1, int ld1,
-                              const __nv_bfloat16* w2, const float* b2, int ld2,
-                              int P, float* out, int B, uint32_t seed,
-                              uint32_t step, int dropout) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    __nv_bfloat16* xs1 = reinterpret_cast<__nv_bfloat16*>(smem);
-    __nv_bfloat16* xs2 = xs1 + kBT * ld1;
-    const int b0 = blockIdx.x * kBT;
-    load_inputs(xs1, ld1, b0, B, frame, n_in, nullptr, 0, nullptr, 0);
-    for (int idx = threadIdx.x; idx < kBT * ld2; idx += blockDim.x)
-        xs2[idx] = __float2bfloat16_rn(0.f);
-    __syncthreads();
-    const uint32_t key = hash_step_key(seed, step);
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int row = warp; row < P; row += kWarps) {
-        float acc[kBT] = {};
-        warp_gemv<kBT>(w1 + (size_t)row * ld1, xs1, ld1, acc);
-#pragma unroll
-        for (int bb = 0; bb < kBT; ++bb) acc[bb] = warp_sum(acc[bb]);
-        if (lane < kBT) {
-            const uint32_t b = b0 + lane;
-            float v = fmaxf(pick(acc, lane) + b1[row], 0.f);
-            if (dropout)
-                v = hash_uniform(b * (uint32_t)P + row, key, 11u) < 0.5f ? 0.f : v * 2.f;
-            xs2[lane * ld2 + row] = __float2bfloat16_rn(v);
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 512;
+constexpr int kNW = kThreads / 32;    // warps a block
+constexpr int kTile = 8;              // batch rows a tile (the n of m16n8k16)
+constexpr int kRows = 16;             // weight rows a tile (the m)
+constexpr int kAcc = kRows * kTile;   // accumulator floats of a (row tile, batch tile)
+constexpr int kBarriers = 7;          // grid barriers a step
+
+// Probe bits: what a probe launch keeps of every step; kProfile serves and
+// times every round.
+enum { kServe = 0, kBarriersOnly = 1, kCopiesOnly = 2, kDotsOnly = 3, kProfile = 4 };
+constexpr int kRounds = kBarriers;
+
+// How a matrix's row tiles are dealt to the blocks: from block 0 up, from
+// the last block down, or every tile to every block that takes part.
+enum { kDealUp = 0, kDealDown = 1, kDealAll = 2 };
+
+// Products, in the order of `Params::ks`: the round and the input.
+enum { kP1, kP2, kA2, kQ, kD3, kA4, kD6, kO6, kA6, kO7, kD7, kNumProducts };
+
+struct Params {
+    const bf16 *p1, *p2, *a, *q, *d, *o, *u;                 // packed weights
+    const float *p1_b, *p2_b, *a_b, *d_b, *o_b, *v_w;         // f32 vectors
+    const bf16* enc;                                          // [B, T, E16]
+    const float *pinp, *maskadd;                              // [B, T, A], [B, T]
+    bf16 *frame, *x1, *x, *h1, *h2, *ctx;                     // [B, width16]
+    float *c1, *c2, *att, *cum, *done;                        // done [2, B]
+    float *pq, *e, *pre;                                      // [B, A], [B, T], [B, T, A]
+    float *out, *aligns, *stops;                              // [S, B, OW], [S, B, T], [S, B]
+    int* ran;
+    float* prof;                                              // [G, 7, 2] (kProfile)
+    int B, T, NT, NM, NM16, P, P16, E16, H1, H116, H2, H216, A, K, OW, r;
+    int KA, KD, KO;                                           // k-tiles of a, d, o
+    int steps, chunk, softmax, dropout;
+    int row0;                                                 // batch row of row 0 (dropout)
+    int XLD, X2LD, ALN, CPB, PPB, GA, GD, GO, GP, GQ, SLOTS, WBUF, WB_ROUNDS, PRE_SMEM;
+    int ks[kNumProducts];
+    float v_b, thresh;
+    uint32_t seed;
+};
+
+// Shared memory of a block.
+struct Smem {
+    bf16* xs;                                  // [kTile][XLD] staged batch tile
+    float *us, *vw;                            // [2, K, A] location filter, [A] v
+    float *acc_a, *acc_d, *acc_o, *acc_1;      // [row tiles][NT][16][8] accumulators
+    bf16* xs2;                                 // [kTile][X2LD] prenet layer 1's output
+    float* slot;                               // [SLOTS][16][8] an item's sums
+    uint4* wbuf;                               // [WBUF k-tiles][32] a round's weights
+    float* pre;                                // [PPB][A] W_k m + location (or null)
+    float *ba, *bd, *bo, *bp1, *bp2;           // biases of this block's row tiles
+                                               // (bp1: every row of layer 1)
+    float *ca, *cd;                            // cell states of its units [units][NT * 8]
+    float* aln;                                // [ALN][T] normalized alignments
+    float* cum;                                // [ALN][T] cum of the rows it writes
+    float* xw;                                 // [kNW][2][K rounded up to 32] location windows
+};
+
+// One source of a staged tile: rows [B, w] bf16, w a multiple of 16.
+struct Src {
+    const bf16* p;
+    int w;
+};
+
+// A product over a column segment of a packed matrix (fragment order,
+// [row tiles][nkt][32][8]): k-tiles wkt .. wkt + nk of W against columns
+// xcol .. of the staged tile, over the matrix's `tiles` row tiles; this
+// block's tiles of it lie in the weight buffer from k-tile `wbase`, or, at
+// wbase -1, are read from global memory (L2). The LSTMs' tiles go to the
+// blocks from block 0 up, the small products' from the last block down,
+// where the LSTMs leave blocks with a tile fewer; the prenet's first layer
+// goes whole to each block of its second.
+struct Prod {
+    const bf16* W;
+    int nkt, wkt, xcol, nk, tiles, ks, wbase, deal;
+    float* acc;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// d += A (16 x 16 bf16, a) . B (16 x 8 bf16, b0 b1), f32 accumulation
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint4& a, uint32_t b0,
+                                         uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// This block's place in the order tiles are dealt in.
+__device__ __forceinline__ int owner(int deal) {
+    return deal == kDealDown ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x;
+}
+
+// Tiles of `tiles` this block owns: tile_of(j) for j < tiles_here.
+__device__ __forceinline__ int tiles_here(int tiles, int deal = kDealUp) {
+    if (deal == kDealAll) return tiles;
+    const int b = owner(deal), G = gridDim.x;
+    return b < tiles ? (tiles - b + G - 1) / G : 0;
+}
+
+__device__ __forceinline__ int tile_of(int j, int deal = kDealUp) {
+    return deal == kDealAll ? j : owner(deal) + j * (int)gridDim.x;
+}
+
+// Start copying rows tile * 8 .. + 7 of the concatenation [s0 | s1 | s2]
+// (an absent source has w = 0) into xs [kTile][xld] (zero rows past B),
+// 16 bytes at a time; the caller waits.
+__device__ void stage_tile(bf16* xs, int xld, int tile, int B, Src s0, Src s1, Src s2) {
+    const int nv = (s0.w + s1.w + s2.w) / 8;
+    for (int q = threadIdx.x; q < kTile * nv; q += blockDim.x) {
+        const int bb = q / nv, v = q - bb * nv, b = tile * kTile + bb;
+        bf16* dst = xs + bb * xld + 8 * v;
+        if (b >= B) {
+            *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+            continue;
         }
+        const int off = 8 * v;
+        const bf16* src = off < s0.w ? s0.p + (size_t)b * s0.w + off
+                        : off < s0.w + s1.w ? s1.p + (size_t)b * s1.w + off - s0.w
+                        : s2.p + (size_t)b * s2.w + off - s0.w - s1.w;
+        cp_async16(dst, src);
     }
-    __syncthreads();
-    for (int row = warp; row < P; row += kWarps) {
-        float acc[kBT] = {};
-        warp_gemv<kBT>(w2 + (size_t)row * ld2, xs2, ld2, acc);
-#pragma unroll
-        for (int bb = 0; bb < kBT; ++bb) acc[bb] = warp_sum(acc[bb]);
-        if (lane < kBT && b0 + lane < B) {
-            const uint32_t b = b0 + lane;
-            float v = fmaxf(pick(acc, lane) + b2[row], 0.f);
-            if (dropout)
-                v = hash_uniform(b * (uint32_t)P + row, key, 12u) < 0.5f ? 0.f : v * 2.f;
-            out[(size_t)b * P + row] = v;
+}
+
+// Start copying this block's row tiles of a round's products into the
+// weight buffer (product 0's tiles, then product 1's, then 2's; a tile's
+// k-tiles in order), 16 bytes a lane a k-tile; the round's first wait
+// covers them.
+__device__ void fetch_weights(uint4* wbuf, Prod a, Prod b, Prod c, int npr) {
+    for (int i = 0; i < npr; ++i) {
+        const Prod pr = i == 0 ? a : i == 1 ? b : c;
+        if (pr.wbase < 0) continue;
+        const int n = tiles_here(pr.tiles, pr.deal) * pr.nk * 32;
+        for (int c = threadIdx.x; c < n; c += blockDim.x) {
+            const int lane = c & 31, jk = c >> 5, j = jk / pr.nk, k = jk - j * pr.nk;
+            const int rt = tile_of(j, pr.deal);
+            cp_async16(wbuf + (size_t)(pr.wbase + jk) * 32 + lane,
+                       pr.W + (((size_t)rt * pr.nkt + pr.wkt + k) * 32 + lane) * 8);
         }
     }
 }
 
-// LSTM cell over inputs [x0 | x1 | h_in]: gate rows are interleaved
-// (row 4 * j + g, g in i, f, g, o), one warp per hidden unit j, the cell
-// update fused into the epilogue. c is updated in place; h goes to h_out.
-__global__ void lstm_kernel(const __nv_bfloat16* W, const float* bias, int ld,
-                            const float* x0, int n0, const float* x1, int n1,
-                            const float* h_in, int H, float* c, float* h_out,
-                            int B) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-    const int b0 = blockIdx.y * kBT;
-    load_inputs(xs, ld, b0, B, x0, n0, x1, n1, h_in, H);
-    __syncthreads();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int j = blockIdx.x * kWarps + warp;
-    if (j >= H) return;
-    float acc[4][kBT] = {};
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-        warp_gemv<kBT>(W + (size_t)(4 * j + g) * ld, xs, ld, acc[g]);
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int bb = 0; bb < kBT; ++bb) acc[g][bb] = warp_sum(acc[g][bb]);
-    const int b = b0 + lane;
-    if (lane < kBT && b < B) {
-        const float gi = sigmoidf_(pick(acc[0], lane) + bias[4 * j]);
-        const float gf = sigmoidf_(pick(acc[1], lane) + bias[4 * j + 1]);
-        const float gg = tanhf(pick(acc[2], lane) + bias[4 * j + 2]);
-        const float go = sigmoidf_(pick(acc[3], lane) + bias[4 * j + 3]);
-        const size_t k = (size_t)b * H + j;
-        const float cn = gf * c[k] + gi * gg;
-        c[k] = cn;
-        h_out[k] = go * tanhf(cn);
+// Item (local row tile j, k-tile slice kk) of a product on the staged
+// batch tile: the A fragments from the weight buffer or from L2 (one
+// 16-byte load a lane a k-tile), one mma.sync a k-tile, the 16 x 8 sums
+// stored in the item's slot.
+__device__ void dot_item(const Prod pr, const uint4* wbuf, const bf16* xs, int xld, int j,
+                         int kk, float* slot) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    const int per = (pr.nk + pr.ks - 1) / pr.ks;
+    const int k0 = kk * per, k1 = min(pr.nk, k0 + per);
+    const uint4* af = pr.wbase >= 0
+        ? wbuf + (size_t)(pr.wbase + j * pr.nk) * 32 + lane
+        : reinterpret_cast<const uint4*>(pr.W)
+              + ((size_t)tile_of(j, pr.deal) * pr.nkt + pr.wkt) * 32 + lane;
+    const bf16* xb = xs + g * xld + pr.xcol + 2 * q;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k) {
+        const bf16* xk = xb + 16 * k;
+        mma16816(d, af[(size_t)k * 32], *reinterpret_cast<const uint32_t*>(xk),
+                 *reinterpret_cast<const uint32_t*>(xk + 8));
+    }
+    *reinterpret_cast<float2*>(slot + g * kTile + 2 * q) = make_float2(d[0], d[1]);
+    *reinterpret_cast<float2*>(slot + (g + 8) * kTile + 2 * q) = make_float2(d[2], d[3]);
+}
+
+// One round's products over every batch tile: stage the tile's inputs,
+// run `mid` once while the first tile's copies are in flight, then the
+// products' items over the warps of the block (item it -> slot it), then
+// the slots of each row tile summed in slice order into its accumulator
+// (no atomics: the same inputs give the same bits).
+template <int PR, typename Mid>
+__device__ void run_products(const Params& p, const Smem& s, Src s0, Src s1, Src s2, Prod p0,
+                             Prod p1, Prod p2, int npr, Mid mid) {
+    const int t0 = tiles_here(p0.tiles, p0.deal);
+    const int t1 = npr > 1 ? tiles_here(p1.tiles, p1.deal) : 0;
+    const int t2 = npr > 2 ? tiles_here(p2.tiles, p2.deal) : 0;
+    const int n0 = t0 * p0.ks, n1 = n0 + t1 * p1.ks, total = n1 + t2 * p2.ks;
+    const int warp = threadIdx.x >> 5;
+    for (int tile = 0; tile < p.NT; ++tile) {
+        if (PR != kDotsOnly) stage_tile(s.xs, p.XLD, tile, p.B, s0, s1, s2);
+        if (tile == 0) mid();
+        cp_async_wait_all();                       // the inputs, and the weights
+        __syncthreads();
+        if (PR != kCopiesOnly) {
+            for (int it = warp; it < total; it += kNW) {
+                const int i = it < n0 ? 0 : it < n1 ? 1 : 2;
+                const Prod pr = i == 0 ? p0 : i == 1 ? p1 : p2;
+                const int k = it - (i == 0 ? 0 : i == 1 ? n0 : n1);
+                dot_item(pr, s.wbuf, s.xs, p.XLD, k / pr.ks, k % pr.ks, s.slot + it * kAcc);
+            }
+            __syncthreads();
+            for (int e = threadIdx.x; e < (t0 + t1 + t2) * kAcc; e += blockDim.x) {
+                const int i = e < t0 * kAcc ? 0 : e < (t0 + t1) * kAcc ? 1 : 2;
+                const Prod pr = i == 0 ? p0 : i == 1 ? p1 : p2;
+                const int r = e - (i == 0 ? 0 : i == 1 ? t0 : t0 + t1) * kAcc;
+                const int j = r / kAcc, l = r % kAcc;
+                const float* sl = s.slot + ((i == 0 ? 0 : i == 1 ? n0 : n1) + j * pr.ks) * kAcc + l;
+                float v = 0.f;
+                for (int kk = 0; kk < pr.ks; ++kk) v += sl[kk * kAcc];
+                pr.acc[((size_t)j * p.NT + tile) * kAcc + l] += v;
+            }
+        }
+        __syncthreads();
     }
 }
 
-// Mel projection rows [0, OW) and the folded stop row OW over [h2 | ctx];
-// frames of rows already done are zeroed, the last frame of the active
-// r-group is fed back, the done mask latches at stop_prob > thresh.
-__global__ void project_kernel(const __nv_bfloat16* W, const float* bias, int ld,
-                               const float* h2, int H2, const float* ctx, int E,
-                               const float* done_in, float* done_out, float* out,
-                               float* stop_out, float* frame, int B, int OW,
-                               int NM, int r, float thresh) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-    const int b0 = blockIdx.y * kBT;
-    load_inputs(xs, ld, b0, B, h2, H2, ctx, E, nullptr, 0);
-    __syncthreads();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int row = blockIdx.x * kWarps + warp;
-    if (row > OW) return;
-    float acc[kBT] = {};
-    warp_gemv<kBT>(W + (size_t)row * ld, xs, ld, acc);
-#pragma unroll
-    for (int bb = 0; bb < kBT; ++bb) acc[bb] = warp_sum(acc[bb]);
-    const int b = b0 + lane;
-    if (lane >= kBT || b >= B) return;
-    const float v = pick(acc, lane) + bias[row];
-    if (row < OW) {
-        const float o = v * (1.f - done_in[b]);
-        out[(size_t)b * OW + row] = o;
-        const int f = row - NM * (r - 1);
-        if (f >= 0 && f < NM) frame[(size_t)b * NM + f] = o;
-    } else {
-        const float p = sigmoidf_(v);
-        stop_out[b] = p;
-        done_out[b] = fmaxf(done_in[b], p > thresh ? 1.f : 0.f);
+// R1, the prenet, on the blocks that own row tiles of its second layer:
+// per batch tile, the first layer over every row (its tiles are small, so
+// each such block computes them all and x1 never leaves it) into xs2
+// through the dropout of salt 11, then this block's tiles of the second
+// layer over xs2. Other blocks have no work in this round.
+template <int PR>
+__device__ void prenet_round(const Params& p, const Smem& s, Prod p1, Prod p2, uint32_t key) {
+    const int t2 = tiles_here(p2.tiles, p2.deal);
+    if (t2 == 0) return;                               // block-uniform
+    const int warp = threadIdx.x >> 5;
+    const int n1 = p1.tiles * p1.ks, n2 = t2 * p2.ks;
+    for (int tile = 0; tile < p.NT; ++tile) {
+        if (PR != kDotsOnly) stage_tile(s.xs, p.XLD, tile, p.B, {p.frame, p.NM16}, {nullptr, 0},
+                                        {nullptr, 0});
+        cp_async_wait_all();
+        __syncthreads();
+        if (PR == kCopiesOnly) {
+            __syncthreads();
+            continue;
+        }
+        for (int it = warp; it < n1; it += kNW)
+            dot_item(p1, s.wbuf, s.xs, p.XLD, it / p1.ks, it % p1.ks, s.slot + it * kAcc);
+        __syncthreads();
+        for (int e = threadIdx.x; e < p1.tiles * kAcc; e += blockDim.x) {
+            const int j = e / kAcc, l = e % kAcc;
+            const float* sl = s.slot + j * p1.ks * kAcc + l;
+            float v = 0.f;
+            for (int kk = 0; kk < p1.ks; ++kk) v += sl[kk * kAcc];
+            const int row = kRows * j + l / kTile, bb = l % kTile, b = tile * kTile + bb;
+            if (row < p.P) {
+                v = fmaxf(v + s.bp1[row], 0.f);
+                if (p.dropout)
+                    v = hash_uniform((uint32_t)((p.row0 + b) * p.P + row), key, 11u) < 0.5f
+                            ? 0.f : v * 2.f;
+                s.xs2[bb * p.X2LD + row] = __float2bfloat16_rn(v);
+            }
+        }
+        __syncthreads();
+        for (int it = warp; it < n2; it += kNW)
+            dot_item(p2, s.wbuf, s.xs2, p.X2LD, it / p2.ks, it % p2.ks, s.slot + it * kAcc);
+        __syncthreads();
+        for (int e = threadIdx.x; e < t2 * kAcc; e += blockDim.x) {
+            const int j = e / kAcc, l = e % kAcc;
+            const float* sl = s.slot + j * p2.ks * kAcc + l;
+            float v = 0.f;
+            for (int kk = 0; kk < p2.ks; ++kk) v += sl[kk * kAcc];
+            p2.acc[((size_t)j * p.NT + tile) * kAcc + l] += v;
+        }
+        __syncthreads();
     }
+}
+
+// Copy this block's rows of a bias vector (padded to whole row tiles) into
+// shared memory.
+__device__ void load_bias(float* dst, const float* bias, int tiles, int deal) {
+    const int ng = tiles_here(tiles, deal);
+    for (int i = threadIdx.x; i < ng * kRows; i += blockDim.x)
+        dst[i] = bias[tile_of(i / kRows, deal) * kRows + i % kRows];
+}
+
+// Between global [B, H] and this block's units' cell states [units][NT * 8]
+// (unit n = 4 * row tile + u), for the launch's start and end.
+template <bool kLoad>
+__device__ void move_cells(float* cs, float* c, int H, const Params& p) {
+    const int ng = tiles_here((4 * H + kRows - 1) / kRows), G = gridDim.x, W = p.NT * kTile;
+    for (int i = threadIdx.x; i < ng * 4 * W; i += blockDim.x) {
+        const int ju = i / W, b = i - ju * W;
+        const int n = ((int)blockIdx.x + (ju / 4) * G) * 4 + ju % 4;
+        if (n >= H || b >= p.B) continue;
+        if (kLoad) cs[i] = c[(size_t)b * H + n];
+        else c[(size_t)b * H + n] = cs[i];
+    }
+}
+
+// LSTM cell update from the accumulated gates of this block's units (a row
+// tile holds 4 units' interleaved i, f, g, o): c in shared memory, h as
+// bf16 into hb [B, H16]; the accumulators are cleared.
+__device__ void lstm_epilogue(const Params& p, float* acc, const float* bias, float* cs, int H,
+                              int H16, bf16* hb) {
+    const int ng = tiles_here((4 * H + kRows - 1) / kRows), G = gridDim.x;
+    for (int idx = threadIdx.x; idx < ng * p.NT * 32; idx += blockDim.x) {
+        const int j = idx / (p.NT * 32), rem = idx - j * p.NT * 32;
+        const int tile = rem / 32, u = (rem / kTile) % 4, bb = rem % kTile;
+        const int n = ((int)blockIdx.x + j * G) * 4 + u, b = tile * kTile + bb;
+        float* a = acc + ((size_t)j * p.NT + tile) * kAcc + 4 * u * kTile + bb;
+        const float* bi = bias + j * kRows + 4 * u;
+        const float gi = a[0] + bi[0], gf = a[kTile] + bi[1];
+        const float gg = a[2 * kTile] + bi[2], go = a[3 * kTile] + bi[3];
+        a[0] = a[kTile] = a[2 * kTile] = a[3 * kTile] = 0.f;
+        if (n >= H || b >= p.B) continue;
+        float* c = cs + (j * 4 + u) * p.NT * kTile + b;
+        const float cn = sigmoidf_(gf) * *c + sigmoidf_(gi) * tanhf(gg);
+        *c = cn;
+        hb[(size_t)b * H16 + n] = __float2bfloat16_rn(sigmoidf_(go) * tanhf(cn));
+    }
+}
+
+// Epilogue of a small product (dealt down) over rows [0, N): fn(row, b,
+// sum + bias); the accumulators are cleared.
+template <typename Fn>
+__device__ void rows_epilogue(const Params& p, float* acc, const float* bias, int N, Fn fn) {
+    const int ng = tiles_here((N + kRows - 1) / kRows, kDealDown);
+    for (int idx = threadIdx.x; idx < ng * p.NT * kAcc; idx += blockDim.x) {
+        const int j = idx / (p.NT * kAcc), tile = (idx / kAcc) % p.NT, l = idx % kAcc;
+        const int row = kRows * tile_of(j, kDealDown) + l / kTile;
+        const int b = tile * kTile + l % kTile;
+        const float v = acc[idx] + (bias ? bias[j * kRows + l / kTile] : 0.f);
+        acc[idx] = 0.f;
+        if (row < N && b < p.B) fn(row, b, v);
+    }
+}
+
+// Location features of the block's (row, t) pairs from att / cum, plus
+// W_k m: pre [B, T, A] for the next step's energies. A warp a pair; the
+// filter window of K taps is staged 32 taps a pass.
+__device__ void location(const Params& p, const Smem& s) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int NP = p.B * p.T, p0 = (int)blockIdx.x * p.PPB, p1 = min(NP, p0 + p.PPB);
+    const int pad = (p.K - 1) / 2, KW = (p.K + 31) / 32 * 32;
+    float* xa = s.xw + warp * 2 * KW;
+    float* xc = xa + KW;
+    for (int pi = p0 + warp; pi < p1; pi += kNW) {
+        const int b = pi / p.T, t = pi - b * p.T;
+        for (int k = lane; k < KW; k += 32) {
+            const int tt = t - pad + k;
+            float va = 0.f, vc = 0.f;
+            if (k < p.K && tt >= 0 && tt < p.T) {
+                va = __bfloat162float(__float2bfloat16_rn(__ldcg(p.att + (size_t)b * p.T + tt)));
+                vc = __bfloat162float(__float2bfloat16_rn(__ldcg(p.cum + (size_t)b * p.T + tt)));
+            }
+            xa[k] = va;
+            xc[k] = vc;
+        }
+        const float* pin = p.pinp + (size_t)pi * p.A;
+        float* pr = s.pre + (size_t)(pi - p0) * p.A;
+        __syncwarp();
+        // 128 features at a time, four independent chains a lane, each
+        // started from W_k m
+        for (int a0 = 0; a0 < p.A; a0 += 128) {
+            float f[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                const int a = a0 + lane + 32 * i;
+                f[i] = a < p.A ? __ldg(pin + a) : 0.f;
+            }
+            const float* u0 = s.us + a0 + lane;
+            const float* u1 = u0 + p.K * p.A;
+#pragma unroll 2
+            for (int k = 0; k < p.K; ++k) {
+                const float x0 = xa[k], x1 = xc[k];
+#pragma unroll
+                for (int i = 0; i < 4; ++i)
+                    if (a0 + lane + 32 * i < p.A)
+                        f[i] = fmaf(u0[k * p.A + 32 * i], x0, fmaf(u1[k * p.A + 32 * i], x1, f[i]));
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                if (a0 + lane + 32 * i < p.A) pr[a0 + lane + 32 * i] = f[i];
+        }
+        __syncwarp();
+    }
+}
+
+// R4: energies of the block's (row, t) pairs, a warp a pair.
+__device__ void energies(const Params& p, const Smem& s) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int NP = p.B * p.T, p0 = (int)blockIdx.x * p.PPB, p1 = min(NP, p0 + p.PPB);
+    for (int pi = p0 + warp; pi < p1; pi += kNW) {
+        const int b = pi / p.T;
+        const float* pr = s.pre + (size_t)(pi - p0) * p.A;
+        const float* pq = p.pq + (size_t)b * p.A;
+        float sum = 0.f;
+#pragma unroll 4
+        for (int a = lane; a < p.A; a += 32)
+            sum += tanhf(__ldcg(pq + a) + pr[a]) * s.vw[a];
+        sum = warp_sum(sum);
+        if (lane == 0) p.e[pi] = sum + p.v_b + __ldg(p.maskadd + pi);
+    }
+}
+
+// This block's context items [i0, i1) (8 columns of E each, item b * CE +
+// c) and the rows they touch, rb0 .. rb1.
+struct CtxRange {
+    int i0, i1, rb0, rb1;
+};
+
+__device__ __forceinline__ CtxRange ctx_range(const Params& p) {
+    const int CE = p.E16 / 8, NI = p.B * CE;
+    const int i0 = (int)blockIdx.x * p.CPB, i1 = min(NI, i0 + p.CPB);
+    return {i0, i1, i0 / CE, i1 > i0 ? (i1 - 1) / CE : i0 / CE - 1};
+}
+
+// The cum rows this block writes (those whose first context chunk is
+// here) from global memory into s.cum, at the launch's start; R5 keeps
+// both up to date.
+__device__ void load_cum(const Params& p, const Smem& s) {
+    const int CE = p.E16 / 8;
+    const CtxRange c = ctx_range(p);
+    for (int b = c.rb0; b <= c.rb1; ++b) {
+        if (b * CE < c.i0) continue;
+        for (int t = threadIdx.x; t < p.T; t += blockDim.x)
+            s.cum[(b - c.rb0) * p.T + t] = p.cum[(size_t)b * p.T + t];
+    }
+}
+
+// R5: the norm over T of the rows this block's context items touch (warps
+// from the last down), the context chunks (warps from the first up; each
+// loads its first chunk's encoder columns before the norm, which does not
+// need them), and, for each row whose first chunk is here, the alignment
+// output, att and cum (kept in s.cum).
+__device__ void context(const Params& p, const Smem& s, int step) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int CE = p.E16 / 8;
+    const CtxRange c = ctx_range(p);
+    if (c.i0 >= c.i1) return;                          // block-uniform
+    constexpr int kPre = 8;                            // chunks of 32 t kept in registers
+    uint4 ev[kPre];
+    const int it0 = c.i0 + warp;
+    if (it0 < c.i1) {
+        const int b = it0 / CE;
+        const bf16* en = p.enc + (size_t)b * p.T * p.E16 + 8 * (it0 - b * CE);
+#pragma unroll
+        for (int u = 0; u < kPre; ++u) {
+            const int t = lane + 32 * u;
+            ev[u] = t < p.T ? __ldg(reinterpret_cast<const uint4*>(en + (size_t)t * p.E16))
+                            : make_uint4(0u, 0u, 0u, 0u);
+        }
+    }
+    for (int rb = c.rb0 + (kNW - 1 - warp); rb <= c.rb1; rb += kNW) {
+        const float* er = p.e + (size_t)rb * p.T;
+        float* al = s.aln + (rb - c.rb0) * p.T;
+        float m = -INFINITY;
+        for (int t = lane; t < p.T; t += 32) {
+            const float v = __ldcg(er + t);
+            al[t] = v;
+            m = fmaxf(m, v);
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        float part = 0.f;
+        for (int t = lane; t < p.T; t += 32) {
+            const float v = p.softmax ? expf(al[t] - m) : sigmoidf_(al[t]);
+            al[t] = v;
+            part += v;
+        }
+        const float total = warp_sum(part);
+        const float inv = 1.f / (p.softmax ? total : fmaxf(total, 1e-8f));
+        for (int t = lane; t < p.T; t += 32) al[t] *= inv;
+    }
+    __syncthreads();
+    for (int it = it0; it < c.i1; it += kNW) {
+        const int b = it / CE, ch = it - b * CE;
+        const float* al = s.aln + (b - c.rb0) * p.T;
+        const bf16* en = p.enc + (size_t)b * p.T * p.E16 + 8 * ch;
+        float acc[8] = {};
+#pragma unroll
+        for (int u = 0; u < kPre; ++u) {
+            const int t = lane + 32 * u;
+            if (t >= p.T) break;
+            float ef[8];
+            unpack8(it == it0 ? ev[u]
+                              : __ldg(reinterpret_cast<const uint4*>(en + (size_t)t * p.E16)), ef);
+            const float a = al[t];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) acc[k] = fmaf(a, ef[k], acc[k]);
+        }
+        for (int t = lane + 32 * kPre; t < p.T; t += 32) {
+            float ef[8];
+            unpack8(__ldg(reinterpret_cast<const uint4*>(en + (size_t)t * p.E16)), ef);
+            const float a = al[t];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) acc[k] = fmaf(a, ef[k], acc[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[k] = warp_sum(acc[k]);
+        if (lane < 8) {
+            float v = 0.f;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) v = (k == lane) ? acc[k] : v;
+            p.ctx[(size_t)b * p.E16 + 8 * ch + lane] = __float2bfloat16_rn(v);
+        }
+    }
+    for (int b = c.rb0; b <= c.rb1; ++b) {
+        if (b * CE < c.i0) continue;                   // its first chunk is elsewhere
+        const float* al = s.aln + (b - c.rb0) * p.T;
+        float* sc = s.cum + (b - c.rb0) * p.T;
+        for (int t = threadIdx.x; t < p.T; t += blockDim.x) {
+            const size_t k = (size_t)b * p.T + t;
+            const float a = al[t];
+            p.aligns[((size_t)step * p.B + b) * p.T + t] = a;
+            p.att[k] = a;
+            sc[t] += a;
+            p.cum[k] = sc[t];
+        }
+    }
+}
+
+template <int PR>
+__global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    cg::grid_group grid = cg::this_grid();
+    Smem s;
+    unsigned char* q = smem;
+    auto take = [&](size_t count, size_t unit) {
+        unsigned char* at = q;
+        q += (count * unit + 15) / 16 * 16;
+        return at;
+    };
+    const int OR = p.OW + 1;                           // projection rows + stop row
+    const int TA = (4 * p.H1 + kRows - 1) / kRows, TD = (4 * p.H2 + kRows - 1) / kRows;
+    const int TP = (p.P + kRows - 1) / kRows, TQ = (p.A + kRows - 1) / kRows;
+    const int TO = (OR + kRows - 1) / kRows;
+    const size_t nt_acc = (size_t)p.NT * kAcc;
+    s.wbuf = reinterpret_cast<uint4*>(take((size_t)p.WBUF * 32, 16));
+    s.xs = reinterpret_cast<bf16*>(take((size_t)kTile * p.XLD, 2));
+    s.us = reinterpret_cast<float*>(take((size_t)2 * p.K * p.A, 4));
+    s.vw = reinterpret_cast<float*>(take(p.A, 4));
+    s.acc_a = reinterpret_cast<float*>(
+        take((p.GA + p.GD + p.GO + max(p.GP, p.GQ)) * nt_acc, 4));
+    s.acc_d = s.acc_a + p.GA * nt_acc;
+    s.acc_o = s.acc_d + p.GD * nt_acc;
+    s.acc_1 = s.acc_o + p.GO * nt_acc;
+    s.slot = reinterpret_cast<float*>(take((size_t)p.SLOTS * kAcc, 4));
+    s.ba = reinterpret_cast<float*>(
+        take((size_t)kRows * (p.GA + p.GD + p.GO + TP + p.GP), 4));
+    s.bd = s.ba + kRows * p.GA;
+    s.bo = s.bd + kRows * p.GD;
+    s.bp1 = s.bo + kRows * p.GO;
+    s.bp2 = s.bp1 + kRows * TP;
+    s.ca = reinterpret_cast<float*>(take((size_t)4 * (p.GA + p.GD) * p.NT * kTile, 4));
+    s.cd = s.ca + 4 * p.GA * p.NT * kTile;
+    s.aln = reinterpret_cast<float*>(take((size_t)p.ALN * p.T, 4));
+    s.cum = reinterpret_cast<float*>(take((size_t)p.ALN * p.T, 4));
+    s.xw = reinterpret_cast<float*>(take((size_t)kNW * 2 * ((p.K + 31) / 32 * 32), 4));
+    s.xs2 = reinterpret_cast<bf16*>(take((size_t)kTile * p.X2LD, 2));
+    // this block's pairs' W_k m + location: in shared memory when the plan
+    // has room for it, else in its rows of the global scratch
+    s.pre = p.PRE_SMEM ? reinterpret_cast<float*>(take((size_t)p.PPB * p.A, 4))
+                       : p.pre + (size_t)blockIdx.x * p.PPB * p.A;
+    for (int i = threadIdx.x; i < 2 * p.K * p.A; i += blockDim.x)
+        s.us[i] = __bfloat162float(p.u[i]);
+    for (int i = threadIdx.x; i < p.A; i += blockDim.x) s.vw[i] = p.v_w[i];
+    const size_t nacc = (p.GA + p.GD + p.GO + max(p.GP, p.GQ)) * nt_acc;
+    for (size_t i = threadIdx.x; i < nacc; i += blockDim.x) s.acc_a[i] = 0.f;
+    for (int i = threadIdx.x; i < kTile * p.X2LD; i += blockDim.x)    // its pad columns
+        s.xs2[i] = __float2bfloat16_rn(0.f);
+    load_bias(s.ba, p.a_b, TA, kDealUp);
+    load_bias(s.bd, p.d_b, TD, kDealUp);
+    load_bias(s.bo, p.o_b, TO, kDealDown);
+    load_bias(s.bp1, p.p1_b, TP, kDealAll);
+    load_bias(s.bp2, p.p2_b, TP, kDealDown);
+    move_cells<true>(s.ca, p.c1, p.H1, p);
+    move_cells<true>(s.cd, p.c2, p.H2, p);
+    load_cum(p, s);
+    __syncthreads();
+
+    // the products of each round; wbase places a product's tiles after the
+    // round's other products in the weight buffer
+    const int P16k = p.P16 / 16, H116k = p.H116 / 16, H216k = p.H216 / 16, E16k = p.E16 / 16;
+    const int nQ = tiles_here(TQ, kDealDown) * H116k, nD6 = tiles_here(TD) * E16k;
+    const int nO6 = tiles_here(TO, kDealDown) * E16k, nO7 = tiles_here(TO, kDealDown) * H216k;
+    // layer 1 of the prenet runs whole on the blocks that own layer 2's tiles
+    const int TP1 = tiles_here(TP, kDealDown) > 0 ? TP : 0, nP1 = TP1 * (p.NM16 / 16);
+    // bit i of WB_ROUNDS: the i-th product round's weights are prefetched
+    auto wb = [&](int round, int base) { return (p.WB_ROUNDS >> round) & 1 ? base : -1; };
+    const Prod pP1{p.p1, p.NM16 / 16, 0, 0, p.NM16 / 16, TP1, p.ks[kP1], wb(0, 0), kDealAll,
+                   nullptr};
+    const Prod pP2{p.p2, P16k, 0, 0, P16k, TP, p.ks[kP2], wb(0, nP1), kDealDown, s.acc_1};
+    const Prod pA2{p.a, p.KA, 0, 0, P16k, TA, p.ks[kA2], wb(1, 0), kDealUp, s.acc_a};
+    const Prod pQ{p.q, H116k, 0, 0, H116k, TQ, p.ks[kQ], wb(2, 0), kDealDown, s.acc_1};
+    const Prod pD3{p.d, p.KD, 0, 0, H116k, TD, p.ks[kD3], wb(2, nQ), kDealUp, s.acc_d};
+    const Prod pA4{p.a, p.KA, P16k + E16k, 0, H116k, TA, p.ks[kA4], wb(3, 0), kDealUp,
+                   s.acc_a};
+    const Prod pD6{p.d, p.KD, H116k, 0, E16k, TD, p.ks[kD6], wb(4, 0), kDealUp, s.acc_d};
+    const Prod pO6{p.o, p.KO, H216k, 0, E16k, TO, p.ks[kO6], wb(4, nD6), kDealDown, s.acc_o};
+    const Prod pA6{p.a, p.KA, P16k, 0, E16k, TA, p.ks[kA6], wb(4, nD6 + nO6), kDealUp,
+                   s.acc_a};
+    const Prod pO7{p.o, p.KO, 0, 0, H216k, TO, p.ks[kO7], wb(5, 0), kDealDown, s.acc_o};
+    const Prod pD7{p.d, p.KD, H116k + E16k, 0, H216k, TD, p.ks[kD7], wb(5, nO7), kDealUp,
+                   s.acc_d};
+    // the prologue's products of the initial state, from L2
+    const Prod pA0{p.a, p.KA, P16k, 0, p.KA - P16k, TA, p.ks[kA4], -1, kDealUp, s.acc_a};
+    const Prod pD0{p.d, p.KD, H116k + E16k, 0, H216k, TD, p.ks[kD7], -1, kDealUp, s.acc_d};
+    const Src none{nullptr, 0};
+    auto nothing = [] {};
+    constexpr bool work = PR == kServe || PR == kProfile;
+    constexpr bool prof = PR == kProfile;
+    constexpr bool fetch = PR == kServe || PR == kProfile || PR == kDotsOnly;
+    long long t_work[kRounds] = {}, t_wait[kRounds] = {}, t_mark = 0;
+    // kProfile: the block's work in a round (to its last thread), then its
+    // wait at the barrier, in SM cycles summed over the steps
+    auto done_work = [&](int r) {
+        if (!prof) return;
+        __syncthreads();
+        const long long t = clock64();
+        t_work[r] += t - t_mark;
+        t_mark = t;
+    };
+    auto sync = [&](int r) {
+        done_work(r);
+        grid.sync();
+        if (!prof) return;
+        const long long t = clock64();
+        t_wait[r] += t - t_mark;
+        t_mark = t;
+    };
+
+    // prologue: the attention LSTM's product over the initial [ctx | h1]
+    // and the decoder LSTM's over the initial h2 (step 0's share of what
+    // R4, R6 and R7 compute for the next step), R1's weights, step 0's pre
+    if (work) {
+        run_products<PR>(p, s, {p.ctx, p.E16}, {p.h1, p.H116}, none, pA0, pA0, pA0, 1, nothing);
+        run_products<PR>(p, s, {p.h2, p.H216}, none, none, pD0, pD0, pD0, 1, nothing);
+    }
+    if (fetch) fetch_weights(s.wbuf, pP1, pP2, pP2, 2);
+    if (work) location(p, s);
+    grid.sync();
+    if (prof) t_mark = clock64();
+    int step = 0;
+    for (; step < p.steps; ++step) {
+        if (PR == kBarriersOnly) {
+            for (int i = 0; i < kBarriers; ++i) grid.sync();
+            continue;
+        }
+        const int cur = step & 1;
+        const float* done_in = p.done + (size_t)cur * p.B;
+        float* done_out = p.done + (size_t)(cur ^ 1) * p.B;
+        if (work && step > 0 && step % p.chunk == 0) {
+            bool all = true;
+            for (int b = threadIdx.x; b < p.B; b += blockDim.x)
+                all = all && __ldcg(done_in + b) > 0.f;
+            if (__syncthreads_and(all)) break;        // the same in every block
+        }
+        const uint32_t key = hash_step_key(p.seed, (uint32_t)step);
+        auto prenet = [&](int salt, bf16* dst) {
+            return [&, salt, dst](int row, int b, float v) {
+                v = fmaxf(v, 0.f);
+                if (p.dropout)
+                    v = hash_uniform((uint32_t)((p.row0 + b) * p.P + row), key,
+                                     (uint32_t)salt) < 0.5f ? 0.f : v * 2.f;
+                dst[(size_t)b * p.P16 + row] = __float2bfloat16_rn(v);
+            };
+        };
+        // each round: its products, the next product round's weights into
+        // the buffer (they land during the epilogue and the barrier), the
+        // epilogue. The chain frame -> x -> h1 -> pq -> e -> ctx -> h2 ->
+        // frame runs one link a round; the LSTM products that do not lie on
+        // it (a_w over h1 and ctx, d_w over h2) run where their input is
+        // already staged, for the next step.
+        // R1: the prenet
+        prenet_round<PR>(p, s, pP1, pP2, key);
+        if (fetch) fetch_weights(s.wbuf, pA2, pA2, pA2, 1);
+        if (work) rows_epilogue(p, s.acc_1, s.bp2, p.P, prenet(12, p.x));
+        sync(0);
+        // R2
+        run_products<PR>(p, s, {p.x, p.P16}, none, none, pA2, pA2, pA2, 1, nothing);
+        if (fetch) fetch_weights(s.wbuf, pQ, pD3, pD3, 2);
+        if (work) lstm_epilogue(p, s.acc_a, s.ba, s.ca, p.H1, p.H116, p.h1);
+        sync(1);
+        // R3
+        run_products<PR>(p, s, {p.h1, p.H116}, none, none, pQ, pD3, pD3, 2, nothing);
+        if (fetch) fetch_weights(s.wbuf, pA4, pA4, pA4, 1);
+        if (work)
+            rows_epilogue(p, s.acc_1, nullptr, p.A, [&](int row, int b, float v) {
+                p.pq[(size_t)b * p.A + row] = v;
+            });
+        sync(2);
+        // R4: the energies while h1 is staged again, then a_w over h1
+        run_products<PR>(p, s, {p.h1, p.H116}, none, none, pA4, pA4, pA4, 1, [&] {
+            if (work) energies(p, s);
+        });
+        if (fetch) fetch_weights(s.wbuf, pD6, pO6, pA6, 3);
+        sync(3);
+        // R5
+        if (work) context(p, s, step);
+        sync(4);
+        // R6
+        run_products<PR>(p, s, {p.ctx, p.E16}, none, none, pD6, pO6, pA6, 3, nothing);
+        if (fetch) fetch_weights(s.wbuf, pO7, pD7, pD7, 2);
+        if (work) lstm_epilogue(p, s.acc_d, s.bd, s.cd, p.H2, p.H216, p.h2);
+        sync(5);
+        // R7
+        run_products<PR>(p, s, {p.h2, p.H216}, none, none, pO7, pD7, pD7, 2, nothing);
+        if (fetch) fetch_weights(s.wbuf, pP1, pP2, pP2, 2);
+        if (work) {
+            location(p, s);                            // the next step's pre
+            rows_epilogue(p, s.acc_o, s.bo, OR, [&](int row, int b, float v) {
+                const float dn = __ldcg(done_in + b);
+                if (row < p.OW) {
+                    const float o = v * (1.f - dn);
+                    p.out[((size_t)step * p.B + b) * p.OW + row] = o;
+                    const int f = row - p.NM * (p.r - 1);
+                    if (f >= 0 && f < p.NM)
+                        p.frame[(size_t)b * p.NM16 + f] = __float2bfloat16_rn(o);
+                } else {
+                    const float pr = sigmoidf_(v);
+                    p.stops[(size_t)step * p.B + b] = pr;
+                    done_out[b] = fmaxf(dn, pr > p.thresh ? 1.f : 0.f);
+                }
+            });
+        }
+        sync(6);
+    }
+    cp_async_wait_all();                               // the last prefetch
+    if (work) {
+        move_cells<false>(s.ca, p.c1, p.H1, p);
+        move_cells<false>(s.cd, p.c2, p.H2, p);
+    }
+    if (prof && threadIdx.x == 0)
+        for (int r = 0; r < kRounds; ++r) {
+            p.prof[((size_t)blockIdx.x * kRounds + r) * 2] = (float)t_work[r];
+            p.prof[((size_t)blockIdx.x * kRounds + r) * 2 + 1] = (float)t_wait[r];
+        }
+    if (blockIdx.x == 0 && threadIdx.x == 0) *p.ran = step;
+}
+
+template <int PR>
+const void* kernel_of() { return reinterpret_cast<const void*>(decode_kernel<PR>); }
+
+const void* kernel_for(int probe) {
+    switch (probe) {
+        case kBarriersOnly: return kernel_of<kBarriersOnly>();
+        case kCopiesOnly: return kernel_of<kCopiesOnly>();
+        case kDotsOnly: return kernel_of<kDotsOnly>();
+        case kProfile: return kernel_of<kProfile>();
+        default: return kernel_of<kServe>();
+    }
+}
+
+int occupancy(const void* kernel, int smem, int* blocks_per_sm) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads,
+                                                              (size_t)smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-int taco2_prenet(const void* frame, int n_in, const void* w1, const void* b1, int ld1,
-                 const void* w2, const void* b2, int ld2, int P, void* out, int B,
-                 unsigned int seed, unsigned int step, int dropout, void* stream) {
-    const size_t smem = (size_t)kBT * (ld1 + ld2) * sizeof(__nv_bfloat16);
-    if (int err = set_smem((const void*)prenet_kernel, smem)) return err;
-    prenet_kernel<<<(B + kBT - 1) / kBT, 32 * kWarps, smem, (cudaStream_t)stream>>>(
-        (const float*)frame, n_in, (const __nv_bfloat16*)w1, (const float*)b1, ld1,
-        (const __nv_bfloat16*)w2, (const float*)b2, ld2, P, (float*)out, B, seed, step,
-        dropout);
-    return launch_status();
+// Blocks per SM of the serving kernel at `smem` bytes of dynamic shared memory.
+int taco2_decode_occupancy(int smem, int* blocks_per_sm) {
+    return occupancy(kernel_for(kServe), smem, blocks_per_sm);
 }
 
-int taco2_lstm(const void* W, const void* bias, int ld, const void* x0, int n0,
-               const void* x1, int n1, const void* h_in, int H, void* c, void* h_out,
-               int B, void* stream) {
-    const size_t smem = (size_t)kBT * ld * sizeof(__nv_bfloat16);
-    if (int err = set_smem((const void*)lstm_kernel, smem)) return err;
-    dim3 grid((H + kWarps - 1) / kWarps, (B + kBT - 1) / kBT);
-    lstm_kernel<<<grid, 32 * kWarps, smem, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)W, (const float*)bias, ld, (const float*)x0, n0,
-        (const float*)x1, n1, (const float*)h_in, H, (float*)c, (float*)h_out, B);
-    return launch_status();
-}
-
-int taco2_attention(const void* h1, const void* q_w, int ldq, int H1, const void* u,
-                    int K, const void* v_w, float v_b, const void* pinp,
-                    const void* maskadd, const void* enc, void* att, void* cum,
-                    void* ctx, void* align_out, int B, int T, int A, int E,
-                    int softmax, void* stream) {
-    const int TK = T + K - 1;
-    const int off = (2 * K * A + A + 2 * TK + T + 32 + 3) & ~3;
-    const size_t smem = (size_t)off * sizeof(float) + (size_t)ldq * sizeof(__nv_bfloat16);
-    if (int err = set_smem((const void*)attention_kernel, smem)) return err;
-    attention_kernel<<<B, 512, smem, (cudaStream_t)stream>>>(
-        (const float*)h1, (const __nv_bfloat16*)q_w, ldq, H1, (const __nv_bfloat16*)u, K,
-        (const float*)v_w, v_b, (const float*)pinp, (const float*)maskadd,
-        (const __nv_bfloat16*)enc, (float*)att, (float*)cum, (float*)ctx,
-        (float*)align_out, T, A, E, softmax);
-    return launch_status();
-}
-
-int taco2_project(const void* W, const void* bias, int ld, const void* h2, int H2,
-                  const void* ctx, int E, const void* done_in, void* done_out,
-                  void* out, void* stop_out, void* frame, int B, int OW, int NM, int r,
-                  float thresh, void* stream) {
-    const size_t smem = (size_t)kBT * ld * sizeof(__nv_bfloat16);
-    if (int err = set_smem((const void*)project_kernel, smem)) return err;
-    dim3 grid((OW + 1 + kWarps - 1) / kWarps, (B + kBT - 1) / kBT);
-    project_kernel<<<grid, 32 * kWarps, smem, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)W, (const float*)bias, ld, (const float*)h2, H2,
-        (const float*)ctx, E, (const float*)done_in, (float*)done_out, (float*)out,
-        (float*)stop_out, (float*)frame, B, OW, NM, r, thresh);
-    return launch_status();
+// ptrs: p1, p2, a, q, d, o, u, p1_b, p2_b, a_b, d_b, o_b, v_w, enc, pinp,
+// maskadd, frame, x1, x, h1, h2, ctx, c1, c2, att, cum, done, pq, e, pre,
+// out, aligns, stops, ran, prof. dims: the launch plan (ops/taco2_decode.py
+// `launch_plan`, `_DIMS` order), the eleven products' k-tile slices, blocks,
+// shared memory bytes. fl: v_b, thresh. probe: 0 serves, 1 keeps only the
+// barriers, 2 only the stage-input copies, 3 only the products, 4 serves
+// and writes each block's cycles a round (work, then barrier wait) to
+// prof [G, 7, 2] (null for the other launches). Returns a cudaError_t, or
+// -1 when the grid cannot be co-resident.
+int taco2_decode(const void* const* ptrs, const int* dims, const float* fl, unsigned int seed,
+                 void* stream, int probe) {
+    if (probe < kServe || probe > kProfile) return (int)cudaErrorInvalidValue;
+    Params p{};
+    const bf16** wb[] = {&p.p1, &p.p2, &p.a, &p.q, &p.d, &p.o, &p.u};
+    for (int i = 0; i < 7; ++i) *wb[i] = static_cast<const bf16*>(ptrs[i]);
+    const float** wf[] = {&p.p1_b, &p.p2_b, &p.a_b, &p.d_b, &p.o_b, &p.v_w};
+    for (int i = 0; i < 6; ++i) *wf[i] = static_cast<const float*>(ptrs[7 + i]);
+    p.enc = static_cast<const bf16*>(ptrs[13]);
+    p.pinp = static_cast<const float*>(ptrs[14]);
+    p.maskadd = static_cast<const float*>(ptrs[15]);
+    bf16** sb[] = {&p.frame, &p.x1, &p.x, &p.h1, &p.h2, &p.ctx};
+    for (int i = 0; i < 6; ++i) *sb[i] = static_cast<bf16*>(const_cast<void*>(ptrs[16 + i]));
+    float** sf[] = {&p.c1, &p.c2, &p.att, &p.cum, &p.done, &p.pq, &p.e, &p.pre, &p.out,
+                    &p.aligns, &p.stops};
+    for (int i = 0; i < 11; ++i) *sf[i] = static_cast<float*>(const_cast<void*>(ptrs[22 + i]));
+    p.ran = static_cast<int*>(const_cast<void*>(ptrs[33]));
+    p.prof = static_cast<float*>(const_cast<void*>(ptrs[34]));
+    int* di[] = {&p.B, &p.T, &p.NT, &p.NM, &p.NM16, &p.P, &p.P16, &p.E16, &p.H1, &p.H116,
+                 &p.H2, &p.H216, &p.A, &p.K, &p.OW, &p.r, &p.KA, &p.KD, &p.KO, &p.steps,
+                 &p.chunk, &p.softmax, &p.dropout, &p.XLD, &p.ALN, &p.CPB, &p.PPB, &p.GA,
+                 &p.GD, &p.GO, &p.GP, &p.GQ, &p.SLOTS, &p.WBUF, &p.WB_ROUNDS,
+                 &p.PRE_SMEM, &p.X2LD, &p.row0};
+    constexpr int nd = sizeof(di) / sizeof(di[0]);
+    for (int i = 0; i < nd; ++i) *di[i] = dims[i];
+    for (int i = 0; i < kNumProducts; ++i) p.ks[i] = dims[nd + i];
+    const int blocks = dims[nd + kNumProducts], smem = dims[nd + kNumProducts + 1];
+    p.v_b = fl[0];
+    p.thresh = fl[1];
+    p.seed = seed;
+    if (p.K < 1 || p.B < 1 || p.chunk < 1 || (probe == kProfile && !p.prof))
+        return (int)cudaErrorInvalidValue;
+    const void* kernel = kernel_for(probe);
+    int per_sm = 0, e;
+    if ((e = occupancy(kernel, smem, &per_sm)) != 0) return e;
+    int dev = 0, sms = 0;
+    if ((e = (int)cudaGetDevice(&dev)) != 0) return e;
+    if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
+        return e;
+    if (per_sm < 1 || blocks > per_sm * sms) return -1;
+    void* args[] = {&p};
+    e = (int)cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
+                                         (size_t)smem, static_cast<cudaStream_t>(stream));
+    if (e != 0) return e;
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -46,8 +46,12 @@ def synthesis_batch(model, texts: list[str], cfg: Config, ap: AudioProcessor,
     VocoderSynthesizer.mel_to_wav) replaces Griffin-Lim for a mel model; it
     runs once per row, in order."""
     text_arr, lengths = _pad_texts([text_to_seq(t, cfg) for t in texts])
+    # the configured inference compute dtype (bf16: the encoder, key
+    # projection and postnet in bf16, as the reference's serving path)
+    compute_dtype = (torch.bfloat16 if cfg.model.inference_compute_dtype == "bfloat16"
+                     else None)
     out = model.inference(text_arr, lengths, max_decoder_steps=max_decoder_steps,
-                          seed=seed, decode_dtype=decode_dtype)
+                          seed=seed, decode_dtype=decode_dtype, compute_dtype=compute_dtype)
     mels = out["postnet_outputs"].cpu().numpy()
     aligns = out["alignments"].cpu().numpy()
     stops = out["stop_probs"].cpu().numpy()

@@ -7,6 +7,8 @@ is drawn only when a torch.Generator is passed (the JAX package's
 
 from __future__ import annotations
 
+import copy
+
 import torch
 from torch import nn
 
@@ -78,6 +80,22 @@ def cached_decode_weights(decoder: nn.Module, dtype, build) -> dict:
     hit = decoder._prepared.get(key)
     if hit is None or hit[0] != version:
         hit = decoder._prepared[key] = (version, build(dtype))
+    return hit[1]
+
+
+def compute_copy(model: nn.Module, name: str, dtype) -> nn.Module:
+    """`model.<name>` with every float parameter and buffer cast to `dtype`,
+    for inference at the config's `inference_compute_dtype` (the JAX
+    package's `cast_compute`). Kept in `model._compute_copies` per (name,
+    dtype, device, parameter version), like `cached_decode_weights`."""
+    module = getattr(model, name)
+    version = tuple(t._version for t in module.state_dict().values())
+    key = (name, dtype, next(module.parameters()).device)
+    cache = model.__dict__.setdefault("_compute_copies", {})
+    hit = cache.get(key)
+    if hit is None or hit[0] != version:
+        cast = copy.deepcopy(module).to(dtype).eval().requires_grad_(False)
+        hit = cache[key] = (version, cast)
     return hit[1]
 
 

@@ -30,7 +30,8 @@ from ..nn.core import GAINS, BatchNorm1d, Conv1d, Dense, Embedding, xavier_unifo
 from ..nn.rnn import GRUCell
 from ..ops.taco1_decode import prepare_weights, tacotron1_decode
 from .attention import init_attn
-from .common import Prenet, cached_decode_weights, kernel_prenet, sequence_mask
+from .common import (Prenet, cached_decode_weights, compute_copy, kernel_prenet,
+                     sequence_mask)
 
 
 class Highway(nn.Module):
@@ -128,13 +129,20 @@ class TacotronDecoder(nn.Module):
 
     @torch.no_grad()
     def inference(self, inputs, input_lengths, max_steps: int, r: int, seed: int = 0,
-                  dtype=torch.bfloat16):
+                  dtype=torch.bfloat16, compute_dtype=None):
         """inputs [B, T, E] encoder memory -> (frames [B, max_steps * r,
         n_mels], alignments [B, max_steps, T], stop probabilities
-        [B, max_steps], lengths [B] in mel frames)."""
+        [B, max_steps], lengths [B] in mel frames). With a compute_dtype
+        the memory's key projection W_k m runs in it (the decode itself
+        keeps its f32 state and `dtype` matrix inputs)."""
         B = inputs.shape[0]
         mask = sequence_mask(input_lengths, inputs.shape[1])
-        pinp = self.attention.preprocess_inputs(inputs)
+        if compute_dtype is None:
+            pinp = self.attention.preprocess_inputs(inputs)
+        else:
+            pinp = compute_copy(self.attention, "inputs", compute_dtype)(
+                inputs.to(compute_dtype)).float()
+            inputs = inputs.float()
         _, dropout = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
         out, aligns, stops, lengths = tacotron1_decode(
             self.decode_weights(dtype), inputs, pinp, mask, r=r, max_steps=max_steps,
@@ -219,9 +227,12 @@ class Tacotron(nn.Module):
 
     @torch.no_grad()
     def inference(self, text, text_lengths, max_decoder_steps: int | None = None,
-                  r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16):
+                  r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16,
+                  compute_dtype=None):
         """Free-running synthesis on the model's device (the signature of
-        `Tacotron2.inference`). text [B, T] symbol ids, text_lengths [B].
+        `Tacotron2.inference`, compute_dtype included: bf16 runs the
+        embedding, encoder prenet and CBHG, the key projection and the
+        PostCBHG head in bf16, outputs float32). text [B, T] symbol ids, text_lengths [B].
         Returns decoder_outputs (mel [B, T_out, n_mels]), postnet_outputs
         (linear [B, T_out, num_freq]), alignments, stop_probs and mel_lengths
         (in frames; frames past a row's length decode from zeros). `seed`
@@ -232,17 +243,25 @@ class Tacotron(nn.Module):
         dev = self.device
         text = torch.as_tensor(text, dtype=torch.long, device=dev)
         text_lengths = torch.as_tensor(text_lengths, dtype=torch.long, device=dev)
+        dt = compute_dtype
+        cast = (lambda name: getattr(self, name)) if dt is None else \
+            (lambda name: compute_copy(self, name, dt))  # noqa: E731
         was_training = self.training
         self.eval()
         try:
             gen = (torch.Generator(device=dev).manual_seed(seed)
                    if self.enc_prenet.dropout_enabled else None)
-            enc_out = self.encoder_cbhg(self.enc_prenet(self.embedding(text), gen))
+            enc_out = cast("encoder_cbhg")(cast("enc_prenet")(cast("embedding")(text), gen))
             dec_out, aligns, stops, lengths = self.decoder.inference(
-                enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype)
-            linear = self.last_linear(self.post_cbhg(dec_out))
+                enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype,
+                compute_dtype=dt)
+            if dt is not None:
+                dec_out = dec_out.to(dt)
+            linear = cast("last_linear")(cast("post_cbhg")(dec_out))
         finally:
             self.train(was_training)
+        if dt is not None:
+            dec_out, linear = dec_out.float(), linear.float()
         return {
             "decoder_outputs": dec_out,
             "postnet_outputs": linear,

@@ -31,8 +31,8 @@ from ..nn.rnn import LSTMCell, bilstm
 from ..ops.taco2_decode import prepare_weights, tacotron2_decode
 from .attention import init_attn
 from .decoder_grad import DecoderCore, dropout_masks
-from .common import (ConvBNBlock, Prenet, cached_decode_weights, kernel_prenet,
-                     sequence_mask)
+from .common import (ConvBNBlock, Prenet, cached_decode_weights, compute_copy,
+                     kernel_prenet, sequence_mask)
 
 
 class Encoder(nn.Module):
@@ -147,13 +147,20 @@ class Decoder(nn.Module):
 
     @torch.no_grad()
     def inference(self, inputs, input_lengths, max_steps: int, r: int,
-                  seed: int = 0, dtype=torch.bfloat16):
+                  seed: int = 0, dtype=torch.bfloat16, compute_dtype=None):
         """inputs [B, T, E] encoder memory -> (frames [B, max_steps * r,
         n_mels], alignments [B, max_steps, T], stop probabilities
-        [B, max_steps], lengths [B] in mel frames)."""
+        [B, max_steps], lengths [B] in mel frames). With a compute_dtype
+        the memory's key projection W_k m runs in it (the decode itself
+        keeps its f32 state and `dtype` matrix inputs)."""
         B = inputs.shape[0]
         mask = sequence_mask(input_lengths, inputs.shape[1])
-        pinp = self.attention.preprocess_inputs(inputs)
+        if compute_dtype is None:
+            pinp = self.attention.preprocess_inputs(inputs)
+        else:
+            pinp = compute_copy(self.attention, "inputs", compute_dtype)(
+                inputs.to(compute_dtype)).float()
+            inputs = inputs.float()
         _, dropout = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
         out, aligns, stops, lengths = tacotron2_decode(
             self.decode_weights(dtype), inputs, pinp, mask, r=r,
@@ -242,27 +249,41 @@ class Tacotron2(nn.Module):
 
     @torch.no_grad()
     def inference(self, text, text_lengths, max_decoder_steps: int | None = None,
-                  r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16):
+                  r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16,
+                  compute_dtype=None):
         """Free-running synthesis on the model's device. text [B, T] symbol
         ids, text_lengths [B]. Output lengths are in mel frames; frames past
         a row's length are zero. decode_dtype is the decode's working type
         (the kernel runs bf16; the plain version also takes float32).
-        BatchNorm normalizes with its running statistics whatever the
-        module's mode, as the reference's inference does (train=False)."""
+        compute_dtype=torch.bfloat16 runs the embedding, encoder, the
+        memory's key projection and the postnet in bf16 (the reference's
+        `compute_dtype`): the decode's f32 frames are cast to bf16 before
+        the postnet, and every output comes back float32. None runs them
+        in float32. BatchNorm normalizes with its running statistics
+        whatever the module's mode, as the reference's inference does
+        (train=False)."""
         r = r or self.r
         max_steps = max_decoder_steps or self.cfg.max_decoder_steps
         dev = self.device
         text = torch.as_tensor(text, dtype=torch.long, device=dev)
         text_lengths = torch.as_tensor(text_lengths, dtype=torch.long, device=dev)
+        dt = compute_dtype
+        cast = (lambda name: getattr(self, name)) if dt is None else \
+            (lambda name: compute_copy(self, name, dt))  # noqa: E731
         was_training = self.training
         self.eval()
         try:
-            enc_out = self.encoder(self.embedding(text), text_lengths)
+            enc_out = cast("encoder")(cast("embedding")(text), text_lengths)
             dec_out, aligns, stops, lengths = self.decoder.inference(
-                enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype)
-            post = dec_out + self.postnet(dec_out)
+                enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype,
+                compute_dtype=dt)
+            if dt is not None:
+                dec_out = dec_out.to(dt)
+            post = dec_out + cast("postnet")(dec_out)
         finally:
             self.train(was_training)
+        if dt is not None:
+            dec_out, post = dec_out.float(), post.float()
         return {
             "decoder_outputs": dec_out,
             "postnet_outputs": post,

@@ -10,8 +10,9 @@ dropout). Same arguments, same outputs: time-major frames
 [steps, B] and lengths [B] in r-groups.
 
 Semantics of the Pallas route, which both versions keep:
-- every `chunk` steps the host reads the done mask once; once every row is
-  done the remaining chunks are zero;
+- every `chunk` steps the done mask is read once (by the host in the plain
+  version, on the device in the kernel); once every row is done the
+  remaining chunks are zero;
 - within a chunk a row that is done keeps advancing its LSTM and attention
   state and still writes its alignment and stop probability; only its
   output frame and its fed-back frame are zero;
@@ -22,7 +23,12 @@ Semantics of the Pallas route, which both versions keep:
   f32 accumulation, f32 state and f32 outputs.
 
 `tacotron2_decode` runs the plain version for a CPU tensor and the kernel
-for a CUDA tensor; the kernel wrapper raises on what it does not take.
+for a CUDA tensor; the kernel wrapper raises on what it does not take and
+never falls back. The kernel is one persistent launch a decode
+(`launch_plan`, `pack_weights`); it checks the early exit on the device and
+writes how many steps ran, which the wrapper reads once. A batch too large
+for one launch's shared memory runs as slices of whole batch tiles
+(`batch_slices`), a launch each.
 """
 
 from __future__ import annotations
@@ -208,15 +214,197 @@ def tacotron2_decode_plain(w: dict, enc_out, pinp, mask, *, r: int,
     return _finish(out, aligns, stops, ran, max_steps, thresh)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# ---------------------------------------------------------------- the kernel
+
+THREADS, WARPS, TILE, BARRIERS = 512, 16, 8, 7
+ROWS, KT = 16, 16          # a tensor-core tile: 16 weight rows x 16 columns
+# the products of a step, in the kernel's order (csrc/taco2_decode.cu):
+# (round, matrix, input segment)
+PRODUCTS = ("R1 p1 frame", "R1 p2 x1", "R2 a x", "R3 q h1", "R3 d h1", "R4 a h1",
+            "R6 d ctx", "R6 o ctx", "R6 a ctx", "R7 o h2", "R7 d h2")
+PROBES = {"barriers_only": 1, "copies_only": 2, "dots_only": 3}
+_PROFILE = 4
+ROUNDS = ("R1 prenet", "R2 a x, cell", "R3 query, d h1", "R4 energies, a h1", "R5 norm, context",
+          "R6 d ctx, cell, o ctx, a ctx", "R7 o h2, d h2, stop, location")
+# the products of each round that has any (R5 has none), as indices into
+# PRODUCTS; R1's two run one after the other
+ROUND_PRODUCTS = ((0, 1), (2,), (3, 4), (5,), (6, 7, 8), (9, 10))
+_DIMS = ("B", "T", "NT", "NM", "NM16", "P", "P16", "E16", "H1", "H116", "H2", "H216", "A",
+         "K", "OW", "r", "KA", "KD", "KO", "steps", "chunk", "softmax", "dropout", "XLD",
+         "ALN", "CPB", "PPB", "GA", "GD", "GO", "GP", "GQ", "SLOTS", "WBUF", "WB_ROUNDS",
+         "PRE_SMEM", "X2LD", "row0")
+SMEM_LIMIT = 232448        # bytes of shared memory a block may use on the H100
+
+
+def _pad16(n: int) -> int:
+    return _round_up(n, KT)
+
+
+def _segments(w, widths):
+    """Columns of w [rows, sum(widths) (+ pad)] cut into segments, each
+    zero-padded to a multiple of 16 columns (a tensor-core k-tile)."""
+    out, c = [], 0
+    for n in widths:
+        out.append(F.pad(w[:, c:c + n], (0, _pad16(n) - n)))
+        c += n
+    return torch.cat(out, 1)
+
+
+def _rows16(w):
+    """Rows zero-padded to a multiple of 16 (a tensor-core row tile)."""
+    n = _round_up(w.shape[0], ROWS) - w.shape[0]
+    return F.pad(w, (0, 0, 0, n) if w.dim() == 2 else (0, n))
+
+
+def fragment_order(m):
+    """[R, K] (multiples of 16) -> [R/16, K/16, 32, 8]: each 16 x 16 tile
+    in the register order of mma.sync.m16n8k16's A operand, so that lane L
+    loads its four registers as one 16-byte vector: rows g and g + 8
+    (g = L / 4), columns 2q, 2q + 1 and 2q + 8, 2q + 9 (q = L % 4), as
+    (g, 2q..), (g + 8, 2q..), (g, 2q + 8..), (g + 8, 2q + 8..)."""
+    R, K = m.shape
+    lane = torch.arange(32, device=m.device)
+    g, q = lane // 4, lane % 4
+    rows = torch.stack([g, g + 8, g, g + 8], 1)[:, :, None].expand(32, 4, 2)
+    cols = torch.stack([2 * q, 2 * q, 2 * q + 8, 2 * q + 8], 1)[:, :, None] \
+        + torch.arange(2, device=m.device)
+    tiles = m.reshape(R // ROWS, ROWS, K // KT, KT).permute(0, 2, 1, 3)
+    return tiles[:, :, rows, cols].reshape(R // ROWS, K // KT, 32, 8)
+
+
+@torch.no_grad()
+def pack_weights(w: dict) -> dict:
+    """The kernel's layout of `prepare_weights` output, kept in w["packed"]:
+    every matrix's input segments ([x | ctx | h1] for a_w, [h1 | ctx | h2]
+    for d_w, [h2 | ctx] for the projection) zero-padded to a multiple of 16
+    columns, so that each segment starts on a k-tile and the staged inputs
+    of a round line up with it; rows zero-padded to a multiple of 16 (a row
+    tile; four LSTM units' gates, interleaved by prepare_weights); each
+    matrix in `fragment_order`; biases padded alike."""
+    if "packed" in w:
+        return w["packed"]
+    d = w["dims"]
+    NM, P, H1, H2, E = (d[k] for k in ("n_in", "P", "H1", "H2", "E"))
+    cut = lambda k, n: w[k][:, :n]  # noqa: E731
+    frag = lambda k, widths: fragment_order(  # noqa: E731
+        _rows16(_segments(cut(k, sum(widths)), widths)))
+    pk = {
+        "p1": frag("p1_w", [NM]), "p2": frag("p2_w", [P]), "a": frag("a_w", [P, E, H1]),
+        "q": frag("q_w", [H1]), "d": frag("d_w", [H1, E, H2]), "o": frag("o_w", [H2, E]),
+        "u": w["u"],
+        "p1_b": _rows16(w["p1_b"]), "p2_b": _rows16(w["p2_b"]), "a_b": _rows16(w["a_b"]),
+        "d_b": _rows16(w["d_b"]), "o_b": _rows16(w["o_b"]), "v_w": w["v_w"],
+    }
+    w["packed"] = {k: v.contiguous() for k, v in pk.items()}
+    return w["packed"]
+
+
+def launch_plan(dims: dict, B: int, T: int, sms: int) -> dict:
+    """The persistent kernel's launch plan on `sms` SMs: one block of 512
+    threads an SM; batch tiles of 8 rows (the n of mma.m16n8k16); for each
+    product the 16-row tiles a block owns at most (the prenet's first
+    layer: all of them, on the blocks of its second) and the k-tile slices
+    an item takes (enough items for the 16 warps); the attention's (row, t)
+    pairs and context chunks a block; shared memory bytes, as the kernel
+    lays them out."""
+    NM, P, H1, H2, E, A, K, OW = (dims[k] for k in ("n_in", "P", "H1", "H2", "E", "A",
+                                                    "K", "OW"))
+    G = sms
+    NM16, P16, E16, H116, H216 = (_pad16(n) for n in (NM, P, E, H1, H2))
+    gpb = lambda tiles: -(-tiles // G)  # noqa: E731
+    tp, ta, tq, td = (-(-n // ROWS) for n in (P, 4 * H1, A, 4 * H2))
+    to = -(-(OW + 1) // ROWS)
+    products = [(tp, NM16 // KT), (tp, P16 // KT), (ta, P16 // KT), (tq, H116 // KT),
+                (td, H116 // KT), (ta, H116 // KT), (td, E16 // KT), (to, E16 // KT),
+                (ta, E16 // KT), (to, H216 // KT), (td, H216 // KT)]
+    per_block = [tp] + [gpb(t) for t, _ in products[1:]]
+    NT = -(-B // TILE)
+    CE = E16 // 8
+    CPB = -(-(B * CE) // G)
+    xld = max(NM16, P16, H116, E16, H216, E16 + H116)     # E16 + H116: the prologue
+    plan = {
+        "blocks": G, "threads": THREADS, "barriers_per_step": BARRIERS, "tiles": NT,
+        "NM16": NM16, "P16": P16, "E16": E16, "H116": H116, "H216": H216,
+        "KA": (P16 + E16 + H116) // KT, "KD": (H116 + E16 + H216) // KT,
+        "KO": (H216 + E16) // KT,
+        # the staged tile's row stride: 8 bf16 past a multiple of 16, so
+        # that the 8 rows of a B-fragment load fall in distinct banks
+        "XLD": xld + 8,
+        "GA": gpb(ta), "GD": gpb(td), "GO": gpb(to), "GP": gpb(tp), "GQ": gpb(tq),
+        "PPB": -(-(B * T) // G), "CPB": CPB, "ALN": min(B, -(-CPB // CE) + 1),
+        "X2LD": P16 + 8,
+        "ks": [max(1, min(WARPS // max(g, 1), n)) for g, (_, n) in zip(per_block, products)],
+        "tiles_per_block": dict(zip(PRODUCTS, per_block)),
+    }
+    # an item's 16 x 8 sums go to a slot of its own, summed in a fixed order
+    items = [g * k for g, k in zip(per_block, plan["ks"])]
+    plan["SLOTS"] = max([max(items[0], items[1])]                 # R1: one after the other
+                        + [sum(items[i] for i in r) for r in ROUND_PRODUCTS[1:]])
+    seg = lambda n: -(-n // 16) * 16  # noqa: E731
+    acc_tiles = plan["GA"] + plan["GD"] + plan["GO"] + max(plan["GP"], plan["GQ"])
+    bias_rows = ROWS * (plan["GA"] + plan["GD"] + plan["GO"] + tp + plan["GP"])
+    cells = 4 * (plan["GA"] + plan["GD"]) * NT * TILE
+    smem = (seg(TILE * plan["XLD"] * 2) + seg(2 * K * A * 4) + seg(A * 4)
+            + acc_tiles * NT * ROWS * TILE * 4 + plan["SLOTS"] * ROWS * TILE * 4
+            + seg(bias_rows * 4) + seg(cells * 4) + 2 * seg(plan["ALN"] * T * 4)
+            + WARPS * 2 * _round_up(K, 32) * 4 + seg(TILE * plan["X2LD"] * 2))
+    # a round's weight tiles of a block (512 bytes a 16 x 16 tile) are
+    # prefetched into shared memory during the round before, for every
+    # round whose tiles fit what is left; the others read them from L2
+    ktiles = [g * n for g, (_, n) in zip(per_block, products)]
+    need = [sum(ktiles[i] for i in r) for r in ROUND_PRODUCTS]
+    room = max(0, SMEM_LIMIT - smem) // 512
+    plan["WB_ROUNDS"] = sum(1 << i for i, n in enumerate(need) if n <= room)
+    plan["WBUF"] = max([n for n in need if n <= room], default=0)
+    smem += plan["WBUF"] * 512
+    # the block's pairs' W_k m + location stay in shared memory when they fit
+    pre = seg(plan["PPB"] * A * 4)
+    plan["PRE_SMEM"] = int(smem + pre <= SMEM_LIMIT)
+    plan["smem_bytes"] = smem + pre * plan["PRE_SMEM"]
+    if plan["smem_bytes"] > SMEM_LIMIT:
+        raise ValueError(f"the decode kernel needs {plan['smem_bytes']} bytes of shared memory "
+                         f"a block at these widths and B={B} (at most {SMEM_LIMIT})")
+    # weights a block reads from L2 every step (its row tiles of every matrix)
+    plan["weight_bytes_per_block"] = 2 * ROWS * (
+        tp * NM16 + gpb(tp) * P16 + gpb(ta) * (P16 + E16 + H116) + gpb(tq) * H116
+        + gpb(td) * (H116 + E16 + H216) + gpb(to) * (H216 + E16))
+    # stage inputs copied into every block every step
+    plan["staged_bytes_per_block"] = 2 * TILE * NT * (NM16 + P16 + H116 + H116 + E16 + H216)
+    return plan
+
+
+def batch_slices(dims: dict, B: int, T: int, sms: int) -> list[tuple[int, int]]:
+    """Rows [b0, b1) of each launch: the whole batch where its plan fits
+    shared memory, else the fewest slices of whole batch tiles that fit,
+    as even as the tiles allow. Raises where one tile does not fit."""
+    def fits(n):
+        try:
+            launch_plan(dims, n, T, sms)
+            return True
+        except ValueError:
+            return False
+
+    if fits(B):
+        return [(0, B)]
+    lo, hi = 0, -(-B // TILE)             # tiles: lo fit (0 trivially), hi do not
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid * TILE) else (lo, mid)
+    if lo == 0:
+        launch_plan(dims, min(B, TILE), T, sms)   # raises: not even one tile fits
+    n = -(-B // (lo * TILE))
+    size = _round_up(-(-B // n), TILE)    # <= lo * TILE
+    return [(b0, min(B, b0 + size)) for b0 in range(0, B, size)]
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 _ARGTYPES = {
-    "taco2_prenet": [_P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, ctypes.c_uint,
-                     ctypes.c_uint, _I, _P],
-    "taco2_lstm": [_P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _P],
-    "taco2_attention": [_P, _P, _I, _I, _P, _I, _P, ctypes.c_float, _P, _P, _P,
-                        _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "taco2_project": [_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                      _I, _I, ctypes.c_float, _P],
+    "taco2_decode": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint,
+                     ctypes.c_void_p, ctypes.c_int],
+    "taco2_decode_occupancy": [ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -228,12 +416,7 @@ def _lib():
     return lib
 
 
-def tacotron2_decode_cuda(w: dict, enc_out, pinp, mask, *, r: int,
-                          max_steps: int, norm: str = "sigmoid",
-                          thresh: float = 0.6, prenet_dropout: bool = True,
-                          seed: int = 0, chunk: int = 50):
-    """The decode on the CUDA kernels: five launches per step on the
-    current stream, one host read of the done mask per chunk."""
+def _check_inputs(w, enc_out, pinp, mask, norm):
     if enc_out.device.type != "cuda":
         raise ValueError("tacotron2_decode_cuda takes CUDA tensors")
     if w["dtype"] != BF16:
@@ -241,64 +424,146 @@ def tacotron2_decode_cuda(w: dict, enc_out, pinp, mask, *, r: int,
     if norm not in ("sigmoid", "softmax"):
         raise ValueError(f"unknown attention norm {norm!r}")
     d = w["dims"]
-    NM, P, H1, H2, E, A, K, OW = (d[k] for k in ("n_in", "P", "H1", "H2", "E",
-                                                  "A", "K", "OW"))
     B, T, E_in = enc_out.shape
-    if E_in != E or tuple(pinp.shape) != (B, T, A) or tuple(mask.shape) != (B, T):
+    if E_in != d["E"] or tuple(pinp.shape) != (B, T, d["A"]) or tuple(mask.shape) != (B, T):
         raise ValueError(f"shape mismatch: enc_out {tuple(enc_out.shape)}, "
                          f"pinp {tuple(pinp.shape)}, mask {tuple(mask.shape)}")
+    if B < 1 or T < 1:
+        raise ValueError(f"empty batch: B={B}, T={T}")
     for k, v in w.items():
         if isinstance(v, torch.Tensor) and v.device != enc_out.device:
             raise ValueError(f"decode weight {k} is on {v.device}, "
                              f"inputs on {enc_out.device}")
-    lib = _lib()
+
+
+def _launch(w, enc_out, pinp, mask, *, r, max_steps, norm, thresh, prenet_dropout, seed,
+            chunk, probe, row0=0):
+    """One launch of the kernel (probe 0 serves) over rows of the batch
+    whose first is batch row `row0`; returns (out, aligns, stops, steps ran,
+    the profile's cycles or None)."""
+    _check_inputs(w, enc_out, pinp, mask, norm)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    d = w["dims"]
+    B, T, E = enc_out.shape
     dev = enc_out.device
-    enc = enc_out.to(BF16).contiguous()
+    plan = launch_plan(d, B, T, _sm_count(dev))
+    lib = _lib()
+    per_sm = ctypes.c_int(0)
+    cuda_build.check(lib.taco2_decode_occupancy(plan["smem_bytes"], ctypes.byref(per_sm)),
+                     "taco2_decode_occupancy")
+    if per_sm.value < 1:
+        raise RuntimeError(f"the decode kernel's block does not fit an SM "
+                           f"({plan['smem_bytes']} B of shared memory)")
+    pk = pack_weights(w)
+    NM, P, H1, H2, A, OW = (d[k] for k in ("n_in", "P", "H1", "H2", "A", "OW"))
+    enc = F.pad(enc_out.to(BF16), (0, plan["E16"] - E)).contiguous()
     pinp = pinp.to(F32).contiguous()
     maskadd = torch.where(mask, 0.0, -1e9).to(F32).contiguous()
+    zb = lambda n: torch.zeros(B, n, device=dev, dtype=BF16)  # noqa: E731
     z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
-    h1, h2, done = z(2, B, H1), z(2, B, H2), z(2, B)
-    c1, c2, ctx, att, cum = z(B, H1), z(B, H2), z(B, E), z(B, T), z(B, T)
-    frame, xpre = z(B, NM), z(B, P)
+    # the initial state: zeros (a later stream= passes the previous chunk's)
+    state = [zb(plan["NM16"]), zb(plan["P16"]), zb(plan["P16"]), zb(plan["H116"]),
+             zb(plan["H216"]), zb(plan["E16"]), z(B, H1), z(B, H2), z(B, T), z(B, T),
+             z(2, B)]
     n_steps = -(-max_steps // chunk) * chunk
     out = torch.empty(n_steps, B, OW, device=dev)
     aligns = torch.empty(n_steps, B, T, device=dev)
     stops = torch.empty(n_steps, B, device=dev)
+    ran = torch.zeros(1, device=dev, dtype=torch.int32)
+    prof = (torch.zeros(plan["blocks"], len(ROUNDS), 2, device=dev) if probe == _PROFILE
+            else None)
+    scratch = [z(B, A), z(B, T), z(B, T, A)]
+    ptrs = [pk[k] for k in ("p1", "p2", "a", "q", "d", "o", "u", "p1_b", "p2_b", "a_b",
+                            "d_b", "o_b", "v_w")]
+    ptrs += [enc, pinp, maskadd] + state + scratch + [out, aligns, stops, ran, prof]
+    vals = dict(plan, B=B, T=T, NT=plan["tiles"], NM=NM, P=P, H1=H1, H2=H2, A=A, K=d["K"],
+                OW=OW, r=r, steps=n_steps, chunk=chunk, softmax=int(norm == "softmax"),
+                dropout=int(bool(prenet_dropout)), row0=row0)
+    dims = [int(vals[k]) for k in _DIMS] + plan["ks"] + [plan["blocks"], plan["smem_bytes"]]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*[0 if t is None else t.data_ptr() for t in ptrs])
+    c_dims = (ctypes.c_int * len(dims))(*dims)
+    c_fl = (ctypes.c_float * 2)(float(w["v_b"]), float(thresh))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    p = {k: v.data_ptr() for k, v in w.items() if isinstance(v, torch.Tensor)}
-    ld = {k: w[k].shape[1] for k in ("p1_w", "p2_w", "a_w", "q_w", "d_w", "o_w")}
-    h1p = [h1[0].data_ptr(), h1[1].data_ptr()]
-    h2p = [h2[0].data_ptr(), h2[1].data_ptr()]
-    dnp = [done[0].data_ptr(), done[1].data_ptr()]
-    out0, al0, st0 = out.data_ptr(), aligns.data_ptr(), stops.data_ptr()
-    softmax = int(norm == "softmax")
-    seed32 = seed & 0xFFFFFFFF
+    err = lib.taco2_decode(c_ptrs, c_dims, c_fl, seed & 0xFFFFFFFF, stream, probe)
+    if err == -1:
+        raise RuntimeError("the decode kernel's grid cannot be co-resident")
+    cuda_build.check(err, "taco2_decode")
+    return out, aligns, stops, ran, prof
 
-    def step(s):
-        cur, nxt = s % 2, (s + 1) % 2
-        cuda_build.check(lib.taco2_prenet(
-            frame.data_ptr(), NM, p["p1_w"], p["p1_b"], ld["p1_w"], p["p2_w"],
-            p["p2_b"], ld["p2_w"], P, xpre.data_ptr(), B, seed32, s,
-            int(prenet_dropout), stream), "taco2_prenet")
-        cuda_build.check(lib.taco2_lstm(
-            p["a_w"], p["a_b"], ld["a_w"], xpre.data_ptr(), P, ctx.data_ptr(), E,
-            h1p[cur], H1, c1.data_ptr(), h1p[nxt], B, stream), "taco2_lstm")
-        cuda_build.check(lib.taco2_attention(
-            h1p[nxt], p["q_w"], ld["q_w"], H1, p["u"], K, p["v_w"], w["v_b"],
-            pinp.data_ptr(), maskadd.data_ptr(), enc.data_ptr(), att.data_ptr(),
-            cum.data_ptr(), ctx.data_ptr(), al0 + 4 * s * B * T, B, T, A, E,
-            softmax, stream), "taco2_attention")
-        cuda_build.check(lib.taco2_lstm(
-            p["d_w"], p["d_b"], ld["d_w"], h1p[nxt], H1, ctx.data_ptr(), E,
-            h2p[cur], H2, c2.data_ptr(), h2p[nxt], B, stream), "taco2_lstm")
-        cuda_build.check(lib.taco2_project(
-            p["o_w"], p["o_b"], ld["o_w"], h2p[nxt], H2, ctx.data_ptr(), E,
-            dnp[cur], dnp[nxt], out0 + 4 * s * B * OW, st0 + 4 * s * B,
-            frame.data_ptr(), B, OW, NM, r, thresh, stream), "taco2_project")
-        tacotron2_decode_cuda.launches += 5
 
-    ran = _drive(n_steps, chunk, step, lambda s: bool(done[s % 2].min() > 0))
+def tacotron2_decode_cuda(w: dict, enc_out, pinp, mask, *, r: int,
+                          max_steps: int, norm: str = "sigmoid",
+                          thresh: float = 0.6, prenet_dropout: bool = True,
+                          seed: int = 0, chunk: int = 50):
+    """The decode as one persistent launch on the current stream; the
+    steps that ran come back in a device int, read once after the launch.
+    A batch that `batch_slices` cuts runs a launch a slice; a slice that
+    left before the slowest one runs again to its step count, with no exit
+    on the way, so that every row advances as far as in one launch (the
+    rows do not interact; the dropout keys on the batch row)."""
+    _check_inputs(w, enc_out, pinp, mask, norm)
+    B, T, _ = enc_out.shape
+    slices = batch_slices(w["dims"], B, T, _sm_count(enc_out.device))
+    kw = dict(r=r, norm=norm, thresh=thresh, prenet_dropout=prenet_dropout, seed=seed,
+              probe=0)
+
+    def run(b0, b1, steps, every):
+        got = _launch(w, enc_out[b0:b1], pinp[b0:b1], mask[b0:b1], max_steps=steps,
+                      chunk=every, row0=b0, **kw)
+        tacotron2_decode_cuda.launches += 1
+        return got
+
+    parts = [run(b0, b1, max_steps, chunk) for b0, b1 in slices]
+    rans = [int(part[3].item()) for part in parts]
+    ran = max(rans)
+    if len(slices) == 1:
+        return _finish(*parts[0][:3], ran, max_steps, thresh)
+    for i, (b0, b1) in enumerate(slices):
+        if rans[i] < ran:
+            parts[i] = run(b0, b1, ran, ran)
+    out, aligns, stops = (torch.cat([part[j][:ran] for part in parts], 1) for j in range(3))
+    n_steps = -(-max_steps // chunk) * chunk
+    out, aligns, stops = (F.pad(t, (0, 0) * (t.dim() - 1) + (0, n_steps - ran))
+                          for t in (out, aligns, stops))
     return _finish(out, aligns, stops, ran, max_steps, thresh)
+
+
+def tacotron2_decode_probe_cuda(w: dict, enc_out, pinp, mask, probe: str, *, r: int,
+                                max_steps: int, norm: str = "sigmoid", seed: int = 0,
+                                chunk: int = 50):
+    """A probe launch: the same grid and barriers with every part of a step
+    left out but `probe`'s ("barriers_only", "copies_only": the stage-input
+    copies, "dots_only": the products' weight copies and mma). It runs every
+    step; its outputs mean nothing, its time is the measurement."""
+    _launch(w, enc_out, pinp, mask, r=r, max_steps=max_steps, norm=norm, thresh=0.6,
+            prenet_dropout=False, seed=seed, chunk=chunk, probe=PROBES[probe])
+
+
+def tacotron2_decode_profile_cuda(w: dict, enc_out, pinp, mask, *, r: int, max_steps: int,
+                                  norm: str = "sigmoid", thresh: float = 0.6,
+                                  prenet_dropout: bool = True, seed: int = 0,
+                                  chunk: int = 50) -> dict:
+    """The serving decode with every round timed on the SMs' clocks: for
+    each round, the blocks' work (mean and largest over the blocks) and
+    their wait at its barrier, in us a step; the cycles convert to time by
+    the launch's own duration (CUDA events). Not counted as a launch."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    *_, ran, prof = _launch(w, enc_out, pinp, mask, r=r, max_steps=max_steps, norm=norm,
+                            thresh=thresh, prenet_dropout=prenet_dropout, seed=seed,
+                            chunk=chunk, probe=_PROFILE)
+    end.record()
+    end.synchronize()
+    steps = int(ran.item())
+    cycles = prof.sum(dim=(1, 2))                 # every block spans the same loop
+    us_per_cycle = start.elapsed_time(end) * 1e3 / float(cycles.mean())
+    per = prof * us_per_cycle / steps             # [G, rounds, 2], us a step
+    return {"ms": start.elapsed_time(end), "steps": steps,
+            "rounds": {name: {"work_mean_us": float(per[:, i, 0].mean()),
+                              "work_max_us": float(per[:, i, 0].max()),
+                              "wait_mean_us": float(per[:, i, 1].mean())}
+                       for i, name in enumerate(ROUNDS)}}
 
 
 tacotron2_decode_cuda.launches = 0
