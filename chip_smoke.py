@@ -19,9 +19,11 @@ Phases, each fatal on failure:
      momentum 0.95, injected phase;
    - taco1-decode: the Tacotron(1) decode, the same config with the model
      group replaced (Tacotron, width 256, memory 5, r = 7 of r_init 7),
-     B=8 (the sentences below), 250 steps, dropout on;
-   - taco1-decode again at r = 5, the memory size (r > memory and
-     r <= memory roll the queue differently);
+     B=8 (the sentences below, T=160), 250 steps, dropout on, held at
+     r = 7 and at r = 5, the memory size (r > memory and r <= memory roll
+     the queue differently), and B=1 at r = 7: the launch plan, launches a
+     decode (one), kernel and plain ms, us a step, the probe launches and
+     each round's work and barrier wait, at B=8 and B=1;
    - gl-iteration: plain Griffin-Lim iterations past the 1,024-frame cap at
      the Tacotron(1) path's launch shapes: the 1,760-frame bucket of its
      1,750 frames, n_fft 1024 / hop 256, 24 iterations, B=8 and B=1;
@@ -607,63 +609,52 @@ def taco1_config():
         max_decoder_steps=TACO1_STEPS))
 
 
-def phase_taco1_decode(report):
+def taco1_inputs(B: int = 8):
+    """The taco1-decode phase's inputs: `taco1_config` at full width, seeded
+    random weights (stopnet bias -10), the 8 sentences through the CBHG
+    encoder (T=160); row 0 gets the folded stop row's direction through
+    the projection's context columns, so it stops at once. B=1 takes row 1
+    alone (it decodes all 250 steps). Returns (bf16 decode weights, enc,
+    pinp, mask, decode keywords but r)."""
     import torch
 
     from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
     from your_voice_tts_torch.models import setup_model
     from your_voice_tts_torch.models.common import sequence_mask
-    from your_voice_tts_torch.ops.taco1_decode import (tacotron1_decode_cuda,
-                                                       tacotron1_decode_plain)
     from your_voice_tts_torch.text import symbols
 
     cfg = taco1_config()
     model = no_chance_stops(setup_model(len(symbols), cfg, device="cuda"))
     text, lengths = _pad_texts([text_to_seq(t, cfg) for t in SENTENCES])
     text, lengths = torch.as_tensor(text).cuda(), torch.as_tensor(lengths).cuda()
-    B, T, steps = text.shape[0], text.shape[1], TACO1_STEPS
     dec = model.decoder
     with torch.no_grad():
         gen = torch.Generator(device="cuda").manual_seed(1)
         enc = model.encoder_cbhg(model.enc_prenet(model.embedding(text), gen))
-        # row 0: the folded stop row's direction through the projection's
-        # context columns, so that it stops at once
         w32 = dec.decode_weights(torch.float32)
         H, E, D = (w32["dims"][k] for k in ("H", "E", "D"))
         v = w32["pj_w"][:, H:H + E].T @ w32["m_w"][-1, :D]
         enc[0] += 60.0 * v / (v @ v)
+        rows = slice(0, 8) if B == 8 else slice(1, 1 + B)
+        enc, lengths = enc[rows].contiguous(), lengths[rows]
         pinp = dec.attention.preprocess_inputs(enc)
-    mask = sequence_mask(lengths, T)
-    w = dec.decode_weights(torch.bfloat16)
-    # r = 7 above the memory of 5 frames (the path's r: the queue keeps the
-    # step's last 5 frames), then r = 5 (the whole queue replaced each step)
-    held = {}
-    for r in (TACO1_R, TACO1_MEMORY):
-        kw = dict(r=r, max_steps=steps, seed=7, prenet_dropout=True,
-                  thresh=cfg.model.stop_threshold)
-        got = tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
-        ref = tacotron1_decode_plain(w, enc, pinp, mask, **kw)
-        torch.cuda.synchronize()
-        errs = [float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3])]
-        # tolerances as for the Tacotron2 decode: the same bf16 inputs on
-        # both sides, f32 sums in other orders, the same hash-PRNG dropout
-        # masks
-        tol = (5e-3, 2e-3, 2e-3)
-        print(f"[taco1-decode] B={B} T={T} steps={steps} r={r} memory={TACO1_MEMORY} lengths "
-              f"(r-groups) kernel {got[3].tolist()} plain {ref[3].tolist()}")
-        print(f"[taco1-decode] r={r} max_abs_err frames {errs[0]:.3e} (tol {tol[0]}), "
-              f"alignments {errs[1]:.3e} (tol {tol[1]}), stops {errs[2]:.3e} (tol {tol[2]})")
-        check(torch.equal(got[3].cpu(), ref[3].cpu()), f"taco1 decode lengths differ (r={r})")
-        check(int(got[3][0]) == 1 and int(got[3][1:].min()) == steps,
-              f"taco1 decode stop pattern (r={r})")
-        check(all(e <= t for e, t in zip(errs, tol)),
-              f"taco1 decode kernel disagrees with plain (r={r})")
-        held[r] = errs
-    kw["r"] = TACO1_R
-    ms = cuda_ms(lambda: tacotron1_decode_cuda(w, enc, pinp, mask, **kw), 5)
-    plain_ms = cuda_ms(lambda: tacotron1_decode_plain(w, enc, pinp, mask, **kw), 2)
+    mask = sequence_mask(lengths, text.shape[1])
+    kw = dict(max_steps=TACO1_STEPS, seed=7, prenet_dropout=True,
+              thresh=cfg.model.stop_threshold)
+    return dec.decode_weights(torch.bfloat16), enc, pinp, mask, kw
+
+
+def taco1_bound(w, enc, pinp, mask, steps: int) -> tuple[float, str, float]:
+    """(bound ms, what bounds it, weight MB) of a Tacotron(1) decode: a
+    step's products at the bf16 rate, the location, energy and context
+    work at the float32 rate; bytes: weights and inputs read once, outputs
+    written once."""
+    import torch
+
     d = w["dims"]
-    NQ, P1, P2, A, K, OW = (d[k] for k in ("NQ", "P1", "P2", "A", "K", "OW"))
+    NQ, P1, P2, H, E, A, K, D, OW = (d[k] for k in ("NQ", "P1", "P2", "H", "E", "A", "K", "D",
+                                                    "OW"))
+    B, T = mask.shape
     macs = (P1 * NQ + P2 * P1 + 3 * H * (P2 + E + H) + A * H + D * (H + E)
             + 2 * 6 * D * D + (OW + 1) * D)
     f32_ops = T * A * (4 * K + 4) + 2 * T * E            # location, energies, context
@@ -672,17 +663,84 @@ def phase_taco1_decode(report):
     io_bytes = (wbytes + enc.numel() * 2 + pinp.numel() * 4 + mask.numel()
                 + 4 * steps * B * (OW + T + 1))
     bound_ms, bound_by = bound(io_bytes, ops_s)
-    print(f"[taco1-decode] kernel_ms {ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms "
-          f"{bound_ms:.3f} ({bound_by}; {wbytes / 1e6:.1f} MB bf16 weights read once)  "
-          f"library_ms none (no single PyTorch call computes the decode)")
-    report["taco1_decode"] = dict(errs={f"r{r}": e for r, e in held.items()}, ms=ms,
-                                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                  weight_mb=wbytes / 1e6, T=T)
+    return bound_ms, bound_by, wbytes / 1e6
+
+
+def phase_taco1_decode(report):
+    import torch
+
+    from your_voice_tts_torch.ops.taco1_decode import (PROBES, _blocks, launch_plan,
+                                                       tacotron1_decode_cuda,
+                                                       tacotron1_decode_plain,
+                                                       tacotron1_decode_probe_cuda,
+                                                       tacotron1_decode_profile_cuda)
+
+    steps = TACO1_STEPS
+    # tolerances as for the Tacotron2 decode: the same bf16 inputs on both
+    # sides, f32 sums in other orders, the same hash-PRNG dropout masks
+    tol = (5e-3, 2e-3, 2e-3)
+    held, result = {}, {}
+    # r = 7 above the memory of 5 frames (the path's r: the queue keeps the
+    # step's last 5 frames), then r = 5 (the whole queue replaced each
+    # step), at B=8; r = 7 at B=1
+    for B, r in ((8, TACO1_R), (8, TACO1_MEMORY), (1, TACO1_R)):
+        w, enc, pinp, mask, kw = taco1_inputs(B)
+        T = mask.shape[1]
+        kw = dict(kw, r=r)
+        before = tacotron1_decode_cuda.launches
+        got = tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
+        per_decode = tacotron1_decode_cuda.launches - before
+        ref = tacotron1_decode_plain(w, enc, pinp, mask, **kw)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3])]
+        print(f"[taco1-decode] B={B} T={T} steps={steps} r={r} memory={TACO1_MEMORY} lengths "
+              f"(r-groups) kernel {got[3].tolist()} plain {ref[3].tolist()}; launches a "
+              f"decode {per_decode}")
+        print(f"[taco1-decode] B={B} r={r} max_abs_err frames {errs[0]:.3e} (tol {tol[0]}), "
+              f"alignments {errs[1]:.3e} (tol {tol[1]}), stops {errs[2]:.3e} (tol {tol[2]})")
+        check(torch.equal(got[3].cpu(), ref[3].cpu()), f"taco1 decode lengths differ (r={r})")
+        stop_pattern = [1] + [steps] * 7 if B == 8 else [steps]
+        check(got[3].tolist() == stop_pattern, f"taco1 decode stop pattern (B={B}, r={r})")
+        check(all(e <= t for e, t in zip(errs, tol)),
+              f"taco1 decode kernel disagrees with plain (B={B}, r={r})")
+        check(per_decode == 1, "one launch a Tacotron(1) decode")
+        held[f"B{B}_r{r}"] = errs
+        if r != TACO1_R:
+            continue
+        plan = launch_plan(w["dims"], B, T, _blocks(enc.device))
+        print(f"[taco1-decode] B={B}: launch plan {plan['blocks']} blocks x {plan['threads']} "
+              f"threads, {plan['tiles']} batch tile(s), shared memory {plan['smem_bytes']} B "
+              f"(resident weights {plan['RES'] * 512} B a block at most), "
+              f"{plan['barriers_per_step']} barriers a step, stage inputs copied "
+              f"{plan['staged_bytes_per_block'] / 1e3:.1f} KB a block a step at most")
+        ms = cuda_ms(lambda: tacotron1_decode_cuda(w, enc, pinp, mask, **kw), 5)
+        plain_ms = cuda_ms(lambda: tacotron1_decode_plain(w, enc, pinp, mask, **kw), 2)
+        probes = {name: cuda_ms(lambda: tacotron1_decode_probe_cuda(
+                      w, enc, pinp, mask, name, r=r, max_steps=steps), 3) * 1e3 / steps
+                  for name in PROBES}
+        rounds = tacotron1_decode_profile_cuda(w, enc, pinp, mask, **kw)["rounds"]
+        bound_ms, bound_by, wmb = taco1_bound(w, enc, pinp, mask, steps)
+        print(f"[taco1-decode] B={B} us a step: full {ms * 1e3 / steps:.2f}; probes "
+              + ", ".join(f"{k} {v:.2f}" for k, v in probes.items()))
+        print(f"[taco1-decode] B={B} rounds, us a step (SM clocks; work mean / largest block, "
+              f"barrier wait mean): " + "; ".join(
+                  f"{k} {v['work_mean_us']:.2f} / {v['work_max_us']:.2f}, {v['wait_mean_us']:.2f}"
+                  for k, v in rounds.items()))
+        print(f"[taco1-decode] B={B} kernel_ms {ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms "
+              f"{bound_ms:.3f} ({bound_by}; {wmb:.1f} MB bf16 weights read once)  "
+              f"library_ms none (no single PyTorch call computes the decode)")
+        result[B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         weight_mb=wmb, T=T, launches_per_decode=per_decode,
+                         us_per_step=ms * 1e3 / steps, probes_us_per_step=probes,
+                         rounds_us_per_step=rounds, launch=plan)
+    main = result[8]
+    report["taco1_decode"] = dict(main, errs=held, b1=result[1])
     return {"name": "tacotron1_decode_cuda", "route": "cuda",
             "source": "your_voice_tts_torch/csrc/taco1_decode.cu",
             "replaces": "your_voice_tts_tpu/ops/pallas/taco1_decode.py:211",
-            "max_abs_err": max(max(e) for e in held.values()), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "max_abs_err": max(max(e) for e in held.values()), "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None}
 
 
 def hold_gl_full(tag: str, mag, phase, consts: dict, window, iters: int, mom: float, *,

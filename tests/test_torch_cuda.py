@@ -525,15 +525,17 @@ def test_wavernn_kernel_refuses_what_it_does_not_take(cuda):
         wavernn_generate_cuda(w, cond, aux, 0, bits=6)
 
 
-def taco1_case(cuda, norm="sigmoid", r=2, memory=5, B=11, T=13, push_row=3, seed=1):
+def taco1_case(cuda, norm="sigmoid", r=2, memory=5, B=11, T=13, push_rows=(3,), seed=1,
+               location=True, K=15):
     """A small Tacotron(1) decoder (width 32, 20 mels, attention 24, filter
-    15, r_init 5) with seeded random weights, on the card; one row pushed to
-    stop at once through the folded stop row's context direction."""
+    K, r_init 5) with seeded random weights, on the card; `push_rows` pushed
+    to stop at once through the folded stop row's context direction."""
     from your_voice_tts_torch.models.tacotron import Tacotron
 
     cfg = ModelConfig(model="Tacotron", r=r, memory_size=memory, tacotron_width=32,
                       attention_dim=24, attention_location_filters=8,
-                      attention_location_kernel_size=15, attention_norm=norm)
+                      attention_location_kernel_size=K, attention_norm=norm,
+                      location_attn=location)
     dec = Tacotron(30, cfg, n_mels=20, num_freq=129, r_init=5, device=cuda, seed=seed).decoder
     w = dec.decode_weights(torch.bfloat16)
     d = w["dims"]
@@ -541,33 +543,162 @@ def taco1_case(cuda, norm="sigmoid", r=2, memory=5, B=11, T=13, push_row=3, seed
     enc = (0.5 * torch.randn(B, T, d["E"], generator=g)).to(cuda)
     s = w["m_w"][-1, :d["D"]].float()
     v = w["pj_w"][:, d["H"]:d["H"] + d["E"]].float().T @ s
-    enc[push_row] += 20.0 * v / (v @ v)
+    for row in push_rows:
+        enc[row] += 20.0 * v / (v @ v)
     pinp = dec.attention.preprocess_inputs(enc).detach()
-    mask = sequence_mask(torch.arange(T, T - B, -1, device=cuda).clamp_min(2), T)
+    mask = sequence_mask((T - torch.arange(B, device=cuda) % T).clamp_min(2), T)
     return w, enc, pinp, mask
 
 
-@pytest.mark.parametrize("norm,r,memory,dropout", [("sigmoid", 2, 5, True),
-                                                   ("softmax", 5, 5, True),
-                                                   ("sigmoid", 3, 5, False),
-                                                   ("sigmoid", 4, 2, True)])
-def test_taco1_decode_kernel_matches_plain(cuda, norm, r, memory, dropout):
-    """Odd sizes (B 11, T 13, width 32, 20 mels): bf16 on both sides, the
-    same hash-PRNG dropout masks, f32 sums in other orders; r past the
-    memory keeps the step's last frames."""
+# norm, r, memory, prenet dropout, B, location features, filter taps, T
+TACO1_CASES = [("sigmoid", 2, 5, True, 11, True, 15, 13),
+               ("softmax", 5, 5, True, 11, True, 15, 13),
+               ("sigmoid", 3, 5, False, 11, True, 15, 13),
+               ("sigmoid", 4, 2, True, 11, True, 15, 13),
+               ("sigmoid", 2, 5, True, 1, True, 15, 13),
+               ("softmax", 2, 5, True, 8, True, 15, 13),
+               ("sigmoid", 5, 2, True, 40, True, 15, 13),
+               ("softmax", 2, 5, True, 11, False, 15, 13),
+               ("sigmoid", 3, 5, True, 11, True, 35, 40),
+               ("softmax", 4, 5, False, 8, True, 35, 40)]
+
+
+@pytest.mark.parametrize("norm,r,memory,dropout,B,location,K,T", TACO1_CASES)
+def test_taco1_decode_kernel_matches_plain(cuda, norm, r, memory, dropout, B, location, K, T):
+    """One persistent launch a decode, held against the plain version: bf16
+    on both sides, the same hash-PRNG dropout masks, f32 sums in other
+    orders; r past the memory keeps the step's last frames; one row pushed
+    to stop at once. Filters past 32 taps: a warp stages the window 32 taps
+    a pass."""
     from your_voice_tts_torch.ops.taco1_decode import (tacotron1_decode, tacotron1_decode_cuda,
                                                        tacotron1_decode_plain)
 
-    w, enc, pinp, mask = taco1_case(cuda, norm, r, memory)
+    row = min(3, B - 1)
+    w, enc, pinp, mask = taco1_case(cuda, norm, r, memory, B=B, T=T, push_rows=(row,),
+                                    location=location, K=K)
     kw = dict(r=r, max_steps=30, seed=5, chunk=7, norm=norm, prenet_dropout=dropout)
+    before = tacotron1_decode_cuda.launches
     got = tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
+    assert tacotron1_decode_cuda.launches == before + 1
     ref = tacotron1_decode_plain(w, enc, pinp, mask, **kw)
     torch.cuda.synchronize()
-    assert int(got[3][3]) == 1
-    assert torch.equal(got[3], ref[3])
-    for a, b, tol in zip(got[:3], ref[:3], (5e-3, 2e-3, 2e-3)):
-        assert float((a - b).abs().max()) <= tol
+    assert int(got[3][row]) == 1
+    assert_decode_holds(got, ref)
     assert torch.equal(tacotron1_decode(w, enc, pinp, mask, **kw)[0], got[0])
+
+
+@pytest.mark.parametrize("B", [3, 11])
+def test_taco1_decode_kernel_exits_early_on_the_device(cuda, B):
+    """Every row stops at its first step, inside the first chunk: the
+    kernel leaves at the first chunk boundary, as `_drive` does, writes 7
+    steps to its device int, and the later chunks come back zero."""
+    from your_voice_tts_torch.ops.taco1_decode import (_launch, tacotron1_decode_cuda,
+                                                       tacotron1_decode_plain)
+
+    w, enc, pinp, mask = taco1_case(cuda, B=B, push_rows=range(B))
+    kw = dict(r=2, max_steps=30, seed=5, chunk=7, norm="sigmoid", prenet_dropout=True)
+    got = tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
+    ref = tacotron1_decode_plain(w, enc, pinp, mask, **kw)
+    assert got[3].tolist() == [1] * B
+    assert_decode_holds(got, ref)
+    assert got[1][:7].any() and not got[1][7:].any() and not got[2][7:].any()
+    assert int(_launch(w, enc, pinp, mask, thresh=0.6, probe=0, **kw)[3].item()) == 7
+    kw["max_steps"] = 7                            # no boundary inside the decode
+    assert int(_launch(w, enc, pinp, mask, thresh=0.6, probe=0, **kw)[3].item()) == 7
+
+
+def test_taco1_decode_kernel_in_batch_slices(cuda, monkeypatch):
+    """A batch one launch cannot hold (a smaller limit of shared memory
+    stands in for a larger batch) runs as slices of whole batch tiles; every
+    row of the first slice stops at once, so that slice leaves at the first
+    chunk boundary and runs again to the others' step count: the same
+    outputs as one launch over the whole batch, and as plain."""
+    from your_voice_tts_torch.ops import taco1_decode as dec
+    from your_voice_tts_torch.ops.taco2_decode import batch_slices
+
+    B, T = 40, 13
+    w, enc, pinp, mask = taco1_case(cuda, B=B, T=T, push_rows=range(16))
+    kw = dict(r=2, max_steps=30, seed=5, chunk=7, prenet_dropout=True)
+    one = dec.tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
+    G = dec._blocks(enc.device)
+    monkeypatch.setattr(dec, "SMEM_LIMIT", dec.launch_plan(w["dims"], 16, T, G)["smem_bytes"])
+    assert batch_slices(w["dims"], B, T, G, plan=dec.launch_plan) == [(0, 16), (16, 32),
+                                                                       (32, 40)]
+    before = dec.tacotron1_decode_cuda.launches
+    got = dec.tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
+    ref = dec.tacotron1_decode_plain(w, enc, pinp, mask, **kw)
+    assert_decode_holds(got, ref)
+    for a, b in zip(got, one):
+        assert torch.equal(a, b)
+    rans = [min(-(-int(ref[3][b0:b1].max()) // 7) * 7, 35) for b0, b1 in
+            [(0, 16), (16, 32), (32, 40)]]
+    assert rans[0] == 7 < max(rans) and got[3][:16].tolist() == [1] * 16
+    again = sum(r < max(rans) for r in rans)
+    assert dec.tacotron1_decode_cuda.launches == before + 3 + again
+
+
+def taco1_full_width_case(cuda, B, push_rows, T=160):
+    """The Tacotron(1) path's widths (width 256, memory 5, 80 mels, r_init
+    7, attention 128, filter 31), seeded random weights, the stop bias at
+    -10 and `push_rows` pushed to stop at once."""
+    from your_voice_tts_torch.models.tacotron import Tacotron
+
+    cfg = ModelConfig(model="Tacotron", r=7, memory_size=5, tacotron_width=256,
+                      attention_dim=128)
+    dec = Tacotron(60, cfg, n_mels=80, num_freq=513, r_init=7, device=cuda, seed=2).decoder
+    with torch.no_grad():
+        dec.stopnet.bias.fill_(-10.0)
+    w = dec.decode_weights(torch.bfloat16)
+    d = w["dims"]
+    g = torch.Generator().manual_seed(4)
+    enc = (0.5 * torch.randn(B, T, d["E"], generator=g)).to(cuda)
+    v = w["pj_w"][:, d["H"]:d["H"] + d["E"]].float().T @ w["m_w"][-1, :d["D"]].float()
+    enc[list(push_rows)] += 60.0 * v / (v @ v)
+    pinp = dec.attention.preprocess_inputs(enc).detach()
+    mask = sequence_mask(T - 4 * (torch.arange(B, device=cuda) % 32), T)
+    return w, enc, pinp, mask
+
+
+def test_taco1_decode_kernel_at_full_width(cuda):
+    """Full width, B=8, T=160, 40 steps, r = 7 past the memory of 5 frames,
+    dropout on; row 0 stops at once; one unit group a block on the H100."""
+    from your_voice_tts_torch.ops.taco1_decode import (tacotron1_decode_cuda,
+                                                       tacotron1_decode_plain)
+
+    w, enc, pinp, mask = taco1_full_width_case(cuda, 8, [0])
+    assert w["dims"]["H"] == 256 and w["dims"]["OW"] == 560 and w["dims"]["K"] == 31
+    kw = dict(r=7, max_steps=40, seed=7)
+    got = tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
+    ref = tacotron1_decode_plain(w, enc, pinp, mask, **kw)
+    assert got[3].tolist() == [1] + [40] * 7
+    assert_decode_holds(got, ref)
+
+
+@pytest.mark.parametrize("probe", ["barriers_only", "copies_only", "dots_only"])
+def test_taco1_probe_launches_run(cuda, probe):
+    from your_voice_tts_torch.ops.taco1_decode import (tacotron1_decode_cuda,
+                                                       tacotron1_decode_probe_cuda)
+
+    w, enc, pinp, mask = taco1_case(cuda)
+    before = tacotron1_decode_cuda.launches
+    tacotron1_decode_probe_cuda(w, enc, pinp, mask, probe, r=2, max_steps=20)
+    torch.cuda.synchronize()
+    assert tacotron1_decode_cuda.launches == before     # probes are not counted
+
+
+def test_taco1_profile_launch_times_every_round(cuda):
+    """The profiling instantiation serves (the same outputs) and returns
+    each round's work and barrier wait; it is not counted as a launch."""
+    from your_voice_tts_torch.ops.taco1_decode import (ROUNDS, tacotron1_decode_cuda,
+                                                       tacotron1_decode_profile_cuda)
+
+    w, enc, pinp, mask = taco1_case(cuda)
+    before = tacotron1_decode_cuda.launches
+    prof = tacotron1_decode_profile_cuda(w, enc, pinp, mask, r=2, max_steps=20)
+    assert tacotron1_decode_cuda.launches == before and prof["steps"] == 50
+    assert list(prof["rounds"]) == list(ROUNDS)
+    assert all(v["work_max_us"] >= v["work_mean_us"] > 0 and v["wait_mean_us"] >= 0
+               for v in prof["rounds"].values())
 
 
 @pytest.mark.parametrize("n_fft,win,hop,B,T", [(256, 256, 64, 3, 37), (2048, 1102, 275, 2, 20)])
@@ -646,3 +777,16 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         tacotron1_decode_cuda(w, enc, pinp, mask, r=6, max_steps=2)
     with pytest.raises(ValueError, match="shape"):
         tacotron1_decode_cuda(w, enc[:, :, :8], pinp, mask, r=2, max_steps=2)
+    from your_voice_tts_torch.ops import taco1_decode as dec
+
+    before = tacotron1_decode_cuda.launches
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    with pytest.MonkeyPatch.context() as mp:              # more blocks than fit the card
+        mp.setattr(dec, "_blocks", lambda dev: 4 * sms + 8)
+        with pytest.raises(RuntimeError, match="co-resident"):
+            tacotron1_decode_cuda(w, enc, pinp, mask, r=2, max_steps=2)
+    with pytest.MonkeyPatch.context() as mp:              # not even one batch tile fits
+        mp.setattr(dec, "SMEM_LIMIT", 8 * 1024)
+        with pytest.raises(ValueError, match="shared memory"):
+            tacotron1_decode_cuda(w, enc, pinp, mask, r=2, max_steps=2)
+    assert tacotron1_decode_cuda.launches == before

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time the WaveRNN sample-loop kernel, or the Tacotron2 decode kernel, of
-one checkout of the port, so that two checkouts can be compared on the
-same card in one run:
+"""Time the WaveRNN sample-loop kernel, or a decode kernel (Tacotron2 or
+Tacotron(1)), of one checkout of the port, so that two checkouts can be
+compared on the same card in one run:
 
     python3 wavernn_ab.py --root OLD
     python3 wavernn_ab.py --root .
     python3 wavernn_ab.py --root OLD --mode decode [--probes] [--holds]
+    python3 wavernn_ab.py --root OLD --mode taco1 [--probes] [--holds]
 
 `--root` is the directory whose `your_voice_tts_torch` is imported (built
 into its own build/cuda). The inputs are those of chip_smoke.py's wavernn
@@ -25,6 +26,10 @@ random weights, T=152, 250 steps, dropout on) at B=8 and B=1, median of
 launches in us a step and its per-round profile where it has them,
 `--holds` the largest |kernel -
 plain| of frames, alignments and stops and whether the lengths agree.
+`--mode taco1` does the same for `tacotron1_decode_cuda` on the inputs of
+the taco1-decode phase (`taco1_inputs`: the Tacotron(1) config at full
+width, T=160, 250 steps, r = 7, dropout on); `--blocks N` launches it on
+N blocks where the version takes a grid size.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ import os
 import statistics
 import sys
 
-from chip_smoke import BENCH_FRAMES, SERVE_FRAMES, decode_inputs, wavernn_inputs
+from chip_smoke import (BENCH_FRAMES, SERVE_FRAMES, TACO1_R, decode_inputs, taco1_inputs,
+                        wavernn_inputs)
 
 
 def timed(fn, reps: int):
@@ -57,29 +63,39 @@ def timed(fn, reps: int):
 
 
 def decode_ab(args, torch) -> dict:
-    """The decode kernel of the checkout at --root at B=8 and B=1."""
-    from your_voice_tts_torch.ops import taco2_decode as dec
+    """The Tacotron2 decode kernel (--mode decode) or the Tacotron(1) one
+    (--mode taco1) of the checkout at --root, at B=8 and B=1."""
+    import importlib
 
+    module, fn, inputs = {"decode": ("taco2_decode", "tacotron2", decode_inputs),
+                          "taco1": ("taco1_decode", "tacotron1", taco1_inputs)}[args.mode]
+    dec = importlib.import_module(f"your_voice_tts_torch.ops.{module}")
+    run, plain = getattr(dec, f"{fn}_decode_cuda"), getattr(dec, f"{fn}_decode_plain")
+    probe = getattr(dec, f"{fn}_decode_probe_cuda", None)
+    profile = getattr(dec, f"{fn}_decode_profile_cuda", None)
+    if args.blocks:
+        dec._blocks = lambda dev: args.blocks
     reps = args.reps
-    result = {"root": args.root, "device": torch.cuda.get_device_name(0), "mode": "decode"}
+    result = {"root": args.root, "device": torch.cuda.get_device_name(0), "mode": args.mode,
+              "blocks": args.blocks or None}
     for B in (8, 1):
-        w, enc, pinp, mask, kw = decode_inputs(B)
+        w, enc, pinp, mask, kw = inputs(B)
+        kw.setdefault("r", TACO1_R)
         steps = kw["max_steps"]
-        before = dec.tacotron2_decode_cuda.launches
-        got = dec.tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
-        res = result[f"B{B}"] = {"launches_a_decode": dec.tacotron2_decode_cuda.launches - before}
-        ms, times = timed(lambda: dec.tacotron2_decode_cuda(w, enc, pinp, mask, **kw), reps)
+        before = run.launches
+        got = run(w, enc, pinp, mask, **kw)
+        res = result[f"B{B}"] = {"launches_a_decode": run.launches - before}
+        ms, times = timed(lambda: run(w, enc, pinp, mask, **kw), reps)
         res.update(ms=ms, all_ms=times, us_per_step=ms * 1e3 / steps)
-        if args.probes and hasattr(dec, "tacotron2_decode_probe_cuda"):
-            for probe in dec.PROBES:
-                pms, _ = timed(lambda: dec.tacotron2_decode_probe_cuda(
-                    w, enc, pinp, mask, probe, r=kw["r"], max_steps=steps), 3)
-                res[probe + "_us_per_step"] = pms * 1e3 / steps
-            if hasattr(dec, "tacotron2_decode_profile_cuda"):
-                res["rounds_us_per_step"] = dec.tacotron2_decode_profile_cuda(
-                    w, enc, pinp, mask, **kw)["rounds"]
+        if args.probes and probe is not None:
+            for name in dec.PROBES:
+                pms, _ = timed(lambda: probe(w, enc, pinp, mask, name, r=kw["r"],
+                                             max_steps=steps), 3)
+                res[name + "_us_per_step"] = pms * 1e3 / steps
+            if profile is not None:
+                res["rounds_us_per_step"] = profile(w, enc, pinp, mask, **kw)["rounds"]
         if args.holds:
-            ref = dec.tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+            ref = plain(w, enc, pinp, mask, **kw)
             res["lengths_equal"] = bool(torch.equal(got[3].cpu(), ref[3].cpu()))
             for name, a, b in zip(("frames", "alignments", "stops"), got[:3], ref[:3]):
                 res[name + "_max_abs_err"] = float((a - b).abs().max())
@@ -89,7 +105,9 @@ def decode_ab(args, torch) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
-    ap.add_argument("--mode", choices=("wavernn", "decode"), default="wavernn")
+    ap.add_argument("--mode", choices=("wavernn", "decode", "taco1"), default="wavernn")
+    ap.add_argument("--blocks", type=int, default=0,
+                    help="--mode taco1: blocks a launch where the version has `_blocks`")
     ap.add_argument("--reps", type=int, default=5, help="timed runs (their median)")
     ap.add_argument("--probes", action="store_true")
     ap.add_argument("--holds", action="store_true")
@@ -104,7 +122,7 @@ def main() -> int:
     import your_voice_tts_torch
 
     assert os.path.dirname(os.path.dirname(your_voice_tts_torch.__file__)) == root
-    if args.mode == "decode":
+    if args.mode in ("decode", "taco1"):
         print(json.dumps(decode_ab(args, torch)))
         return 0
     from your_voice_tts_torch.ops import wavernn_gen as gen

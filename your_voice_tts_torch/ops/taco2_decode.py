@@ -373,13 +373,16 @@ def launch_plan(dims: dict, B: int, T: int, sms: int) -> dict:
     return plan
 
 
-def batch_slices(dims: dict, B: int, T: int, sms: int) -> list[tuple[int, int]]:
-    """Rows [b0, b1) of each launch: the whole batch where its plan fits
-    shared memory, else the fewest slices of whole batch tiles that fit,
-    as even as the tiles allow. Raises where one tile does not fit."""
+def batch_slices(dims: dict, B: int, T: int, sms: int, plan=None) -> list[tuple[int, int]]:
+    """Rows [b0, b1) of each launch: the whole batch where its plan (`plan`,
+    this kernel's `launch_plan` unless given) fits shared memory, else the
+    fewest slices of whole batch tiles that fit, as even as the tiles
+    allow. Raises where one tile does not fit."""
+    plan = plan or launch_plan
+
     def fits(n):
         try:
-            launch_plan(dims, n, T, sms)
+            plan(dims, n, T, sms)
             return True
         except ValueError:
             return False
@@ -391,7 +394,7 @@ def batch_slices(dims: dict, B: int, T: int, sms: int) -> list[tuple[int, int]]:
         mid = (lo + hi) // 2
         lo, hi = (mid, hi) if fits(mid * TILE) else (lo, mid)
     if lo == 0:
-        launch_plan(dims, min(B, TILE), T, sms)   # raises: not even one tile fits
+        plan(dims, min(B, TILE), T, sms)          # raises: not even one tile fits
     n = -(-B // (lo * TILE))
     size = _round_up(-(-B // n), TILE)    # <= lo * TILE
     return [(b0, min(B, b0 + size)) for b0 in range(0, B, size)]
@@ -404,7 +407,6 @@ def _sm_count(dev) -> int:
 _ARGTYPES = {
     "taco2_decode": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint,
                      ctypes.c_void_p, ctypes.c_int],
-    "taco2_decode_occupancy": [ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -448,13 +450,6 @@ def _launch(w, enc_out, pinp, mask, *, r, max_steps, norm, thresh, prenet_dropou
     B, T, E = enc_out.shape
     dev = enc_out.device
     plan = launch_plan(d, B, T, _sm_count(dev))
-    lib = _lib()
-    per_sm = ctypes.c_int(0)
-    cuda_build.check(lib.taco2_decode_occupancy(plan["smem_bytes"], ctypes.byref(per_sm)),
-                     "taco2_decode_occupancy")
-    if per_sm.value < 1:
-        raise RuntimeError(f"the decode kernel's block does not fit an SM "
-                           f"({plan['smem_bytes']} B of shared memory)")
     pk = pack_weights(w)
     NM, P, H1, H2, A, OW = (d[k] for k in ("n_in", "P", "H1", "H2", "A", "OW"))
     enc = F.pad(enc_out.to(BF16), (0, plan["E16"] - E)).contiguous()
@@ -485,7 +480,7 @@ def _launch(w, enc_out, pinp, mask, *, r, max_steps, norm, thresh, prenet_dropou
     c_dims = (ctypes.c_int * len(dims))(*dims)
     c_fl = (ctypes.c_float * 2)(float(w["v_b"]), float(thresh))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.taco2_decode(c_ptrs, c_dims, c_fl, seed & 0xFFFFFFFF, stream, probe)
+    err = _lib().taco2_decode(c_ptrs, c_dims, c_fl, seed & 0xFFFFFFFF, stream, probe)
     if err == -1:
         raise RuntimeError("the decode kernel's grid cannot be co-resident")
     cuda_build.check(err, "taco2_decode")
@@ -498,10 +493,7 @@ def tacotron2_decode_cuda(w: dict, enc_out, pinp, mask, *, r: int,
                           seed: int = 0, chunk: int = 50):
     """The decode as one persistent launch on the current stream; the
     steps that ran come back in a device int, read once after the launch.
-    A batch that `batch_slices` cuts runs a launch a slice; a slice that
-    left before the slowest one runs again to its step count, with no exit
-    on the way, so that every row advances as far as in one launch (the
-    rows do not interact; the dropout keys on the batch row)."""
+    A batch that `batch_slices` cuts runs a launch a slice (`run_slices`)."""
     _check_inputs(w, enc_out, pinp, mask, norm)
     B, T, _ = enc_out.shape
     slices = batch_slices(w["dims"], B, T, _sm_count(enc_out.device))
@@ -514,6 +506,16 @@ def tacotron2_decode_cuda(w: dict, enc_out, pinp, mask, *, r: int,
         tacotron2_decode_cuda.launches += 1
         return got
 
+    return run_slices(slices, run, max_steps, chunk, thresh)
+
+
+def run_slices(slices, run, max_steps: int, chunk: int, thresh: float):
+    """The decode of a batch as launches over its slices: run(b0, b1, steps,
+    chunk) launches rows [b0, b1) and returns (out, aligns, stops, steps ran
+    as a device int, ...). A slice that left before the slowest one runs
+    again to its step count, with no exit on the way, so that every row
+    advances as far as in one launch (the rows do not interact; the dropout
+    keys on the batch row). Returns `_finish`'s outputs."""
     parts = [run(b0, b1, max_steps, chunk) for b0, b1 in slices]
     rans = [int(part[3].item()) for part in parts]
     ran = max(rans)
@@ -544,15 +546,21 @@ def tacotron2_decode_profile_cuda(w: dict, enc_out, pinp, mask, *, r: int, max_s
                                   norm: str = "sigmoid", thresh: float = 0.6,
                                   prenet_dropout: bool = True, seed: int = 0,
                                   chunk: int = 50) -> dict:
-    """The serving decode with every round timed on the SMs' clocks: for
-    each round, the blocks' work (mean and largest over the blocks) and
-    their wait at its barrier, in us a step; the cycles convert to time by
-    the launch's own duration (CUDA events). Not counted as a launch."""
+    """The serving decode with every round timed on the SMs' clocks
+    (`round_profile`). Not counted as a launch."""
+    return round_profile(lambda: _launch(
+        w, enc_out, pinp, mask, r=r, max_steps=max_steps, norm=norm, thresh=thresh,
+        prenet_dropout=prenet_dropout, seed=seed, chunk=chunk, probe=_PROFILE), ROUNDS)
+
+
+def round_profile(launch, rounds) -> dict:
+    """Run launch(), a profiling launch that returns (..., steps ran, cycles
+    [G, rounds, 2]): for each round, the blocks' work (mean and largest
+    over the blocks) and their wait at its barrier, in us a step; the
+    cycles convert to time by the launch's own duration (CUDA events)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    *_, ran, prof = _launch(w, enc_out, pinp, mask, r=r, max_steps=max_steps, norm=norm,
-                            thresh=thresh, prenet_dropout=prenet_dropout, seed=seed,
-                            chunk=chunk, probe=_PROFILE)
+    *_, ran, prof = launch()
     end.record()
     end.synchronize()
     steps = int(ran.item())
@@ -563,7 +571,7 @@ def tacotron2_decode_profile_cuda(w: dict, enc_out, pinp, mask, *, r: int, max_s
             "rounds": {name: {"work_mean_us": float(per[:, i, 0].mean()),
                               "work_max_us": float(per[:, i, 0].max()),
                               "wait_mean_us": float(per[:, i, 1].mean())}
-                       for i, name in enumerate(ROUNDS)}}
+                       for i, name in enumerate(rounds)}}
 
 
 tacotron2_decode_cuda.launches = 0
