@@ -52,7 +52,10 @@ Phases, each fatal on failure:
    200 decoder steps, bf16) with the same injected dropout masks as its
    plain version; max abs error of every stack, kernel, plain and bound ms;
 6. train-bwd: the backward kernel on phase 5's residuals and seeded random
-   cotangents against its plain version, rel L2 of every output, times;
+   cotangents against its plain version, rel L2 of every output, times,
+   launches a call (4 a step), the same launches without programmatic
+   dependence (the same bits; each launch's device time, torch.profiler)
+   and the fragment-ordered W^T copy's time;
 7. train main path: (b) Trainer(cfg, device="cuda").fit(max_steps=5) on a
    64-item synthetic corpus (sr 22050, up to 15 words, as bench.py makes
    it), batch 32, r=2, gradual training off: finite losses and gradient
@@ -1420,14 +1423,12 @@ def phase_train_fwd(report, state):
             "library_ms": None}
 
 
-def phase_train_bwd(report, state):
+def train_bwd_args(w, x, fwd):
+    """The backward's arguments on the forward's residuals (`fwd`, the
+    forward kernel's stacks on core_inputs' x) and seeded random
+    cotangents."""
     import torch
 
-    from your_voice_tts_torch.ops.taco2_train import (taco2_train_bwd_cuda,
-                                                      taco2_train_bwd_plain)
-
-    w, x, fwd = state["w"], state["x"], state["fwd"]
-    steps, B, T = fwd["align"].shape
     sh = lambda s: torch.cat([torch.zeros_like(s[:1]), s[:-1]])  # noqa: E731
     res = {k: fwd[k] for k in ("g_a", "g_d", "c_a", "c_d")}
     res.update(c_a_prev=sh(fwd["c_a"]), c_d_prev=sh(fwd["c_d"]), att_prev=sh(fwd["align"]),
@@ -1435,8 +1436,61 @@ def phase_train_bwd(report, state):
     g = torch.Generator().manual_seed(12)
     cot = [torch.randn(*fwd[k].shape, generator=g).to(fwd[k].dtype).cuda()
            for k in ("dech", "ctx", "align")]
-    args = (w, res, *cot, x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"])
+    return (w, res, *cot, x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"])
+
+
+BWD_LAUNCHES = ("cell_bwd", "matT_decoder", "attn_bwd", "matT_attention")
+
+
+def bwd_launch_times(run) -> dict:
+    """Device time of each of the backward's four launches over one call of
+    `run` under torch.profiler, from its trace's kernel events in time order
+    (the W^T product kernel's launches alternate decoder, attention):
+    {launch: {us_a_launch (mean), ms_a_call, launches}}, and "other" for
+    the call's other kernels (conversions, zeroed carries)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    durs = {k: [] for k in BWD_LAUNCHES + ("other",)}
+    n_mat = 0
+    for e in sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"]):
+        if "cell_bwd" in e["name"]:
+            key = "cell_bwd"
+        elif "attn_bwd" in e["name"]:
+            key = "attn_bwd"
+        elif "matT" in e["name"]:
+            key, n_mat = BWD_LAUNCHES[1 + 2 * (n_mat % 2)], n_mat + 1
+        else:
+            key = "other"
+        durs[key].append(float(e["dur"]))
+    return {k: {"us_a_launch": statistics.mean(v) if v else 0.0, "ms_a_call": sum(v) / 1e3,
+                "launches": len(v)} for k, v in durs.items()}
+
+
+def phase_train_bwd(report, state):
+    import torch
+
+    from your_voice_tts_torch.ops.taco2_train import (fragment_wT, taco2_train_bwd_cuda,
+                                                      taco2_train_bwd_plain,
+                                                      taco2_train_bwd_probe_cuda)
+
+    w, x, fwd = state["w"], state["x"], state["fwd"]
+    steps, B, T = fwd["align"].shape
+    args = train_bwd_args(w, x, fwd)
+    res, cot = args[1], args[2:5]
+    before = taco2_train_bwd_cuda.launches
     got = taco2_train_bwd_cuda(*args)
+    launches = taco2_train_bwd_cuda.launches - before
     ref = taco2_train_bwd_plain(*args)
     torch.cuda.synchronize()
     # tolerance: rel L2 5e-2 per output. The reverse scan stores every gate
@@ -1451,15 +1505,35 @@ def phase_train_bwd(report, state):
         ok = ok and rel <= 5e-2
         print(f"[train-bwd] {k:8s} rel L2 {rel:.3e} (tol 5e-2)  max_abs_err {e:.3e}")
     check(ok, "training backward kernel disagrees with plain")
-    ms = cuda_ms(lambda: taco2_train_bwd_cuda(*args), 5)
+    check(launches == 4 * steps, f"train-bwd: {launches} launches a call, expected {4 * steps}")
+    # the same launches without programmatic dependence: the same bits (no
+    # atomics), and each launch's device time on its own
+    serial = lambda: taco2_train_bwd_probe_cuda(*args, probe="serial")  # noqa: E731
+    same = serial()
+    check(all(torch.equal(same[k], got[k]) for k in got),
+          "train-bwd: dependent launches change the result")
+    run = lambda: taco2_train_bwd_cuda(*args)  # noqa: E731
+    ms = cuda_ms(run, 5)
+    serial_ms = cuda_ms(serial, 5)
     plain_ms = cuda_ms(lambda: taco2_train_bwd_plain(*args), 2)
+    per_launch = bwd_launch_times(serial)
+    H1, H2 = w["dims"]["H1"], w["dims"]["H2"]
+    frag_ms = cuda_ms(lambda: (fragment_wT(w["a_wT"][:, :4 * H1]),
+                               fragment_wT(w["d_wT"][:, :4 * H2])), 5)
     io = nbytes(*cot, x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"], *res.values(),
                 w["a_wT"], w["d_wT"], w["q_w"], w["u"], w["v_w"], *got.values())
     bound_ms, bound_by = core_bound(w, B, T, steps, io, backward=True)
     print(f"[train-bwd] kernel_ms {ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms {bound_ms:.3f} "
-          f"({bound_by}; {io / 1e6:.0f} MB moved)  library_ms none")
+          f"({bound_by}; {io / 1e6:.0f} MB moved)  library_ms none  launches a call "
+          f"{launches}  fragment-ordered W^T copy {frag_ms:.3f} ms an optimizer step  "
+          f"serial launches {serial_ms:.2f} ms, each:")
+    for k, v in per_launch.items():
+        print(f"[train-bwd]   {k:15s} {v['us_a_launch']:8.2f} us a launch  "
+              f"{v['ms_a_call']:7.2f} ms a call  {v['launches']:5d} launches")
     report["train_bwd"] = dict(errs=errs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, io_mb=io / 1e6)
+                               bound_by=bound_by, io_mb=io / 1e6, launches_a_call=launches,
+                               per_launch=per_launch, fragment_copy_ms=frag_ms,
+                               serial_ms=serial_ms)
     return {"name": "taco2_train_bwd_cuda", "route": "cuda",
             "source": "your_voice_tts_torch/csrc/taco2_train.cu",
             "replaces": "your_voice_tts_tpu/ops/pallas/taco2_train.py:468",

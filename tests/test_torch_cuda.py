@@ -306,17 +306,18 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 
 
 def train_case(dtype, norm, location, dropout, cuda, widths=(24, 32, 48, 40, 24), B=11, T=13,
-               steps=9):
-    """Smoke widths (P, E, H1, H2, A; filter 15) with odd batch and text
-    sizes, seeded random weights and inputs, on the card. Widths that are
-    not multiples of 8 take the kernels' element-by-element staging."""
+               steps=9, K=15, scale=0.3):
+    """Smoke widths (P, E, H1, H2, A; filter K) with odd batch and text
+    sizes, seeded random weights (N(0, scale^2)) and inputs, on the card.
+    Widths that are not multiples of 8 take the kernels' element-by-element
+    staging."""
     from your_voice_tts_torch.ops.taco2_train import prepare_train_weights
 
     g = torch.Generator().manual_seed(3)
-    r = lambda *s, k=0.3: (k * torch.randn(*s, generator=g)).to(dtype).to(cuda)  # noqa: E731
+    r = lambda *s, k=scale: (k * torch.randn(*s, generator=g)).to(dtype).to(cuda)  # noqa: E731
     P, E, H1, H2, A = widths
     w = prepare_train_weights((r(4 * H1, P + E), r(4 * H1, H1), r(4 * H1)), r(A, H1),
-                              r(8, 2, 15) if location else None, r(A, 8) if location else None,
+                              r(8, 2, K) if location else None, r(A, 8) if location else None,
                               r(1, A), r(1), (r(4 * H2, H1 + E), r(4 * H2, H2), r(4 * H2)))
     x = {"prenet_t": r(steps, B, P, k=1.0), "enc": r(B, T, E, k=1.0), "pinp": r(B, T, A),
          "maskf": sequence_mask(torch.arange(T, T - B, -1).clamp_min(2), T).float().to(cuda)}
@@ -357,15 +358,31 @@ def test_train_fwd_kernel_matches_plain(cuda, dtype, norm, location, dropout, wi
     assert torch.equal(taco2_train_fwd(*args, norm=norm)["align"], got["align"])
 
 
-@pytest.mark.parametrize("dtype,norm,location,dropout,widths", TRAIN_CASES)
-def test_train_bwd_kernel_matches_plain(cuda, dtype, norm, location, dropout, widths):
-    """The plain forward's residuals and seeded cotangents on both sides;
-    every output rel L2 within 1e-4 in float32 and 2e-2 in bf16."""
-    from your_voice_tts_torch.ops.taco2_train import (taco2_train_bwd_cuda,
-                                                      taco2_train_bwd_plain,
-                                                      taco2_train_fwd_plain)
+SMOKE = (24, 32, 48, 40, 24)
+FULL_WIDTH = (256, 512, 1024, 1024, 128)
+# the forward's cases at B=11, T_in=13, K=15, 9 steps, then the backward's
+# own: B not a multiple of 8 (5) and above 32 (40) and 64 (70: two batch
+# slices of the W^T products); T_in not in four equal parts (37) and too
+# short for four (3: a cluster of two); K=1; location off; full width
+BWD_CASES = [c + (11, 13, 15, 9, 0.3) for c in TRAIN_CASES] + [
+    (torch.bfloat16, "sigmoid", True, True, SMOKE, 5, 13, 15, 9, 0.3),
+    (torch.bfloat16, "softmax", True, True, SMOKE, 40, 13, 15, 9, 0.3),
+    (torch.bfloat16, "sigmoid", True, False, SMOKE, 70, 13, 15, 5, 0.3),
+    (torch.float32, "sigmoid", True, True, SMOKE, 40, 37, 15, 9, 0.3),
+    (torch.bfloat16, "sigmoid", True, False, SMOKE, 11, 37, 15, 9, 0.3),
+    (torch.bfloat16, "softmax", True, True, SMOKE, 11, 3, 15, 9, 0.3),
+    (torch.float32, "softmax", True, False, SMOKE, 5, 3, 15, 9, 0.3),
+    (torch.bfloat16, "sigmoid", True, True, SMOKE, 11, 13, 1, 9, 0.3),
+    (torch.float32, "softmax", True, True, SMOKE, 11, 37, 1, 9, 0.3),
+    (torch.bfloat16, "softmax", False, True, SMOKE, 11, 37, 15, 9, 0.3),
+    (torch.bfloat16, "sigmoid", True, True, FULL_WIDTH, 32, 128, 31, 24, 0.03)]
 
-    w, x, (m_a, m_d) = train_case(dtype, norm, location, dropout, cuda, widths)
+
+def train_bwd_args(w, x, m_a, m_d, norm, cuda):
+    """The plain forward's residuals and seeded cotangents: the backward's
+    arguments."""
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_fwd_plain
+
     fwd = taco2_train_fwd_plain(w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], m_a, m_d,
                                 norm=norm)
     sh = lambda s: torch.cat([torch.zeros_like(s[:1]), s[:-1]])  # noqa: E731
@@ -375,14 +392,92 @@ def test_train_bwd_kernel_matches_plain(cuda, dtype, norm, location, dropout, wi
     g = torch.Generator().manual_seed(4)
     cot = [torch.randn(*s.shape, generator=g).to(s.dtype).to(cuda)
            for s in (fwd["dech"], fwd["ctx"], fwd["align"])]
-    args = (w, res, *cot, x["enc"], x["pinp"], x["maskf"], m_a, m_d)
+    return (w, res, *cot, x["enc"], x["pinp"], x["maskf"], m_a, m_d)
+
+
+@pytest.mark.parametrize("dtype,norm,location,dropout,widths,B,T,K,steps,scale", BWD_CASES)
+def test_train_bwd_kernel_matches_plain(cuda, dtype, norm, location, dropout, widths, B, T, K,
+                                        steps, scale):
+    """The plain forward's residuals and seeded cotangents on both sides;
+    every output rel L2 within 1e-4 in float32 and 2e-2 in bf16; four
+    launches a step."""
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_bwd_cuda, taco2_train_bwd_plain
+
+    w, x, (m_a, m_d) = train_case(dtype, norm, location, dropout, cuda, widths, B=B, T=T,
+                                  steps=steps, K=K, scale=scale)
+    args = train_bwd_args(w, x, m_a, m_d, norm, cuda)
+    before = taco2_train_bwd_cuda.launches
     got = taco2_train_bwd_cuda(*args, norm=norm)
+    assert taco2_train_bwd_cuda.launches - before == 4 * steps
     ref = taco2_train_bwd_plain(*args, norm=norm)
     torch.cuda.synchronize()
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     for k in ref:
         assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
         assert rel_l2(got[k], ref[k]) <= tol, (k, rel_l2(got[k], ref[k]))
+
+
+@pytest.mark.parametrize("dtype,norm,B,T", [(torch.bfloat16, "sigmoid", 40, 37),
+                                             (torch.float32, "softmax", 11, 13)])
+def test_train_bwd_dependent_launches_change_nothing(cuda, dtype, norm, B, T):
+    """The scan's programmatic dependent launches give the bits of the same
+    launches run one after another (the serial probe), and the probe is not
+    counted."""
+    from your_voice_tts_torch.ops.taco2_train import (taco2_train_bwd_cuda,
+                                                      taco2_train_bwd_probe_cuda)
+
+    w, x, (m_a, m_d) = train_case(dtype, norm, True, True, cuda, B=B, T=T)
+    args = train_bwd_args(w, x, m_a, m_d, norm, cuda)
+    got = taco2_train_bwd_cuda(*args, norm=norm)
+    before = taco2_train_bwd_cuda.launches
+    ref = taco2_train_bwd_probe_cuda(*args, norm=norm, probe="serial")
+    torch.cuda.synchronize()
+    assert taco2_train_bwd_cuda.launches == before
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+def test_train_bwd_probes_run(cuda):
+    """Every probe launch of the backward scan (the attention backward
+    stopped after each phase, and the serial launches) runs, returns the
+    outputs' shapes and is not counted."""
+    from your_voice_tts_torch.ops.taco2_train import (BWD_PROBES, taco2_train_bwd_cuda,
+                                                      taco2_train_bwd_probe_cuda)
+
+    w, x, (m_a, m_d) = train_case(torch.bfloat16, "softmax", True, True, cuda, B=11, T=13)
+    args = train_bwd_args(w, x, m_a, m_d, "softmax", cuda)
+    ref = taco2_train_bwd_cuda(*args, norm="softmax")
+    before = taco2_train_bwd_cuda.launches
+    for name in BWD_PROBES:
+        got = taco2_train_bwd_probe_cuda(*args, norm="softmax", probe=name)
+        torch.cuda.synchronize()
+        assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in ref.items()}
+    assert taco2_train_bwd_cuda.launches == before
+
+
+@pytest.mark.parametrize("which", ["d", "a", "attn"])
+def test_train_bwd_refused_cluster_raises(cuda, monkeypatch, which):
+    """A cluster the card cannot place (32 blocks, past the hardware's 16)
+    makes the scan raise; nothing falls back to the plain version."""
+    from your_voice_tts_torch.ops import taco2_train as tt
+
+    plan = tt.bwd_plan
+
+    def too_large(dims, B, T):
+        p = plan(dims, B, T)
+        p[which]["cluster"] = 32
+        return p
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(tt, "bwd_plan", too_large)
+    monkeypatch.setattr(tt, "taco2_train_bwd_plain", no_plain)
+    w, x, (m_a, m_d) = train_case(torch.bfloat16, "sigmoid", True, True, cuda)
+    args = train_bwd_args(w, x, m_a, m_d, "sigmoid", cuda)
+    with pytest.raises(RuntimeError, match="taco2_train_bwd_scan"):
+        tt.taco2_train_bwd(*args)
+    torch.cuda.synchronize()
 
 
 def wavernn_case(mode, bits, cuda, n_mels=20, B=3, L=96, width=32, model_out=None):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the WaveRNN sample-loop kernel, or a decode kernel (Tacotron2 or
-Tacotron(1)), of one checkout of the port, so that two checkouts can be
-compared on the same card in one run:
+"""Time the WaveRNN sample-loop kernel, a decode kernel (Tacotron2 or
+Tacotron(1)) or the training backward scan, of one checkout of the port,
+so that two checkouts can be compared on the same card in one run:
 
     python3 wavernn_ab.py --root OLD
     python3 wavernn_ab.py --root .
@@ -30,6 +30,18 @@ plain| of frames, alignments and stops and whether the lengths agree.
 the taco1-decode phase (`taco1_inputs`: the Tacotron(1) config at full
 width, T=160, 250 steps, r = 7, dropout on); `--blocks N` launches it on
 N blocks where the version takes a grid size.
+
+    python3 wavernn_ab.py --root OLD --mode train_bwd [--holds]
+
+`--mode train_bwd` times the training backward scan `taco2_train_bwd_cuda`
+on chip_smoke.py's train-bwd inputs (`core_inputs` at config #3's shape:
+B=32, T_in=128, 200 steps, bf16, full width; the forward kernel's
+residuals and seeded cotangents, `train_bwd_args`), median of `--reps`,
+and each of its four launches' device time (torch.profiler,
+`bwd_launch_times`, on the version's serial probe where it has one); `--holds` adds rel L2 against the plain version per
+output; `--probes` times the version's probe launches where it has them
+(`taco2_train_bwd_probe_cuda`: the scan with its attention backward
+stopped after each phase).
 """
 
 from __future__ import annotations
@@ -40,8 +52,9 @@ import os
 import statistics
 import sys
 
-from chip_smoke import (BENCH_FRAMES, SERVE_FRAMES, TACO1_R, decode_inputs, taco1_inputs,
-                        wavernn_inputs)
+from chip_smoke import (BENCH_FRAMES, SERVE_FRAMES, TACO1_R, TRAIN_B, TRAIN_T_MEL, TRAIN_T_TEXT,
+                        bwd_launch_times, core_inputs, decode_inputs, taco1_inputs,
+                        train_bwd_args, train_config, wavernn_inputs)
 
 
 def timed(fn, reps: int):
@@ -102,10 +115,43 @@ def decode_ab(args, torch) -> dict:
     return result
 
 
+def train_bwd_ab(args, torch) -> dict:
+    """The training backward scan of the checkout at --root at config #3's
+    shape."""
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.ops import taco2_train as tt
+    from your_voice_tts_torch.text import symbols
+
+    steps = TRAIN_T_MEL // 2
+    model = setup_model(len(symbols), train_config(), device="cuda", seed=1)
+    w, x = core_inputs(model, steps, TRAIN_B, TRAIN_T_TEXT, seed=11)
+    fwd = tt.taco2_train_fwd_cuda(w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], x["m_a"],
+                                  x["m_d"])
+    a = train_bwd_args(w, x, fwd)
+    run = lambda: tt.taco2_train_bwd_cuda(*a)  # noqa: E731
+    ms, times = timed(run, args.reps)
+    # each launch's device time alone: the serial probe where the version
+    # has dependent launches
+    probe = getattr(tt, "taco2_train_bwd_probe_cuda", None)
+    serial = run if probe is None else lambda: probe(*a, probe="serial")  # noqa: E731
+    result = {"root": args.root, "device": torch.cuda.get_device_name(0), "mode": args.mode,
+              "B": TRAIN_B, "T_in": TRAIN_T_TEXT, "steps": steps, "ms": ms, "all_ms": times,
+              "us_per_step": ms * 1e3 / steps, "launches": bwd_launch_times(serial)}
+    if args.probes and probe is not None:
+        result["probes_ms"] = {name: timed(lambda: probe(*a, probe=name), args.reps)[0]
+                               for name in tt.BWD_PROBES}
+    if args.holds:
+        got, ref = run(), tt.taco2_train_bwd_plain(*a)
+        result["rel_l2"] = {k: float((got[k].float() - ref[k].float()).norm()
+                                     / ref[k].float().norm()) for k in ref}
+    return result
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
-    ap.add_argument("--mode", choices=("wavernn", "decode", "taco1"), default="wavernn")
+    ap.add_argument("--mode", choices=("wavernn", "decode", "taco1", "train_bwd"),
+                    default="wavernn")
     ap.add_argument("--blocks", type=int, default=0,
                     help="--mode taco1: blocks a launch where the version has `_blocks`")
     ap.add_argument("--reps", type=int, default=5, help="timed runs (their median)")
@@ -124,6 +170,9 @@ def main() -> int:
     assert os.path.dirname(os.path.dirname(your_voice_tts_torch.__file__)) == root
     if args.mode in ("decode", "taco1"):
         print(json.dumps(decode_ab(args, torch)))
+        return 0
+    if args.mode == "train_bwd":
+        print(json.dumps(train_bwd_ab(args, torch)))
         return 0
     from your_voice_tts_torch.ops import wavernn_gen as gen
     from your_voice_tts_torch.vocoder.config import WaveRNNConfig

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
-from .taco2_decode import _interleave_gates, _rows
+from .taco2_decode import _interleave_gates, _round_up, _rows, fragment_order
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -54,8 +54,9 @@ def prepare_train_weights(attention_rnn, query_w, loc_conv_w, loc_dense_w, v_w, 
     Forward: "a_w" / "d_w" [4H, in + H] rows with interleaved gates (row
     4j + g is unit j's gate g over [x | ctx | h]), padded to 8 columns;
     backward: "a_wT" / "d_wT" [in + H, 4H], the same weights transposed in
-    block gate order; "u" [2, K, A] is the location conv folded with the
-    location dense."""
+    block gate order, and for bf16 "a_wTf" / "d_wTf", those in the tensor
+    cores' fragment order (`fragment_wT`); "u" [2, K, A] is the location
+    conv folded with the location dense."""
     a_ih, a_hh, a_b = attention_rnn
     d_ih, d_hh, d_b = decoder_rnn
     dtype = a_ih.dtype
@@ -67,7 +68,9 @@ def prepare_train_weights(attention_rnn, query_w, loc_conv_w, loc_dense_w, v_w, 
     else:
         u = torch.zeros(2, 1, A, dtype=dtype, device=a_ih.device)
     a_full, d_full = torch.cat([a_ih, a_hh], 1), torch.cat([d_ih, d_hh], 1)
-    return {
+    frag = {"a_wTf": fragment_wT(a_full.T), "d_wTf": fragment_wT(d_full.T)} \
+        if dtype == BF16 else {}
+    return {**frag,
         "dtype": dtype, "loc": loc,
         "dims": {"P": a_ih.shape[1] - E, "E": E, "H1": H1, "H2": H2, "A": A,
                  "K": u.shape[1]},
@@ -80,6 +83,57 @@ def prepare_train_weights(attention_rnn, query_w, loc_conv_w, loc_dense_w, v_w, 
         "v_w": v_w.detach()[0].float().contiguous(),
         "v_b": v_b.detach().float().reshape(1).contiguous(),
     }
+
+
+def fragment_wT(wT):
+    """W^T [n, 4H] (bf16) -> [ceil(n/16), ceil(4H/16), 32, 8]: zero-padded to
+    16-row and 16-column tiles, each in the register order of mma.sync
+    m16n8k16's A operand (`taco2_decode.fragment_order`), so that a warp
+    reads one tile as 16 bytes a lane. Built on the weights' device."""
+    n, k = wT.shape
+    return fragment_order(F.pad(wT.detach(), (0, _round_up(k, 16) - k, 0,
+                                              _round_up(n, 16) - n))).contiguous()
+
+
+MAT_CLUSTER = 8      # blocks a W^T product's cluster splits 4H over, at most (portable)
+ATTN_CLUSTER = 4     # blocks of the attention backward's cluster, at most
+MAT_WARPS, MAT_NT = 8, 8     # 16-row tiles a product block; n-tiles of 8 rows a batch slice
+
+
+def _even(n: int, parts: int):
+    return [(r * n // parts, (r + 1) * n // parts) for r in range(parts)]
+
+
+def bwd_plan(dims: dict, B: int, T: int) -> dict:
+    """The backward kernel's launch plan (csrc/taco2_train.cu computes the
+    same parts from the cluster sizes it is given). For each W^T product
+    ("d": rows q | ctx | h2 over 4 H2; "a": prenet | ctx | h1 over 4 H1):
+    the cluster (the largest power of two up to MAT_CLUSTER and the k-tiles),
+    its row bands of 16 MAT_WARPS rows, each block's k-tile slice, each
+    block's share of a band's rows in the cluster's sum, and the batch
+    slices of up to 8 MAT_NT rows. For the attention backward: the cluster
+    (the largest power of two up to ATTN_CLUSTER and T), and each block's
+    even part of the text positions, the attention units and H1."""
+    P, E, H1, H2, A = (dims[k] for k in ("P", "E", "H1", "H2", "A"))
+
+    def mat(rows: int, H: int) -> dict:
+        k16, rt = -(-4 * H // 16), -(-rows // 16)
+        cs = 1
+        while 2 * cs <= min(MAT_CLUSTER, k16):
+            cs *= 2
+        per = -(-k16 // cs)
+        band = 16 * MAT_WARPS
+        return {"cluster": cs, "k_tiles": k16, "row_tiles": rt, "bands": -(-rt // MAT_WARPS),
+                "k_slices": [(min(k16, r * per), min(k16, r * per + per)) for r in range(cs)],
+                "sum_rows": _even(band, cs),
+                "batch_slices": [(s, min(B, s + 8 * MAT_NT)) for s in range(0, B, 8 * MAT_NT)]}
+
+    cs = 1
+    while 2 * cs <= min(ATTN_CLUSTER, T):
+        cs *= 2
+    return {"d": mat(H1 + E + H2, H2), "a": mat(P + E + H1, H1),
+            "attn": {"cluster": cs, "t": _even(T, cs), "a": _even(A, cs),
+                     "h1": _even(H1, cs)}}
 
 
 def _dims(w):
@@ -262,14 +316,21 @@ _ARGTYPES = {
                              _I, _P],
     "taco2_train_attn_fwd": [_I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _I, _I, _I, _I, _I, _P],
-    "taco2_train_cell_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "taco2_train_matT": [_I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                         _P],
-    "taco2_train_attn_bwd": [_I, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P,
-                             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _P],
 }
 SMEM_LIMIT = 232448          # dynamic shared memory a block may use on the H100
+
+
+class _Scan(ctypes.Structure):
+    """csrc/taco2_train.cu `BwdScan`: the reverse scan's arguments."""
+    _fields_ = ([(k, _I) for k in ("use_bf16", "Ts", "B", "Tn", "P", "E", "H1", "H2", "A",
+                                   "K", "loc", "softmax", "ldq", "ld_a", "ld_d", "cluster_a",
+                                   "cluster_d", "cluster_attn", "attn_probe", "serial")]
+                + [(k, _P) for k in ("a_wT", "d_wT", "q_w", "u", "v_w", "v_b", "g_a", "g_d",
+                                     "c_a", "c_d", "d_dech", "d_ctx_out", "d_align_out",
+                                     "enc", "pinp", "maskadd", "m_a", "m_d", "att_prev",
+                                     "cum_prev", "d_g_a", "d_g_d", "d_ctx", "d_prenet", "d_e",
+                                     "dh1", "dc1", "dh2", "dc2", "dctx", "datt", "dcum", "d_q",
+                                     "d_ctx_tot", "stream")])
 
 
 def _lib():
@@ -277,8 +338,10 @@ def _lib():
     for name, types in _ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = types, ctypes.c_int
-    lib.taco2_train_attn_bwd_smem.argtypes = [_I, _I, _I, _I, _I]
+    lib.taco2_train_attn_bwd_smem.argtypes = [_I] * 8
     lib.taco2_train_attn_bwd_smem.restype = ctypes.c_size_t
+    lib.taco2_train_bwd_scan.argtypes = [_P]
+    lib.taco2_train_bwd_scan.restype = ctypes.c_int
     return lib
 
 
@@ -366,8 +429,38 @@ def taco2_train_bwd_cuda(w: dict, res: dict, d_dech, d_ctx_out, d_align_out, enc
                          maskf, m_a=None, m_d=None, *, norm: str = "sigmoid"):
     """The reverse scan on the CUDA kernels: four launches per step (the
     decoder cell backward, the decoder products with W^T, the attention and
-    attention-cell backward, the attention products with W^T) on the
-    current stream, no host synchronization."""
+    attention-cell backward, the attention products with W^T), all issued
+    on the current stream by one C call, no host synchronization. A launch
+    the card refuses (a cluster it cannot place) raises."""
+    out = _bwd_scan(w, res, d_dech, d_ctx_out, d_align_out, enc, pinp, maskf, m_a, m_d,
+                    norm, 0, False)
+    taco2_train_bwd_cuda.launches += 4 * d_dech.shape[0]
+    return out
+
+
+taco2_train_bwd_cuda.launches = 0
+
+# probe launches of the backward scan: the attention backward stops after
+# the named phase (its outputs are then meaningless; for timing only), or
+# "serial": the whole scan with each launch starting when the previous one
+# ends (the same outputs; each launch's device time then stands alone)
+BWD_PROBES = {"attn_loads": 1, "attn_projection": 2, "attn_energies": 3, "attn_norm": 4,
+              "attn_correlation": 5, "attn_halo": 6, "serial": 0}
+
+
+def taco2_train_bwd_probe_cuda(w: dict, res: dict, d_dech, d_ctx_out, d_align_out, enc, pinp,
+                               maskf, m_a=None, m_d=None, *, norm: str = "sigmoid",
+                               probe: str = "attn_loads"):
+    """taco2_train_bwd_cuda with its attention backward stopped after the
+    phase `probe` names (BWD_PROBES): the scan's time up to that phase; or
+    with `probe="serial"`, the whole scan without programmatic dependent
+    launches. Not counted in `launches`."""
+    return _bwd_scan(w, res, d_dech, d_ctx_out, d_align_out, enc, pinp, maskf, m_a, m_d,
+                     norm, BWD_PROBES[probe], probe == "serial")
+
+
+def _bwd_scan(w, res, d_dech, d_ctx_out, d_align_out, enc, pinp, maskf, m_a, m_d, norm,
+              probe, serial):
     if d_dech.device.type != "cuda":
         raise ValueError("taco2_train_bwd_cuda takes CUDA tensors")
     P, E, H1, H2, A, K = _dims(w)
@@ -387,9 +480,13 @@ def taco2_train_bwd_cuda(w: dict, res: dict, d_dech, d_ctx_out, d_align_out, enc
         raise ValueError(f"unknown attention norm {norm!r}")
     dt = w["dtype"]
     bf16 = int(dt == BF16)
+    if bf16 and "a_wTf" not in w:
+        raise ValueError("taco2_train_bwd_cuda: bf16 weights need prepare_train_weights' "
+                         "fragment-ordered a_wTf / d_wTf")
     lib = _lib()
+    plan = bwd_plan(w["dims"], B, T)
     ld_q = w["q_w"].shape[1]
-    smem = lib.taco2_train_attn_bwd_smem(T, A, K, ld_q, bf16)
+    smem = lib.taco2_train_attn_bwd_smem(T, A, K, E, ld_q, H1, plan["attn"]["cluster"], bf16)
     if smem > SMEM_LIMIT:
         raise ValueError(f"taco2_train_bwd_cuda: T_in={T}, A={A}, K={K} needs {smem} bytes "
                          f"of shared memory per block, more than {SMEM_LIMIT}")
@@ -405,42 +502,24 @@ def taco2_train_bwd_cuda(w: dict, res: dict, d_dech, d_ctx_out, d_align_out, enc
     out = {"d_g_a": e(Ts, B, 4 * H1), "d_g_d": e(Ts, B, 4 * H2), "d_ctx": e(Ts, B, E),
            "d_prenet": e(Ts, B, P), "d_e": e(Ts, B, T, d=F32)}
     z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
-    dh1, dc1, dh2, dc2, dctx, datt, dcum = z(B, H1), z(B, H1), z(B, H2), z(B, H2), \
-        z(B, E), z(B, T), z(B, T)
-    d_q, d_ctx_tot = z(B, H1), z(B, E)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    at = lambda x, t: None if x is None else x[t].data_ptr()  # noqa: E731
-    ld_a, ld_d = w["a_wT"].shape[1], w["d_wT"].shape[1]
-    softmax = int(norm == "softmax")
-    for t in reversed(range(Ts)):
-        prev = lambda x: None if t == 0 else x[t - 1].data_ptr()  # noqa: E731
-        cuda_build.check(lib.taco2_train_cell_bwd(
-            bf16, g_d[t].data_ptr(), prev(c_d), c_d[t].data_ptr(), dh2.data_ptr(),
-            d_dech[t].data_ptr(), at(m_d, t), dc2.data_ptr(), out["d_g_d"][t].data_ptr(), B,
-            H2, stream), "taco2_train_cell_bwd")
-        cuda_build.check(lib.taco2_train_matT(
-            bf16, w["d_wT"].data_ptr(), ld_d, out["d_g_d"][t].data_ptr(), 4 * H2, H1, E, H2,
-            B, 0, d_q.data_ptr(), None, d_ctx_out[t].data_ptr(), dctx.data_ptr(),
-            d_ctx_tot.data_ptr(), out["d_ctx"][t].data_ptr(), dh2.data_ptr(), stream),
-            "taco2_train_matT")
-        cuda_build.check(lib.taco2_train_attn_bwd(
-            bf16, g_a[t].data_ptr(), c_a[t].data_ptr(), prev(c_a), at(m_a, t),
-            w["q_w"].data_ptr(), ld_q, H1, w["u"].data_ptr(), K, int(w["loc"]),
-            w["v_w"].data_ptr(), w["v_b"].data_ptr(), pinp.data_ptr(), maskadd.data_ptr(),
-            enc.data_ptr(), att_prev[t].data_ptr(), cum_prev[t].data_ptr(),
-            d_align_out[t].data_ptr(), d_ctx_tot.data_ptr(), d_q.data_ptr(),
-            dh1.data_ptr(), datt.data_ptr(), dcum.data_ptr(), dc1.data_ptr(),
-            out["d_e"][t].data_ptr(), out["d_g_a"][t].data_ptr(), B, T, A, E, softmax,
-            stream), "taco2_train_attn_bwd")
-        cuda_build.check(lib.taco2_train_matT(
-            bf16, w["a_wT"].data_ptr(), ld_a, out["d_g_a"][t].data_ptr(), 4 * H1, P, E, H1,
-            B, 1, None, out["d_prenet"][t].data_ptr(), None, dctx.data_ptr(), None, None,
-            dh1.data_ptr(), stream), "taco2_train_matT")
-        taco2_train_bwd_cuda.launches += 4
+    carries = {"dh1": z(B, H1), "dc1": z(B, H1), "dh2": z(B, H2), "dc2": z(B, H2),
+               "dctx": z(B, E), "datt": z(B, T), "dcum": z(B, T), "d_q": z(B, H1),
+               "d_ctx_tot": z(B, E)}
+    ptrs = {"a_wT": w["a_wTf" if bf16 else "a_wT"], "d_wT": w["d_wTf" if bf16 else "d_wT"],
+            **{k: w[k] for k in ("q_w", "u", "v_w", "v_b")},
+            "g_a": g_a, "g_d": g_d, "c_a": c_a, "c_d": c_d, "d_dech": d_dech,
+            "d_ctx_out": d_ctx_out, "d_align_out": d_align_out, "enc": enc, "pinp": pinp,
+            "maskadd": maskadd, "m_a": m_a, "m_d": m_d, "att_prev": att_prev,
+            "cum_prev": cum_prev, **out, **carries}
+    scan = _Scan(use_bf16=bf16, Ts=Ts, B=B, Tn=T, P=P, E=E, H1=H1, H2=H2, A=A, K=K,
+                 loc=int(w["loc"]), softmax=int(norm == "softmax"), ldq=ld_q,
+                 ld_a=w["a_wT"].shape[1], ld_d=w["d_wT"].shape[1],
+                 cluster_a=plan["a"]["cluster"], cluster_d=plan["d"]["cluster"],
+                 cluster_attn=plan["attn"]["cluster"], attn_probe=probe, serial=int(serial),
+                 stream=torch.cuda.current_stream(dev).cuda_stream,
+                 **{k: _ptr(v) for k, v in ptrs.items()})
+    cuda_build.check(lib.taco2_train_bwd_scan(ctypes.addressof(scan)), "taco2_train_bwd_scan")
     return out
-
-
-taco2_train_bwd_cuda.launches = 0
 
 
 def taco2_train_fwd(w: dict, prenet_t, enc, pinp, maskf, m_a=None, m_d=None, *,
