@@ -50,7 +50,10 @@ Phases, each fatal on failure:
 5. train-fwd: the training decoder's forward kernel at config #3's shape
    (configs/ljspeech_tacotron2.json at full width, r=2: B=32, T_in=128,
    200 decoder steps, bf16) with the same injected dropout masks as its
-   plain version; max abs error of every stack, kernel, plain and bound ms;
+   plain version; max abs error of every stack, kernel, plain and bound ms,
+   launches a call (2 a step plus one), the same launches without
+   programmatic dependence (the same bits; each launch's device time,
+   torch.profiler) and the fragment-ordered W copy's time;
 6. train-bwd: the backward kernel on phase 5's residuals and seeded random
    cotangents against its plain version, rel L2 of every output, times,
    launches a call (4 a step), the same launches without programmatic
@@ -1264,6 +1267,23 @@ def dev(e) -> float:
     return getattr(e, "self_device_time_total", 0.0) / 1e3
 
 
+def device_busy(trace_path: str) -> tuple[float, float, int]:
+    """A torch.profiler chrome trace's kernels: the ms the device ran at
+    least one (the union of their intervals), their summed ms, their count."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "kernel")
+    busy, lo, hi = 0.0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += 0.0 if hi is None else hi - lo
+    return busy / 1e3, sum(b - a for a, b in spans) / 1e3, len(spans)
+
+
 def device_rows(prof):
     """The profile's kernel rows (device events), longest first. The rows
     of CPU operators also carry the device time of the kernels launched
@@ -1372,19 +1392,60 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
 
 
+FWD_LAUNCHES = ("lstm", "attn_fwd")
+
+
+def fwd_launch_times(run) -> dict:
+    """Device time of the forward's launches over one call of `run` under
+    torch.profiler: {launch: {us_a_launch (mean), ms_a_call, launches}} for
+    the LSTM products' launches (both LSTMs of a launch together), the
+    attention's, and "other" (conversions, zeroed scratch)."""
+    def key(name):
+        return "lstm" if "lstm" in name else "attn_fwd" if "attn_fwd" in name else "other"
+
+    return kernel_times(run, key, FWD_LAUNCHES + ("other",))
+
+
+def kernel_times(run, key, keys) -> dict:
+    """Device time of each kernel event of one call of `run` under
+    torch.profiler, grouped by key(kernel name), called in time order:
+    {key: {us_a_launch (mean), ms_a_call, launches}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    durs = {k: [] for k in keys}
+    for e in sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"]):
+        durs[key(e["name"])].append(float(e["dur"]))
+    return {k: {"us_a_launch": statistics.mean(v) if v else 0.0, "ms_a_call": sum(v) / 1e3,
+                "launches": len(v)} for k, v in durs.items()}
+
+
 def phase_train_fwd(report, state):
     import torch
 
     from your_voice_tts_torch.models import setup_model
-    from your_voice_tts_torch.ops.taco2_train import (taco2_train_fwd_cuda,
-                                                      taco2_train_fwd_plain)
+    from your_voice_tts_torch.ops.taco2_train import (mma_fragments, taco2_train_fwd_cuda,
+                                                      taco2_train_fwd_plain,
+                                                      taco2_train_fwd_probe_cuda)
     from your_voice_tts_torch.text import symbols
 
     steps, B, T = TRAIN_T_MEL // 2, TRAIN_B, TRAIN_T_TEXT
     model = setup_model(len(symbols), train_config(), device="cuda", seed=1)
     w, x = core_inputs(model, steps, B, T, seed=11)
     args = (w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"])
+    before = taco2_train_fwd_cuda.launches
     got = taco2_train_fwd_cuda(*args)
+    launches = taco2_train_fwd_cuda.launches - before
     ref = taco2_train_fwd_plain(*args)
     torch.cuda.synchronize()
     # tolerances: both sides round the same bf16 inputs at the same points
@@ -1403,17 +1464,39 @@ def phase_train_fwd(report, state):
         print(f"[train-fwd] {k:5s} max_abs_err {e:.3e} (tol {tol:.3e}, peak {peak:.3e}) "
               f"rel L2 {rel:.3e} (tol 1e-2)")
     check(ok, "training forward kernel disagrees with plain")
+    check(launches == 2 * steps + 1,
+          f"train-fwd: {launches} launches a call, expected {2 * steps + 1}")
+    # the same launches without programmatic dependence: the same bits (no
+    # atomics), and each launch's device time on its own
+    serial = lambda: taco2_train_fwd_probe_cuda(*args, probe="serial")  # noqa: E731
+    same = serial()
+    check(all(torch.equal(same[k], got[k]) for k in got),
+          "train-fwd: dependent launches change the result")
     ms = cuda_ms(lambda: taco2_train_fwd_cuda(*args), 5)
+    serial_ms = cuda_ms(serial, 5)
     plain_ms = cuda_ms(lambda: taco2_train_fwd_plain(*args), 2)
+    per_launch = fwd_launch_times(serial)
+    # the forward's fragment copy, made by prepare_train_weights on every
+    # train step (the interleaved rows without their padding)
+    P, E, H1, H2 = (w["dims"][k] for k in ("P", "E", "H1", "H2"))
+    frag_ms = cuda_ms(lambda: (mma_fragments(w["a_w"][:, :P + E + H1]),
+                               mma_fragments(w["d_w"][:, :H1 + E + H2])), 5)
     io = nbytes(x["prenet_t"], x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"],
                 *(w[k] for k in ("a_w", "a_b", "d_w", "d_b", "q_w", "u", "v_w", "v_b")),
                 *got.values())
     bound_ms, bound_by = core_bound(w, B, T, steps, io, backward=False)
     print(f"[train-fwd] B={B} T_in={T} steps={steps} kernel_ms {ms:.2f}  plain_ms "
           f"{plain_ms:.2f}  bound_ms {bound_ms:.3f} ({bound_by}; {io / 1e6:.0f} MB moved)  "
-          f"library_ms none (no single PyTorch call computes the scan)")
+          f"library_ms none (no single PyTorch call computes the scan)  launches a call "
+          f"{launches}  fragment-ordered W copy {frag_ms:.3f} ms a train step  serial "
+          f"launches {serial_ms:.2f} ms, each:")
+    for k, v in per_launch.items():
+        print(f"[train-fwd]   {k:15s} {v['us_a_launch']:8.2f} us a launch  "
+              f"{v['ms_a_call']:7.2f} ms a call  {v['launches']:5d} launches")
     report["train_fwd"] = dict(errs=errs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, io_mb=io / 1e6)
+                               bound_by=bound_by, io_mb=io / 1e6, launches_a_call=launches,
+                               per_launch=per_launch, fragment_copy_ms=frag_ms,
+                               serial_ms=serial_ms)
     state.update(model=model, w=w, x=x, fwd=got)
     return {"name": "taco2_train_fwd_cuda", "route": "cuda",
             "source": "your_voice_tts_torch/csrc/taco2_train.cu",
@@ -1444,43 +1527,28 @@ BWD_LAUNCHES = ("cell_bwd", "matT_decoder", "attn_bwd", "matT_attention")
 
 def bwd_launch_times(run) -> dict:
     """Device time of each of the backward's four launches over one call of
-    `run` under torch.profiler, from its trace's kernel events in time order
-    (the W^T product kernel's launches alternate decoder, attention):
-    {launch: {us_a_launch (mean), ms_a_call, launches}}, and "other" for
-    the call's other kernels (conversions, zeroed carries)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    `run` under torch.profiler (`kernel_times`; the W^T product kernel's
+    launches alternate decoder, attention), and "other" for the call's
+    other kernels (conversions, zeroed carries)."""
+    n_mat = [0]
 
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    durs = {k: [] for k in BWD_LAUNCHES + ("other",)}
-    n_mat = 0
-    for e in sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"]):
-        if "cell_bwd" in e["name"]:
-            key = "cell_bwd"
-        elif "attn_bwd" in e["name"]:
-            key = "attn_bwd"
-        elif "matT" in e["name"]:
-            key, n_mat = BWD_LAUNCHES[1 + 2 * (n_mat % 2)], n_mat + 1
-        else:
-            key = "other"
-        durs[key].append(float(e["dur"]))
-    return {k: {"us_a_launch": statistics.mean(v) if v else 0.0, "ms_a_call": sum(v) / 1e3,
-                "launches": len(v)} for k, v in durs.items()}
+    def key(name):
+        if "cell_bwd" in name:
+            return "cell_bwd"
+        if "attn_bwd" in name:
+            return "attn_bwd"
+        if "matT" in name:
+            n_mat[0] += 1
+            return BWD_LAUNCHES[1 + 2 * ((n_mat[0] - 1) % 2)]
+        return "other"
+
+    return kernel_times(run, key, BWD_LAUNCHES + ("other",))
 
 
 def phase_train_bwd(report, state):
     import torch
 
-    from your_voice_tts_torch.ops.taco2_train import (fragment_wT, taco2_train_bwd_cuda,
+    from your_voice_tts_torch.ops.taco2_train import (mma_fragments, taco2_train_bwd_cuda,
                                                       taco2_train_bwd_plain,
                                                       taco2_train_bwd_probe_cuda)
 
@@ -1518,8 +1586,8 @@ def phase_train_bwd(report, state):
     plain_ms = cuda_ms(lambda: taco2_train_bwd_plain(*args), 2)
     per_launch = bwd_launch_times(serial)
     H1, H2 = w["dims"]["H1"], w["dims"]["H2"]
-    frag_ms = cuda_ms(lambda: (fragment_wT(w["a_wT"][:, :4 * H1]),
-                               fragment_wT(w["d_wT"][:, :4 * H2])), 5)
+    frag_ms = cuda_ms(lambda: (mma_fragments(w["a_wT"][:, :4 * H1]),
+                               mma_fragments(w["d_wT"][:, :4 * H2])), 5)
     io = nbytes(*cot, x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"], *res.values(),
                 w["a_wT"], w["d_wT"], w["q_w"], w["u"], w["v_w"], *got.values())
     bound_ms, bound_by = core_bound(w, B, T, steps, io, backward=True)
@@ -1775,14 +1843,18 @@ def phase_train_profile(report, trainer, out_dir: str):
         trainer.train_step(batch, 2)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(os.path.join(out_dir, "train_profile_trace.json"))
+    trace = os.path.join(out_dir, "train_profile_trace.json")
+    prof.export_chrome_trace(trace)
     rows = device_rows(prof)
-    busy_ms = sum(dev(e) for e in rows)
+    # the scans' dependent launches overlap: busy is the union of the
+    # kernels' intervals, not their summed times
+    busy_ms, summed_ms, _ = device_busy(trace)
     print(f"[train-profile] one train step: wall {wall_ms:.1f} ms, device busy "
-          f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f})")
+          f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f}; kernel times summed "
+          f"{summed_ms:.1f} ms)")
     for e in rows[:20]:
         print(f"[train-profile]   {dev(e):8.2f} ms  {e.count:6d} calls  {e.key[:90]}")
-    report["train_profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+    report["train_profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms, summed_ms=summed_ms,
                                    kernels={e.key: [dev(e), e.count] for e in rows[:40]})
 
 

@@ -339,32 +339,14 @@ def rel_l2(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
 
 
-@pytest.mark.parametrize("dtype,norm,location,dropout,widths", TRAIN_CASES)
-def test_train_fwd_kernel_matches_plain(cuda, dtype, norm, location, dropout, widths):
-    """Every forward stack: rel L2 within 1e-5 in float32 (sum order only)
-    and 1e-2 in bf16 (1-ulp flips of stored bf16 values, 2^-8 relative)."""
-    from your_voice_tts_torch.ops.taco2_train import (taco2_train_fwd, taco2_train_fwd_cuda,
-                                                      taco2_train_fwd_plain)
-
-    w, x, (m_a, m_d) = train_case(dtype, norm, location, dropout, cuda, widths)
-    args = (w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], m_a, m_d)
-    got = taco2_train_fwd_cuda(*args, norm=norm)
-    ref = taco2_train_fwd_plain(*args, norm=norm)
-    torch.cuda.synchronize()
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
-    for k in ref:
-        assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
-        assert rel_l2(got[k], ref[k]) <= tol, (k, rel_l2(got[k], ref[k]))
-    assert torch.equal(taco2_train_fwd(*args, norm=norm)["align"], got["align"])
-
-
 SMOKE = (24, 32, 48, 40, 24)
 FULL_WIDTH = (256, 512, 1024, 1024, 128)
-# the forward's cases at B=11, T_in=13, K=15, 9 steps, then the backward's
-# own: B not a multiple of 8 (5) and above 32 (40) and 64 (70: two batch
-# slices of the W^T products); T_in not in four equal parts (37) and too
-# short for four (3: a cluster of two); K=1; location off; full width
-BWD_CASES = [c + (11, 13, 15, 9, 0.3) for c in TRAIN_CASES] + [
+# both scans' cases: TRAIN_CASES at B=11, T_in=13, K=15, 9 steps, then the
+# edges: B not a multiple of 8 (5) and above 32 (40) and 64 (70: two batch
+# slices of the tensor-core products); T_in not in four equal parts (37)
+# and too short for four (3: a cluster of two); K=1; location off; full
+# width
+SCAN_CASES = [c + (11, 13, 15, 9, 0.3) for c in TRAIN_CASES] + [
     (torch.bfloat16, "sigmoid", True, True, SMOKE, 5, 13, 15, 9, 0.3),
     (torch.bfloat16, "softmax", True, True, SMOKE, 40, 13, 15, 9, 0.3),
     (torch.bfloat16, "sigmoid", True, False, SMOKE, 70, 13, 15, 5, 0.3),
@@ -376,6 +358,118 @@ BWD_CASES = [c + (11, 13, 15, 9, 0.3) for c in TRAIN_CASES] + [
     (torch.float32, "softmax", True, True, SMOKE, 11, 37, 1, 9, 0.3),
     (torch.bfloat16, "softmax", False, True, SMOKE, 11, 37, 15, 9, 0.3),
     (torch.bfloat16, "sigmoid", True, True, FULL_WIDTH, 32, 128, 31, 24, 0.03)]
+
+
+@pytest.mark.parametrize("dtype,norm,location,dropout,widths,B,T,K,steps,scale", SCAN_CASES)
+def test_train_fwd_kernel_matches_plain(cuda, dtype, norm, location, dropout, widths, B, T, K,
+                                        steps, scale):
+    """Every forward stack: rel L2 within 1e-5 in float32 (sum order only)
+    and 1e-2 in bf16 (1-ulp flips of stored bf16 values, 2^-8 relative);
+    2 launches a step plus one."""
+    from your_voice_tts_torch.ops.taco2_train import (taco2_train_fwd, taco2_train_fwd_cuda,
+                                                      taco2_train_fwd_plain)
+
+    w, x, (m_a, m_d) = train_case(dtype, norm, location, dropout, cuda, widths, B=B, T=T,
+                                  steps=steps, K=K, scale=scale)
+    args = (w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], m_a, m_d)
+    before = taco2_train_fwd_cuda.launches
+    got = taco2_train_fwd_cuda(*args, norm=norm)
+    assert taco2_train_fwd_cuda.launches - before == 2 * steps + 1
+    ref = taco2_train_fwd_plain(*args, norm=norm)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
+        assert rel_l2(got[k], ref[k]) <= tol, (k, rel_l2(got[k], ref[k]))
+    assert torch.equal(taco2_train_fwd(*args, norm=norm)["align"], got["align"])
+
+
+@pytest.mark.parametrize("dtype,norm,B,T", [(torch.bfloat16, "sigmoid", 40, 37),
+                                             (torch.float32, "softmax", 11, 13)])
+def test_train_fwd_dependent_launches_change_nothing(cuda, dtype, norm, B, T):
+    """The forward's programmatic dependent launches give the bits of the
+    same launches run one after another (the serial probe); the probe is
+    not counted."""
+    from your_voice_tts_torch.ops.taco2_train import (taco2_train_fwd_cuda,
+                                                      taco2_train_fwd_probe_cuda)
+
+    w, x, (m_a, m_d) = train_case(dtype, norm, True, True, cuda, B=B, T=T)
+    args = (w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], m_a, m_d)
+    got = taco2_train_fwd_cuda(*args, norm=norm)
+    before = taco2_train_fwd_cuda.launches
+    ref = taco2_train_fwd_probe_cuda(*args, norm=norm, probe="serial")
+    torch.cuda.synchronize()
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    assert taco2_train_fwd_cuda.launches == before
+
+
+def test_train_fwd_probes_run(cuda):
+    """Every probe launch of the forward scan (the attention or the LSTM
+    products stopped after each phase, the serial launches) runs, returns
+    the outputs' shapes and is not counted."""
+    from your_voice_tts_torch.ops.taco2_train import (FWD_PROBES, taco2_train_fwd_cuda,
+                                                      taco2_train_fwd_probe_cuda)
+
+    w, x, (m_a, m_d) = train_case(torch.bfloat16, "softmax", True, True, cuda, B=11, T=13)
+    args = (w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], m_a, m_d)
+    ref = taco2_train_fwd_cuda(*args, norm="softmax")
+    before = taco2_train_fwd_cuda.launches
+    for name in FWD_PROBES:
+        got = taco2_train_fwd_probe_cuda(*args, norm="softmax", probe=name)
+        torch.cuda.synchronize()
+        assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in ref.items()}
+    assert taco2_train_fwd_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype,T", [(torch.bfloat16, 600), (torch.float32, 400),
+                                     (torch.bfloat16, 1400)])
+def test_train_fwd_long_text_reads_the_encoder_from_global_memory(cuda, dtype, T):
+    """Full width past the text length whose encoder columns fit a block's
+    shared memory (T_in 484 in bf16, 296 in float32): the attention forward
+    reads them from global memory and holds the plain version at the
+    tolerances of test_train_fwd_kernel_matches_plain. Past T_in 1,460 the
+    rest of its shared memory no longer fits, and the wrapper raises."""
+    from your_voice_tts_torch.ops.taco2_train import (taco2_train_fwd_cuda,
+                                                      taco2_train_fwd_plain)
+
+    w, x, (m_a, m_d) = train_case(dtype, "softmax", True, True, cuda, FULL_WIDTH, B=3, T=T,
+                                  steps=4, K=31, scale=0.03)
+    args = (w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], m_a, m_d)
+    got = taco2_train_fwd_cuda(*args, norm="softmax")
+    ref = taco2_train_fwd_plain(*args, norm="softmax")
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for k in ref:
+        assert rel_l2(got[k], ref[k]) <= tol, (k, rel_l2(got[k], ref[k]))
+    w, x, (m_a, m_d) = train_case(dtype, "softmax", True, True, cuda, FULL_WIDTH, B=1, T=1500,
+                                  steps=1, K=31, scale=0.03)
+    with pytest.raises(ValueError, match="shared memory"):
+        taco2_train_fwd_cuda(w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], m_a, m_d)
+
+
+@pytest.mark.parametrize("which", ["lstm", "attn"])
+def test_train_fwd_refused_cluster_raises(cuda, monkeypatch, which):
+    """A cluster the card cannot place (32 blocks, past the hardware's 16)
+    makes the forward scan raise; nothing falls back to the plain version."""
+    from your_voice_tts_torch.ops import taco2_train as tt
+
+    plan = tt.fwd_plan
+
+    def too_large(dims, B, T):
+        p = plan(dims, B, T)
+        (p if which == "lstm" else p["attn"])["cluster"] = 32
+        return p
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(tt, "fwd_plan", too_large)
+    monkeypatch.setattr(tt, "taco2_train_fwd_plain", no_plain)
+    w, x, (m_a, m_d) = train_case(torch.bfloat16, "sigmoid", True, True, cuda)
+    with pytest.raises(RuntimeError, match="taco2_train_fwd_scan"):
+        tt.taco2_train_fwd(w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], m_a, m_d)
+    torch.cuda.synchronize()
 
 
 def train_bwd_args(w, x, m_a, m_d, norm, cuda):
@@ -395,7 +489,7 @@ def train_bwd_args(w, x, m_a, m_d, norm, cuda):
     return (w, res, *cot, x["enc"], x["pinp"], x["maskf"], m_a, m_d)
 
 
-@pytest.mark.parametrize("dtype,norm,location,dropout,widths,B,T,K,steps,scale", BWD_CASES)
+@pytest.mark.parametrize("dtype,norm,location,dropout,widths,B,T,K,steps,scale", SCAN_CASES)
 def test_train_bwd_kernel_matches_plain(cuda, dtype, norm, location, dropout, widths, B, T, K,
                                         steps, scale):
     """The plain forward's residuals and seeded cotangents on both sides;

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time the WaveRNN sample-loop kernel, a decode kernel (Tacotron2 or
-Tacotron(1)) or the training backward scan, of one checkout of the port,
+Tacotron(1)) or a training scan (forward or backward), of one checkout of the port,
 so that two checkouts can be compared on the same card in one run:
 
     python3 wavernn_ab.py --root OLD
@@ -32,6 +32,7 @@ width, T=160, 250 steps, r = 7, dropout on); `--blocks N` launches it on
 N blocks where the version takes a grid size.
 
     python3 wavernn_ab.py --root OLD --mode train_bwd [--holds]
+    python3 wavernn_ab.py --root OLD --mode train_fwd [--probes] [--holds]
 
 `--mode train_bwd` times the training backward scan `taco2_train_bwd_cuda`
 on chip_smoke.py's train-bwd inputs (`core_inputs` at config #3's shape:
@@ -42,6 +43,25 @@ and each of its four launches' device time (torch.profiler,
 output; `--probes` times the version's probe launches where it has them
 (`taco2_train_bwd_probe_cuda`: the scan with its attention backward
 stopped after each phase).
+
+`--mode train_fwd` does the same for the forward scan `taco2_train_fwd_cuda`
+on chip_smoke.py's train-fwd inputs (`core_inputs`, the same shape): median
+of `--reps`, the launches a call (its counter), and each launch's device
+time (`fwd_launch_times`, on the version's serial probe where it has one);
+`--probes` times the version's probe launches (`taco2_train_fwd_probe_cuda`:
+the attention or the LSTM products stopped after each phase, serial);
+`--holds` adds rel L2 and max abs error against the plain version per
+output.
+
+    python3 wavernn_ab.py --root OLD --mode train_step [--reps N]
+
+`--mode train_step` times chip_smoke.py's timed train step (`Trainer` on
+its config, `bench_batch`: config #3's shape, bf16 mixed precision,
+dropout on): wall ms a step (median of `--reps` after two warm-up steps,
+each ending in a host read of the metrics) and, from one more step under
+torch.profiler, the device's busy ms (the union of its kernels' intervals:
+dependent launches overlap, so their summed times would count the overlap
+twice), the kernels' summed ms and the idle share of that step's wall.
 """
 
 from __future__ import annotations
@@ -53,8 +73,9 @@ import statistics
 import sys
 
 from chip_smoke import (BENCH_FRAMES, SERVE_FRAMES, TACO1_R, TRAIN_B, TRAIN_T_MEL, TRAIN_T_TEXT,
-                        bwd_launch_times, core_inputs, decode_inputs, taco1_inputs,
-                        train_bwd_args, train_config, wavernn_inputs)
+                        bench_batch, bwd_launch_times, core_inputs, decode_inputs,
+                        device_busy, fwd_launch_times, taco1_inputs, train_bwd_args, train_config,
+                        wavernn_inputs)
 
 
 def timed(fn, reps: int):
@@ -147,11 +168,87 @@ def train_bwd_ab(args, torch) -> dict:
     return result
 
 
+def train_fwd_ab(args, torch) -> dict:
+    """The training forward scan of the checkout at --root at config #3's
+    shape."""
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.ops import taco2_train as tt
+    from your_voice_tts_torch.text import symbols
+
+    steps = TRAIN_T_MEL // 2
+    model = setup_model(len(symbols), train_config(), device="cuda", seed=1)
+    w, x = core_inputs(model, steps, TRAIN_B, TRAIN_T_TEXT, seed=11)
+    a = (w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"])
+    run = lambda: tt.taco2_train_fwd_cuda(*a)  # noqa: E731
+    before = tt.taco2_train_fwd_cuda.launches
+    run()
+    launches = tt.taco2_train_fwd_cuda.launches - before
+    ms, times = timed(run, args.reps)
+    probe = getattr(tt, "taco2_train_fwd_probe_cuda", None)
+    serial = run if probe is None else lambda: probe(*a, probe="serial")  # noqa: E731
+    result = {"root": args.root, "device": torch.cuda.get_device_name(0), "mode": args.mode,
+              "B": TRAIN_B, "T_in": TRAIN_T_TEXT, "steps": steps, "ms": ms, "all_ms": times,
+              "us_per_step": ms * 1e3 / steps, "launches_a_call": launches,
+              "launches": fwd_launch_times(serial)}
+    if args.probes and probe is not None:
+        result["probes_ms"] = {name: timed(lambda: probe(*a, probe=name), args.reps)[0]
+                               for name in tt.FWD_PROBES}
+    if args.holds:
+        got, ref = run(), tt.taco2_train_fwd_plain(*a)
+        result["rel_l2"] = {k: float((got[k].float() - ref[k].float()).norm()
+                                     / ref[k].float().norm()) for k in ref}
+        result["max_abs_err"] = {k: float((got[k].float() - ref[k].float()).abs().max())
+                                 for k in ref}
+    return result
+
+
+def train_step_ab(args, torch) -> dict:
+    """chip_smoke.py's timed train step on the checkout at --root."""
+    import dataclasses
+    import tempfile
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = train_config()
+        corpus = make_synthetic_corpus(os.path.join(tmp, "corpus"), n_items=64, sr=22050,
+                                       max_words=15)
+        ds = dataclasses.replace(cfg.data.datasets[0], name="synthetic", path=corpus)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)))
+        trainer = Trainer(cfg, output_path=os.path.join(tmp, "run"), device="cuda")
+        batch = bench_batch()
+        for _ in range(2):
+            trainer.train_step(batch, 2)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(args.reps):
+            t0 = time.perf_counter()
+            trainer.train_step(batch, 2)            # ends in a host read of the metrics
+            times.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(batch, 2)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        busy, summed, n = device_busy(trace)
+    return {"root": args.root, "device": torch.cuda.get_device_name(0), "mode": args.mode,
+            "B": TRAIN_B, "T_in": TRAIN_T_TEXT, "T_mel": TRAIN_T_MEL,
+            "train_step_ms": statistics.median(times), "all_ms": times,
+            "profiled_wall_ms": wall, "device_busy_ms": busy, "kernels_summed_ms": summed,
+            "kernels": n, "idle_share": 1 - busy / wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
-    ap.add_argument("--mode", choices=("wavernn", "decode", "taco1", "train_bwd"),
-                    default="wavernn")
+    ap.add_argument("--mode", choices=("wavernn", "decode", "taco1", "train_bwd", "train_fwd",
+                                       "train_step"), default="wavernn")
     ap.add_argument("--blocks", type=int, default=0,
                     help="--mode taco1: blocks a launch where the version has `_blocks`")
     ap.add_argument("--reps", type=int, default=5, help="timed runs (their median)")
@@ -171,8 +268,10 @@ def main() -> int:
     if args.mode in ("decode", "taco1"):
         print(json.dumps(decode_ab(args, torch)))
         return 0
-    if args.mode == "train_bwd":
-        print(json.dumps(train_bwd_ab(args, torch)))
+    if args.mode.startswith("train"):
+        ab = {"train_bwd": train_bwd_ab, "train_fwd": train_fwd_ab,
+              "train_step": train_step_ab}[args.mode]
+        print(json.dumps(ab(args, torch)))
         return 0
     from your_voice_tts_torch.ops import wavernn_gen as gen
     from your_voice_tts_torch.vocoder.config import WaveRNNConfig

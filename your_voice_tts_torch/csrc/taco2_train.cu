@@ -16,12 +16,26 @@
 // the chain costs; a step is bound by how fast each stage streams its
 // weights and how many SMs its work spreads over.
 //
-// Forward (simple first version): weights laid out once per optimizer step
-// (ops/taco2_train.py) in [out, in] rows so a warp streams one contiguous
-// row with 16-byte loads, once per 8-row batch tile; the LSTM's four gate
-// rows of a unit interleaved so the cell update fuses into the product's
-// epilogue; the attention in one block per batch row. 3 launches a step,
-// driven by the host loop in ops/taco2_train.py.
+// Forward: 2 launches a step plus one, all issued from C in one call
+// (taco2_train_fwd_scan) as programmatic dependent launches. The attention
+// LSTM of step t + 1 and the decoder LSTM of step t read nothing the other
+// writes, so one launch runs both on disjoint blocks; of their inputs only
+// the context depends on the attention of step t. Each kernel signals the
+// next one only after its own wait, so a launch that starts finds the one
+// two before it finished: the LSTM launch runs its products over every
+// input but the context while the attention runs, and the attention its
+// location features while the LSTM launch finishes. The step's serial chain
+// is the attention after its wait and the LSTM launch's context products,
+// cluster exchange and cell update. The LSTM products (bf16) run on the
+// tensor cores from the interleaved gate rows in fragment order, each
+// weight read once a step for every batch row, the reduction over the
+// inputs split over a cluster of blocks (one an SM beside an attention
+// block) whose partial sums meet in distributed shared memory; the block
+// that sums a unit's four gate rows adds the biases and runs the cell
+// update. The attention runs as a cluster of up to four blocks a batch row
+// (a part of the text positions, of H1 and of E each), exchanging the
+// query projection's partials, the norm's partials and the alignments.
+// float32 keeps the FMA products (lstm_fwd_kernel).
 //
 // Backward (redesigned): 4 launches a step, all Ts x 4 issued from C in one
 // call (taco2_train_bwd_scan). The decoder cell backward is elementwise.
@@ -53,6 +67,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -79,11 +94,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 template <typename T>
 __device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
 
-// Programmatic dependent launch (sm_90): the backward's kernels let the
-// next kernel of the stream start at once (pdl_release) and wait for the
+// Programmatic dependent launch (sm_90): the scans' kernels let the next
+// kernel of the stream start at once (pdl_release) and wait for the
 // previous one's results (pdl_wait) only where they first read or write
 // what the scan's other launches touch; before that they read only the
-// weights and the forward's residuals. Both are no-ops in a launch
+// weights and the scan's inputs (the prenet frames, the encoder's, the
+// forward's residuals). Both are no-ops in a launch
 // without the attribute.
 __device__ __forceinline__ void pdl_release() {
     asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -197,139 +213,6 @@ __device__ __forceinline__ float lstm_cell_bwd(const float pre[4], float c_prev,
     d_g[2] = (d_ct * i) * (1.f - g * g);
     d_g[3] = d_o * o * (1.f - o);
     return d_ct * f;
-}
-
-// ---------------------------------------------------------------- forward
-
-// One LSTM step over inputs [x0 | x1 | h_in] with interleaved gate rows
-// (row 4 * j + g): one warp per unit j, the cell update in the epilogue.
-// Writes the pre-activations (block layout [B, 4H]), the new cell and h in
-// T, and y = h * mask (or h) in T. Null x0 / x1 / h_in / c_prev read as 0.
-template <typename T>
-__global__ void lstm_fwd_kernel(const T* W, const float* bias, int ld, const T* x0, int n0,
-                                const T* x1, int n1, const T* h_in, int H, const T* c_prev,
-                                T* h_out, T* c_out, T* gates_out, const T* mask, T* y_out,
-                                int B) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    T* xs = reinterpret_cast<T*>(smem);
-    const int b0 = blockIdx.y * kBT;
-    stage<T>(xs, ld, b0, B, x0, n0, x1, n1, h_in, H);
-    __syncthreads();
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int j = blockIdx.x * kWarps + warp;
-    if (j >= H) return;
-    float acc[4][kBT] = {};
-#pragma unroll
-    for (int g = 0; g < 4; ++g) warp_gemv<T, kBT>(W + (size_t)(4 * j + g) * ld, xs, ld, acc[g]);
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int bb = 0; bb < kBT; ++bb) acc[g][bb] = warp_sum(acc[g][bb]);
-    const int b = b0 + lane;
-    if (lane >= kBT || b >= B) return;
-    float pre[4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) pre[g] = pick(acc[g], lane) + bias[4 * j + g];
-    const size_t k = (size_t)b * H + j;
-    const float cp = c_prev ? to_f(c_prev[k]) : 0.f;
-    const float cn = sigmoidf_(pre[1]) * cp + sigmoidf_(pre[0]) * tanhf(pre[2]);
-    const float h = sigmoidf_(pre[3]) * tanhf(cn);
-#pragma unroll
-    for (int g = 0; g < 4; ++g) gates_out[(size_t)b * 4 * H + g * H + j] = from_f<T>(pre[g]);
-    c_out[k] = from_f<T>(cn);
-    h_out[k] = from_f<T>(h);
-    y_out[k] = from_f<T>(mask ? h * to_f(mask[k]) : h);
-}
-
-// Location-sensitive attention for one batch row per block: query
-// projection of q (already in T), location features of the T-rounded
-// [att, cum] from the folded filter u [2, K, A], energies, sigmoid or
-// softmax norm, context (rounded to T), cum += alignment.
-template <typename T>
-__global__ void attn_fwd_kernel(const T* q, const T* q_w, int ldq, int H1, const T* u, int K,
-                                int loc, const float* v_w, const float* v_b, const T* pinp,
-                                const float* maskadd, const T* enc, const float* att_prev,
-                                float* cum, T* ctx_out, float* align_out, int Tn, int A,
-                                int E, int softmax) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    const int TK = Tn + K - 1;
-    float* us = reinterpret_cast<float*>(smem);      // [2 * K * A]
-    float* pq = us + 2 * K * A;                      // [A]
-    float* xa = pq + A;                              // [TK]
-    float* xc = xa + TK;                             // [TK]
-    float* e = xc + TK;                              // [Tn]
-    float* red = e + Tn;                             // [32]
-    const int off = (2 * K * A + A + 2 * TK + Tn + 32 + 7) & ~7;
-    T* hq = reinterpret_cast<T*>(reinterpret_cast<float*>(smem) + off);   // [ldq]
-
-    const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-    const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
-    const int pad = (K - 1) / 2;
-    if (loc)
-        for (int i = tid; i < 2 * K * A; i += nt) us[i] = to_f(u[i]);
-    for (int i = tid; i < ldq; i += nt) hq[i] = i < H1 ? q[(size_t)b * H1 + i] : from_f<T>(0.f);
-    for (int i = tid; i < TK; i += nt) {
-        const int t = i - pad;
-        float va = 0.f, vc = 0.f;
-        if (t >= 0 && t < Tn) {
-            va = att_prev ? rnd<T>(att_prev[(size_t)b * Tn + t]) : 0.f;
-            vc = rnd<T>(cum[(size_t)b * Tn + t]);
-        }
-        xa[i] = va;
-        xc[i] = vc;
-    }
-    __syncthreads();
-    for (int a = warp; a < A; a += nw) {
-        float acc[1] = {0.f};
-        warp_gemv<T, 1>(q_w + (size_t)a * ldq, hq, ldq, acc);
-        const float s = warp_sum(acc[0]);
-        if (lane == 0) pq[a] = s;
-    }
-    __syncthreads();
-    const float vb = v_b[0];
-    for (int t = warp; t < Tn; t += nw) {
-        float s = 0.f;
-        for (int a = lane; a < A; a += 32) {
-            float f = 0.f;
-            if (loc)
-                for (int k = 0; k < K; ++k)
-                    f = fmaf(us[k * A + a], xa[t + k], fmaf(us[(K + k) * A + a], xc[t + k], f));
-            s += tanhf(pq[a] + f + to_f(pinp[((size_t)b * Tn + t) * A + a])) * v_w[a];
-        }
-        s = warp_sum(s);
-        if (lane == 0) e[t] = s + vb + maskadd[(size_t)b * Tn + t];
-    }
-    __syncthreads();
-    float part = softmax ? -INFINITY : 0.f;
-    if (softmax) {
-        for (int t = tid; t < Tn; t += nt) part = fmaxf(part, e[t]);
-        const float m = block_reduce<true>(part, red);
-        part = 0.f;
-        for (int t = tid; t < Tn; t += nt) {
-            e[t] = expf(e[t] - m);
-            part += e[t];
-        }
-    } else {
-        for (int t = tid; t < Tn; t += nt) {
-            e[t] = sigmoidf_(e[t]);
-            part += e[t];
-        }
-    }
-    const float total = block_reduce<false>(part, red);
-    const float inv = 1.f / (softmax ? total : fmaxf(total, 1e-8f));
-    for (int t = tid; t < Tn; t += nt) e[t] = e[t] * inv;
-    __syncthreads();
-    for (int i = tid; i < E; i += nt) {
-        float s = 0.f;
-        const T* col = enc + (size_t)b * Tn * E + i;
-        for (int t = 0; t < Tn; ++t) s = fmaf(e[t], to_f(col[(size_t)t * E]), s);
-        ctx_out[(size_t)b * E + i] = from_f<T>(s);
-    }
-    for (int t = tid; t < Tn; t += nt) {
-        const size_t k = (size_t)b * Tn + t;
-        align_out[k] = e[t];
-        cum[k] += e[t];
-    }
 }
 
 // --------------------------------------------------------------- backward
@@ -1040,41 +923,644 @@ __global__ void __launch_bounds__(kAttnThreads, 2) attn_bwd_kernel(const AttnBwd
     }
 }
 
-size_t attn_fwd_smem(int Tn, int A, int K, int ldq, size_t esize) {
-    const int TK = Tn + K - 1;
-    const int off = (2 * K * A + A + 2 * TK + Tn + 32 + 7) & ~7;
-    return (size_t)off * sizeof(float) + (size_t)ldq * esize;
+// ---------------------------------------------------------------- forward
+// (after the backward's kernels: it shares their tensor-core tiles and
+// cluster helpers)
+
+// One LSTM step of the forward scan: gates = W [x0 | x1 | h_in] + bias over
+// interleaved gate rows (row 4 j + g is unit j's gate g), then the cell
+// update. Writes the pre-activations (block layout [B, 4H]), the new cell
+// and h in T, and y = h * mask (or h) in T. Null x1 / h_in / c_prev read
+// as 0.
+struct LstmJob {
+    const void* W;               // bf16: fragments [RT][K16][32] x 8; float: rows [4H, ld]
+    const float* bias;           // [4H], interleaved
+    int ld;
+    const void *x0, *x1, *h_in, *c_prev, *mask;
+    int n0, n1, H;
+    void *h_out, *c_out, *gates_out, *y_out;
+    int blocks;                  // blocks of the grid's x the job takes
+};
+
+// One launch: one or two LSTM steps on disjoint ranges of blocks (the
+// decoder LSTM of step t and the attention LSTM of step t + 1 read nothing
+// the other writes). ntl: n-tiles of 8 batch rows a batch slice (bf16).
+struct LstmFwd {
+    LstmJob job[2];
+    int B, ntl;
+    int probe;                   // 0, or the phase to stop after (probe launches)
+};
+
+// The cell update of unit j, batch row b, from its four pre-activations.
+template <typename T>
+__device__ __forceinline__ void lstm_cell_fwd(const LstmJob& J, const float pre[4], int b, int j) {
+    const int H = J.H;
+    const size_t k = (size_t)b * H + j;
+    const float cp = J.c_prev ? to_f(static_cast<const T*>(J.c_prev)[k]) : 0.f;
+    const float cn = sigmoidf_(pre[1]) * cp + sigmoidf_(pre[0]) * tanhf(pre[2]);
+    const float h = sigmoidf_(pre[3]) * tanhf(cn);
+    T* gates = static_cast<T*>(J.gates_out) + (size_t)b * 4 * H + j;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) gates[g * H] = from_f<T>(pre[g]);
+    static_cast<T*>(J.c_out)[k] = from_f<T>(cn);
+    static_cast<T*>(J.h_out)[k] = from_f<T>(h);
+    const T* mask = static_cast<const T*>(J.mask);
+    static_cast<T*>(J.y_out)[k] = from_f<T>(mask ? h * to_f(mask[k]) : h);
 }
 
-template <typename T>
-int lstm_fwd(const void* W, const void* bias, int ld, const void* x0, int n0,
-             const void* x1, int n1, const void* h_in, int H, const void* c_prev,
-             void* h_out, void* c_out, void* gates_out, const void* mask, void* y_out,
-             int B, cudaStream_t stream) {
-    const size_t smem = (size_t)kBT * ld * sizeof(T);
-    if (int err = set_smem((const void*)lstm_fwd_kernel<T>, smem)) return err;
-    dim3 grid((H + kWarps - 1) / kWarps, (B + kBT - 1) / kBT);
-    lstm_fwd_kernel<T><<<grid, 32 * kWarps, smem, stream>>>(
-        (const T*)W, (const float*)bias, ld, (const T*)x0, n0, (const T*)x1, n1,
-        (const T*)h_in, H, (const T*)c_prev, (T*)h_out, (T*)c_out, (T*)gates_out,
-        (const T*)mask, (T*)y_out, B);
-    return launch_status();
+// float32: one warp a unit (its four gate rows) with FMA, an 8-row batch
+// tile a block row of the grid.
+__global__ void lstm_fwd_kernel(const __grid_constant__ LstmFwd p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    pdl_wait();
+    pdl_release();
+    const int jb = (int)blockIdx.x >= p.job[0].blocks;
+    const LstmJob& J = p.job[jb];
+    const int bx = (int)blockIdx.x - (jb ? p.job[0].blocks : 0);
+    float* xs = reinterpret_cast<float*>(smem);
+    const int b0 = blockIdx.y * kBT;
+    stage<float>(xs, J.ld, b0, p.B, static_cast<const float*>(J.x0), J.n0,
+                 static_cast<const float*>(J.x1), J.n1, static_cast<const float*>(J.h_in), J.H);
+    __syncthreads();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int j = bx * kWarps + warp;
+    if (j >= J.H) return;
+    const float* W = static_cast<const float*>(J.W);
+    float acc[4][kBT] = {};
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+        warp_gemv<float, kBT>(W + (size_t)(4 * j + g) * J.ld, xs, J.ld, acc[g]);
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int bb = 0; bb < kBT; ++bb) acc[g][bb] = warp_sum(acc[g][bb]);
+    const int b = b0 + lane;
+    if (lane >= kBT || b >= p.B) return;
+    float pre[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) pre[g] = pick(acc[g], lane) + J.bias[4 * j + g];
+    lstm_cell_fwd<float>(J, pre, b, j);
 }
 
+// Stage batch rows b0 .. b0 + rows - 1 of the k-tiles k = rank + cs kk,
+// kk in [kk0, kk1), of [x0 | x1 | h_in] into xs [rows][xld] at column
+// 16 kk (cp.async; the caller waits), zeros past B, past the inputs and for
+// a null input. 16-byte copies where every segment is a multiple of 8 long
+// and 16-byte aligned, else element by element; either way through L2 only
+// (cp.async.cg, __ldcg), as the carries come from earlier launches.
+__device__ void stage_tiles(bf16* xs, int xld, const LstmJob& J, int B, int b0, int rows,
+                            int rank, int cs, int kk0, int kk1) {
+    const bf16 *x0 = static_cast<const bf16*>(J.x0), *x1 = static_cast<const bf16*>(J.x1);
+    const bf16* x2 = static_cast<const bf16*>(J.h_in);
+    const int n0 = J.n0, n1 = J.n1, n2 = J.H;
+    const bool vec = ((n0 | n1 | n2) & 7) == 0 && aligned16(x0) && aligned16(x1) && aligned16(x2);
+    const int per_el = vec ? 8 : 1, nv = 16 / per_el * (kk1 - kk0);
+    for (int i = threadIdx.x; i < rows * nv; i += blockDim.x) {
+        const int bb = i / nv, e = (i - bb * nv) * per_el;
+        const int kk = kk0 + e / 16, c = e % 16;
+        const bf16* src = source(b0 + bb, (rank + cs * kk) * 16 + c, B, x0, n0, x1, n1, x2, n2);
+        bf16* dst = xs + bb * xld + kk * 16 + c;
+        if (!vec) *dst = src ? __ldcg(src) : __float2bfloat16_rn(0.f);
+        else if (src) cp_async16(dst, src);
+        else *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+}
+
+// bf16: the LSTM products on the tensor cores (mma.sync m16n8k16) from W
+// in fragment order, for every batch row at once. A block owns a band of
+// kBand interleaved gate rows (a warp a 16-row tile: 4 units x 4 gates)
+// and the k-tiles k = rank + cs kk of the cluster's `cs` (interleaved, so
+// that each block holds an even share of the context's tiles); a batch
+// slice of up to kMmaNT n-tiles is the grid's z. Every input but the
+// context (x1) is final before the launch starts (the scan's kernels
+// signal the next one only after their own wait), so the block stages
+// and multiplies all its other tiles before it waits for the attention,
+// and only the context's tiles after. Each warp streams its tile's A
+// fragments (16 bytes a lane a k-tile, read once a step for every batch
+// row) a chunk of kFwdChunk k-tiles ahead of the mma.sync that use them,
+// in two register buffers used in turn. At up to 32 batch rows (NT = 4) a
+// thread has 64 registers, so that two blocks sit on an SM beside an
+// attention block and every block's products run while the attention
+// does. The cluster's partial sums meet in distributed shared memory:
+// block `rank` sums its share of the band's units (all four gate rows of
+// each) over the cluster's blocks in rank order, adds the biases and runs
+// the cell update.
+size_t lstm_mma_smem(int ntl, int per) {
+    const size_t xs = (size_t)ntl * 8 * (per * 16 + 8) * sizeof(bf16);
+    const size_t part = (size_t)kBand * (ntl * 8 + 1) * sizeof(float);
+    return xs > part ? xs : part;
+}
+
+constexpr int kFwdChunk = 4;                  // k-tiles of weights a warp loads at once
+
+template <int NT>                             // n-tiles of 8 batch rows a block, at most
+__global__ void __launch_bounds__(kMmaWarps * 32, NT <= 4 ? 4 : 2)
+    lstm_mma_kernel(const __grid_constant__ LstmFwd p) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+    const int jb = (int)blockIdx.x >= p.job[0].blocks;
+    const LstmJob& J = p.job[jb];
+    const int band = ((int)blockIdx.x - (jb ? p.job[0].blocks : 0)) / cs;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    const int H = J.H, RT = (4 * H + 15) / 16, K16 = (J.n0 + J.n1 + H + 15) / 16;
+    const int rt = band * kMmaWarps + warp;
+    const bool live = rt < RT;
+    // this block's k-tiles, and [kp0, kp1), the ones over the context
+    const int nk = rank < K16 ? (K16 - rank + cs - 1) / cs : 0;
+    const int kf = J.n0 / 16, kl = (J.n0 + J.n1 - 1) / 16;
+    const int kp0 = min(nk, kf > rank ? (kf - rank + cs - 1) / cs : 0);
+    const int kp1 = max(kp0, min(nk, kl >= rank ? (kl - rank) / cs + 1 : 0));
+    const int npost = kp1 - kp0, npre = nk - npost;
+    constexpr int C = kFwdChunk;
+    const int ncp = (npre + C - 1) / C, nch = ncp + (npost + C - 1) / C;
+    // chunk c covers positions [s0, s1) of the order: the tiles before the
+    // wait, then the context's
+    auto s0_of = [&](int c) { return c < ncp ? c * C : npre + (c - ncp) * C; };
+    auto s1_of = [&](int c) {
+        return c < ncp ? min(npre, (c + 1) * C) : min(nk, npre + (c + 1 - ncp) * C);
+    };
+    auto tile_of = [&](int s) { return s < npre ? (s < kp0 ? s : s + npost) : kp0 + s - npre; };
+    const int b0 = blockIdx.z * kMmaNT * 8, rows = p.ntl * 8, xld = nk * 16 + 8, pld = rows + 1;
+    bf16* xs = reinterpret_cast<bf16*>(smem);                  // [rows][xld]
+    float* part = reinterpret_cast<float*>(smem);              // [kBand][pld], after the products
+    const uint4* wa = static_cast<const uint4*>(J.W) + (size_t)rt * K16 * 32 + lane;
+    float acc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    uint4 a[kFwdChunk], b[kFwdChunk];
+    auto fetch = [&](uint4 (&dst)[kFwdChunk], int c) {
+        const int s0 = c < nch ? s0_of(c) : 0, s1 = c < nch ? s1_of(c) : 0;
+#pragma unroll
+        for (int i = 0; i < kFwdChunk; ++i) {
+            const int k = rank + cs * tile_of(s0 + i);
+            dst[i] = live && s0 + i < s1 ? __ldg(wa + (size_t)k * 32) : make_uint4(0u, 0u, 0u, 0u);
+        }
+    };
+    // chunk c's products; before the first of the context's tiles, the wait
+    // for the attention that writes the context, and its staging
+    auto run = [&](const uint4 (&w)[kFwdChunk], int c) {
+        if (c == ncp) {
+            pdl_wait();
+            pdl_release();
+            stage_tiles(xs, xld, J, p.B, b0, rows, rank, cs, kp0, kp1);
+            cp_async_wait_all();
+            __syncthreads();
+        }
+        if (!live) return;
+        const int s0 = s0_of(c), s1 = s1_of(c);
+        const bf16* xb = xs + g * xld + 2 * q;
+#pragma unroll
+        for (int i = 0; i < kFwdChunk; ++i) {
+            if (s0 + i >= s1) break;
+            const bf16* xt = xb + 16 * tile_of(s0 + i);
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+                if (j < p.ntl) {
+                    const bf16* xk = xt + j * 8 * xld;
+                    mma16816(acc[j], w[i], *reinterpret_cast<const uint32_t*>(xk),
+                             *reinterpret_cast<const uint32_t*>(xk + 8));
+                }
+        }
+    };
+    fetch(a, 0);
+    stage_tiles(xs, xld, J, p.B, b0, rows, rank, cs, 0, kp0);
+    stage_tiles(xs, xld, J, p.B, b0, rows, rank, cs, kp1, nk);
+    cp_async_wait_all();
+    __syncthreads();
+    if (p.probe == 1) {
+        pdl_wait();
+        pdl_release();
+        return;
+    }
+    // two buffers in turn, so that the next chunk's loads are in flight
+    // while a chunk's products run
+    for (int c = 0; c < nch; c += 2) {
+        fetch(b, c + 1);
+        run(a, c);
+        fetch(a, c + 2);
+        if (c + 1 < nch) run(b, c + 1);
+    }
+    if (ncp == nch) {                                          // no context tile here
+        pdl_wait();
+        pdl_release();
+    }
+    __syncthreads();                                           // xs becomes the partial sums
+    float* pw = part + warp * 16 * pld;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+        if (j < p.ntl) {
+            pw[g * pld + j * 8 + 2 * q] = acc[j][0];
+            pw[g * pld + j * 8 + 2 * q + 1] = acc[j][1];
+            pw[(g + 8) * pld + j * 8 + 2 * q] = acc[j][2];
+            pw[(g + 8) * pld + j * 8 + 2 * q + 1] = acc[j][3];
+        }
+    if (p.probe == 2) return;
+    cluster.sync();                                            // every block's partials
+    if (p.probe == 3) {
+        cluster.sync();
+        return;
+    }
+    // this block's units, lanes over units (coalesced stores; pld odd: the
+    // lanes' reads fall in distinct banks), four ranks' loads issued at once
+    constexpr int kUnits = kBand / 4;                          // units a band
+    const int u0 = rank * kUnits / cs, nu = (rank + 1) * kUnits / cs - u0;
+    const int nb = min(rows, p.B - b0);
+    for (int i = threadIdx.x; i < nu * nb; i += blockDim.x) {
+        const int bb = i / nu, lu = u0 + i - bb * nu, j = band * kUnits + lu;
+        if (j >= H) continue;
+        float pre[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int o0 = 0; o0 < cs; o0 += 4) {
+            float v[4][4];
+#pragma unroll
+            for (int o = 0; o < 4; ++o) {
+                const float* po = o0 + o < cs
+                    ? cluster.map_shared_rank(part, o0 + o) + 4 * lu * pld + bb : nullptr;
+#pragma unroll
+                for (int gg = 0; gg < 4; ++gg) v[o][gg] = po ? po[gg * pld] : 0.f;
+            }
+#pragma unroll
+            for (int o = 0; o < 4; ++o)
+#pragma unroll
+                for (int gg = 0; gg < 4; ++gg) pre[gg] += v[o][gg];
+        }
+#pragma unroll
+        for (int gg = 0; gg < 4; ++gg) pre[gg] += J.bias[4 * j + gg];
+        lstm_cell_fwd<bf16>(J, pre, b0 + bb, j);
+    }
+    cluster.sync();                                            // no block leaves while read
+}
+
+// A cluster barrier in two halves: arrive once this block reads no other
+// block's shared memory, wait before it leaves.
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 8 consecutive elements of T as loaded from global memory (bf16: one
+// 16-byte word), unpacked when used.
 template <typename T>
-int attn_fwd(const void* q, const void* q_w, int ldq, int H1, const void* u, int K, int loc,
-             const void* v_w, const void* v_b, const void* pinp, const void* maskadd,
-             const void* enc, const void* att_prev, void* cum, void* ctx_out,
-             void* align_out, int B, int Tn, int A, int E, int softmax,
-             cudaStream_t stream) {
-    const size_t smem = attn_fwd_smem(Tn, A, K, ldq, sizeof(T));
-    if (int err = set_smem((const void*)attn_fwd_kernel<T>, smem)) return err;
-    attn_fwd_kernel<T><<<B, 512, smem, stream>>>(
-        (const T*)q, (const T*)q_w, ldq, H1, (const T*)u, K, loc, (const float*)v_w,
-        (const float*)v_b, (const T*)pinp, (const float*)maskadd, (const T*)enc,
-        (const float*)att_prev, (float*)cum, (T*)ctx_out, (float*)align_out, Tn, A, E,
-        softmax);
-    return launch_status();
+struct Vec8;
+template <>
+struct Vec8<bf16> {
+    uint4 v;
+    __device__ __forceinline__ void ldg(const bf16* p) {
+        v = __ldg(reinterpret_cast<const uint4*>(p));
+    }
+    __device__ __forceinline__ void zero() { v = make_uint4(0u, 0u, 0u, 0u); }
+    __device__ __forceinline__ void get(float f[8]) const { unpack8(v, f); }
+};
+template <>
+struct Vec8<float> {
+    float4 a, b;
+    __device__ __forceinline__ void ldg(const float* p) {
+        a = __ldg(reinterpret_cast<const float4*>(p));
+        b = __ldg(reinterpret_cast<const float4*>(p + 4));
+    }
+    __device__ __forceinline__ void zero() { a = b = make_float4(0.f, 0.f, 0.f, 0.f); }
+    __device__ __forceinline__ void get(float f[8]) const {
+        f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+        f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+    }
+};
+
+// The attention forward's arguments, one step. cum is updated in place.
+template <typename T>
+struct AttnFwd {
+    const T *q, *q_w, *u, *pinp, *enc;
+    const float *v_w, *v_b, *maskadd, *att_prev;
+    float *cum, *align_out;
+    T* ctx_out;
+    int ldq, H1, K, loc, Tn, A, E, softmax;
+    int probe;                        // 0, or the phase to stop after (probe launches)
+};
+
+// One block's shared memory in the attention forward's cluster: the float
+// offset of each array (hq, its part of the query, and enc, its columns of
+// the encoder's rows, both in T and 16-byte aligned) and the bytes. Tq text
+// positions at most a block, Jq elements of H1, Ec columns of E; enc's row
+// stride ELD is an odd multiple of 16 bytes, so that the 16-byte reads of
+// eight lanes over eight rows fall in distinct banks. The encoder's columns
+// are staged (stage) only where they fit beside the rest (at full width,
+// K = 31: up to T_in 484 in bf16, 296 in float32); past that the context
+// reads them from global memory, and the rest fits up to T_in 1,460.
+constexpr size_t kSmemOptin = 232448;         // dynamic shared memory a block may use on the H100
+
+struct AttnFwdLayout {
+    int Tq, Jq, Ec, ELD, S, W;
+    int us, vw, pp, pq, xa, xc, pin, sv, al, red, nrm, sc, hq, enc;
+    bool stage;
+    size_t bytes;
+};
+
+__host__ __device__ inline AttnFwdLayout attn_fwd_layout(int Tn, int A, int K, int H1, int E,
+                                                         int cs, int esize) {
+    AttnFwdLayout L;
+    L.Tq = (Tn + cs - 1) / cs;
+    L.Jq = ((H1 + 7) / 8 + cs - 1) / cs * 8;
+    L.Ec = ((E + 7) / 8 + cs - 1) / cs * 8;
+    L.ELD = (L.Ec * esize / 16 | 1) * 16 / esize;
+    L.S = 2 * K + 1;
+    L.W = L.Tq + K - 1;
+    int o = 0;
+    L.us = o;  o += L.S * A;                  // u[c, k, a] at a * S + c * K + k
+    L.vw = o;  o += A;                        // v
+    L.pp = o;  o += A;                        // this block's part of the projection
+    L.pq = o;  o += A;                        // the projection, summed over the cluster
+    L.xa = o;  o += L.W;                      // rounded att over the window
+    L.xc = o;  o += L.W;                      // rounded cum
+    L.pin = o; o += L.Tq * A;                 // W_k m of this block's positions
+    L.sv = o;  o += L.Tq;                     // mask + v_b, energies, then s or exp(e - m)
+    L.al = o;  o += Tn;                       // the alignments of the row
+    L.red = o; o += 32;
+    L.nrm = o; o += 4;                        // this block's norm partials
+    L.sc = o;  o += 8;                        // each block's scale to alignments
+    L.hq = (o + 3) & ~3;
+    L.enc = L.hq + (L.Jq * esize + 15) / 16 * 4;
+    const size_t rest = (size_t)L.enc * sizeof(float), enc = (size_t)Tn * L.ELD * esize;
+    L.stage = rest + enc <= kSmemOptin;
+    L.bytes = rest + (L.stage ? enc : 0);
+    return L;
+}
+
+// The location-sensitive attention of one step, a cluster of `cs` blocks a
+// batch row. Block r owns the r-th of cs even parts of the text positions,
+// of H1 (in chunks of 8) and of E (in chunks of 8). Before the wait it
+// loads the scan's inputs: v, the folded filter u, W_k m and the mask of
+// its positions, starts copying its columns of the encoder's rows into
+// shared memory (cp.async; where they fit, else the context reads them
+// from global memory), reads the rounded att / cum over its
+// positions' location window (the positions past its part's edges written
+// by their owners in the previous step, which finished before this launch
+// started) and adds its positions' location features to W_k m. After the
+// wait: its part of the query q (T), the partial query projection over its
+// part of H1 for every unit, summed over the cluster in rank order (cluster
+// barrier 1); the energies of its positions (a warp a position), its norm
+// partials: softmax max and sum of exp(e - max), or the sum of sigmoids
+// (barrier 2). Every block combines the partials and gathers the whole
+// row's alignments from their owners, then writes the alignments and
+// cum += alignment of its positions and the context (rounded to T) of its
+// columns of E over every position (a warp 8 columns).
+template <typename T>
+__global__ void __launch_bounds__(kAttnThreads, 2) attn_fwd_kernel(const AttnFwd<T> p) {
+    extern __shared__ __align__(16) float sm[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int cs = (int)cluster.num_blocks(), r = (int)cluster.block_rank();
+    const int Tn = p.Tn, A = p.A, K = p.K, H1 = p.H1, E = p.E;
+    const AttnFwdLayout L = attn_fwd_layout(Tn, A, K, H1, E, cs, (int)sizeof(T));
+    float *us = sm + L.us, *vw = sm + L.vw, *pp = sm + L.pp, *pq = sm + L.pq;
+    float *xa = sm + L.xa, *xc = sm + L.xc, *pin = sm + L.pin, *sv = sm + L.sv, *al = sm + L.al;
+    float *red = sm + L.red, *nrm = sm + L.nrm, *sc = sm + L.sc;
+    T* hq = reinterpret_cast<T*>(sm + L.hq);
+    T* encs = reinterpret_cast<T*>(sm + L.enc);
+    const int b = blockIdx.x / cs, tid = threadIdx.x, nt = blockDim.x;
+    const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
+    const int pad = (K - 1) / 2, S = L.S;
+    const int t0 = r * Tn / cs, ntl = (r + 1) * Tn / cs - t0;
+    const int nc = (H1 + 7) / 8, j0 = r * nc / cs * 8, nj = (r + 1) * nc / cs * 8 - j0;
+    const int ne = (E + 7) / 8, e0 = r * ne / cs, e1 = (r + 1) * ne / cs;
+    const size_t rb = (size_t)b * Tn;
+
+    for (int a = tid; a < A; a += nt) vw[a] = p.v_w[a];
+    if (p.loc) {
+        const int K2 = 2 * K;
+        if ((K2 * A & 7) == 0 && aligned16(p.u)) {
+            for (int i = tid * 8; i < K2 * A; i += nt * 8) {
+                float f[8];
+                ldg8(p.u + i, f);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) {
+                    const int ck = (i + e) / A, a = i + e - ck * A;
+                    us[a * S + ck] = f[e];
+                }
+            }
+        } else {
+            for (int i = tid; i < K2 * A; i += nt) {
+                const int ck = i / A, a = i - ck * A;
+                us[a * S + ck] = to_f(p.u[i]);
+            }
+        }
+    }
+    for (int i = tid; i < ntl * A; i += nt) pin[i] = to_f(p.pinp[(rb + t0) * A + i]);
+    const float vb = p.v_b[0];
+    for (int tl = tid; tl < ntl; tl += nt) sv[tl] = p.maskadd[rb + t0 + tl] + vb;
+    // the encoder's rows, this block's columns (zeros past E), where staged
+    const bool e8 = (E & 7) == 0 && aligned16(p.enc);
+    const int ncol = 8 * (e1 - e0);
+    const T* enc0 = p.enc + (size_t)b * Tn * E + 8 * e0;
+    if (L.stage && e8) {
+        constexpr int kPer = 16 / sizeof(T);                   // elements a 16-byte copy
+        const int nv = ncol / kPer;
+        for (int i = tid; i < Tn * nv; i += nt) {
+            const int t = i / nv, v = i - t * nv;
+            cp_async16(encs + t * L.ELD + kPer * v, enc0 + (size_t)t * E + kPer * v);
+        }
+    } else if (L.stage) {
+        for (int i = tid; i < Tn * ncol; i += nt) {
+            const int t = i / ncol, c = i - t * ncol;
+            encs[t * L.ELD + c] = 8 * e0 + c < E ? enc0[(size_t)t * E + c] : from_f<T>(0.f);
+        }
+    }
+    // the alignment state over the window: final before this launch started
+    // (loads that skip L1)
+    for (int i = tid; i < ntl + K - 1; i += nt) {
+        const int t = t0 + i - pad;
+        float va = 0.f, vc = 0.f;
+        if (t >= 0 && t < Tn) {
+            va = p.att_prev ? rnd<T>(__ldcg(p.att_prev + rb + t)) : 0.f;
+            vc = rnd<T>(__ldcg(p.cum + rb + t));
+        }
+        xa[i] = va;
+        xc[i] = vc;
+    }
+    __syncthreads();
+    // the location features of this block's positions, added to W_k m: a
+    // warp two positions at once (the filter's shared-memory reads serve
+    // both)
+    if (p.loc)
+        for (int tl = warp; tl < ntl; tl += 2 * nw) {
+            const int d2 = tl + nw < ntl ? nw : 0;
+            for (int c0 = 0; c0 < A; c0 += 128) {
+                float f[4] = {0.f, 0.f, 0.f, 0.f}, g[4] = {0.f, 0.f, 0.f, 0.f};
+                const float* u0 = us + (c0 + lane) * S;
+#pragma unroll 2
+                for (int kk = 0; kk < K; ++kk) {
+                    const float x0 = xa[tl + kk], x1 = xc[tl + kk];
+                    const float y0 = xa[tl + d2 + kk], y1 = xc[tl + d2 + kk];
+#pragma unroll
+                    for (int i = 0; i < 4; ++i)
+                        if (c0 + lane + 32 * i < A) {
+                            const float ua = u0[32 * i * S + kk], uc = u0[32 * i * S + K + kk];
+                            f[i] = fmaf(ua, x0, fmaf(uc, x1, f[i]));
+                            g[i] = fmaf(ua, y0, fmaf(uc, y1, g[i]));
+                        }
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                    const int a = c0 + lane + 32 * i;
+                    if (a >= A) continue;
+                    pin[tl * A + a] += f[i];
+                    if (d2) pin[(tl + d2) * A + a] += g[i];
+                }
+            }
+        }
+    // the scan's carries from here on; the next launch may start once every
+    // block is past this wait (so a launch that starts finds the one two
+    // before it finished)
+    pdl_wait();
+    pdl_release();
+    for (int i = tid; i < nj; i += nt)
+        hq[i] = j0 + i < H1 ? p.q[(size_t)b * H1 + j0 + i] : from_f<T>(0.f);
+    cp_async_wait_all();
+    __syncthreads();
+    if (p.probe == 1) return;
+    // this block's part of the projection, four units a warp at once
+    for (int a = warp; a < A; a += 4 * nw) {
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int i = lane * 8; i < nj; i += 256) {
+            Vec8<T> wv[4];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+                const int am = a + m * nw;
+                if (am < A) wv[m].ldg(p.q_w + (size_t)am * p.ldq + j0 + i);
+                else wv[m].zero();
+            }
+            float xf[8];
+            load8(hq + i, xf);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+                float wf[8];
+                wv[m].get(wf);
+#pragma unroll
+                for (int e = 0; e < 8; ++e) s[m] = fmaf(wf[e], xf[e], s[m]);
+            }
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+            const float v = warp_sum(s[m]);
+            if (lane == 0 && a + m * nw < A) pp[a + m * nw] = v;
+        }
+    }
+    cluster.sync();                                             // 1: the projection's parts
+    for (int a = tid; a < A; a += nt) {
+        float s = 0.f;
+        for (int o = 0; o < cs; ++o) s += cluster.map_shared_rank(pp, o)[a];
+        pq[a] = s;
+    }
+    __syncthreads();
+    if (p.probe == 2) {
+        cluster.sync();
+        return;
+    }
+    // energies of this block's positions, a warp a position
+    for (int tl = warp; tl < ntl; tl += nw) {
+        float s = 0.f;
+        for (int a = lane; a < A; a += 32) s += tanhf(pq[a] + pin[tl * A + a]) * vw[a];
+        s = warp_sum(s);
+        if (lane == 0) sv[tl] += s;
+    }
+    __syncthreads();
+    if (p.probe == 3) {
+        cluster.sync();
+        return;
+    }
+    // this block's norm partials
+    if (p.softmax) {
+        float m = -INFINITY;
+        for (int tl = tid; tl < ntl; tl += nt) m = fmaxf(m, sv[tl]);
+        m = block_reduce<true>(m, red);
+        float se = 0.f;
+        for (int tl = tid; tl < ntl; tl += nt) {
+            const float e = expf(sv[tl] - m);
+            sv[tl] = e;
+            se += e;
+        }
+        se = block_reduce<false>(se, red);
+        if (tid == 0) { nrm[0] = m; nrm[1] = se; }
+    } else {
+        float se = 0.f;
+        for (int tl = tid; tl < ntl; tl += nt) {
+            const float s = sigmoidf_(sv[tl]);
+            sv[tl] = s;
+            se += s;
+        }
+        se = block_reduce<false>(se, red);
+        if (tid == 0) { nrm[0] = 0.f; nrm[1] = se; }
+    }
+    cluster.sync();                                             // 2: the norm's partials
+    if (tid == 0) {
+        float tot = 0.f;
+        if (p.softmax) {
+            float M = -INFINITY;
+            for (int o = 0; o < cs; ++o) M = fmaxf(M, cluster.map_shared_rank(nrm, o)[0]);
+            for (int o = 0; o < cs; ++o) {
+                const float* n = cluster.map_shared_rank(nrm, o);
+                sc[o] = expf(n[0] - M);
+                tot += n[1] * sc[o];
+            }
+            for (int o = 0; o < cs; ++o) sc[o] /= tot;
+        } else {
+            for (int o = 0; o < cs; ++o) tot += cluster.map_shared_rank(nrm, o)[1];
+            const float inv = 1.f / fmaxf(tot, 1e-8f);
+            for (int o = 0; o < cs; ++o) sc[o] = inv;
+        }
+    }
+    __syncthreads();
+    for (int t = tid; t < Tn; t += nt) {
+        const int o = part_of(t, Tn, cs);
+        al[t] = cluster.map_shared_rank(sv, o)[t - o * Tn / cs] * sc[o];
+    }
+    cluster_arrive();                                           // 3: no more remote reads
+    __syncthreads();
+    if (p.probe == 4) {
+        cluster_wait();
+        return;
+    }
+    for (int tl = tid; tl < ntl; tl += nt) {
+        const size_t k = rb + t0 + tl;
+        const float a = al[t0 + tl];
+        p.align_out[k] = a;
+        p.cum[k] = __ldcg(p.cum + k) + a;
+    }
+    // the context of this block's 8-column chunks of E from shared memory
+    // (or global memory where not staged), a warp a chunk, lanes over
+    // positions
+    for (int ch = e0 + warp; ch < e1; ch += nw) {
+        const int col = 8 * ch, w8 = min(8, E - col);
+        float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (L.stage) {
+            const T* en = encs + (col - 8 * e0);
+#pragma unroll 4
+            for (int t = lane; t < Tn; t += 32) {
+                float f[8];
+                load8(en + t * L.ELD, f);
+                const float a = al[t];
+#pragma unroll
+                for (int e = 0; e < 8; ++e) acc[e] = fmaf(a, f[e], acc[e]);
+            }
+        } else {
+            const T* en = p.enc + rb * E + col;
+            for (int t = lane; t < Tn; t += 32) {
+                float f[8];
+                if (e8) {
+                    ldg8(en + (size_t)t * E, f);
+                } else {
+#pragma unroll
+                    for (int e = 0; e < 8; ++e) f[e] = e < w8 ? to_f(en[(size_t)t * E + e]) : 0.f;
+                }
+                const float a = al[t];
+#pragma unroll
+                for (int e = 0; e < 8; ++e) acc[e] = fmaf(a, f[e], acc[e]);
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] = warp_sum(acc[e]);
+        if (lane < w8) p.ctx_out[(size_t)b * E + col + lane] = from_f<T>(pick(acc, lane));
+    }
+    cluster_wait();
 }
 
 // A launch of `kernel` as clusters of `cs` blocks along x that, with
@@ -1217,6 +1703,123 @@ int bwd_scan(const BwdScan& s) {
     return 0;
 }
 
+// The forward scan's arguments (ctypes mirror: ops/taco2_train.py
+// `_FwdScan`). Stacks are contiguous [Ts, B, n]. a_w / d_w are the
+// interleaved gate rows in fragment order for bf16, rows [4H, ld] for
+// float32. h1 / h2 / q: two [B, H] buffers each (step t reads t % 2, writes
+// the other; q is written by the attention LSTM of step t into buffer t % 2);
+// cum: [B, Tn] float32, zero. Null m_a / m_d: no dropout. attn_probe /
+// lstm_probe: 0, or the phase the attention / the bf16 LSTM products stop
+// after; serial: launches without the programmatic dependence.
+struct FwdScan {
+    int use_bf16, Ts, B, Tn, P, E, H1, H2, A, K, loc, softmax, ldq, ld_a, ld_d;
+    int cluster_lstm, cluster_attn, attn_probe, lstm_probe, serial;
+    const void *a_w, *a_b, *d_w, *d_b, *q_w, *u, *v_w, *v_b;
+    const void *prenet, *enc, *pinp, *maskadd, *m_a, *m_d;
+    void *dech, *ctx, *align, *g_a, *g_d, *c_a, *c_d;
+    void *h1, *h2, *q, *cum;
+    void* stream;
+};
+
+// The whole forward scan on `stream`: the attention LSTM of step 0, then
+// for each step t the attention (a cluster a row) and one launch of the
+// decoder LSTM of t beside the attention LSTM of t + 1 (2 Ts + 1
+// launches). Returns the first launch's error.
+template <typename T>
+int fwd_scan(const FwdScan& s) {
+    constexpr bool kBf16 = std::is_same<T, bf16>::value;
+    const cudaStream_t stream = (cudaStream_t)s.stream;
+    const int B = s.B, Tn = s.Tn, P = s.P, E = s.E, H1 = s.H1, H2 = s.H2;
+    const int cs = kBf16 ? s.cluster_lstm : 1;
+    const int ntl = min(kMmaNT, (B + 7) / 8), slices = (B + kMmaNT * 8 - 1) / (kMmaNT * 8);
+    auto blocks = [&](int H) {
+        return kBf16 ? ((4 * H + 15) / 16 + kMmaWarps - 1) / kMmaWarps * cs
+                     : (H + kWarps - 1) / kWarps;
+    };
+    auto per = [&](int n) { return ((n + 15) / 16 + cs - 1) / cs; };
+    size_t lstm_smem;
+    const void* lstm_fn;
+    if constexpr (kBf16) {
+        lstm_smem = std::max(lstm_mma_smem(ntl, per(P + E + H1)),
+                             lstm_mma_smem(ntl, per(H1 + E + H2)));
+        lstm_fn = ntl <= 4 ? (const void*)lstm_mma_kernel<4> : (const void*)lstm_mma_kernel<8>;
+    } else {
+        lstm_smem = (size_t)kBT * std::max(s.ld_a, s.ld_d) * sizeof(float);
+        lstm_fn = (const void*)lstm_fwd_kernel;
+    }
+    if (int err = set_smem(lstm_fn, lstm_smem)) return err;
+    const AttnFwdLayout L = attn_fwd_layout(Tn, s.A, s.K, H1, E, s.cluster_attn, (int)sizeof(T));
+    if (int err = set_smem((const void*)attn_fwd_kernel<T>, L.bytes)) return err;
+
+    const T *prenet = (const T*)s.prenet, *m_a = (const T*)s.m_a, *m_d = (const T*)s.m_d;
+    T *dech = (T*)s.dech, *ctx = (T*)s.ctx, *g_a = (T*)s.g_a, *g_d = (T*)s.g_d;
+    T *c_a = (T*)s.c_a, *c_d = (T*)s.c_d, *h1 = (T*)s.h1, *h2 = (T*)s.h2, *q = (T*)s.q;
+    float* align = (float*)s.align;
+    const size_t sB = B, sH1 = sB * H1, sH2 = sB * H2, sE = sB * E, sT = sB * Tn;
+    auto att_job = [&](int t) {
+        LstmJob j = {};
+        j.W = s.a_w; j.bias = (const float*)s.a_b; j.ld = s.ld_a;
+        j.x0 = prenet + t * sB * P; j.n0 = P;
+        j.x1 = t ? ctx + (t - 1) * sE : nullptr; j.n1 = E;
+        j.h_in = t ? h1 + (t % 2) * sH1 : nullptr; j.H = H1;
+        j.c_prev = t ? c_a + (t - 1) * sH1 : nullptr;
+        j.mask = m_a ? m_a + t * sH1 : nullptr;
+        j.h_out = h1 + ((t + 1) % 2) * sH1; j.c_out = c_a + t * sH1;
+        j.gates_out = g_a + t * sB * 4 * H1; j.y_out = q + (t % 2) * sH1;
+        j.blocks = blocks(H1);
+        return j;
+    };
+    auto dec_job = [&](int t) {
+        LstmJob j = {};
+        j.W = s.d_w; j.bias = (const float*)s.d_b; j.ld = s.ld_d;
+        j.x0 = q + (t % 2) * sH1; j.n0 = H1;
+        j.x1 = ctx + t * sE; j.n1 = E;
+        j.h_in = t ? h2 + (t % 2) * sH2 : nullptr; j.H = H2;
+        j.c_prev = t ? c_d + (t - 1) * sH2 : nullptr;
+        j.mask = m_d ? m_d + t * sH2 : nullptr;
+        j.h_out = h2 + ((t + 1) % 2) * sH2; j.c_out = c_d + t * sH2;
+        j.gates_out = g_d + t * sB * 4 * H2; j.y_out = dech + t * sH2;
+        j.blocks = blocks(H2);
+        return j;
+    };
+    const LstmJob none = {};
+    // the first launch is an ordinary one: its reads before the wait (the
+    // prenet frame, the weights) were written by the stream's earlier work
+    auto lstm = [&](const LstmJob& j0, const LstmJob& j1, bool first = false) {
+        LstmFwd p;
+        p.job[0] = j0; p.job[1] = j1; p.B = B; p.ntl = ntl; p.probe = s.lstm_probe;
+        const int nb = j0.blocks + j1.blocks;
+        const bool pdl = !s.serial && !first;
+        if constexpr (kBf16)
+            return launch_ex(ntl <= 4 ? lstm_mma_kernel<4> : lstm_mma_kernel<8>,
+                             dim3(nb, 1, slices), dim3(kMmaWarps * 32), lstm_smem, cs, pdl, stream,
+                             p);
+        else
+            return launch_ex(lstm_fwd_kernel, dim3(nb, (B + kBT - 1) / kBT), dim3(32 * kWarps),
+                             lstm_smem, 1, pdl, stream, p);
+    };
+    AttnFwd<T> at;
+    at.q_w = (const T*)s.q_w; at.u = (const T*)s.u; at.pinp = (const T*)s.pinp;
+    at.enc = (const T*)s.enc; at.v_w = (const float*)s.v_w; at.v_b = (const float*)s.v_b;
+    at.maskadd = (const float*)s.maskadd; at.cum = (float*)s.cum;
+    at.ldq = s.ldq; at.H1 = H1; at.K = s.K; at.loc = s.loc; at.Tn = Tn; at.A = s.A; at.E = E;
+    at.softmax = s.softmax; at.probe = s.attn_probe;
+    auto attn = [&](int t) {
+        at.q = q + (t % 2) * sH1;
+        at.att_prev = t ? align + (t - 1) * sT : nullptr;
+        at.align_out = align + t * sT;
+        at.ctx_out = ctx + t * sE;
+        return launch_ex(attn_fwd_kernel<T>, dim3(B * s.cluster_attn), dim3(kAttnThreads), L.bytes,
+                         s.cluster_attn, !s.serial, stream, at);
+    };
+    if (int err = lstm(att_job(0), none, true)) return err;
+    for (int t = 0; t < s.Ts; ++t) {
+        if (int err = attn(t)) return err;
+        if (int err = lstm(dec_job(t), t + 1 < s.Ts ? att_job(t + 1) : none)) return err;
+    }
+    return 0;
+}
+
 }  // namespace
 
 // The C interface: `bf16` selects __nv_bfloat16 over float for every
@@ -1229,23 +1832,15 @@ size_t taco2_train_attn_bwd_smem(int Tn, int A, int K, int E, int ldq, int H1, i
     return attn_layout(Tn, A, K, E, ldq, H1, cs, bf16 ? 2 : 4).bytes;
 }
 
-int taco2_train_lstm_fwd(int bf16, const void* W, const void* bias, int ld, const void* x0,
-                         int n0, const void* x1, int n1, const void* h_in, int H,
-                         const void* c_prev, void* h_out, void* c_out, void* gates_out,
-                         const void* mask, void* y_out, int B, void* stream) {
-    auto fn = bf16 ? &lstm_fwd<__nv_bfloat16> : &lstm_fwd<float>;
-    return fn(W, bias, ld, x0, n0, x1, n1, h_in, H, c_prev, h_out, c_out, gates_out, mask,
-              y_out, B, (cudaStream_t)stream);
+size_t taco2_train_attn_fwd_smem(int Tn, int A, int K, int H1, int E, int cs, int bf16) {
+    return attn_fwd_layout(Tn, A, K, H1, E, cs, bf16 ? 2 : 4).bytes;
 }
 
-int taco2_train_attn_fwd(int bf16, const void* q, const void* q_w, int ldq, int H1, const void* u,
-                         int K, int loc, const void* v_w, const void* v_b, const void* pinp,
-                         const void* maskadd, const void* enc, const void* att_prev,
-                         void* cum, void* ctx_out, void* align_out, int B, int Tn, int A,
-                         int E, int softmax, void* stream) {
-    auto fn = bf16 ? &attn_fwd<__nv_bfloat16> : &attn_fwd<float>;
-    return fn(q, q_w, ldq, H1, u, K, loc, v_w, v_b, pinp, maskadd, enc, att_prev, cum, ctx_out,
-              align_out, B, Tn, A, E, softmax, (cudaStream_t)stream);
+// The forward scan in one call: 2 Ts + 1 launches. `args`
+// is a FwdScan (passed untyped: the struct is local to this source).
+int taco2_train_fwd_scan(const void* args) {
+    const FwdScan& s = *static_cast<const FwdScan*>(args);
+    return s.use_bf16 ? fwd_scan<__nv_bfloat16>(s) : fwd_scan<float>(s);
 }
 
 // The reverse scan in one call: Ts x 4 launches. `args` is a BwdScan

@@ -22,7 +22,7 @@ features read the alignment state rounded to the working dtype.
 
 `taco2_train_fwd` / `taco2_train_bwd` run the plain version for CPU tensors
 and the kernels for CUDA tensors; the kernel wrappers raise on what they do
-not take.
+not take. Each scan is one C call that issues all of its launches.
 """
 
 from __future__ import annotations
@@ -52,11 +52,12 @@ def prepare_train_weights(attention_rnn, query_w, loc_conv_w, loc_dense_w, v_w, 
     v_w [1, A], v_b [1].
 
     Forward: "a_w" / "d_w" [4H, in + H] rows with interleaved gates (row
-    4j + g is unit j's gate g over [x | ctx | h]), padded to 8 columns;
-    backward: "a_wT" / "d_wT" [in + H, 4H], the same weights transposed in
-    block gate order, and for bf16 "a_wTf" / "d_wTf", those in the tensor
-    cores' fragment order (`fragment_wT`); "u" [2, K, A] is the location
-    conv folded with the location dense."""
+    4j + g is unit j's gate g over [x | ctx | h]), padded to 8 columns, and
+    for bf16 "a_wf" / "d_wf", those in the tensor cores' fragment order
+    (`mma_fragments`); backward: "a_wT" / "d_wT" [in + H, 4H], the same
+    weights transposed in block gate order, and for bf16 "a_wTf" / "d_wTf",
+    those in fragment order; "u" [2, K, A] is the location conv folded with
+    the location dense."""
     a_ih, a_hh, a_b = attention_rnn
     d_ih, d_hh, d_b = decoder_rnn
     dtype = a_ih.dtype
@@ -68,15 +69,17 @@ def prepare_train_weights(attention_rnn, query_w, loc_conv_w, loc_dense_w, v_w, 
     else:
         u = torch.zeros(2, 1, A, dtype=dtype, device=a_ih.device)
     a_full, d_full = torch.cat([a_ih, a_hh], 1), torch.cat([d_ih, d_hh], 1)
-    frag = {"a_wTf": fragment_wT(a_full.T), "d_wTf": fragment_wT(d_full.T)} \
+    a_il, d_il = _interleave_gates(a_full), _interleave_gates(d_full)
+    frag = {"a_wf": mma_fragments(a_il), "d_wf": mma_fragments(d_il),
+            "a_wTf": mma_fragments(a_full.T), "d_wTf": mma_fragments(d_full.T)} \
         if dtype == BF16 else {}
     return {**frag,
         "dtype": dtype, "loc": loc,
         "dims": {"P": a_ih.shape[1] - E, "E": E, "H1": H1, "H2": H2, "A": A,
                  "K": u.shape[1]},
-        "a_w": _rows(_interleave_gates(a_full), dtype),
+        "a_w": _rows(a_il, dtype),
         "a_b": _interleave_gates(a_b.detach()).float().contiguous(),
-        "d_w": _rows(_interleave_gates(d_full), dtype),
+        "d_w": _rows(d_il, dtype),
         "d_b": _interleave_gates(d_b.detach()).float().contiguous(),
         "a_wT": _rows(a_full.T, dtype), "d_wT": _rows(d_full.T, dtype),
         "q_w": _rows(query_w, dtype), "u": u.contiguous(),
@@ -85,18 +88,20 @@ def prepare_train_weights(attention_rnn, query_w, loc_conv_w, loc_dense_w, v_w, 
     }
 
 
-def fragment_wT(wT):
-    """W^T [n, 4H] (bf16) -> [ceil(n/16), ceil(4H/16), 32, 8]: zero-padded to
-    16-row and 16-column tiles, each in the register order of mma.sync
-    m16n8k16's A operand (`taco2_decode.fragment_order`), so that a warp
-    reads one tile as 16 bytes a lane. Built on the weights' device."""
-    n, k = wT.shape
-    return fragment_order(F.pad(wT.detach(), (0, _round_up(k, 16) - k, 0,
-                                              _round_up(n, 16) - n))).contiguous()
+def mma_fragments(m):
+    """Any [n, k] matrix (bf16; the forward's interleaved W, the backward's
+    W^T) -> [ceil(n/16), ceil(k/16), 32, 8]: zero-padded to 16-row and
+    16-column tiles, each in the register order of mma.sync m16n8k16's A
+    operand (`taco2_decode.fragment_order`), so that a warp reads one tile
+    as 16 bytes a lane. Built on the weights' device."""
+    n, k = m.shape
+    return fragment_order(F.pad(m.detach(), (0, _round_up(k, 16) - k, 0,
+                                             _round_up(n, 16) - n))).contiguous()
 
 
 MAT_CLUSTER = 8      # blocks a W^T product's cluster splits 4H over, at most (portable)
-ATTN_CLUSTER = 4     # blocks of the attention backward's cluster, at most
+ATTN_CLUSTER = 4     # blocks of an attention cluster (either scan), at most
+FWD_CLUSTER = 4      # blocks a forward LSTM product's cluster splits its inputs over, at most
 MAT_WARPS, MAT_NT = 8, 8     # 16-row tiles a product block; n-tiles of 8 rows a batch slice
 
 
@@ -134,6 +139,58 @@ def bwd_plan(dims: dict, B: int, T: int) -> dict:
     return {"d": mat(H1 + E + H2, H2), "a": mat(P + E + H1, H1),
             "attn": {"cluster": cs, "t": _even(T, cs), "a": _even(A, cs),
                      "h1": _even(H1, cs)}}
+
+
+def _pow2_upto(n: int) -> int:
+    """The largest power of two <= n (n >= 1)."""
+    return 1 << (n.bit_length() - 1)
+
+
+def _after_wait(n0: int, n1: int, k16: int, cs: int, rank: int) -> range:
+    """`lstm_mma_kernel`'s [kp0, kp1): the local indices, among block
+    `rank`'s k-tiles (rank, rank + cs, ...), of the tiles over the context
+    columns [n0, n0 + n1), which it multiplies after its wait."""
+    nk = -(-(k16 - rank) // cs) if rank < k16 else 0
+    kf, kl = n0 // 16, (n0 + n1 - 1) // 16
+    kp0 = min(nk, -(-(kf - rank) // cs) if kf > rank else 0)
+    return range(kp0, max(kp0, min(nk, (kl - rank) // cs + 1 if kl >= rank else 0)))
+
+
+def fwd_plan(dims: dict, B: int, T: int) -> dict:
+    """The forward kernel's launch plan. The launch takes the two cluster
+    sizes from it; csrc/taco2_train.cu derives every part from those with
+    the formulas written here once (the tests hold these parts, and the
+    emulations run on them). Both LSTM products
+    ("a": prenet | ctx | h1 -> 4 H1; "d": q | ctx | h2 -> 4 H2) run in one
+    launch, so they share one cluster: the largest power of two up to
+    FWD_CLUSTER and either product's k-tiles. For each: its row tiles of 16
+    interleaved gate rows in bands of MAT_WARPS, each block's k-tiles
+    (rank, rank + cs, ...), of those the ones it multiplies after its wait
+    (the context's: their local indices), each block's share of a band's
+    units (the four gate rows of each) in the cluster's sum and cell
+    update, and the batch slices of up to 8 MAT_NT rows. For the attention:
+    the cluster (the largest power of two up to ATTN_CLUSTER and T), and
+    each block's even part of the text positions and, in chunks of 8, of H1
+    (its part of the query projection) and of E (its columns of the
+    context)."""
+    P, E, H1, H2 = (dims[k] for k in ("P", "E", "H1", "H2"))
+    segs = {"a": (P, E, H1), "d": (H1, E, H2)}
+    k16 = {key: -(-sum(s) // 16) for key, s in segs.items()}
+    cs = _pow2_upto(min(FWD_CLUSTER, *k16.values()))
+
+    def mat(key: str, H: int) -> dict:
+        n0, n1, _ = segs[key]
+        rt, units = -(-4 * H // 16), 16 * MAT_WARPS // 4
+        return {"k_tiles": k16[key], "row_tiles": rt, "bands": -(-rt // MAT_WARPS),
+                "tiles": [list(range(r, k16[key], cs)) for r in range(cs)],
+                "after_wait": [list(_after_wait(n0, n1, k16[key], cs, r)) for r in range(cs)],
+                "sum_units": _even(units, cs),
+                "batch_slices": [(s, min(B, s + 8 * MAT_NT)) for s in range(0, B, 8 * MAT_NT)]}
+
+    acs = _pow2_upto(min(ATTN_CLUSTER, T))
+    chunks = lambda n: [(8 * lo, min(n, 8 * hi)) for lo, hi in _even(-(-n // 8), acs)]  # noqa: E731
+    return {"cluster": cs, "a": mat("a", H1), "d": mat("d", H2),
+            "attn": {"cluster": acs, "t": _even(T, acs), "h1": chunks(H1), "e": chunks(E)}}
 
 
 def _dims(w):
@@ -311,13 +368,18 @@ def taco2_train_bwd_plain(w: dict, res: dict, d_dech, d_ctx_out, d_align_out, en
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    "taco2_train_lstm_fwd": [_I, _P, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P,
-                             _I, _P],
-    "taco2_train_attn_fwd": [_I, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _I, _I, _I, _I, _I, _P],
-}
 SMEM_LIMIT = 232448          # dynamic shared memory a block may use on the H100
+
+
+class _FwdScan(ctypes.Structure):
+    """csrc/taco2_train.cu `FwdScan`: the forward scan's arguments."""
+    _fields_ = ([(k, _I) for k in ("use_bf16", "Ts", "B", "Tn", "P", "E", "H1", "H2", "A",
+                                   "K", "loc", "softmax", "ldq", "ld_a", "ld_d", "cluster_lstm",
+                                   "cluster_attn", "attn_probe", "lstm_probe", "serial")]
+                + [(k, _P) for k in ("a_w", "a_b", "d_w", "d_b", "q_w", "u", "v_w", "v_b",
+                                     "prenet", "enc", "pinp", "maskadd", "m_a", "m_d", "dech",
+                                     "ctx", "align", "g_a", "g_d", "c_a", "c_d", "h1", "h2", "q",
+                                     "cum", "stream")])
 
 
 class _Scan(ctypes.Structure):
@@ -335,13 +397,12 @@ class _Scan(ctypes.Structure):
 
 def _lib():
     lib = cuda_build.load("taco2_train")
-    for name, types in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = types, ctypes.c_int
     lib.taco2_train_attn_bwd_smem.argtypes = [_I] * 8
-    lib.taco2_train_attn_bwd_smem.restype = ctypes.c_size_t
-    lib.taco2_train_bwd_scan.argtypes = [_P]
-    lib.taco2_train_bwd_scan.restype = ctypes.c_int
+    lib.taco2_train_attn_fwd_smem.argtypes = [_I] * 7
+    for fn in (lib.taco2_train_attn_bwd_smem, lib.taco2_train_attn_fwd_smem):
+        fn.restype = ctypes.c_size_t
+    for fn in (lib.taco2_train_fwd_scan, lib.taco2_train_bwd_scan):
+        fn.argtypes, fn.restype = [_P], ctypes.c_int
     return lib
 
 
@@ -368,9 +429,43 @@ def _ptr(x):
 
 def taco2_train_fwd_cuda(w: dict, prenet_t, enc, pinp, maskf, m_a=None, m_d=None, *,
                          norm: str = "sigmoid"):
-    """The forward scan on the CUDA kernels: three launches per step (the
-    attention LSTM, the attention, the decoder LSTM) on the current
-    stream, no host synchronization."""
+    """The forward scan on the CUDA kernels: the attention LSTM of step 0,
+    then for each step the attention (a cluster a batch row) and one launch
+    of the decoder LSTM of that step beside the attention LSTM of the next
+    (2 T_r + 1 launches), all issued on the current stream by one C call as
+    programmatic dependent launches, no host synchronization. A launch the
+    card refuses (a cluster it cannot place) raises, and so does a text
+    longer than the attention's shared memory holds: at full width (A 128,
+    K 31) past T_in 1,460 (the backward's own limit is ~700). Up to T_in
+    484 in bf16 and 296 in float32 the attention keeps the encoder's
+    columns in shared memory, past that it reads them from global memory."""
+    out = _fwd_scan(w, prenet_t, enc, pinp, maskf, m_a, m_d, norm, (0, 0, 0))
+    taco2_train_fwd_cuda.launches += 2 * prenet_t.shape[0] + 1
+    return out
+
+
+taco2_train_fwd_cuda.launches = 0
+
+# probe launches of the forward scan (not counted in `launches`), each
+# (attention phase to stop after, LSTM phase to stop after, serial): the
+# attention or the bf16 LSTM products stopped after the named phase (the
+# outputs are then meaningless; for timing only; the LSTM probes run
+# serial, so that each launch's device time stands alone); "serial", the
+# same launches each starting when the previous one ends (the same outputs)
+FWD_PROBES = {"attn_loads": (1, 0, 0), "attn_projection": (2, 0, 0),
+              "attn_energies": (3, 0, 0), "attn_norm": (4, 0, 0),
+              "lstm_staging": (0, 1, 1), "lstm_products": (0, 2, 1),
+              "lstm_exchange": (0, 3, 1), "serial": (0, 0, 1)}
+
+
+def taco2_train_fwd_probe_cuda(w: dict, prenet_t, enc, pinp, maskf, m_a=None, m_d=None, *,
+                               norm: str = "sigmoid", probe: str = "attn_loads"):
+    """taco2_train_fwd_cuda run as the probe `probe` names (FWD_PROBES). Not
+    counted in `launches`."""
+    return _fwd_scan(w, prenet_t, enc, pinp, maskf, m_a, m_d, norm, FWD_PROBES[probe])
+
+
+def _fwd_scan(w, prenet_t, enc, pinp, maskf, m_a, m_d, norm, probe):
     if prenet_t.device.type != "cuda":
         raise ValueError("taco2_train_fwd_cuda takes CUDA tensors")
     P, E, H1, H2, A, K = _dims(w)
@@ -384,7 +479,16 @@ def taco2_train_fwd_cuda(w: dict, prenet_t, enc, pinp, maskf, m_a=None, m_d=None
     if norm not in ("sigmoid", "softmax"):
         raise ValueError(f"unknown attention norm {norm!r}")
     dt = w["dtype"]
+    bf16 = int(dt == BF16)
+    if bf16 and "a_wf" not in w:
+        raise ValueError("taco2_train_fwd_cuda: bf16 weights need prepare_train_weights' "
+                         "fragment-ordered a_wf / d_wf")
     lib = _lib()
+    plan = fwd_plan(w["dims"], B, T)
+    smem = lib.taco2_train_attn_fwd_smem(T, A, K, H1, E, plan["attn"]["cluster"], bf16)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"taco2_train_fwd_cuda: T_in={T}, A={A}, K={K} needs {smem} bytes "
+                         f"of shared memory per block, more than {SMEM_LIMIT}")
     cv = lambda x: None if x is None else x.to(dt).contiguous()  # noqa: E731
     prenet_t, enc, pinp, m_a, m_d = cv(prenet_t), cv(enc), cv(pinp), cv(m_a), cv(m_d)
     maskadd = torch.where(maskf > 0.5, 0.0, -1e9).to(F32).contiguous()
@@ -392,37 +496,22 @@ def taco2_train_fwd_cuda(w: dict, prenet_t, enc, pinp, maskf, m_a=None, m_d=None
     out = {"dech": e(Ts, B, H2), "ctx": e(Ts, B, E), "align": e(Ts, B, T, d=F32),
            "g_a": e(Ts, B, 4 * H1), "g_d": e(Ts, B, 4 * H2), "c_a": e(Ts, B, H1),
            "c_d": e(Ts, B, H2)}
-    h1, h2, q = e(2, B, H1), e(2, B, H2), e(B, H1)
-    cum = torch.zeros(B, T, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    bf16 = int(dt == BF16)
-    ld_a, ld_d, ld_q = w["a_w"].shape[1], w["d_w"].shape[1], w["q_w"].shape[1]
-    at = lambda x, t: None if x is None else x[t].data_ptr()  # noqa: E731
-    for t in range(Ts):
-        prev = lambda k: None if t == 0 else out[k][t - 1].data_ptr()  # noqa: E731
-        cur, nxt = h1[t % 2].data_ptr(), h1[(t + 1) % 2].data_ptr()
-        cuda_build.check(lib.taco2_train_lstm_fwd(
-            bf16, w["a_w"].data_ptr(), w["a_b"].data_ptr(), ld_a, prenet_t[t].data_ptr(), P,
-            prev("ctx"), E, None if t == 0 else cur, H1, prev("c_a"), nxt,
-            out["c_a"][t].data_ptr(), out["g_a"][t].data_ptr(), at(m_a, t), q.data_ptr(), B,
-            stream), "taco2_train_lstm_fwd")
-        cuda_build.check(lib.taco2_train_attn_fwd(
-            bf16, q.data_ptr(), w["q_w"].data_ptr(), ld_q, H1, w["u"].data_ptr(), K,
-            int(w["loc"]), w["v_w"].data_ptr(), w["v_b"].data_ptr(), pinp.data_ptr(),
-            maskadd.data_ptr(), enc.data_ptr(), prev("align"), cum.data_ptr(),
-            out["ctx"][t].data_ptr(), out["align"][t].data_ptr(), B, T, A, E,
-            int(norm == "softmax"), stream), "taco2_train_attn_fwd")
-        cur, nxt = h2[t % 2].data_ptr(), h2[(t + 1) % 2].data_ptr()
-        cuda_build.check(lib.taco2_train_lstm_fwd(
-            bf16, w["d_w"].data_ptr(), w["d_b"].data_ptr(), ld_d, q.data_ptr(), H1,
-            out["ctx"][t].data_ptr(), E, None if t == 0 else cur, H2, prev("c_d"), nxt,
-            out["c_d"][t].data_ptr(), out["g_d"][t].data_ptr(), at(m_d, t),
-            out["dech"][t].data_ptr(), B, stream), "taco2_train_lstm_fwd")
-        taco2_train_fwd_cuda.launches += 3
+    scratch = {"h1": e(2, B, H1), "h2": e(2, B, H2), "q": e(2, B, H1),
+               "cum": torch.zeros(B, T, device=dev)}
+    ptrs = {"a_w": w["a_wf" if bf16 else "a_w"], "d_w": w["d_wf" if bf16 else "d_w"],
+            **{k: w[k] for k in ("a_b", "d_b", "q_w", "u", "v_w", "v_b")},
+            "prenet": prenet_t, "enc": enc, "pinp": pinp, "maskadd": maskadd, "m_a": m_a,
+            "m_d": m_d, **out, **scratch}
+    attn_probe, lstm_probe, serial = probe
+    args = _FwdScan(use_bf16=bf16, Ts=Ts, B=B, Tn=T, P=P, E=E, H1=H1, H2=H2, A=A, K=K,
+                    loc=int(w["loc"]), softmax=int(norm == "softmax"), ldq=w["q_w"].shape[1],
+                    ld_a=w["a_w"].shape[1], ld_d=w["d_w"].shape[1],
+                    cluster_lstm=plan["cluster"], cluster_attn=plan["attn"]["cluster"],
+                    attn_probe=attn_probe, lstm_probe=lstm_probe, serial=serial,
+                    stream=torch.cuda.current_stream(dev).cuda_stream,
+                    **{k: _ptr(v) for k, v in ptrs.items()})
+    cuda_build.check(lib.taco2_train_fwd_scan(ctypes.addressof(args)), "taco2_train_fwd_scan")
     return out
-
-
-taco2_train_fwd_cuda.launches = 0
 
 
 def taco2_train_bwd_cuda(w: dict, res: dict, d_dech, d_ctx_out, d_align_out, enc, pinp,
