@@ -16,7 +16,9 @@ Phases, each fatal on failure:
      the products' weight reads kept) and each round's work and barrier
      wait on the SMs' clocks;
    - Griffin-Lim: B=8, T=500, n_fft 1024 / hop 256, 24 iterations,
-     momentum 0.95, injected phase;
+     momentum 0.95, injected phase; each launch's device time (synthesis,
+     OLA, analysis, emit; torch.profiler over the serial probe), held to
+     the launches the loop's C call reports issuing;
    - taco1-decode: the Tacotron(1) decode, the same config with the model
      group replaced (Tacotron, width 256, memory 5, r = 7 of r_init 7),
      B=8 (the sentences below, T=160), 250 steps, dropout on, held at
@@ -29,7 +31,9 @@ Phases, each fatal on failure:
      1,750 frames, n_fft 1024 / hop 256, 24 iterations, B=8 and B=1;
    - gl-full, beyond the path's shape: the whole FGLA loop returning the
      spectrum, B=8, T=500, n_fft 2048 / hop 275 / window 1102 (a 12.5 ms
-     hop), 24 iterations;
+     hop), 24 iterations, with each launch's device time (the unpack in
+     place of the emit) held to the launches issued, as at the smoke
+     path's shape in phase 3;
 3. small input: the trained smoke checkpoint through Tacotron2.inference and
    Griffin-Lim on the kernels against the plain versions on the CPU; its
    hop 64 takes the gl-full kernel, whose launches this path counts; then
@@ -377,21 +381,75 @@ def spectral_convergence(y, mag, n_fft: int, hop: int, window=None) -> list[floa
     return ((S2 - mag).flatten(1).norm(dim=1) / mag.flatten(1).norm(dim=1)).tolist()
 
 
-def phase_griffin_lim(report):
+# Kernel 2 at the main path's shape (config #1: n_fft 1024, hop 256, 24
+# iterations at momentum 0.95, a batch of 8 x 500 frames); kernel 3 at a
+# 12.5 ms hop (n_fft 2048, hop 275, window 1102 at 22,050 Hz) and at the
+# smoke path's launch shape (3 rows in a bucket of 4, 96 frames, n_fft 256,
+# hop 64, 15 iterations); kernel 4 at the Tacotron(1) path's 1,760 frames
+GL_WAVE = dict(B=8, T=500, n_fft=1024, hop=256, win=1024, iters=24, mom=0.95, seed=2)
+GL_FULL = dict(B=8, T=500, n_fft=2048, hop=275, win=1102, iters=24, mom=0.95, seed=3)
+GL_SMALL = dict(B=4, T=96, n_fft=256, hop=64, win=256, iters=15, mom=0.95, seed=5)
+GL_LAUNCHES = ("synth", "ola", "analysis", "emit", "unpack")
+
+
+def gl_inputs(B, T, n_fft, hop, win, seed, **_):
+    """Speech-like magnitudes [B, T, n_fft/2 + 1] on the card, a shared
+    seeded phase [T, n_fft/2 + 1], the packed bf16 constants, the window
+    and the generator (for nudges after the phase)."""
     import numpy as np
     import torch
 
     from your_voice_tts_torch.ops.filters import hann_window
-    from your_voice_tts_torch.ops.griffin_lim import (griffin_lim_wave_cuda,
-                                                      griffin_lim_wave_plain,
-                                                      packed_constants)
+    from your_voice_tts_torch.ops.griffin_lim import packed_constants
 
-    B, T, n_fft, hop, iters, mom = 8, 500, 1024, 256, 24, 0.95
-    Kf = n_fft // 2 + 1
-    mag = speech_like(B, T, n_fft, hop, 22050).cuda()
-    g = torch.Generator().manual_seed(2)
-    phase = (torch.rand(T, Kf, generator=g) * 2 * np.pi).cuda()
-    consts = packed_constants(n_fft, hop, hann_window(n_fft, n_fft), torch.bfloat16, "cuda")
+    window = hann_window(win, n_fft).astype(np.float32)
+    mag = speech_like(B, T, n_fft, hop, 22050, None if win == n_fft else window).cuda()
+    g = torch.Generator().manual_seed(seed)
+    phase = (torch.rand(T, n_fft // 2 + 1, generator=g) * 2 * np.pi).cuda()
+    return mag, phase, packed_constants(n_fft, hop, window, torch.bfloat16, "cuda"), window, g
+
+
+def gl_launch_times(run) -> dict:
+    """Device time of each Griffin-Lim launch of one call of `run`
+    (torch.profiler): synthesis, OLA, analysis, emit, unpack of kernels 2
+    and 3, kernel 4's (gli_*), and "other" (the set-up's PyTorch kernels)."""
+    def key(name):
+        if "gli_" in name:
+            return "gli_" + next(k for k in ("synth", "ola", "analysis") if f"gli_{k}" in name)
+        if "fgla_gemm" in name:
+            return "analysis" if "true>" in name else "synth"
+        return next((k for k in GL_LAUNCHES if f"{k}_kernel" in name), "other")
+
+    return kernel_times(run, key, GL_LAUNCHES + ("gli_synth", "gli_ola", "gli_analysis", "other"))
+
+
+def hold_gl_launches(tag: str, route: str, times: dict, issued: int, n_iters: int) -> None:
+    """Prints the packed loop's device time a launch (the serial probe under
+    torch.profiler) and fails unless the profiler saw the launches
+    `gl_fgla` reported issuing (`issued`, one call of the counted route at
+    the same shape), kind by kind as `fgla_schedule` lists them."""
+    from your_voice_tts_torch.ops.griffin_lim import fgla_schedule
+
+    parts = ", ".join(f"{k} {v['us_a_launch']:.1f} us x {v['launches']}"
+                      for k, v in times.items() if v["launches"])
+    print(f"[{tag}] {route}: device time a launch (serial probe, torch.profiler): {parts}; "
+          f"launches gl_fgla issued {issued}; one ctypes call a call (gl_fgla), by "
+          f"construction")
+    plan = fgla_schedule(n_iters, route)
+    seen = {k: times[k]["launches"] for k in GL_LAUNCHES}
+    check(seen == {k: plan.count(k) for k in GL_LAUNCHES} and sum(seen.values()) == issued,
+          f"{tag}: the profiler's launches {seen} are not the {issued} gl_fgla issued")
+
+
+def phase_griffin_lim(report):
+    import torch
+
+    from your_voice_tts_torch.ops.griffin_lim import (fgla_serial_cuda, griffin_lim_wave_cuda,
+                                                      griffin_lim_wave_plain)
+
+    B, T, n_fft, hop, iters, mom = (GL_WAVE[k] for k in ("B", "T", "n_fft", "hop", "iters",
+                                                           "mom"))
+    mag, phase, consts, _, g = gl_inputs(**GL_WAVE)
     out = {}
     for n in (1, iters):
         got = griffin_lim_wave_cuda(mag, phase, consts, n_iters=n, momentum=mom)
@@ -446,10 +504,16 @@ def phase_griffin_lim(report):
           f"{plain_ms:.2f}  bound_ms {bound_ms:.3f} ({bound_by})  library_ms {lib_ms:.2f} "
           f"(torch.matmul bf16 on the same {2 * iters + 1} [{M}x{n_fft}]x[{n_fft}x{n_fft}] "
           f"products; a yardstick for the products only)")
+    issued = griffin_lim_wave_cuda.launches
+    griffin_lim_wave_cuda(mag, phase, consts, n_iters=iters, momentum=mom)
+    issued = griffin_lim_wave_cuda.launches - issued
+    per = gl_launch_times(lambda: fgla_serial_cuda(mag, phase, consts, n_iters=iters,
+                                                   momentum=mom, route="wave"))
+    hold_gl_launches("griffin-lim", "wave", per, issued, iters)
     report["griffin_lim"] = dict(rel_l2_1iter=rel1, max_abs_err_1iter=err1, sensitivity=sens,
                                  conv_kernel=conv_k, conv_plain=conv_p, ms=ms,
                                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                 library_ms=lib_ms)
+                                 library_ms=lib_ms, launch_us=per, launches_a_call=issued)
     return {"name": "griffin_lim_wave_cuda", "route": "cuda",
             "source": "your_voice_tts_torch/csrc/griffin_lim.cu",
             "replaces": "your_voice_tts_tpu/ops/pallas/griffin_lim.py:450",
@@ -761,12 +825,13 @@ def hold_gl_full(tag: str, mag, phase, consts: dict, window, iters: int, mom: fl
     import torch
 
     from your_voice_tts_torch.ops.dsp import istft
-    from your_voice_tts_torch.ops.griffin_lim import griffin_lim_full_cuda, griffin_lim_full_plain
+    from your_voice_tts_torch.ops.griffin_lim import (fgla_serial_cuda, griffin_lim_full_cuda,
+                                                      griffin_lim_full_plain)
 
     B, T, Kf = mag.shape
     n_fft, hop = consts["n_fft"], consts["hop"]
     win = torch.as_tensor(window, dtype=torch.float32, device=mag.device)
-    run = lambda fn, m, n: fn(m, phase, consts, n_iters=n, momentum=mom)  # noqa: E731
+    run = lambda fn, m, n, **kw: fn(m, phase, consts, n_iters=n, momentum=mom, **kw)  # noqa: E731
     out = {}
     for n in (1, iters):
         got, ref = run(griffin_lim_full_cuda, mag, n), run(griffin_lim_full_plain, mag, n)
@@ -815,29 +880,48 @@ def hold_gl_full(tag: str, mag, phase, consts: dict, window, iters: int, mom: fl
           f"{ms:.3f}  plain_ms {plain_ms:.3f}  bound_ms {bound_ms:.4f} ({bound_by})  library_ms "
           f"{lib_ms:.3f} (torch.matmul bf16 on the same {2 * iters} [{M}x{n_fft}]x"
           f"[{n_fft}x{n_fft}] products; a yardstick for the products only)")
+    issued = griffin_lim_full_cuda.launches
+    run(griffin_lim_full_cuda, mag, iters)
+    issued = griffin_lim_full_cuda.launches - issued
+    per = gl_launch_times(lambda: run(fgla_serial_cuda, mag, iters, route="full"))
+    hold_gl_launches(tag, "full", per, issued, iters)
     return dict(shape=[B, T, n_fft, hop, iters], rel_l2_1iter=rel1, max_abs_err_1iter=err1,
                 sensitivity=sens, conv_kernel=conv_k, conv_plain=conv_p, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                launch_us=per, launches_a_call=issued)
 
 
 def phase_gl_full(report):
     """Kernel 3 beyond the smoke path's shape (phase small holds it there):
     a 12.5 ms hop (n_fft 2048, hop 275, window 1102 at 22,050 Hz), B=8,
     T=500, 24 FGLA iterations at momentum 0.95, on consistent magnitudes."""
+    mag, phase, consts, window, _ = gl_inputs(**GL_FULL)
+    report["gl_full_12ms_hop"] = hold_gl_full("gl-full", mag, phase, consts, window,
+                                              GL_FULL["iters"], GL_FULL["mom"], rows=GL_FULL["B"],
+                                              gate=0.25)
+
+
+def gl_iteration_inputs():
+    """Kernel 4's inputs at the Tacotron(1) path's frame bucket (1,760 for
+    its 1,750 frames): speech-like magnitudes [8, T, Kf] on the card, a
+    shared seeded phase, the unpacked bf16 constants, the window, the
+    generator and the config's iterations."""
     import numpy as np
     import torch
 
+    from your_voice_tts_torch.audio import FRAME_BUCKET
     from your_voice_tts_torch.ops.filters import hann_window
-    from your_voice_tts_torch.ops.griffin_lim import packed_constants
+    from your_voice_tts_torch.ops.griffin_lim import unpacked_constants
 
-    B, T, n_fft, hop, win_len, iters, mom = 8, 500, 2048, 275, 1102, 24, 0.95
+    a = taco1_config().audio
+    n_fft, (hop, win_len) = a.fft_size, a.resolved_hop_win()
+    T = -(-TACO1_STEPS * TACO1_R // FRAME_BUCKET) * FRAME_BUCKET
     window = hann_window(win_len, n_fft).astype(np.float32)
-    mag = speech_like(B, T, n_fft, hop, 22050, window).cuda()
-    g = torch.Generator().manual_seed(3)
+    mags = speech_like(8, T, n_fft, hop, a.sample_rate, window).cuda()
+    g = torch.Generator().manual_seed(4)
     phase = (torch.rand(T, n_fft // 2 + 1, generator=g) * 2 * np.pi).cuda()
-    consts = packed_constants(n_fft, hop, window, torch.bfloat16, "cuda")
-    report["gl_full_12ms_hop"] = hold_gl_full("gl-full", mag, phase, consts, window, iters,
-                                              mom, rows=B, gate=0.25)
+    consts = unpacked_constants(n_fft, hop, window, torch.bfloat16, "cuda")
+    return mags, phase, consts, window, g, a.griffin_lim_iters
 
 
 def phase_gl_iteration(report):
@@ -845,27 +929,17 @@ def phase_gl_iteration(report):
     its 250 steps x r=7 = 1,750 frames (1,760), the config's n_fft / hop /
     window and Griffin-Lim iterations, for the batch of 8 and for one row
     (the batch-1 requests), from one shared phase."""
-    import numpy as np
     import torch
 
-    from your_voice_tts_torch.audio import FRAME_BUCKET
     from your_voice_tts_torch.ops.dsp import istft
-    from your_voice_tts_torch.ops.filters import hann_window
-    from your_voice_tts_torch.ops.griffin_lim import (gl_iteration_cuda, gl_iteration_plain,
-                                                      gl_route, unpacked_constants)
+    from your_voice_tts_torch.ops.griffin_lim import gl_iteration_cuda, gl_iteration_plain, gl_route
 
-    a = taco1_config().audio
-    n_fft, (hop, win_len), iters = a.fft_size, a.resolved_hop_win(), a.griffin_lim_iters
-    T = -(-TACO1_STEPS * TACO1_R // FRAME_BUCKET) * FRAME_BUCKET
+    mags, phase, consts, window, g, iters = gl_iteration_inputs()
+    n_fft, hop, T = consts["n_fft"], consts["hop"], mags.shape[1]
     check(gl_route(T, n_fft, hop) == "iteration", "the Tacotron(1) path's Griffin-Lim route")
     Kf = n_fft // 2 + 1
-    window = hann_window(win_len, n_fft).astype(np.float32)
     win = torch.from_numpy(window).cuda()
-    mags = speech_like(8, T, n_fft, hop, a.sample_rate, window).cuda()
-    g = torch.Generator().manual_seed(4)
-    phase = (torch.rand(T, Kf, generator=g) * 2 * np.pi).cuda()
     nudge = 1 + 1e-4 * torch.randn(mags.shape, generator=g).cuda()
-    consts = unpacked_constants(n_fft, hop, window, torch.bfloat16, "cuda")
     start = lambda m: (m * torch.cos(phase), m * torch.sin(phase))  # noqa: E731
     run = lambda fn, m, n: fn(*start(m), m, consts, n_iters=n)  # noqa: E731
     wav = lambda F_: istft(torch.complex(*F_), n_fft, hop, win)  # noqa: E731
@@ -1871,7 +1945,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    import your_voice_tts_torch  # noqa: F401  (fails outside the repository)
+    try:
+        import your_voice_tts_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: {e}: run it from a checkout of the repository", file=sys.stderr)
+        return 1
 
     report: dict = {"device": torch.cuda.get_device_name(0), "phase_s": {}}
 

@@ -275,12 +275,35 @@ def test_decode_kernel_refuses_what_it_does_not_take(cuda):
     assert tacotron2_decode_cuda.launches == before
 
 
-@pytest.mark.parametrize("n_fft,hop,B,T", [(256, 64, 3, 37), (1024, 256, 2, 20)])
-def test_griffin_lim_kernel_matches_plain(cuda, n_fft, hop, B, T):
-    """One and three FGLA iterations: bf16 loop state on both sides."""
+# n_fft, hop, B, T, a phase per row: M = B * T off multiples of 64 and 128,
+# T = 2, B = 1, n_fft 128 (128-wide tiles), 384 (three of them), 2048, a
+# hop off multiples of 4 (scalar OLA and emit), full width; 2048 at hops 64
+# and 65 (31 shifts a side, 16-byte and scalar OLA); 4096 at hop 1024 (the
+# OLA in two passes a row; at B=2, T=9 the loop at momentum 0.95 carries
+# its 4096-long f32 sums' order to rel L2 1.005e-2 after three iterations,
+# about as far as a relative 1e-6 nudge of the magnitudes carries the plain
+# version, 9.7e-3, on an H100: `wavernn_ab.py --mode gl_spread`) and 2176
+# at hop 545 (17 tiles of 128, a scalar OLA whose second pass is partly
+# past the row)
+GL_CASES = [(256, 64, 3, 37, False), (1024, 256, 2, 20, False), (128, 32, 3, 43, True),
+            (2048, 512, 1, 2, False), (384, 96, 2, 7, True), (256, 50, 2, 9, False),
+            (1024, 256, 8, 500, True), (2048, 64, 1, 20, False), (2048, 65, 2, 9, True),
+            (4096, 1024, 4, 40, True), (2176, 545, 2, 9, False)]
+
+
+def gl_inputs(cuda, n_fft, B, T, per_row):
+    """Seeded magnitudes [B, T, Kf] and an initial phase, [B, T, Kf] or
+    shared [T, Kf], on the card."""
     g = torch.Generator().manual_seed(0)
     mag = (torch.randn(B, T, n_fft // 2 + 1, generator=g).abs() + 0.1).to(cuda)
-    phase = (torch.rand(T, n_fft // 2 + 1, generator=g) * 2 * np.pi).to(cuda)
+    shape = (B, T, n_fft // 2 + 1) if per_row else (T, n_fft // 2 + 1)
+    return mag, (torch.rand(shape, generator=g) * 2 * np.pi).to(cuda)
+
+
+@pytest.mark.parametrize("n_fft,hop,B,T,per_row", GL_CASES)
+def test_griffin_lim_kernel_matches_plain(cuda, n_fft, hop, B, T, per_row):
+    """One and three FGLA iterations: bf16 loop state on both sides."""
+    mag, phase = gl_inputs(cuda, n_fft, B, T, per_row)
     consts = packed_constants(n_fft, hop, hann_window(n_fft, n_fft), torch.bfloat16, cuda)
     for n in (1, 3):
         got = griffin_lim_wave_cuda(mag, phase, consts, n_iters=n, momentum=0.95)
@@ -295,6 +318,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         griffin_lim_wave_cuda(torch.ones(1, 4, 129, device=cuda), torch.zeros(4, 129, device=cuda),
                               consts32, n_iters=1)
+    for n_fft, hop in ((320, 80), (2176, 1088)):     # n_fft % 128, hop > 1024
+        consts = packed_constants(n_fft, hop, hann_window(n_fft, n_fft), torch.bfloat16, cuda)
+        kf = n_fft // 2 + 1
+        with pytest.raises(ValueError, match="n_fft % 128"):
+            griffin_lim_wave_cuda(torch.ones(1, 4, kf, device=cuda),
+                                  torch.zeros(4, kf, device=cuda), consts, n_iters=1)
     model = Tacotron2(30, ModelConfig(r=2, embedding_dim=32, encoder_dim=32, decoder_rnn_dim=48,
                                       attention_rnn_dim=48, attention_dim=24, prenet_dim=24,
                                       postnet_dim=32), n_mels=20, device=cuda)
@@ -890,16 +919,17 @@ def test_taco1_profile_launch_times_every_round(cuda):
                for v in prof["rounds"].values())
 
 
-@pytest.mark.parametrize("n_fft,win,hop,B,T", [(256, 256, 64, 3, 37), (2048, 1102, 275, 2, 20)])
-def test_griffin_lim_full_kernel_matches_plain(cuda, n_fft, win, hop, B, T):
+@pytest.mark.parametrize("n_fft,win,hop,B,T,per_row", [
+    (256, 256, 64, 3, 37, False), (2048, 1102, 275, 2, 20, False), (128, 128, 32, 1, 2, True),
+    (1024, 1024, 256, 3, 43, True), (384, 384, 96, 2, 7, False), (2048, 1102, 275, 8, 500, True),
+    (4096, 4096, 1024, 1, 5, False), (2176, 2176, 545, 2, 9, True)])
+def test_griffin_lim_full_kernel_matches_plain(cuda, n_fft, win, hop, B, T, per_row):
     """One and three FGLA iterations to the complex spectrum: bf16 loop
     state on both sides."""
     from your_voice_tts_torch.ops.griffin_lim import (griffin_lim_full, griffin_lim_full_cuda,
                                                       griffin_lim_full_plain)
 
-    g = torch.Generator().manual_seed(0)
-    mag = (torch.randn(B, T, n_fft // 2 + 1, generator=g).abs() + 0.1).to(cuda)
-    phase = (torch.rand(T, n_fft // 2 + 1, generator=g) * 2 * np.pi).to(cuda)
+    mag, phase = gl_inputs(cuda, n_fft, B, T, per_row)
     consts = packed_constants(n_fft, hop, hann_window(win, n_fft), torch.bfloat16, cuda)
     for n in (1, 3):
         got = griffin_lim_full_cuda(mag, phase, consts, n_iters=n, momentum=0.95)
@@ -907,6 +937,28 @@ def test_griffin_lim_full_kernel_matches_plain(cuda, n_fft, win, hop, B, T):
         assert got.shape == ref.shape == mag.shape and got.dtype == torch.complex64
         assert float((got - ref).abs().norm() / ref.abs().norm()) <= 1e-2
     assert torch.equal(griffin_lim_full(mag, phase, consts, n_iters=3, momentum=0.95), got)
+
+
+@pytest.mark.parametrize("route,n_fft,hop,B,T", [("wave", 1024, 256, 3, 43),
+                                                 ("full", 2048, 275, 2, 20),
+                                                 ("wave", 128, 32, 1, 2),
+                                                 ("full", 4096, 1024, 1, 5)])
+def test_fgla_dependent_launches_change_nothing(cuda, route, n_fft, hop, B, T):
+    """The packed loop's dependent launches give the bits of the same
+    launches issued one after another (the serial probe), which counts no
+    launch; the launches `gl_fgla` reports issuing are 3n + 2 (wave) or
+    3n + 1 (full)."""
+    from your_voice_tts_torch.ops.griffin_lim import fgla_serial_cuda, griffin_lim_full_cuda
+
+    mag, phase = gl_inputs(cuda, n_fft, B, T, True)
+    consts = packed_constants(n_fft, hop, hann_window(n_fft, n_fft), torch.bfloat16, cuda)
+    fn = griffin_lim_wave_cuda if route == "wave" else griffin_lim_full_cuda
+    before = fn.launches
+    got = fn(mag, phase, consts, n_iters=5, momentum=0.95)
+    assert fn.launches - before == 3 * 5 + (2 if route == "wave" else 1)
+    ref = fgla_serial_cuda(mag, phase, consts, n_iters=5, momentum=0.95, route=route)
+    assert fn.launches - before == 17 - (route == "full")
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("n_fft,hop,B,T", [(256, 64, 3, 37), (1024, 256, 2, 40)])

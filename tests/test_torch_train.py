@@ -379,3 +379,16 @@ def test_trainer_restores_its_own_checkpoint(tmp_path):
         assert torch.equal(x, y), k
     for x, y in zip(a.optimizer.mu + a.optimizer.nu, b.optimizer.mu + b.optimizer.nu):
         assert torch.equal(x, y)
+
+
+def test_trainer_refuses_tacotron1_before_reading_data(tmp_path):
+    """A Tacotron(1) config raises in the constructor, before the audio
+    processor or the dataset is built: the dataset path does not exist."""
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    cfg = load_config(SMOKE)
+    ds = dataclasses.replace(cfg.data.datasets[0], path=str(tmp_path / "missing"))
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)),
+                              model=dataclasses.replace(cfg.model, model="Tacotron"))
+    with pytest.raises(NotImplementedError, match="Tacotron\\(1\\) training arrives"):
+        Trainer(cfg, verbose=False, device="cpu")

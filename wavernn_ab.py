@@ -54,6 +54,8 @@ the attention or the LSTM products stopped after each phase, serial);
 output.
 
     python3 wavernn_ab.py --root OLD --mode train_step [--reps N]
+    python3 wavernn_ab.py --root OLD --mode gl [--holds]
+    python3 wavernn_ab.py --root NEW --mode gl_spread
 
 `--mode train_step` times chip_smoke.py's timed train step (`Trainer` on
 its config, `bench_batch`: config #3's shape, bf16 mixed precision,
@@ -62,6 +64,25 @@ each ending in a host read of the metrics) and, from one more step under
 torch.profiler, the device's busy ms (the union of its kernels' intervals:
 dependent launches overlap, so their summed times would count the overlap
 twice), the kernels' summed ms and the idle share of that step's wall.
+
+`--mode gl` times the Griffin-Lim kernels on chip_smoke.py's inputs
+(`gl_inputs`, `gl_iteration_inputs`): kernel 2 (`griffin_lim_wave_cuda`)
+at the main path's shape `GL_WAVE` (B=8, T=500, n_fft 1024, hop 256, 24
+iterations, momentum 0.95), kernel 3 (`griffin_lim_full_cuda`) at a 12.5
+ms hop `GL_FULL` (n_fft 2048, hop 275, window 1102) and at the smoke
+path's launch shape `GL_SMALL` (B=4, T=96, n_fft 256, hop 64, 15
+iterations), and kernel 4 (`gl_iteration_cuda`) at B=8, T=1,760 as the
+control: median of `--reps` (CUDA events), the launches a call (the
+counter), and each launch's
+device time (`gl_launch_times`, torch.profiler over one call: the
+version's serial probe `fgla_serial_cuda` where it has one); `--holds`
+adds rel L2 against the plain version after one iteration. It also times
+chip_smoke.py's main path (`main_path_ab`): the batch of 8's wall ms
+(median of `--reps`) and the batch-1 p50 of its 5 requests. `--mode
+gl_spread` holds kernels 2 and 3 against their plain versions after 0-3
+iterations at card-test shapes up to n_fft 4096, beside the plain loop's
+own spread under a relative 1e-6 and 1e-4 nudge of its magnitudes: how far
+the FGLA loop at momentum 0.95 carries f32 sum-order differences.
 """
 
 from __future__ import annotations
@@ -72,10 +93,11 @@ import os
 import statistics
 import sys
 
-from chip_smoke import (BENCH_FRAMES, SERVE_FRAMES, TACO1_R, TRAIN_B, TRAIN_T_MEL, TRAIN_T_TEXT,
-                        bench_batch, bwd_launch_times, core_inputs, decode_inputs,
-                        device_busy, fwd_launch_times, taco1_inputs, train_bwd_args, train_config,
-                        wavernn_inputs)
+from chip_smoke import (BENCH_FRAMES, GL_FULL, GL_SMALL, GL_WAVE, SERVE_FRAMES, TACO1_R, TRAIN_B,
+                        TRAIN_T_MEL, TRAIN_T_TEXT, bench_batch, bwd_launch_times, core_inputs,
+                        decode_inputs, device_busy, fwd_launch_times, gl_inputs,
+                        gl_iteration_inputs, gl_launch_times, taco1_inputs, train_bwd_args,
+                        train_config, wavernn_inputs)
 
 
 def timed(fn, reps: int):
@@ -244,11 +266,117 @@ def train_step_ab(args, torch) -> dict:
             "kernels": n, "idle_share": 1 - busy / wall}
 
 
+def gl_ab(args, torch) -> dict:
+    """Kernels 2 and 3 of the checkout at --root at chip_smoke.py's shapes,
+    kernel 4 as the control."""
+    from your_voice_tts_torch.ops import griffin_lim as gl
+
+    result = {"root": args.root, "device": torch.cuda.get_device_name(0), "mode": args.mode}
+    serial = getattr(gl, "fgla_serial_cuda", None)
+    for name, route, case in (("wave", "wave", GL_WAVE), ("full_12ms_hop", "full", GL_FULL),
+                              ("full_small", "full", GL_SMALL)):
+        mag, phase, consts, _, _ = gl_inputs(**case)
+        fn = getattr(gl, f"griffin_lim_{route}_cuda")
+        run = lambda fn=fn, n=case["iters"]: fn(mag, phase, consts, n_iters=n,  # noqa: E731
+                                                 momentum=case["mom"])
+        launches = fn.launches
+        run()
+        res = result[name] = {k: case[k] for k in ("B", "T", "n_fft", "hop", "iters")}
+        res["launches_a_call"] = fn.launches - launches
+        res["ms"], res["all_ms"] = timed(run, args.reps)
+        probe = run if serial is None else lambda: serial(  # noqa: E731
+            mag, phase, consts, n_iters=case["iters"], momentum=case["mom"], route=route)
+        res["launch_us"] = gl_launch_times(probe)
+        if args.holds:
+            plain = getattr(gl, f"griffin_lim_{route}_plain")
+            got = fn(mag, phase, consts, n_iters=1, momentum=case["mom"])
+            ref = plain(mag, phase, consts, n_iters=1, momentum=case["mom"])
+            res["rel_l2_1iter"] = float((got - ref).abs().norm() / ref.abs().norm())
+    mags, phase, consts, _, _, iters = gl_iteration_inputs()
+    start = (mags * torch.cos(phase), mags * torch.sin(phase))
+    run = lambda: gl.gl_iteration_cuda(*start, mags, consts, n_iters=iters)  # noqa: E731
+    res = result["iteration"] = {"B": mags.shape[0], "T": mags.shape[1], "iters": iters}
+    res["ms"], res["all_ms"] = timed(run, args.reps)
+    res["launch_us"] = gl_launch_times(run)
+    result["main"] = main_path_ab(torch, args.reps)
+    return result
+
+
+# kernels 2 and 3 at card-test shapes past n_fft 2048 (the first read rel
+# L2 1.0046e-2 after three iterations against the tests' 1e-2) and at n_fft
+# 1024 for comparison: (route, n_fft, hop, B, T, a phase per row)
+GL_SPREAD_CASES = [("wave", 4096, 1024, 2, 9, True), ("wave", 4096, 1024, 4, 40, True),
+                   ("full", 4096, 1024, 1, 5, False), ("wave", 2176, 545, 2, 9, False),
+                   ("wave", 1024, 256, 2, 20, False)]
+
+
+def gl_spread(args, torch) -> dict:
+    """Kernels 2 and 3 of the checkout at --root against their plain versions
+    after 0-3 FGLA iterations at momentum 0.95 (tests/test_torch_cuda.py's
+    seeded inputs), beside the plain loop's own spread: the plain version
+    from magnitudes nudged by a relative 1e-6 and 1e-4 (seeded). Rel L2
+    each."""
+    import numpy as np
+
+    from your_voice_tts_torch.ops import griffin_lim as gl
+    from your_voice_tts_torch.ops.filters import hann_window
+
+    rel = lambda a, b: float((a - b).abs().norm() / b.abs().norm())  # noqa: E731
+    result = {"root": args.root, "device": torch.cuda.get_device_name(0), "mode": args.mode,
+              "cases": []}
+    for route, n_fft, hop, B, T, per_row in GL_SPREAD_CASES:
+        g = torch.Generator().manual_seed(0)
+        mag = (torch.randn(B, T, n_fft // 2 + 1, generator=g).abs() + 0.1).cuda()
+        shape = (B, T, n_fft // 2 + 1) if per_row else (T, n_fft // 2 + 1)
+        phase = (torch.rand(shape, generator=g) * 2 * np.pi).cuda()
+        consts = gl.packed_constants(n_fft, hop, hann_window(n_fft, n_fft), torch.bfloat16,
+                                     "cuda")
+        kernel, plain = (getattr(gl, f"griffin_lim_{route}_{k}") for k in ("cuda", "plain"))
+        nudged = {e: mag * (1 + e * torch.randn(mag.shape, generator=g).cuda())
+                  for e in (1e-6, 1e-4)}
+        case = {"route": route, "n_fft": n_fft, "hop": hop, "B": B, "T": T, "per_row": per_row}
+        for n in range(4):
+            def run(fn, m, n=n):
+                return fn(m, phase, consts, n_iters=n, momentum=0.95)
+
+            ref = run(plain, mag)
+            case[f"iters_{n}"] = {"kernel": rel(run(kernel, mag), ref),
+                                  **{f"nudged_{e:g}": rel(run(plain, m), ref)
+                                     for e, m in nudged.items()}}
+        result["cases"].append(case)
+    return result
+
+
+def main_path_ab(torch, reps: int) -> dict:
+    """chip_smoke.py's main path (`Synthesizer.tts_many` at full width,
+    Griffin-Lim on the wave route): the batch of 8's wall ms (median of
+    `reps`) and the batch-1 p50 over its 5 requests."""
+    import time
+
+    from chip_smoke import SENTENCES, full_width_config, no_chance_stops
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+
+    synth = Synthesizer(full_width_config(), device="cuda")
+    no_chance_stops(synth.model)
+    synth.tts_many(SENTENCES[:1])
+    torch.cuda.synchronize()
+
+    def wall(texts):
+        t0 = time.perf_counter()
+        synth.tts_many(texts)                      # returns host arrays: ends synchronized
+        return (time.perf_counter() - t0) * 1e3
+
+    batch = [wall(SENTENCES) for _ in range(reps)]
+    lat = [wall([s]) for s in SENTENCES[:5]]
+    return {"batch_ms": statistics.median(batch), "all_batch_ms": batch,
+            "p50_batch1_ms": statistics.median(lat), "batch1_ms": lat}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--mode", choices=("wavernn", "decode", "taco1", "train_bwd", "train_fwd",
-                                       "train_step"), default="wavernn")
+                                       "train_step", "gl", "gl_spread"), default="wavernn")
     ap.add_argument("--blocks", type=int, default=0,
                     help="--mode taco1: blocks a launch where the version has `_blocks`")
     ap.add_argument("--reps", type=int, default=5, help="timed runs (their median)")
@@ -267,6 +395,9 @@ def main() -> int:
     assert os.path.dirname(os.path.dirname(your_voice_tts_torch.__file__)) == root
     if args.mode in ("decode", "taco1"):
         print(json.dumps(decode_ab(args, torch)))
+        return 0
+    if args.mode in ("gl", "gl_spread"):
+        print(json.dumps((gl_ab if args.mode == "gl" else gl_spread)(args, torch)))
         return 0
     if args.mode.startswith("train"):
         ab = {"train_bwd": train_bwd_ab, "train_fwd": train_fwd_ab,

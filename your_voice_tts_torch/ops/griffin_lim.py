@@ -22,12 +22,15 @@ normalization and DFT scales are folded into two [n_fft, n_fft] matrices
 Mw (synthesis) and Mf (analysis), so one FGLA iteration is two square
 matrix products around a banded overlap-add inside each utterance. The
 loop state is rounded to `dtype` (bf16 by default, like the TPU kernel);
-magnitudes, the Nyquist channel and accumulation stay f32.
+magnitudes, the Nyquist channel and accumulation stay f32. On the card one
+C call issues the whole loop as dependent launches (`fgla_plan` is its
+launch plan, `fgla_schedule` its launches in order).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -58,9 +61,12 @@ def ola_wsum_inv(window: np.ndarray, n_fft: int, hop: int) -> np.ndarray:
 def packed_constants(n_fft: int, hop: int, window, dtype=BF16,
                      device="cpu") -> dict:
     """Fold window, OLA normalization and DFT scales into the packed
-    synthesis matrix Mw [N, N] and analysis matrix Mf (stored transposed,
-    MfT [N, N], so G = g @ MfT), plus the Nyquist analysis row `nyq`, its
-    synthesis column `altw` and the emitted columns' normalization `wsic`."""
+    synthesis matrix Mw [N, N] and analysis matrix Mf, plus the Nyquist
+    analysis row `nyq`, its synthesis column `altw` and the emitted columns'
+    normalization `wsic`. Each matrix is stored once, K-major (a row per
+    output column) as the card's products read their B operand: `MwT` and
+    `Mf`; `Mw` and `MfT` (xw = P @ Mw, G = g @ MfT) are their transposed
+    views."""
     if n_fft % 2:
         raise ValueError("the packed Griffin-Lim loop needs an even n_fft")
     half = n_fft // 2
@@ -75,10 +81,10 @@ def packed_constants(n_fft: int, hop: int, window, dtype=BF16,
     alt = (1.0 - 2.0 * (np.arange(n_fft) % 2)).astype(np.float32)
     c0 = half - hop
     t = lambda a, dt=F32: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)  # noqa: E731
+    MwT, Mf = t((M * win[None, :]).T, dtype), t(M * wsiwin[None, :] * sc2[:, None], dtype)
     return {
         "n_fft": n_fft, "hop": hop, "dtype": dtype, "window": win, "wsi": wsi,
-        "Mw": t(M * win[None, :], dtype),
-        "MfT": t((M * wsiwin[None, :] * sc2[:, None]).T, dtype),
+        "MwT": MwT, "Mf": Mf, "Mw": MwT.T, "MfT": Mf.T,
         "nyq": t(wsiwin * alt), "altw": t(win * alt / n_fft),
         "wsic": t(wsi[c0:c0 + hop]),
     }
@@ -234,13 +240,72 @@ def griffin_lim_full_plain(mag, init_phase, consts: dict, *, n_iters: int,
                          torch.cat([P[..., half:], torch.zeros_like(frN)[..., None]], -1))
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# --- the packed loop on the card (csrc/griffin_lim.cu `gl_fgla`) -------------------
+
+# the product kernel's compile-time shape (csrc kGM, kGK, kGThreads, kStages)
+GEMM_BM, GEMM_BK, GEMM_THREADS, GEMM_STAGES = 128, 64, 288, 4
+
+
+def _row_launch(work: int, cap: int, M: int, align: int = 1) -> dict:
+    """An element-wise launch over M rows of `work` thread-tasks each:
+    `tpr` threads a row (a multiple of `align`, at most `cap`; each thread
+    takes tasks c, c + tpr, ...), `rows` rows a block of up to 256 threads
+    (one row past 256 threads a row), `threads` a block in whole warps,
+    `blocks`."""
+    passes = -(-work // cap)
+    tpr = -(-work // (passes * align)) * align
+    rows = max(1, 256 // tpr)
+    return {"tpr": tpr, "rows": rows, "threads": -(-rows * tpr // 32) * 32, "blocks": -(-M // rows)}
+
+
+def fgla_plan(n_fft: int, hop: int, M: int) -> dict:
+    """The card's launch plan of the packed loop for M = B * T frames, which
+    `gl_fgla` launches as given: product tiles of GEMM_BM rows x `bn`
+    columns (`bn` = 256 where n_fft % 256 == 0, else 128: every tile whole),
+    `grid` = (column tiles, row tiles) over the rows padded to `rows_pad`,
+    `threads` a block, a ring of `stages` k-slices of GEMM_BK in `smem`
+    bytes; the OLA (8 samples a task, up to 256 threads a row, a multiple of
+    16), emit (4 samples a task) and unpack (2 bins a task, up to 512
+    threads a row) launches' `_row_launch`."""
+    bn = 256 if n_fft % 256 == 0 else 128
+    stage = (GEMM_BM + bn) * GEMM_BK * 2
+    rows_pad = -(-M // GEMM_BM) * GEMM_BM
+    return {"bn": bn, "stages": GEMM_STAGES, "smem": 1024 + GEMM_STAGES * stage + 16 * GEMM_STAGES,
+            "threads": GEMM_THREADS, "rows_pad": rows_pad,
+            "grid": (n_fft // bn, rows_pad // GEMM_BM),
+            "ola": _row_launch(n_fft // 8, 256, M, 16), "emit": _row_launch(-(-hop // 4), 256, M),
+            "unpack": _row_launch(n_fft // 4, 512, M)}
+
+
+def fgla_schedule(n_iters: int, route: str) -> list[str]:
+    """The launches of one call of the packed loop, in order: synthesis,
+    OLA and analysis an iteration, then a synthesis and the emit ("wave",
+    3n + 2) or the unpack ("full", 3n + 1)."""
+    tail = ["synth", "emit"] if route == "wave" else ["unpack"]
+    return ["synth", "ola", "analysis"] * max(n_iters, 0) + tail
+
+
+class _Rows(ctypes.Structure):
+    """ctypes mirror of csrc/griffin_lim.cu `Rows`."""
+    _fields_ = [(n, ctypes.c_int) for n in ("tpr", "rows", "threads", "blocks")]
+
+
+class _Fgla(ctypes.Structure):
+    """ctypes mirror of csrc/griffin_lim.cu `Fgla`."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "M", "M_pad", "T", "N", "hop", "K", "Kf", "n_iters", "wave", "serial", "bn", "grid_x",
+        "grid_y", "threads", "smem")]
+        + [(n, _Rows) for n in ("ola", "emit", "unpack")]
+        + [("mom", ctypes.c_float)]
+        + [(n, ctypes.c_void_p) for n in (
+            "P", "pP", "frN", "pN", "xw", "g", "mag", "MwT", "Mf", "nyq", "altw", "wsic", "out",
+            "stream")]
+        + [("launches", ctypes.c_int)])
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "gl_synth": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "gl_analysis": [_P, _P, _P, _I, _P, _P, _I, _I, _F, _P],
-    "gl_ola": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    "gl_emit": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gl_unpack": [_P, _P, _P, _I, _I, _P],
+    "gl_fgla": [_P],
     "gli_synth": [_P, _P, _P, _P, _I, _I, _I, _P],
     "gli_ola": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gli_analysis": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -267,68 +332,62 @@ def _check_cuda(mag, consts: dict, what: str):
                          f"hop <= 1024 (got {n_fft}, {hop})")
 
 
-class _FglaCuda:
-    """The packed FGLA loop on the CUDA kernels, per iteration a synthesis
-    product, the banded OLA and an analysis product with the FGLA update
-    fused. After `run`, P [B * T, N] bf16 and frN [B * T] hold the final
-    projection."""
+def _fgla_cuda(mag, init_phase, consts: dict, n_iters: int, momentum: float, route: str,
+               what: str, serial: bool = False):
+    """The packed loop and its last launch on the card, one ctypes call:
+    (the waveforms [B, hop * (T - 1)] ("wave") or the complex spectrum
+    [B, T, Kf] ("full"), the launches `gl_fgla` issued). `serial` issues
+    the same launches without the programmatic dependence."""
+    n_fft, hop, B, T = _check(mag, consts)
+    _check_cuda(mag, consts, what)
+    lib, dev = _lib(), mag.device
+    M, Kf = B * T, n_fft // 2 + 1
+    plan = fgla_plan(n_fft, hop, M)
+    m = mag.to(F32).contiguous()
+    p0, n0 = pack_init(m, init_phase.to(dev), n_fft)
+    P = torch.zeros(plan["rows_pad"], n_fft, device=dev, dtype=BF16)
+    P[:M] = p0.reshape(M, n_fft)
+    pP = P.clone()
+    g = torch.zeros_like(P)
+    frN = n0.reshape(M).contiguous()
+    pN = frN.clone()
+    xw = torch.empty(M, n_fft, device=dev)
+    out = (torch.empty(M, hop, device=dev) if route == "wave"
+           else torch.empty(M, Kf, device=dev, dtype=torch.complex64))
+    c = consts
+    f = _Fgla(M=M, M_pad=plan["rows_pad"], T=T, N=n_fft, hop=hop, K=-(-n_fft // hop) - 1, Kf=Kf,
+              n_iters=n_iters, wave=route == "wave", serial=serial, bn=plan["bn"],
+              grid_x=plan["grid"][0], grid_y=plan["grid"][1], threads=plan["threads"],
+              smem=plan["smem"], ola=_Rows(**plan["ola"]), emit=_Rows(**plan["emit"]),
+              unpack=_Rows(**plan["unpack"]), mom=float(momentum), P=P.data_ptr(), pP=pP.data_ptr(), frN=frN.data_ptr(),
+              pN=pN.data_ptr(), xw=xw.data_ptr(), g=g.data_ptr(), mag=m.data_ptr(),
+              MwT=c["MwT"].data_ptr(), Mf=c["Mf"].data_ptr(), nyq=c["nyq"].data_ptr(),
+              altw=c["altw"].data_ptr(), wsic=c["wsic"].data_ptr(), out=out.data_ptr(),
+              stream=torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(lib.gl_fgla(ctypes.addressof(f)), "gl_fgla")
+    if route == "full":
+        return out.reshape(mag.shape), f.launches
+    corr = _edge_correction(T, n_fft, hop, consts["window"].tobytes(), dev)
+    return out.reshape(B, T * hop)[:, hop:] * corr, f.launches
 
-    def __init__(self, mag, init_phase, consts: dict, what: str):
-        n_fft, hop, B, T = _check(mag, consts)
-        _check_cuda(mag, consts, what)
-        self.lib, self.c = _lib(), consts
-        dev = mag.device
-        self.M, self.N, self.T, self.Kf = B * T, n_fft, T, n_fft // 2 + 1
-        self.K = -(-n_fft // hop) - 1
-        self.m = mag.to(F32).contiguous()
-        p0, n0 = pack_init(self.m, init_phase.to(dev), n_fft)
-        self.P = p0.reshape(self.M, n_fft).to(BF16).contiguous()
-        self.pP = self.P.clone()
-        self.frN = n0.reshape(self.M).contiguous()
-        self.pN = self.frN.clone()
-        self.xw = torch.empty(self.M, n_fft, device=dev)
-        self.g = torch.empty(self.M, n_fft, device=dev, dtype=BF16)
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def synth(self):
-        c = self.c
-        cuda_build.check(self.lib.gl_synth(self.P.data_ptr(), c["Mw"].data_ptr(),
-                                           self.frN.data_ptr(), c["altw"].data_ptr(),
-                                           self.xw.data_ptr(), self.M, self.N, self.stream),
-                         "gl_synth")
-
-    def run(self, n_iters: int, momentum: float) -> int:
-        """The loop's launches; returns how many it made."""
-        c, lib, mom = self.c, self.lib, float(momentum)
-        for _ in range(n_iters):
-            self.synth()
-            cuda_build.check(lib.gl_ola(self.xw.data_ptr(), c["nyq"].data_ptr(),
-                                        self.m.data_ptr(), self.Kf, self.g.data_ptr(),
-                                        self.frN.data_ptr(), self.pN.data_ptr(), self.M,
-                                        self.T, self.N, c["hop"], self.K, mom, self.stream),
-                             "gl_ola")
-            cuda_build.check(lib.gl_analysis(self.g.data_ptr(), c["MfT"].data_ptr(),
-                                             self.m.data_ptr(), self.Kf, self.P.data_ptr(),
-                                             self.pP.data_ptr(), self.M, self.N, mom,
-                                             self.stream), "gl_analysis")
-        return 3 * n_iters
+@functools.lru_cache(maxsize=32)
+def _edge_correction(T: int, n_fft: int, hop: int, window: bytes, device) -> torch.Tensor:
+    """`istft_edge_correction` on `device`, made once per frame count: its
+    loop over the frames and the copy to the card stay off the call."""
+    win = np.frombuffer(window, np.float32)
+    corr = istft_edge_correction(T, n_fft, hop, win, ola_wsum_inv(win, n_fft, hop))
+    return torch.from_numpy(corr).to(device)
 
 
 def griffin_lim_wave_cuda(mag, init_phase, consts: dict, *, n_iters: int,
                           momentum: float = 0.0):
     """The wave route on the CUDA kernels: the FGLA loop, then one more
-    synthesis and the waveform columns."""
-    loop = _FglaCuda(mag, init_phase, consts, "griffin_lim_wave_cuda")
-    n = loop.run(n_iters, momentum)
-    n_fft, hop, T = loop.N, consts["hop"], loop.T
-    y = torch.empty(loop.M, hop, device=mag.device)
-    loop.synth()
-    cuda_build.check(loop.lib.gl_emit(loop.xw.data_ptr(), consts["wsic"].data_ptr(),
-                                      y.data_ptr(), loop.M, T, n_fft, hop, loop.K,
-                                      n_fft // 2 - hop, loop.stream), "gl_emit")
-    griffin_lim_wave_cuda.launches += n + 2
-    corr = istft_edge_correction(T, n_fft, hop, consts["window"], consts["wsi"])
-    return y.reshape(-1, T * hop)[:, hop:] * torch.from_numpy(corr).to(mag.device)
+    synthesis and the waveform columns, in one ctypes call."""
+    y, launches = _fgla_cuda(mag, init_phase, consts, n_iters, momentum, "wave",
+                             "griffin_lim_wave_cuda")
+    griffin_lim_wave_cuda.launches += launches
+    return y
 
 
 griffin_lim_wave_cuda.launches = 0
@@ -338,18 +397,24 @@ def griffin_lim_full_cuda(mag, init_phase, consts: dict, *, n_iters: int,
                           momentum: float = 0.0):
     """The full route on the CUDA kernels: the FGLA loop, then one launch
     that unpacks the plane and the Nyquist channel into the complex
-    spectrum."""
-    loop = _FglaCuda(mag, init_phase, consts, "griffin_lim_full_cuda")
-    n = loop.run(n_iters, momentum)
-    out = torch.empty(loop.M, loop.Kf, device=mag.device, dtype=torch.complex64)
-    cuda_build.check(loop.lib.gl_unpack(loop.P.data_ptr(), loop.frN.data_ptr(),
-                                        out.data_ptr(), loop.M, loop.N, loop.stream),
-                     "gl_unpack")
-    griffin_lim_full_cuda.launches += n + 1
-    return out.reshape(mag.shape)
+    spectrum, in one ctypes call."""
+    out, launches = _fgla_cuda(mag, init_phase, consts, n_iters, momentum, "full",
+                               "griffin_lim_full_cuda")
+    griffin_lim_full_cuda.launches += launches
+    return out
 
 
 griffin_lim_full_cuda.launches = 0
+
+
+def fgla_serial_cuda(mag, init_phase, consts: dict, *, n_iters: int, momentum: float = 0.0,
+                     route: str = "wave"):
+    """`griffin_lim_wave_cuda` ("wave") or `griffin_lim_full_cuda` ("full")
+    with every launch waiting for the previous one to end: a probe (the
+    card tests hold it to the same bits; per-launch device times come from
+    it). Not counted as launches."""
+    return _fgla_cuda(mag, init_phase, consts, n_iters, momentum, route, "fgla_serial_cuda",
+                      serial=True)[0]
 
 
 def griffin_lim_wave(mag, init_phase, consts: dict, *, n_iters: int,

@@ -14,8 +14,8 @@ so gradients come back float32), BatchNorm statistics and running stats
 stay float32, and the losses are float32. Every parameter is cast, the
 encoder's BiLSTM's too (cuDNN's LSTM runs in bf16).
 
-Later slices bring data parallelism, gradient accumulation, the
-bidirectional decoder, GST and speaker conditioning, the phoneme frontend,
+Later slices bring Tacotron(1) training, data parallelism, gradient
+accumulation, the bidirectional decoder, GST and speaker conditioning, the phoneme frontend,
 TensorBoard logging, test-sentence synthesis and the profiler server; they
 raise NotImplementedError here.
 """
@@ -60,6 +60,8 @@ class Trainer:
                  device=None):
         if cfg.training.grad_accum_steps > 1:
             raise NotImplementedError(f"gradient accumulation {_LATER}")
+        if cfg.model.model == "Tacotron":
+            raise NotImplementedError(f"Tacotron(1) training {_LATER}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.verbose = verbose
