@@ -28,7 +28,9 @@ Phases, each fatal on failure:
      each round's work and barrier wait, at B=8 and B=1;
    - gl-iteration: plain Griffin-Lim iterations past the 1,024-frame cap at
      the Tacotron(1) path's launch shapes: the 1,760-frame bucket of its
-     1,750 frames, n_fft 1024 / hop 256, 24 iterations, B=8 and B=1;
+     1,750 frames, n_fft 1024 / hop 256, 24 iterations, B=8 and B=1; each
+     launch's device time (synthesis, OLA, analysis; torch.profiler over
+     the serial probe), held to the launches its C call reports issuing;
    - gl-full, beyond the path's shape: the whole FGLA loop returning the
      spectrum, B=8, T=500, n_fft 2048 / hop 275 / window 1102 (a 12.5 ms
      hop), 24 iterations, with each launch's device time (the unpack in
@@ -48,8 +50,9 @@ Phases, each fatal on failure:
 4b. taco1-main: Synthesizer on the Tacotron(1) config (250 steps x r=7 =
    1,750 frames a row) answers the batch of 8 and 5 batch-1 requests, the
    counters set to 0 just before and read just after: the Tacotron(1)
-   decode and the per-iteration Griffin-Lim kernels launched, the
-   Tacotron2 decode did not; mel frames/s, real-time factor, p50 latency.
+   decode and the per-iteration Griffin-Lim kernels launched (3 x the
+   config's iterations a call, from one ctypes call), the Tacotron2 decode
+   did not; mel frames/s, real-time factor, p50 latency.
 
 5. train-fwd: the training decoder's forward kernel at config #3's shape
    (configs/ljspeech_tacotron2.json at full width, r=2: B=32, T_in=128,
@@ -411,34 +414,40 @@ def gl_inputs(B, T, n_fft, hop, win, seed, **_):
 
 def gl_launch_times(run) -> dict:
     """Device time of each Griffin-Lim launch of one call of `run`
-    (torch.profiler): synthesis, OLA, analysis, emit, unpack of kernels 2
-    and 3, kernel 4's (gli_*), and "other" (the set-up's PyTorch kernels)."""
+    (torch.profiler): synthesis, OLA, analysis, emit, unpack, and "other"
+    (the set-up's PyTorch kernels). The product kernel's second template
+    argument tells its analysis from its synthesis; an older checkout's
+    kernel 4 (gli_synth, gli_ola, gli_analysis) counts under the same
+    three kinds."""
     def key(name):
-        if "gli_" in name:
-            return "gli_" + next(k for k in ("synth", "ola", "analysis") if f"gli_{k}" in name)
-        if "fgla_gemm" in name:
-            return "analysis" if "true>" in name else "synth"
+        if "fgla_gemm_kernel<" in name:
+            args = name.split("fgla_gemm_kernel<")[1].split(">")[0].split(",")
+            return "analysis" if args[1].strip() == "true" else "synth"
         return next((k for k in GL_LAUNCHES if f"{k}_kernel" in name), "other")
 
-    return kernel_times(run, key, GL_LAUNCHES + ("gli_synth", "gli_ola", "gli_analysis", "other"))
+    return kernel_times(run, key, GL_LAUNCHES + ("other",))
 
 
 def hold_gl_launches(tag: str, route: str, times: dict, issued: int, n_iters: int) -> None:
-    """Prints the packed loop's device time a launch (the serial probe under
-    torch.profiler) and fails unless the profiler saw the launches
-    `gl_fgla` reported issuing (`issued`, one call of the counted route at
-    the same shape), kind by kind as `fgla_schedule` lists them."""
-    from your_voice_tts_torch.ops.griffin_lim import fgla_schedule
+    """Prints a Griffin-Lim loop's device time a launch (its serial probe
+    under torch.profiler) and fails unless the profiler saw the launches
+    the C call reported issuing (`issued`, one call of the counted route at
+    the same shape), kind by kind as the route's schedule lists them:
+    `fgla_schedule` for "wave" and "full" (`gl_fgla`),
+    `gl_iteration_schedule` for "iteration" (`gl_plain`)."""
+    from your_voice_tts_torch.ops.griffin_lim import fgla_schedule, gl_iteration_schedule
 
+    entry = "gl_plain" if route == "iteration" else "gl_fgla"
     parts = ", ".join(f"{k} {v['us_a_launch']:.1f} us x {v['launches']}"
                       for k, v in times.items() if v["launches"])
     print(f"[{tag}] {route}: device time a launch (serial probe, torch.profiler): {parts}; "
-          f"launches gl_fgla issued {issued}; one ctypes call a call (gl_fgla), by "
+          f"launches {entry} issued {issued}; one ctypes call a call ({entry}), by "
           f"construction")
-    plan = fgla_schedule(n_iters, route)
+    plan = (gl_iteration_schedule(n_iters) if route == "iteration"
+            else fgla_schedule(n_iters, route))
     seen = {k: times[k]["launches"] for k in GL_LAUNCHES}
     check(seen == {k: plan.count(k) for k in GL_LAUNCHES} and sum(seen.values()) == issued,
-          f"{tag}: the profiler's launches {seen} are not the {issued} gl_fgla issued")
+          f"{tag}: the profiler's launches {seen} are not the {issued} {entry} issued")
 
 
 def phase_griffin_lim(report):
@@ -932,7 +941,8 @@ def phase_gl_iteration(report):
     import torch
 
     from your_voice_tts_torch.ops.dsp import istft
-    from your_voice_tts_torch.ops.griffin_lim import gl_iteration_cuda, gl_iteration_plain, gl_route
+    from your_voice_tts_torch.ops.griffin_lim import (gl_iteration_cuda, gl_iteration_plain,
+                                                      gl_iteration_serial_cuda, gl_route)
 
     mags, phase, consts, window, g, iters = gl_iteration_inputs()
     n_fft, hop, T = consts["n_fft"], consts["hop"], mags.shape[1]
@@ -988,18 +998,26 @@ def phase_gl_iteration(report):
                 torch.matmul(gb, consts["ana"])
 
         lib_ms = cuda_ms(library, 5)
-        ops_s = iters * 2 * 2 * M * (2 * Kf) * n_fft / BF16_FLOPS
+        # two [M, N] x [N, N] products an iteration: N columns carry the
+        # Kf = N/2 + 1 bins' work (the packed plane and the Nyquist bin
+        # beside it)
+        ops_s = iters * 2 * 2 * M * n_fft * n_fft / BF16_FLOPS
         io_bytes = 5 * M * Kf * 4 + 2 * (2 * Kf) * n_fft * 2
         bound_ms, bound_by = bound(io_bytes, ops_s)
         print(f"[gl-iteration] B={B} T={T} n_fft={n_fft} hop={hop} iters={iters} kernel_ms "
-              f"{ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms {bound_ms:.3f} ({bound_by}; the "
-              f"{Kf} bins, not the padded {consts['Kp']})  library_ms {lib_ms:.2f} "
+              f"{ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms {bound_ms:.3f} ({bound_by}; "
+              f"{n_fft} columns a product)  library_ms {lib_ms:.2f} "
               f"(torch.matmul bf16 on the same {2 * iters} padded products; a yardstick for "
               f"the products only)")
+        issued = gl_iteration_cuda.launches
+        run(gl_iteration_cuda, mag, iters)
+        issued = gl_iteration_cuda.launches - issued
+        per = gl_launch_times(lambda: run(gl_iteration_serial_cuda, mag, iters))
+        hold_gl_launches(f"gl-iteration B={B}", "iteration", per, issued, iters)
         held[B] = dict(rel_l2_1iter=rel1, max_abs_err_1iter=err1, sensitivity=sens,
                        conv_start=conv0, conv_kernel=conv_k, conv_plain=conv_p, ms=ms,
                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                       library_ms=lib_ms)
+                       library_ms=lib_ms, launch_us=per, launches_a_call=issued)
     report["gl_iteration"] = dict(T=T, n_fft=n_fft, hop=hop, iters=iters,
                                   **{f"B{B}": v for B, v in held.items()})
     b8 = held[8]
@@ -1060,7 +1078,13 @@ def phase_taco1_main(report):
     print(f"[taco1-main] batch-1 latency p50 {p50 * 1e3:.1f} ms (all: "
           f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms)")
     print(f"[taco1-main] launches on the Tacotron(1) path: {seen}")
-    check(seen["tacotron1_decode_cuda"] > 0 and seen["gl_iteration_cuda"] > 0
+    # kernel 4: one gl_plain call (one ctypes call) a tts_many call, 3 n
+    # dependent launches each
+    calls, iters = 1 + len(lat), synth.cfg.audio.griffin_lim_iters
+    print(f"[taco1-main] gl_iteration_cuda: {calls} calls, launches a call "
+          f"{seen['gl_iteration_cuda'] / calls:g} (3 x {iters} iterations, counted by "
+          f"gl_plain), ctypes calls a call 1 (was 3 x {iters} = {3 * iters})")
+    check(seen["tacotron1_decode_cuda"] > 0 and seen["gl_iteration_cuda"] == calls * 3 * iters
           and seen["tacotron2_decode_cuda"] == 0 and seen["griffin_lim_wave_cuda"] == 0
           and seen["griffin_lim_full_cuda"] == 0, "Tacotron(1) path kernels")
     report["taco1_main"] = dict(batch_ms=t_batch * 1e3, mel_frames_per_s=frames / t_batch,

@@ -961,18 +961,31 @@ def test_fgla_dependent_launches_change_nothing(cuda, route, n_fft, hop, B, T):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("n_fft,hop,B,T", [(256, 64, 3, 37), (1024, 256, 2, 40)])
-def test_gl_iteration_kernel_matches_plain(cuda, n_fft, hop, B, T):
-    """One and three plain iterations on the unpacked layout: bf16 products
-    on both sides."""
-    from your_voice_tts_torch.ops.griffin_lim import (gl_iteration, gl_iteration_cuda,
-                                                      gl_iteration_plain, unpacked_constants)
+def gl_iteration_case(cuda, n_fft, win, hop, B, T):
+    """Seeded magnitudes [B, T, Kf], the spectrum from a shared seeded
+    phase, and the unpacked bf16 constants, on the card."""
+    from your_voice_tts_torch.ops.griffin_lim import unpacked_constants
 
     g = torch.Generator().manual_seed(1)
     mag = (torch.randn(B, T, n_fft // 2 + 1, generator=g).abs() + 0.1).to(cuda)
     ph = (torch.rand(T, n_fft // 2 + 1, generator=g) * 2 * np.pi).to(cuda)
-    Fr, Fi = mag * torch.cos(ph), mag * torch.sin(ph)
-    consts = unpacked_constants(n_fft, hop, hann_window(n_fft, n_fft), torch.bfloat16, cuda)
+    consts = unpacked_constants(n_fft, hop, hann_window(win, n_fft), torch.bfloat16, cuda)
+    return mag * torch.cos(ph), mag * torch.sin(ph), mag, consts
+
+
+# (1024, 256, 2, 40) one row tile short of 128; (256, 64, 2, 1,056) a batch
+# past the whole-loop cap, as the router sends it; (2048, 1102, 275, 2, 20)
+# the scalar OLA (hop % 4 != 0) at a 12.5 ms hop
+@pytest.mark.parametrize("n_fft,win,hop,B,T", [(256, 256, 64, 3, 37), (1024, 1024, 256, 2, 40),
+                                               (256, 256, 64, 2, 1056),
+                                               (2048, 1102, 275, 2, 20)])
+def test_gl_iteration_kernel_matches_plain(cuda, n_fft, win, hop, B, T):
+    """One and three plain iterations on the unpacked layout: bf16 products
+    on both sides."""
+    from your_voice_tts_torch.ops.griffin_lim import (gl_iteration, gl_iteration_cuda,
+                                                      gl_iteration_plain)
+
+    Fr, Fi, mag, consts = gl_iteration_case(cuda, n_fft, win, hop, B, T)
     for n in (1, 3):
         got = gl_iteration_cuda(Fr, Fi, mag, consts, n_iters=n)
         ref = gl_iteration_plain(Fr, Fi, mag, consts, n_iters=n)
@@ -980,6 +993,49 @@ def test_gl_iteration_kernel_matches_plain(cuda, n_fft, hop, B, T):
             assert a.shape == b.shape == mag.shape
             assert float((a - b).norm() / b.norm()) <= 1e-2
     assert torch.equal(gl_iteration(Fr, Fi, mag, consts, n_iters=3)[0], got[0])
+
+
+def test_gl_iteration_kernel_at_no_iteration(cuda):
+    """n_iters = 0 launches nothing and returns the spectrum unchanged."""
+    from your_voice_tts_torch.ops.griffin_lim import gl_iteration_cuda
+
+    Fr, Fi, mag, consts = gl_iteration_case(cuda, 256, 256, 64, 2, 9)
+    before = gl_iteration_cuda.launches
+    got = gl_iteration_cuda(Fr, Fi, mag, consts, n_iters=0)
+    assert gl_iteration_cuda.launches == before
+    assert torch.equal(got[0], Fr) and torch.equal(got[1], Fi)
+
+
+@pytest.mark.parametrize("n_fft,win,hop,B,T", [(1024, 1024, 256, 3, 43), (2048, 1102, 275, 1, 20),
+                                               (384, 384, 96, 2, 7)])
+def test_gl_iteration_dependent_launches_change_nothing(cuda, n_fft, win, hop, B, T):
+    """Kernel 4's dependent launches give the bits of the same launches
+    issued one after another (the serial probe, which counts no launch);
+    the launches `gl_plain` reports issuing are 3n."""
+    from your_voice_tts_torch.ops.griffin_lim import gl_iteration_cuda, gl_iteration_serial_cuda
+
+    Fr, Fi, mag, consts = gl_iteration_case(cuda, n_fft, win, hop, B, T)
+    before = gl_iteration_cuda.launches
+    got = gl_iteration_cuda(Fr, Fi, mag, consts, n_iters=5)
+    assert gl_iteration_cuda.launches - before == 15
+    ref, issued = gl_iteration_serial_cuda(Fr, Fi, mag, consts, n_iters=5)
+    assert issued == 15 and gl_iteration_cuda.launches - before == 15
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_gl_iteration_refused_plan_raises(cuda, monkeypatch):
+    """`gl_plain` refuses a plan its kernels cannot run (here tiles of 64
+    columns) before it launches anything."""
+    from your_voice_tts_torch.ops import griffin_lim as gl
+
+    Fr, Fi, mag, consts = gl_iteration_case(cuda, 256, 256, 64, 2, 9)
+    plan = gl.gl_iteration_plan
+    monkeypatch.setattr(gl, "gl_iteration_plan", lambda n_fft, hop, M, sms: {
+        **plan(n_fft, hop, M, sms), **gl.product_plan(n_fft, M, 64)})
+    before = gl.gl_iteration_cuda.launches
+    with pytest.raises(RuntimeError, match="gl_plain"):
+        gl.gl_iteration_cuda(Fr, Fi, mag, consts, n_iters=2)
+    assert gl.gl_iteration_cuda.launches == before
 
 
 @pytest.mark.parametrize("B,T,n_fft,hop", [(2, 64, 1024, 256), (3, 64, 256, 64),

@@ -71,14 +71,17 @@ at the main path's shape `GL_WAVE` (B=8, T=500, n_fft 1024, hop 256, 24
 iterations, momentum 0.95), kernel 3 (`griffin_lim_full_cuda`) at a 12.5
 ms hop `GL_FULL` (n_fft 2048, hop 275, window 1102) and at the smoke
 path's launch shape `GL_SMALL` (B=4, T=96, n_fft 256, hop 64, 15
-iterations), and kernel 4 (`gl_iteration_cuda`) at B=8, T=1,760 as the
-control: median of `--reps` (CUDA events), the launches a call (the
-counter), and each launch's
-device time (`gl_launch_times`, torch.profiler over one call: the
-version's serial probe `fgla_serial_cuda` where it has one); `--holds`
-adds rel L2 against the plain version after one iteration. It also times
-chip_smoke.py's main path (`main_path_ab`): the batch of 8's wall ms
-(median of `--reps`) and the batch-1 p50 of its 5 requests. `--mode
+iterations), and kernel 4 (`gl_iteration_cuda`) at B=8 and B=1, T=1,760
+(the Tacotron(1) path's bucket): median of `--reps` (CUDA events), the
+launches a call (the counter), and each launch's device time
+(`gl_launch_times`, torch.profiler over one call: the version's serial
+probe, `fgla_serial_cuda` / `gl_iteration_serial_cuda`, where it has
+one), and a sha256 of kernels 2 and 3's output after 3 iterations (equal
+between checkouts where their bits are); `--holds` adds rel L2 against the plain version after one
+iteration; `--bn 128` or `--bn 256` plans kernel 4's products in tiles of
+that many columns (where the version has `gl_iteration_plan`). It also times chip_smoke.py's
+main path (`main_path_ab`, left out with `--no_main`): the batch of 8's
+wall ms (median of `--reps`) and the batch-1 p50 of its 5 requests. `--mode
 gl_spread` holds kernels 2 and 3 against their plain versions after 0-3
 iterations at card-test shapes up to n_fft 4096, beside the plain loop's
 own spread under a relative 1e-6 and 1e-4 nudge of its magnitudes: how far
@@ -88,6 +91,7 @@ the FGLA loop at momentum 0.95 carries f32 sum-order differences.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -267,8 +271,8 @@ def train_step_ab(args, torch) -> dict:
 
 
 def gl_ab(args, torch) -> dict:
-    """Kernels 2 and 3 of the checkout at --root at chip_smoke.py's shapes,
-    kernel 4 as the control."""
+    """Kernels 2, 3 and 4 of the checkout at --root at chip_smoke.py's
+    shapes (kernel 4 at B=8 and B=1), then the serving main path."""
     from your_voice_tts_torch.ops import griffin_lim as gl
 
     result = {"root": args.root, "device": torch.cuda.get_device_name(0), "mode": args.mode}
@@ -287,18 +291,42 @@ def gl_ab(args, torch) -> dict:
         probe = run if serial is None else lambda: serial(  # noqa: E731
             mag, phase, consts, n_iters=case["iters"], momentum=case["mom"], route=route)
         res["launch_us"] = gl_launch_times(probe)
+        # the output's bits after 3 iterations, to compare checkouts
+        res["sha256_3iter"] = hashlib.sha256(
+            fn(mag, phase, consts, n_iters=3, momentum=case["mom"]).cpu().numpy().tobytes()
+        ).hexdigest()
         if args.holds:
             plain = getattr(gl, f"griffin_lim_{route}_plain")
             got = fn(mag, phase, consts, n_iters=1, momentum=case["mom"])
             ref = plain(mag, phase, consts, n_iters=1, momentum=case["mom"])
             res["rel_l2_1iter"] = float((got - ref).abs().norm() / ref.abs().norm())
     mags, phase, consts, _, _, iters = gl_iteration_inputs()
-    start = (mags * torch.cos(phase), mags * torch.sin(phase))
-    run = lambda: gl.gl_iteration_cuda(*start, mags, consts, n_iters=iters)  # noqa: E731
-    res = result["iteration"] = {"B": mags.shape[0], "T": mags.shape[1], "iters": iters}
-    res["ms"], res["all_ms"] = timed(run, args.reps)
-    res["launch_us"] = gl_launch_times(run)
-    result["main"] = main_path_ab(torch, args.reps)
+    if args.bn and hasattr(gl, "gl_iteration_plan"):   # kernel 4 in tiles of bn columns
+        plan = gl.gl_iteration_plan
+        gl.gl_iteration_plan = lambda n_fft, hop, M, *sms: {
+            **plan(n_fft, hop, M, *sms), **gl.product_plan(n_fft, M, args.bn)}
+    serial = getattr(gl, "gl_iteration_serial_cuda", None)
+    for B in (8, 1):
+        mag = mags[:B]
+        start = (mag * torch.cos(phase), mag * torch.sin(phase))
+        run = lambda m=mag, s=start, fn=gl.gl_iteration_cuda: fn(  # noqa: E731
+            *s, m, consts, n_iters=iters)
+        res = result[f"iteration_B{B}"] = {"B": B, "T": mags.shape[1], "iters": iters,
+                                           "bn": args.bn or None}
+        launches = gl.gl_iteration_cuda.launches
+        run()
+        res["launches_a_call"] = gl.gl_iteration_cuda.launches - launches
+        res["ms"], res["all_ms"] = timed(run, args.reps)
+        probe = run if serial is None else lambda m=mag, s=start: serial(  # noqa: E731
+            *s, m, consts, n_iters=iters)
+        res["launch_us"] = gl_launch_times(probe)
+        if args.holds:
+            got = gl.gl_iteration_cuda(*start, mag, consts, n_iters=1)
+            ref = gl.gl_iteration_plain(*start, mag, consts, n_iters=1)
+            res["rel_l2_1iter"] = float(torch.cat([got[0] - ref[0], got[1] - ref[1]]).norm()
+                                        / torch.cat(ref).norm())
+    if not args.no_main:
+        result["main"] = main_path_ab(torch, args.reps)
     return result
 
 
@@ -382,6 +410,10 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5, help="timed runs (their median)")
     ap.add_argument("--probes", action="store_true")
     ap.add_argument("--holds", action="store_true")
+    ap.add_argument("--bn", type=int, default=0,
+                    help="--mode gl: kernel 4's product tile width where the version plans it")
+    ap.add_argument("--no_main", action="store_true",
+                    help="--mode gl: leave out the serving main path")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)

@@ -10,8 +10,9 @@
 //     the same FGLA loop, returning the complex spectrum for the caller's
 //     istft (`gl_fgla`, full: the loop, then the unpack);
 //   - `gl_iteration_pallas` (`_kernel`), driven by `griffin_lim_pallas_batch`:
-//     one PLAIN Griffin-Lim iteration in the unpacked [T, n_fft/2 + 1]
-//     layout (gli_synth, gli_ola, gli_analysis).
+//     PLAIN Griffin-Lim iterations of the unpacked [T, n_fft/2 + 1]
+//     spectrum (`gl_plain`: synthesis, OLA, analysis an iteration on the
+//     same engine, with kernel 4's rounding points).
 //
 // What bounds it on the H100. Each iteration is two [M, N] x [N, N] bf16
 // products (M = B * T frames stacked, N = n_fft; 2 M N^2 multiply-adds
@@ -52,100 +53,40 @@
 // g = bf16(OLA), magnitudes, the Nyquist channel and all accumulation in
 // f32.
 //
-// Kernel 4 (the unpacked loop) keeps its first design: WMMA bf16 products
-// in 128 x 128 tiles staged through shared memory (`gemm_tile`), the plain
-// projection and re-magnitude fused into the analysis epilogue, its
-// spectrum in f32 beside a bf16 copy that feeds the products; its
-// Kf = n_fft/2 + 1 bins are padded with zero rows and columns of the DFT
-// matrices to Kp (a multiple of 64), so every tile is whole.
+// Kernel 4 (`gl_plain`) runs on the same engine with its own rounding
+// points (the template flag kPlain). No scale is folded into its B
+// operands: they are the reference's bf16 DFT entries rearranged, K-major,
+// over bins 0 .. N/2 - 1 (synT from [iC ; -iS], anaT from [C | -S]), so
+// its products are [M, N] x [N, N] over the real bins alone (its 513 bins
+// at n_fft 1024 padded to 576 cost 12.5% more). Its state is the packed
+// plane P in bf16 beside the f32 Nyquist channel frN, the real part of
+// bin N/2:
+//   - synthesis: xw = (P @ syn + bf16(frN) (x) (-1)^n / N) * win: the
+//     Nyquist row iC[N/2] joins the sum before the window, as in the
+//     reference;
+//   - OLA: g = bf16(acc * wsi * win), and the Nyquist projection
+//     gn = sum_n g[n] C[n, N/2] over the ROUNDED g, as the reference's
+//     dot(bf16 g, bf16 C) reads it; frN = mag_N gn rsqrt(max(gn^2, 1e-30)),
+//     no momentum;
+//   - analysis: the plain projection m (gr, gi) rsqrt(max(gr^2 + gi^2,
+//     1e-30)) in registers, bf16 P out (two planes, staged, 16-byte rows);
+//     on the last iteration the f32 spectrum [M, Kf] from the registers
+//     instead, column tile 0 adding the Nyquist bin (frN, 0).
+// The Nyquist bin's imaginary part is dropped: S[:, N/2] = sin(pi n) is
+// ~1e-13 in bf16 and iS[N/2] ~1e-16, so what it adds to gi_N, to xw or to
+// the projection lies far below the f32 rounding of the terms kept. Bin
+// 0's imaginary part stays in the plane, where S[:, 0] = 0 keeps it 0.
 
 #include <cuda.h>  // CUtensorMap and its enums (cuTensorMapEncodeTiled comes through the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstddef>
 #include <cstdint>
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
-
-// --- kernel 4's WMMA tile ------------------------------------------------------
-
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kLdA = kBK + 8;    // smem row strides (bf16 / bf16 / f32)
-constexpr int kLdB = kBN + 8;
-constexpr int kLdC = kBN + 4;
-constexpr int kThreads = 256;    // 8 warps: 4 along rows x 2 along columns
-constexpr size_t kSmemAB = (size_t)kBM * kLdA * 2 + (size_t)kBK * kLdB * 2;
-constexpr size_t kSmemC = (size_t)kBM * kLdC * 4;
-constexpr size_t kSmem = kSmemAB > kSmemC ? kSmemAB : kSmemC;
-
-// Cs[128][kLdC] = A[row0 : row0 + 128, :] @ B[:, cols], A [M, K] and
-// B [K, ldb] row-major bf16, K a multiple of kBK, ldb of 8. Tile column
-// c < 64 maps to B column colA + c, c >= 64 to colB + c - 64 (contiguous
-// when colB = colA + 64).
-__device__ void gemm_tile(const __nv_bfloat16* __restrict__ A,
-                          const __nv_bfloat16* __restrict__ Bm, int M, int K,
-                          int ldb, int row0, int colA, int colB,
-                          unsigned char* smem) {
-    __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-    __nv_bfloat16* Bs = As + kBM * kLdA;
-    float* Cs = reinterpret_cast<float*>(smem);
-    const int tid = threadIdx.x, warp = tid >> 5;
-    const int wm = warp >> 1, wn = warp & 1;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-    for (int k0 = 0; k0 < K; k0 += kBK) {
-#pragma unroll
-        for (int it = 0; it < 2; ++it) {
-            const int idx = tid + it * kThreads;
-            const int r = idx >> 2, seg = (idx & 3) * 8, grow = row0 + r;
-            uint4 v = make_uint4(0u, 0u, 0u, 0u);
-            if (grow < M)
-                v = __ldg(reinterpret_cast<const uint4*>(A + (size_t)grow * K + k0 + seg));
-            *reinterpret_cast<uint4*>(As + r * kLdA + seg) = v;
-        }
-#pragma unroll
-        for (int it = 0; it < 2; ++it) {
-            const int idx = tid + it * kThreads;
-            const int r = idx >> 4, c = (idx & 15) * 8;
-            const int gcol = c < 64 ? colA + c : colB + c - 64;
-            *reinterpret_cast<uint4*>(Bs + r * kLdB + c) =
-                __ldg(reinterpret_cast<const uint4*>(Bm + (size_t)(k0 + r) * ldb + gcol));
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kBK; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-                wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * kLdA + kk, kLdA);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                wmma::load_matrix_sync(fb[j], Bs + kk * kLdB + wn * 64 + j * 16, kLdB);
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-        __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * kLdC + wn * 64 + j * 16,
-                                    acc[i][j], kLdC, wmma::mem_row_major);
-    __syncthreads();
-}
 
 // overlap-added signal at (row, n): frame t's own sample plus the K
 // neighbours on each side inside the same utterance (t = row % T)
@@ -160,7 +101,7 @@ __device__ __forceinline__ float ola_at(const float* xw, int row, int t, int T, 
     return acc;
 }
 
-// --- the packed FGLA loop (kernels 2 and 3) -------------------------------------
+// --- the packed loop's engine (kernels 2, 3 and 4) ------------------------------
 
 constexpr int kGM = 128;           // rows a product tile: two consumer warpgroups of 64
 constexpr int kGK = 64;            // k a stage: one 128-byte swizzle row of bf16
@@ -350,17 +291,27 @@ struct Wgmma<256> {
 // [BN x, BN x + BN). Analysis: G = g @ MfT over the real parts of bins
 // [j0, j0 + BN/2), j0 = BN/2 x, in the tile's first half and their
 // imaginary parts (columns N/2 + j0 ..) in its second, then the FGLA update
-// of those bins in place.
+// of those bins in place. kPlain (kernel 4): the synthesis rounds frN to
+// bf16 and applies the window after the sum, xw = (P @ syn + bf16(frN) (x)
+// altw) * win; the analysis runs the plain projection without momentum
+// (no pP), or, where Fr is set (the last iteration), writes the f32
+// spectrum [M, Kf] instead of P.
 struct GemmArgs {
     float* xw;
     const float *frN, *altw;  // synthesis
+    const float* win;         // kPlain synthesis
     const float* mag;
     bf16 *P, *pP;  // analysis
+    float *Fr, *Fi;           // kPlain analysis, last iteration
     float mom;
     int Kf, M, N;
 };
 
-template <int BN, bool kAnalysis>
+__device__ __forceinline__ float bf16_round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int BN, bool kAnalysis, bool kPlain>
 __global__ void __launch_bounds__(kGThreads, 1)
     fgla_gemm_kernel(const __grid_constant__ CUtensorMap tmA,
                      const __grid_constant__ CUtensorMap tmB, const GemmArgs a) {
@@ -459,12 +410,92 @@ __global__ void __launch_bounds__(kGThreads, 1)
         consumer_sync();
         const int c = tid % kChunks, col = blockIdx.x * BN + 4 * c;
         const float4 w = __ldg(reinterpret_cast<const float4*>(a.altw + col));
+        float4 wn = make_float4(1.f, 1.f, 1.f, 1.f);
+        if constexpr (kPlain) wn = __ldg(reinterpret_cast<const float4*>(a.win + col));
         for (int r = tid / kChunks; r < kGM && row0 + r < a.M; r += kRowStep) {
             const int row = row0 + r;
             const float4 v = *reinterpret_cast<const float4*>(Cs + r * kLd + 4 * c);
-            const float fr = __ldg(a.frN + row);
-            *reinterpret_cast<float4*>(a.xw + (size_t)row * a.N + col) =
-                make_float4(v.x + fr * w.x, v.y + fr * w.y, v.z + fr * w.z, v.w + fr * w.w);
+            float fr = __ldg(a.frN + row);
+            // kernel 4: the reference rounds every bin of its spectrum to
+            // bf16 before the product, the Nyquist bin's too
+            if constexpr (kPlain) fr = bf16_round(fr);
+            float4 x = make_float4(v.x + fr * w.x, v.y + fr * w.y, v.z + fr * w.z, v.w + fr * w.w);
+            if constexpr (kPlain) x = make_float4(x.x * wn.x, x.y * wn.y, x.z * wn.z, x.w * wn.w);
+            *reinterpret_cast<float4*>(a.xw + (size_t)row * a.N + col) = x;
+        }
+    } else if constexpr (kPlain) {
+        // kernel 4's projection in registers, in the reference's order:
+        // m * gr * inv, inv = rsqrt(max(gr * gr + gi * gi, 1e-30)) with
+        // the squares and their sum rounded apart (no fused multiply-add).
+        // bf16 P for the next iteration staged as two planes (real and
+        // imaginary parts of the tile's bins) and stored a 16-byte chunk a
+        // thread; on the last iteration (Fr set) the f32 spectrum instead,
+        // from the registers, once a call
+        constexpr int kLd = BN / 2 + 8, kRowChunks = BN / 16;
+        bf16* S = reinterpret_cast<bf16*>(ring);
+        const int half = a.N / 2, j0 = blockIdx.x * (BN / 2), bin0 = j0 + 2 * q;
+        const bool last = a.Fr != nullptr;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int row = row0 + rl + 8 * i;
+            if (row >= a.M) continue;
+            const float* m = a.mag + (size_t)row * a.Kf;
+            // eight bin pairs at a time: their loads in flight together
+#pragma unroll
+            for (int g0 = 0; g0 < BN / 16; g0 += 8) {
+                float m0[8], m1[8];
+#pragma unroll
+                for (int u = 0; u < 8; ++u) {
+                    const int bin = bin0 + 8 * (g0 + u);
+                    m0[u] = m[bin];
+                    m1[u] = m[bin + 1];
+                }
+#pragma unroll
+                for (int u = 0; u < 8; ++u) {
+                    const int g = g0 + u, bin = bin0 + 8 * g;
+                    const float gr0 = acc[4 * g + 2 * i], gr1 = acc[4 * g + 2 * i + 1];
+                    const float gi0 = acc[4 * (g + BN / 16) + 2 * i];
+                    const float gi1 = acc[4 * (g + BN / 16) + 2 * i + 1];
+                    const float inv0 = rsqrtf(
+                        fmaxf(__fadd_rn(__fmul_rn(gr0, gr0), __fmul_rn(gi0, gi0)), 1e-30f));
+                    const float inv1 = rsqrtf(
+                        fmaxf(__fadd_rn(__fmul_rn(gr1, gr1), __fmul_rn(gi1, gi1)), 1e-30f));
+                    const float r0 = m0[u] * gr0 * inv0, r1 = m1[u] * gr1 * inv1;
+                    const float i0 = m0[u] * gi0 * inv0, i1 = m1[u] * gi1 * inv1;
+                    if (last) {
+                        float* fr = a.Fr + (size_t)row * a.Kf + bin;
+                        float* fi = a.Fi + (size_t)row * a.Kf + bin;
+                        fr[0] = r0;
+                        fr[1] = r1;
+                        fi[0] = i0;
+                        fi[1] = i1;
+                    } else {
+                        bf16* at = S + (rl + 8 * i) * kLd + 8 * g + 2 * q;
+                        *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(r0, r1);
+                        *reinterpret_cast<__nv_bfloat162*>(at + kGM * kLd) =
+                            __floats2bfloat162_rn(i0, i1);
+                    }
+                }
+            }
+        }
+        if (last) {
+            // the Nyquist bin: its real part from the OLA's channel, its
+            // imaginary part dropped (see the header)
+            if (blockIdx.x == 0 && tid < kGM && row0 + tid < a.M) {
+                const size_t at = (size_t)(row0 + tid) * a.Kf + half;
+                a.Fr[at] = a.frN[row0 + tid];
+                a.Fi[at] = 0.f;
+            }
+        } else {
+            consumer_sync();
+            for (int e = tid; e < 2 * kGM * kRowChunks; e += 256) {
+                const int cc = e % kRowChunks, r = (e / kRowChunks) % kGM, plane = e / (kGM * kRowChunks);
+                const int row = row0 + r;
+                if (row >= a.M) continue;
+                bf16* dst = a.P + (size_t)row * a.N + plane * half + j0;
+                *reinterpret_cast<uint4*>(dst + 8 * cc) =
+                    *reinterpret_cast<const uint4*>(S + (plane * kGM + r) * kLd + 8 * cc);
+            }
         }
     } else {
         // the FGLA update in registers, its four bf16 outputs (P and pP,
@@ -583,6 +614,15 @@ __device__ __forceinline__ void ola8(const float* __restrict__ xw, int row, int 
     }
 }
 
+// kernel 4's g at 4 samples: bf16(acc * wsi * win), the products in that
+// order, held in f32
+__device__ __forceinline__ float4 plain_g4(const float4 acc, const float* wsi, const float* win) {
+    const float4 s = *reinterpret_cast<const float4*>(wsi);
+    const float4 w = *reinterpret_cast<const float4*>(win);
+    return make_float4(bf16_round(acc.x * s.x * w.x), bf16_round(acc.y * s.y * w.y),
+                       bf16_round(acc.z * s.z * w.z), bf16_round(acc.w * s.w * w.w));
+}
+
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&v);
@@ -594,13 +634,17 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
 // bf16 x 8), else every tpr-th sample (neighbouring threads on neighbouring
 // samples); and the Nyquist channel's projection gn = sum_n acc * nyq with
 // its FGLA step and re-magnitude: each thread's passes in order, 16-lane
-// sums, then one thread a row adds its row's partials in order.
-template <bool kVec>
+// sums, then one thread a row adds its row's partials in order. kPlain
+// (kernel 4): g = bf16(acc * wsi * win), gn = sum_n g * nyq over the
+// rounded g (nyq = C[:, N/2] = +-1), frN = mag_N gn rsqrt(max(gn^2,
+// 1e-30)); no momentum, no pN.
+template <bool kVec, bool kPlain>
 __global__ void __launch_bounds__(256)
     fgla_ola_kernel(const float* __restrict__ xw, const float* __restrict__ nyq,
                     const float* __restrict__ mag, int Kf, bf16* __restrict__ g,
                     float* __restrict__ frN, float* __restrict__ pN, int M, int T, int N, int hop,
-                    int K, int tpr, int rows, float mom) {
+                    int K, int tpr, int rows, float mom, const float* __restrict__ wsi,
+                    const float* __restrict__ win) {
     __shared__ float red[16];
     const int lr = threadIdx.x / tpr, c = threadIdx.x % tpr;
     const int row = blockIdx.x * rows + lr;
@@ -615,10 +659,14 @@ __global__ void __launch_bounds__(256)
             if constexpr (kVec) {
                 const int n = base + 8 * c;
                 if (n >= N) break;
-                const float4 lo = ola4(xw, row, t, T, N, hop, K, n);
-                const float4 hi = ola4(xw, row, t, T, N, hop, K, n + 4);
+                float4 lo = ola4(xw, row, t, T, N, hop, K, n);
+                float4 hi = ola4(xw, row, t, T, N, hop, K, n + 4);
                 const float4 w0 = *reinterpret_cast<const float4*>(nyq + n);
                 const float4 w1 = *reinterpret_cast<const float4*>(nyq + n + 4);
+                if constexpr (kPlain) {
+                    lo = plain_g4(lo, wsi + n, win + n);
+                    hi = plain_g4(hi, wsi + n + 4, win + n + 4);
+                }
                 part += lo.x * w0.x + lo.y * w0.y + lo.z * w0.z + lo.w * w0.w + hi.x * w1.x +
                         hi.y * w1.y + hi.z * w1.z + hi.w * w1.w;
                 *reinterpret_cast<uint4*>(out + n) =
@@ -636,6 +684,7 @@ __global__ void __launch_bounds__(256)
                 for (int e = 0; e < 8; ++e) {
                     const int n = base + c + e * tpr;
                     if (!whole && n >= N) break;
+                    if constexpr (kPlain) acc[e] = bf16_round(acc[e] * wsi[n] * win[n]);
                     part += acc[e] * nyq[n];
                     out[n] = __float2bfloat16_rn(acc[e]);
                 }
@@ -649,6 +698,10 @@ __global__ void __launch_bounds__(256)
     if (live && c == 0) {
         float gn = 0.f;
         for (int i = 0; i < tpr / 16; ++i) gn += red[threadIdx.x / 16 + i];
+        if constexpr (kPlain) {
+            frN[row] = mag[(size_t)row * Kf + N / 2] * gn * rsqrtf(fmaxf(gn * gn, 1e-30f));
+            return;
+        }
         const float tn = gn + mom * (gn - pN[row]);
         const float inv = rsqrtf(fmaxf(tn * tn, 1e-30f));
         frN[row] = mag[(size_t)row * Kf + N / 2] * tn * inv;
@@ -707,64 +760,7 @@ __global__ void __launch_bounds__(512)
     if (c == 0) o[half] = make_float2(frN[row], 0.f);
 }
 
-// --- plain Griffin-Lim, unpacked layout (kernel 4) ---------------------------
-// Spectrum rows hold [re (Kp) | im (Kp)], zero past Kf; `syn` [2 Kp, N] is
-// [iC ; -iS], `ana` [N, 2 Kp] is [C | -S] (zero rows / columns past Kf).
-
-// xw = ([Fr | Fi] @ [iC ; -iS]) * window
-__global__ void __launch_bounds__(kThreads)
-gli_synth_kernel(const __nv_bfloat16* Fb, const __nv_bfloat16* syn, const float* win,
-                 float* xw, int M, int N, int K2) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-    gemm_tile(Fb, syn, M, K2, N, row0, col0, col0 + 64, smem);
-    const float* Cs = reinterpret_cast<const float*>(smem);
-    for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
-        const int r = idx / kBN, c = idx % kBN, grow = row0 + r;
-        if (grow < M) xw[(size_t)grow * N + col0 + c] = Cs[r * kLdC + c] * win[col0 + c];
-    }
-}
-
-// g = bf16(OLA(xw) * wsi * window), the OLA inside each utterance's T rows
-__global__ void gli_ola_kernel(const float* xw, const float* wsi, const float* win,
-                               __nv_bfloat16* g, int T, int N, int hop, int K) {
-    const int row = blockIdx.x, t = row % T;
-    for (int n = threadIdx.x; n < N; n += blockDim.x)
-        g[(size_t)row * N + n] =
-            __float2bfloat16_rn(ola_at(xw, row, t, T, N, hop, K, n) * wsi[n] * win[n]);
-}
-
-// (gr, gi) = g @ [C | -S]; out = mag * (gr, gi) * rsqrt(max(gr^2 + gi^2,
-// 1e-30)), written to the f32 spectrum and its bf16 copy. Tile columns
-// [0, 64) are real parts of bins j0 + c, [64, 128) their imaginary parts.
-__global__ void __launch_bounds__(kThreads)
-gli_analysis_kernel(const __nv_bfloat16* g, const __nv_bfloat16* ana, const float* mag,
-                    float* Ff, __nv_bfloat16* Fb, int M, int N, int Kp) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    const int row0 = blockIdx.y * kBM, j0 = blockIdx.x * 64;
-    gemm_tile(g, ana, M, N, 2 * Kp, row0, j0, Kp + j0, smem);
-    const float* Cs = reinterpret_cast<const float*>(smem);
-    for (int idx = threadIdx.x; idx < kBM * 64; idx += kThreads) {
-        const int r = idx / 64, c = idx % 64, grow = row0 + r;
-        if (grow >= M) continue;
-        const float gr = Cs[r * kLdC + c], gi = Cs[r * kLdC + 64 + c];
-        const float inv = rsqrtf(fmaxf(gr * gr + gi * gi, 1e-30f));
-        const float m = mag[(size_t)grow * Kp + j0 + c];
-        const size_t kr = (size_t)grow * 2 * Kp + j0 + c, ki = kr + Kp;
-        const float vr = m * gr * inv, vi = m * gi * inv;
-        Ff[kr] = vr;
-        Ff[ki] = vi;
-        Fb[kr] = __float2bfloat16_rn(vr);
-        Fb[ki] = __float2bfloat16_rn(vi);
-    }
-}
-
 int status() { return (int)cudaGetLastError(); }
-
-int set_gemm_smem(const void* fn) {
-    return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)kSmem);
-}
 
 // --- the packed loop's host side ----------------------------------------------
 
@@ -859,25 +855,41 @@ struct Fgla {
     int launches;
 };
 
+// The product launches' tensor maps: the A operands P and g ([M_pad, N]
+// bf16) in boxes of 128 rows, the K-major B operands ([N, N] bf16) in boxes
+// of BN rows (synthesis) and BN/2 rows (analysis: two boxes a stage).
+struct Maps {
+    CUtensorMap P, g, syn, ana;
+};
+
+// The maps of one loop, and its two product kernels' shared memory
+template <int BN, bool kPlain>
+int prepare(Maps& m, const void* P, const void* g, const void* syn, const void* ana, int M_pad,
+            int N, int smem) {
+    if (int e = encode(&m.P, P, M_pad, N, kGM)) return e;
+    if (int e = encode(&m.g, g, M_pad, N, kGM)) return e;
+    if (int e = encode(&m.syn, syn, N, N, BN)) return e;
+    if (int e = encode(&m.ana, ana, N, N, BN / 2)) return e;
+    for (const void* fn : {(const void*)fgla_gemm_kernel<BN, false, kPlain>,
+                           (const void*)fgla_gemm_kernel<BN, true, kPlain>})
+        if (cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 smem))
+            return (int)e;
+    return 0;
+}
+
 // The whole loop on `stream`: n_iters x (synthesis, OLA, analysis), then a
 // synthesis and the emit (wave) or the unpack (full); the first launch an
 // ordinary one, every later one dependent. Counts the launches issued in
 // f.launches and returns the first error.
 template <int BN>
 int fgla_run(Fgla& f) {
-    CUtensorMap tmP, tmG, tmMw, tmMf;
-    if (int e = encode(&tmP, f.P, f.M_pad, f.N, kGM)) return e;
-    if (int e = encode(&tmG, f.g, f.M_pad, f.N, kGM)) return e;
-    if (int e = encode(&tmMw, f.MwT, f.N, f.N, BN)) return e;
-    if (int e = encode(&tmMf, f.Mf, f.N, f.N, BN / 2)) return e;
-    void (*synth)(CUtensorMap, CUtensorMap, GemmArgs) = fgla_gemm_kernel<BN, false>;
-    void (*analysis)(CUtensorMap, CUtensorMap, GemmArgs) = fgla_gemm_kernel<BN, true>;
-    for (const void* fn : {(const void*)synth, (const void*)analysis})
-        if (cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 f.smem))
-            return (int)e;
+    Maps mp;
+    if (int e = prepare<BN, false>(mp, f.P, f.g, f.MwT, f.Mf, f.M_pad, f.N, f.smem)) return e;
+    void (*synth)(CUtensorMap, CUtensorMap, GemmArgs) = fgla_gemm_kernel<BN, false, false>;
+    void (*analysis)(CUtensorMap, CUtensorMap, GemmArgs) = fgla_gemm_kernel<BN, true, false>;
     const cudaStream_t st = (cudaStream_t)f.stream;
-    GemmArgs ga;
+    GemmArgs ga = {};
     ga.xw = (float*)f.xw;
     ga.frN = (const float*)f.frN;
     ga.altw = (const float*)f.altw;
@@ -896,16 +908,16 @@ int fgla_run(Fgla& f) {
         if (e == 0) ++f.launches;
         return e;
     };
-    auto synthesis = [&]() { return issue(synth, grid, f.threads, f.smem, tmP, tmMw, ga); };
+    auto synthesis = [&]() { return issue(synth, grid, f.threads, f.smem, mp.P, mp.syn, ga); };
     for (int it = 0; it < f.n_iters; ++it) {
         if (int e = synthesis()) return e;
-        if (int e = issue(vec ? fgla_ola_kernel<true> : fgla_ola_kernel<false>,
+        if (int e = issue(vec ? fgla_ola_kernel<true, false> : fgla_ola_kernel<false, false>,
                           dim3(f.ola.blocks), f.ola.threads, 0, (const float*)f.xw,
                           (const float*)f.nyq, (const float*)f.mag, f.Kf, (bf16*)f.g,
                           (float*)f.frN, (float*)f.pN, f.M, f.T, f.N, f.hop, f.K, f.ola.tpr,
-                          f.ola.rows, f.mom))
+                          f.ola.rows, f.mom, (const float*)nullptr, (const float*)nullptr))
             return e;
-        if (int e = issue(analysis, grid, f.threads, f.smem, tmG, tmMf, ga)) return e;
+        if (int e = issue(analysis, grid, f.threads, f.smem, mp.g, mp.ana, ga)) return e;
     }
     if (f.wave) {
         if (int e = synthesis()) return e;
@@ -918,9 +930,88 @@ int fgla_run(Fgla& f) {
                  f.unpack.rows);
 }
 
+// Kernel 4's arguments (ctypes mirror: ops/griffin_lim.py `_Gli`). P and g
+// are [M_pad, N] bf16 with zero rows past M (P: the packed spectrum, the
+// real parts of bins 0 .. N/2 - 1, then their imaginary parts); frN [M]
+// the Nyquist bin's real part, f32; xw [M, N] and mag [M, Kf] f32; synT,
+// anaT [N, N] bf16 (the products' B operands, K-major); nyq_syn =
+// iC[N/2] = (-1)^n / N and nyq_ana = C[:, N/2] = (-1)^n, win and wsi [N]
+// f32; Fr, Fi [M, Kf] f32, the spectrum after the last iteration. The
+// launch geometry is the launch plan's (`gl_iteration_plan`), launched as
+// given; serial: launches without the programmatic dependence. `launches`
+// is written back: the launches issued.
+struct Gli {
+    int M, M_pad, T, N, hop, K, Kf, n_iters, serial;
+    int bn, grid_x, grid_y, threads, smem;
+    Rows ola;
+    void *P, *frN, *xw, *g;
+    const void *mag, *synT, *anaT, *nyq_syn, *nyq_ana, *win, *wsi;
+    void *Fr, *Fi;
+    void* stream;
+    int launches;
+};
+
+// Kernel 4's loop on `stream`: n_iters x (synthesis, OLA, analysis), the
+// last analysis writing the f32 spectrum; the first launch an ordinary
+// one, every later one dependent. Counts the launches issued in f.launches
+// and returns the first error.
+template <int BN>
+int gli_run(Gli& f) {
+    Maps mp;
+    if (int e = prepare<BN, true>(mp, f.P, f.g, f.synT, f.anaT, f.M_pad, f.N, f.smem)) return e;
+    GemmArgs ga = {};
+    ga.xw = (float*)f.xw;
+    ga.frN = (const float*)f.frN;
+    ga.altw = (const float*)f.nyq_syn;
+    ga.win = (const float*)f.win;
+    ga.mag = (const float*)f.mag;
+    ga.P = (bf16*)f.P;
+    ga.Kf = f.Kf;
+    ga.M = f.M;
+    ga.N = f.N;
+    GemmArgs last = ga;
+    last.Fr = (float*)f.Fr;
+    last.Fi = (float*)f.Fi;
+    const cudaStream_t st = (cudaStream_t)f.stream;
+    const dim3 grid(f.grid_x, f.grid_y);
+    auto issue = [&](auto kernel, dim3 blocks, int threads, size_t smem, auto... args) {
+        const int e = launch(kernel, blocks, threads, smem, !f.serial && f.launches > 0, st,
+                             args...);
+        if (e == 0) ++f.launches;
+        return e;
+    };
+    for (int it = 0; it < f.n_iters; ++it) {
+        if (int e = issue(fgla_gemm_kernel<BN, false, true>, grid, f.threads, f.smem, mp.P,
+                          mp.syn, ga))
+            return e;
+        if (int e = issue(f.hop % 4 == 0 ? fgla_ola_kernel<true, true>
+                                         : fgla_ola_kernel<false, true>,
+                          dim3(f.ola.blocks), f.ola.threads, 0, (const float*)f.xw,
+                          (const float*)f.nyq_ana, (const float*)f.mag, f.Kf, (bf16*)f.g,
+                          (float*)f.frN, (float*)nullptr, f.M, f.T, f.N, f.hop, f.K, f.ola.tpr,
+                          f.ola.rows, 0.f, (const float*)f.wsi, (const float*)f.win))
+            return e;
+        if (int e = issue(fgla_gemm_kernel<BN, true, true>, grid, f.threads, f.smem, mp.g,
+                          mp.ana, it + 1 < f.n_iters ? ga : last))
+            return e;
+    }
+    return 0;
+}
+
 // whether an element-wise launch covers M rows of tpr threads
 bool covers(const Rows& r, int M) {
     return r.tpr > 0 && r.rows * r.tpr <= r.threads && r.rows * r.blocks >= M;
+}
+
+// whether a plan's products and OLA fit the kernels: tiles of 128 or 256
+// columns covering N, row tiles of 128 covering M_pad >= M, the kernel's
+// threads and shared memory; the OLA in whole 16-lane groups of at most
+// 256 threads a block, covering M rows
+bool plan_fits(int bn, int grid_x, int grid_y, int N, int M, int M_pad, int threads, int smem,
+               const Rows& ola) {
+    return (bn == 128 || bn == 256) && grid_x * bn == N && grid_y * kGM == M_pad && M <= M_pad &&
+           threads == kGThreads && smem == (int)fgla_smem(bn) && ola.tpr % 16 == 0 &&
+           ola.threads % 32 == 0 && ola.threads <= 256 && covers(ola, M);
 }
 
 }  // namespace
@@ -933,41 +1024,24 @@ extern "C" {
 int gl_fgla(void* args) {
     Fgla& f = *static_cast<Fgla*>(args);
     f.launches = 0;
-    const bool fits = (f.bn == 128 || f.bn == 256) && f.grid_x * f.bn == f.N &&
-                      f.grid_y * kGM == f.M_pad && f.M <= f.M_pad && f.threads == kGThreads &&
-                      f.smem == (int)fgla_smem(f.bn) && f.ola.tpr % 16 == 0 &&
-                      f.ola.threads % 32 == 0 && f.ola.threads <= 256 && covers(f.ola, f.M) &&
+    const bool fits = plan_fits(f.bn, f.grid_x, f.grid_y, f.N, f.M, f.M_pad, f.threads, f.smem,
+                                f.ola) &&
                       covers(f.emit, f.M) && covers(f.unpack, f.M);
     if (!fits) return (int)cudaErrorInvalidValue;
     return f.bn == 256 ? fgla_run<256>(f) : fgla_run<128>(f);
 }
 
-int gli_synth(const void* Fb, const void* syn, const void* win, void* xw, int M, int N,
-              int K2, void* stream) {
-    if (int err = set_gemm_smem((const void*)gli_synth_kernel)) return err;
-    dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-    gli_synth_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)Fb, (const __nv_bfloat16*)syn, (const float*)win, (float*)xw,
-        M, N, K2);
-    return status();
-}
-
-int gli_ola(const void* xw, const void* wsi, const void* win, void* g, int M, int T, int N,
-            int hop, int K, void* stream) {
-    gli_ola_kernel<<<M, 256, 0, (cudaStream_t)stream>>>(
-        (const float*)xw, (const float*)wsi, (const float*)win, (__nv_bfloat16*)g, T, N,
-        hop, K);
-    return status();
-}
-
-int gli_analysis(const void* g, const void* ana, const void* mag, void* Ff, void* Fb,
-                 int M, int N, int Kp, void* stream) {
-    if (int err = set_gemm_smem((const void*)gli_analysis_kernel)) return err;
-    dim3 grid(Kp / 64, (M + kBM - 1) / kBM);
-    gli_analysis_kernel<<<grid, kThreads, kSmem, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)g, (const __nv_bfloat16*)ana, (const float*)mag, (float*)Ff,
-        (__nv_bfloat16*)Fb, M, N, Kp);
-    return status();
+// Kernel 4, n_iters plain Griffin-Lim iterations in one call on a `Gli`:
+// 3 n_iters launches, none where n_iters = 0. Returns 0, a cudaError_t (cudaErrorInvalidValue for a plan that does not
+// fit the kernels), or an encoder error from kNoEncoder up.
+int gl_plain(void* args) {
+    Gli& f = *static_cast<Gli*>(args);
+    f.launches = 0;
+    const bool fits = plan_fits(f.bn, f.grid_x, f.grid_y, f.N, f.M, f.M_pad, f.threads, f.smem,
+                                f.ola) &&
+                      f.Kf == f.N / 2 + 1 && f.n_iters >= 0;
+    if (!fits) return (int)cudaErrorInvalidValue;
+    return f.bn == 256 ? gli_run<256>(f) : gli_run<128>(f);
 }
 
 }  // extern "C"

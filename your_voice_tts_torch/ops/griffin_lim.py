@@ -25,6 +25,13 @@ loop state is rounded to `dtype` (bf16 by default, like the TPU kernel);
 magnitudes, the Nyquist channel and accumulation stay f32. On the card one
 C call issues the whole loop as dependent launches (`fgla_plan` is its
 launch plan, `fgla_schedule` its launches in order).
+
+The per-iteration route (kernel 4) keeps the reference's rounding points,
+so no scale is folded into its matrices; on the card it runs on the same
+engine and the same packed state (the plane and the Nyquist channel), its
+B operands the reference's bf16 DFT entries rearranged over the first
+n_fft/2 bins, one C call a call (`gl_iteration_plan`,
+`gl_iteration_schedule`).
 """
 
 from __future__ import annotations
@@ -110,7 +117,15 @@ def unpacked_constants(n_fft: int, hop: int, window, dtype=BF16, device="cpu") -
     + 1 bins padded to Kp (a multiple of 64) by zero rows and columns:
     `syn` [2 Kp, N] = [iC ; -iS] (xw = [Fr | Fi] @ syn) and `ana` [N, 2 Kp]
     = [C | -S] ([gr | gi] = g @ ana), plus the window and the interior OLA
-    normalization, f32."""
+    normalization, f32. For an even n_fft also the card's operands over the
+    packed state (the first n_fft/2 bins' real parts, then their imaginary
+    parts; `pack_spectrum`), each stored once, K-major (a row per output
+    column), with no scale folded in: `synT` [N, N] = [iC[:N/2] ; -iS[:N/2]]
+    transposed, `anaT` [N, N] = [C[:, :N/2] | -S[:, :N/2]] transposed, and
+    the Nyquist bin's synthesis row `nyq_syn` = iC[N/2] rounded to `dtype`
+    as the reference rounds it ((-1)^n / N, exact in bf16 where N is a power
+    of two) and analysis column `nyq_ana` = C[:, N/2] = (-1)^n, held in
+    f32."""
     Kf = n_fft // 2 + 1
     Kp = -(-Kf // 64) * 64
     C, S, iC, iS = dft_matrices(n_fft)
@@ -120,9 +135,15 @@ def unpacked_constants(n_fft: int, hop: int, window, dtype=BF16, device="cpu") -
     ana[:, :Kf], ana[:, Kp:Kp + Kf] = C, -S
     win = np.asarray(window, np.float32)
     t = lambda a, dt=F32: torch.from_numpy(np.ascontiguousarray(a)).to(device, dt)  # noqa: E731
-    return {"n_fft": n_fft, "hop": hop, "dtype": dtype, "Kp": Kp, "window": win,
-            "syn": t(syn, dtype), "ana": t(ana, dtype), "win": t(win),
-            "wsi": t(ola_wsum_inv(win, n_fft, hop))}
+    out = {"n_fft": n_fft, "hop": hop, "dtype": dtype, "Kp": Kp, "window": win,
+           "syn": t(syn, dtype), "ana": t(ana, dtype), "win": t(win),
+           "wsi": t(ola_wsum_inv(win, n_fft, hop))}
+    if n_fft % 2 == 0:
+        half = n_fft // 2
+        out.update(synT=t(np.concatenate([iC[:half], -iS[:half]], 0).T, dtype),
+                   anaT=t(np.concatenate([C[:, :half], -S[:, :half]], 1).T, dtype),
+                   nyq_syn=t(iC[half], dtype).float(), nyq_ana=t(C[:, half]))
+    return out
 
 
 def gl_constants(n_fft: int, hop: int, window, dtype=BF16, device="cpu") -> dict:
@@ -159,6 +180,15 @@ def pack_init(mag, init_phase, n_fft: int):
     p0 = torch.cat([m * torch.cos(ph[..., :half]), m * torch.sin(ph[..., :half])], -1)
     n0 = mag[..., half] * torch.cos(ph[..., half])
     return p0, n0.expand(mag.shape[:-1])
+
+
+def pack_spectrum(Fr, Fi, n_fft: int):
+    """Spectrum (Fr, Fi) [..., n_fft/2 + 1] -> the packed plane [..., N]
+    (the real parts of bins 0 .. N/2 - 1, then their imaginary parts) and
+    the Nyquist bin's real part [...]; its imaginary part is dropped (the
+    reference's iS[N/2] is ~1e-16)."""
+    half = n_fft // 2
+    return torch.cat([Fr[..., :half], Fi[..., :half]], -1), Fr[..., half]
 
 
 def banded_ola(xw, n_fft: int, hop: int):
@@ -258,21 +288,26 @@ def _row_launch(work: int, cap: int, M: int, align: int = 1) -> dict:
     return {"tpr": tpr, "rows": rows, "threads": -(-rows * tpr // 32) * 32, "blocks": -(-M // rows)}
 
 
-def fgla_plan(n_fft: int, hop: int, M: int) -> dict:
-    """The card's launch plan of the packed loop for M = B * T frames, which
-    `gl_fgla` launches as given: product tiles of GEMM_BM rows x `bn`
-    columns (`bn` = 256 where n_fft % 256 == 0, else 128: every tile whole),
-    `grid` = (column tiles, row tiles) over the rows padded to `rows_pad`,
-    `threads` a block, a ring of `stages` k-slices of GEMM_BK in `smem`
-    bytes; the OLA (8 samples a task, up to 256 threads a row, a multiple of
-    16), emit (4 samples a task) and unpack (2 bins a task, up to 512
-    threads a row) launches' `_row_launch`."""
-    bn = 256 if n_fft % 256 == 0 else 128
+def product_plan(n_fft: int, M: int, bn: int) -> dict:
+    """The product launches of a loop over M = B * T frames: tiles of
+    GEMM_BM rows x `bn` columns, `grid` = (column tiles, row tiles) over the
+    rows padded to `rows_pad`, `threads` a block, a ring of `stages`
+    k-slices of GEMM_BK in `smem` bytes."""
     stage = (GEMM_BM + bn) * GEMM_BK * 2
     rows_pad = -(-M // GEMM_BM) * GEMM_BM
     return {"bn": bn, "stages": GEMM_STAGES, "smem": 1024 + GEMM_STAGES * stage + 16 * GEMM_STAGES,
             "threads": GEMM_THREADS, "rows_pad": rows_pad,
-            "grid": (n_fft // bn, rows_pad // GEMM_BM),
+            "grid": (n_fft // bn, rows_pad // GEMM_BM)}
+
+
+def fgla_plan(n_fft: int, hop: int, M: int) -> dict:
+    """The card's launch plan of the packed loop for M = B * T frames, which
+    `gl_fgla` launches as given: the products' `product_plan` with `bn` =
+    256 where n_fft % 256 == 0, else 128 (every tile whole); the OLA (8
+    samples a task, up to 256 threads a row, a multiple of 16), emit (4
+    samples a task) and unpack (2 bins a task, up to 512 threads a row)
+    launches' `_row_launch`."""
+    return {**product_plan(n_fft, M, 256 if n_fft % 256 == 0 else 128),
             "ola": _row_launch(n_fft // 8, 256, M, 16), "emit": _row_launch(-(-hop // 4), 256, M),
             "unpack": _row_launch(n_fft // 4, 512, M)}
 
@@ -283,6 +318,34 @@ def fgla_schedule(n_iters: int, route: str) -> list[str]:
     3n + 2) or the unpack ("full", 3n + 1)."""
     tail = ["synth", "emit"] if route == "wave" else ["unpack"]
     return ["synth", "ola", "analysis"] * max(n_iters, 0) + tail
+
+
+# a product tile of 256 columns against one of 128, time on an SM of its
+# own (18.5 against 12.3 us on an H100 at B=1, T=1,760, n_fft 1024;
+# wavernn_ab.py --mode gl --bn, PERF.md)
+WIDE_TILE_COST = 1.5
+
+
+def gl_iteration_plan(n_fft: int, hop: int, M: int, sms: int = 132) -> dict:
+    """Kernel 4's launch plan for M = B * T frames on `sms` SMs, which
+    `gl_plain` launches as given: the products' `product_plan` and the
+    OLA's `_row_launch`, as `fgla_plan` has them, except that the products
+    take tiles of 128 columns where tiles of 256 would take longer in waves
+    of one block an SM (WIDE_TILE_COST waves of 128-column tiles each): a
+    few rows leave most SMs idle under 256-column tiles (B=1, T=1,760: 56
+    blocks on 132 SMs)."""
+    p = fgla_plan(n_fft, hop, M)
+    if p["bn"] == 256:
+        waves = lambda bn: -(-(n_fft // bn) * p["grid"][1] // sms)  # noqa: E731
+        if WIDE_TILE_COST * waves(256) > waves(128):
+            p.update(product_plan(n_fft, M, 128))
+    return {k: p[k] for k in ("bn", "stages", "smem", "threads", "rows_pad", "grid", "ola")}
+
+
+def gl_iteration_schedule(n_iters: int) -> list[str]:
+    """Kernel 4's launches of one call, in order: synthesis, OLA and
+    analysis an iteration (3n; none at n = 0)."""
+    return ["synth", "ola", "analysis"] * max(n_iters, 0)
 
 
 class _Rows(ctypes.Structure):
@@ -303,13 +366,19 @@ class _Fgla(ctypes.Structure):
         + [("launches", ctypes.c_int)])
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = {
-    "gl_fgla": [_P],
-    "gli_synth": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "gli_ola": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gli_analysis": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-}
+class _Gli(ctypes.Structure):
+    """ctypes mirror of csrc/griffin_lim.cu `Gli`."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "M", "M_pad", "T", "N", "hop", "K", "Kf", "n_iters", "serial", "bn", "grid_x", "grid_y",
+        "threads", "smem")]
+        + [("ola", _Rows)]
+        + [(n, ctypes.c_void_p) for n in (
+            "P", "frN", "xw", "g", "mag", "synT", "anaT", "nyq_syn", "nyq_ana", "win", "wsi", "Fr",
+            "Fi", "stream")]
+        + [("launches", ctypes.c_int)])
+
+
+_ARGTYPES = {"gl_fgla": [ctypes.c_void_p], "gl_plain": [ctypes.c_void_p]}
 
 
 def _lib():
@@ -471,39 +540,61 @@ def gl_iteration_plain(Fr, Fi, mag, consts: dict, *, n_iters: int = 1):
     return Fr, Fi
 
 
-def gl_iteration_cuda(Fr, Fi, mag, consts: dict, *, n_iters: int = 1):
-    """`n_iters` plain Griffin-Lim iterations on the CUDA kernels, three
-    launches each (synthesis product, banded OLA, analysis product with the
-    projection fused)."""
+def _gli_cuda(Fr, Fi, mag, consts: dict, n_iters: int, what: str, serial: bool = False):
+    """Kernel 4's loop on the card, one ctypes call: ((Fr', Fi') [B, T, Kf]
+    f32, the launches `gl_plain` issued). `serial` issues the same launches
+    without the programmatic dependence."""
     B, T, Kf = _check_unpacked(Fr, Fi, mag, consts)
-    _check_cuda(mag, consts, "gl_iteration_cuda")
-    lib = _lib()
-    dev = mag.device
-    n_fft, hop, Kp = consts["n_fft"], consts["hop"], consts["Kp"]
-    M, K = B * T, -(-n_fft // hop) - 1
-    Ff = torch.zeros(M, 2 * Kp, device=dev)
-    Ff[:, :Kf] = Fr.reshape(M, Kf)
-    Ff[:, Kp:Kp + Kf] = Fi.reshape(M, Kf)
-    Fb = Ff.to(BF16)
-    m = torch.zeros(M, Kp, device=dev)
-    m[:, :Kf] = mag.reshape(M, Kf)
+    _check_cuda(mag, consts, what)
+    lib, dev = _lib(), mag.device
+    n_fft, hop = consts["n_fft"], consts["hop"]
+    M = B * T
+    plan = gl_iteration_plan(n_fft, hop, M,
+                             torch.cuda.get_device_properties(dev).multi_processor_count)
+    m = mag.to(F32).reshape(M, Kf).contiguous()
+    p0, n0 = pack_spectrum(Fr.to(dev, F32), Fi.to(dev, F32), n_fft)
+    # the products read whole row tiles: rows past M are zeros
+    P, g = (torch.empty(plan["rows_pad"], n_fft, device=dev, dtype=BF16) for _ in range(2))
+    P[:M] = p0.reshape(M, n_fft)
+    P[M:] = 0
+    g[M:] = 0
+    frN = n0.reshape(M).contiguous()
     xw = torch.empty(M, n_fft, device=dev)
-    g = torch.empty(M, n_fft, device=dev, dtype=BF16)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    c = {k: consts[k].data_ptr() for k in ("syn", "ana", "win", "wsi")}
-    for _ in range(n_iters):
-        cuda_build.check(lib.gli_synth(Fb.data_ptr(), c["syn"], c["win"], xw.data_ptr(), M,
-                                       n_fft, 2 * Kp, stream), "gli_synth")
-        cuda_build.check(lib.gli_ola(xw.data_ptr(), c["wsi"], c["win"], g.data_ptr(), M, T,
-                                     n_fft, hop, K, stream), "gli_ola")
-        cuda_build.check(lib.gli_analysis(g.data_ptr(), c["ana"], m.data_ptr(), Ff.data_ptr(),
-                                          Fb.data_ptr(), M, n_fft, Kp, stream), "gli_analysis")
-    gl_iteration_cuda.launches += 3 * n_iters
-    return (Ff[:, :Kf].reshape(B, T, Kf).contiguous(),
-            Ff[:, Kp:Kp + Kf].reshape(B, T, Kf).contiguous())
+    out_r, out_i = torch.empty(M, Kf, device=dev), torch.empty(M, Kf, device=dev)
+    c = consts
+    f = _Gli(M=M, M_pad=plan["rows_pad"], T=T, N=n_fft, hop=hop, K=-(-n_fft // hop) - 1, Kf=Kf,
+             n_iters=n_iters, serial=serial, bn=plan["bn"], grid_x=plan["grid"][0],
+             grid_y=plan["grid"][1], threads=plan["threads"], smem=plan["smem"],
+             ola=_Rows(**plan["ola"]), P=P.data_ptr(), frN=frN.data_ptr(), xw=xw.data_ptr(),
+             g=g.data_ptr(), mag=m.data_ptr(), synT=c["synT"].data_ptr(),
+             anaT=c["anaT"].data_ptr(), nyq_syn=c["nyq_syn"].data_ptr(),
+             nyq_ana=c["nyq_ana"].data_ptr(), win=c["win"].data_ptr(), wsi=c["wsi"].data_ptr(),
+             Fr=out_r.data_ptr(), Fi=out_i.data_ptr(),
+             stream=torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(lib.gl_plain(ctypes.addressof(f)), "gl_plain")
+    if n_iters == 0:
+        return (Fr.to(F32).contiguous(), Fi.to(F32).contiguous()), f.launches
+    return (out_r.reshape(B, T, Kf), out_i.reshape(B, T, Kf)), f.launches
+
+
+def gl_iteration_cuda(Fr, Fi, mag, consts: dict, *, n_iters: int = 1):
+    """`n_iters` plain Griffin-Lim iterations on the CUDA kernels in one
+    ctypes call: synthesis, OLA and analysis an iteration, issued from C as
+    dependent launches on the packed state (plane and Nyquist channel)."""
+    out, launches = _gli_cuda(Fr, Fi, mag, consts, n_iters, "gl_iteration_cuda")
+    gl_iteration_cuda.launches += launches
+    return out
 
 
 gl_iteration_cuda.launches = 0
+
+
+def gl_iteration_serial_cuda(Fr, Fi, mag, consts: dict, *, n_iters: int = 1):
+    """`gl_iteration_cuda` with every launch waiting for the previous one to
+    end: a probe (the card tests hold it to the same bits; per-launch device
+    times come from it). Returns ((Fr', Fi'), the launches `gl_plain`
+    issued); not counted as launches."""
+    return _gli_cuda(Fr, Fi, mag, consts, n_iters, "gl_iteration_serial_cuda", serial=True)
 
 
 def gl_iteration(Fr, Fi, mag, consts: dict, *, n_iters: int = 1):
