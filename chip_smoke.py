@@ -93,8 +93,36 @@ Phases, each fatal on failure:
    just before and read just after; mel frames/s, real-time factor, p50
    batch-1 latency; the decode and WaveRNN kernels launched, no
    Griffin-Lim kernel did.
+10. melgan-main (BASELINE config #2): Synthesizer(full width,
+   vocoder_config=the default MelganConfig, factors (8, 8, 2, 2) x 512
+   channels) answers the batch of 8 and 5 batch-1 requests, the counters
+   set to 0 just before and read just after: mel frames/s, real-time
+   factor, p50; the decode launched, no Griffin-Lim kernel did. Then the
+   generator alone on the padded [8, 500, 80] batch of decoded mels (bench
+   config 2's shape), bench config 2 end to end (8 x 64 symbols, 250
+   steps, decode + generator), and one PWGAN row at its default config
+   (finite, T x hop samples), each timed;
+11. cloning (config #5): (a) the decode kernel against its plain version
+   at the speaker-conditioned widths E = 768 (256-wide d-vectors) and
+   E = 1,024 (the 512-wide speaker table), B=8 and B=1, the decode phase's
+   inputs and tolerances, with each plan's shared memory, WB_ROUNDS and
+   PRE_SMEM and the kernel's ms beside E = 512's; (b) bin/compute_embeddings
+   on the card (a 16-clip, 4-speaker synthetic corpus through a full-width
+   random GE2E encoder, 80 -> 3 x 768 / 256) and Synthesizer(speakers_json=)
+   answering the batch of 8 over 4 speakers and 5 batch-1 requests through
+   Griffin-Lim; (c) the same with an id mapping (E = 1,024); (d) the
+   trained assets with bench.py's cloning_extras procedure (16 trials) on
+   the kernel route and on the plain route on the same card:
+   cloning_mean_margin and cloning_selective_frac of each, every trial's
+   margin sign equal;
+12. melgan-asset: the trained MelGAN asset (configs/melgan_smoke.json)
+   through VocoderSynthesizer on the card against the CPU on one mel,
+   1e-4 (float32, TF32 off).
 
-Each phase prints its seconds. Then the kernel line (JSON), the card's
+The decode's and the wave route's launches in the kernel line add up
+the main, melgan-main and cloning paths' counts (each path's counters set
+to 0 just before it and read just after). Each phase prints its seconds.
+Then the kernel line (JSON), the card's
 name and power limit, and the contract line {"ok": true, "device": {...}}. Details also go to
 chip_smoke.json in the output directory (--out, default build/chip_smoke).
 Exits nonzero, printing no result, without CUDA or outside the repository.
@@ -106,12 +134,14 @@ time by kernel, device busy share of the wall time, and the trace in
 profile_trace.json in the output directory; the same for one batch of 8 on
 the Tacotron(1) path (taco1_profile_trace.json), for one train step
 at the bench shape (train_profile_trace.json) and for one batch-1 request
-on the vocoder path (vocoder_profile_trace.json).
+on the WaveRNN and the MelGAN paths (vocoder_profile_trace.json,
+melgan_profile_trace.json).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -202,12 +232,15 @@ def no_chance_stops(model):
 DECODE_B, DECODE_T, DECODE_STEPS = 8, 152, 250
 
 
-def decode_inputs(B: int = DECODE_B):
+def decode_inputs(B: int = DECODE_B, spk_dim: int | None = None):
     """The decode phase's inputs: configs/ljspeech_tacotron2.json at full
     width (r=2 of r_init 7), seeded random weights (stopnet bias -10), a
     batch of 8 texts of 122-150 symbols padded to T=152 through the
     encoder; row 0 gets the folded stop row's context direction, so it
     stops at once. B=1 takes row 1 alone (it decodes all 250 steps).
+    spk_dim conditions the model on 4 speakers: d-vectors of that width
+    (seeded, unit length), or with 0 its own 512-wide table (ids 0-3 in
+    turn), concatenated onto the memory: E = 512 + spk_dim, or 1,024.
     Returns (bf16 decode weights, enc, pinp, mask, decode keywords)."""
     import torch
 
@@ -216,7 +249,8 @@ def decode_inputs(B: int = DECODE_B):
     from your_voice_tts_torch.text import symbols
 
     cfg = full_width_config()
-    model = no_chance_stops(setup_model(len(symbols), cfg, device="cuda"))
+    spk = {} if spk_dim is None else dict(num_speakers=4, speaker_embedding_dim=spk_dim)
+    model = no_chance_stops(setup_model(len(symbols), cfg, device="cuda", **spk))
     T = DECODE_T
     g = torch.Generator().manual_seed(1)
     lengths = torch.tensor([150, 146, 142, 138, 134, 130, 126, 122])
@@ -224,6 +258,12 @@ def decode_inputs(B: int = DECODE_B):
     dec = model.decoder
     with torch.no_grad():
         enc = model.encoder(model.embedding(text.cuda()), lengths.cuda())
+        if spk_dim:
+            dvec = torch.randn(8, spk_dim, generator=g)
+            enc = model._condition(enc, speaker_embeddings=(
+                dvec / dvec.norm(dim=-1, keepdim=True)).cuda())
+        elif spk_dim == 0:
+            enc = model._condition(enc, speaker_ids=torch.arange(8) % 4)
         w32 = dec.decode_weights(torch.float32)
         H2, E = w32["dims"]["H2"], w32["dims"]["E"]
         c = w32["o_w"][-1, H2:H2 + E]
@@ -1290,11 +1330,64 @@ def phase_wavernn(report):
             "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"], "library_ms": None}
 
 
-def phase_vocoder_path(report):
+def serve_requests(synth, speakers=None):
+    """The batch of 8 sentences and 5 batch-1 requests through tts_many
+    (`speakers`: one a sentence, or None); returns (batch waveforms, batch
+    seconds, batch-1 seconds, batch-1 waveforms)."""
+    t0 = time.perf_counter()
+    batch = synth.tts_many(SENTENCES, speakers)
+    t_batch = time.perf_counter() - t0
+    lat, ones = [], []
+    for i, s in enumerate(SENTENCES[:5]):
+        t0 = time.perf_counter()
+        ones += synth.tts_many([s], None if speakers is None else [speakers[i]])
+        lat.append(time.perf_counter() - t0)
+    return batch, t_batch, lat, ones
+
+
+def serving_numbers(tag: str, synth, served, launches: dict) -> dict:
+    """Checks the waveforms of `serve_requests` (finite, no longer than the 500
+    decoded frames) and prints mel frames/s, real-time factor and p50 as
+    the main path does (every row decodes all 250 steps)."""
+    import numpy as np
+
+    batch, t_batch, lat, ones = served
+    sr, hop = synth.ap.sample_rate, synth.ap.hop_length
+    frames = SERVE_FRAMES * len(SENTENCES)
+    audio_s = sum(len(w) for w in batch) / sr
+    check(all(w.ndim == 1 and len(w) > 0 and bool(np.isfinite(w).all()) for w in batch + ones),
+          f"{tag} waveforms")
+    check(all(len(w) <= SERVE_FRAMES * hop for w in batch), f"{tag} waveform lengths")
+    p50 = statistics.median(lat)
+    print(f"[{tag}] batch of 8: {t_batch * 1e3:.1f} ms, {frames / t_batch:.0f} mel frames/s, "
+          f"{audio_s:.2f} s of audio, real-time factor {audio_s / t_batch:.1f}x realtime")
+    print(f"[{tag}] batch-1 latency p50 {p50 * 1e3:.1f} ms (all: "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms)")
+    print(f"[{tag}] launches: {launches}")
+    return dict(batch_ms=t_batch * 1e3, mel_frames_per_s=frames / t_batch,
+                rtf_x_realtime=audio_s / t_batch, p50_batch1_ms=p50 * 1e3,
+                batch1_ms=[x * 1e3 for x in lat], launches=launches)
+
+
+def serve_counted(tag: str, synth, speakers=None, kernels=()) -> dict:
+    """`serve_requests` after a one-time set-up call, with the launch counters of the
+    decode, of `kernels` and of every Griffin-Lim route set to 0 just before
+    and read just after; `serving_numbers` of it."""
     import torch
 
-    from your_voice_tts_torch.infer.synthesizer import Synthesizer
     from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
+
+    synth.tts_many(SENTENCES[:1], None if speakers is None else speakers[:1])
+    torch.cuda.synchronize()
+    counters = (tacotron2_decode_cuda, *kernels) + gl_counters()
+    for c in counters:
+        c.launches = 0
+    served = serve_requests(synth, speakers)
+    return serving_numbers(tag, synth, served, {c.__name__: c.launches for c in counters})
+
+
+def phase_vocoder_path(report):
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
     from your_voice_tts_torch.ops.wavernn_gen import wavernn_generate_cuda
     from your_voice_tts_torch.vocoder.config import VocoderConfig
 
@@ -1302,45 +1395,17 @@ def phase_vocoder_path(report):
     synth = Synthesizer(cfg, vocoder_config=VocoderConfig(model="wavernn", audio=cfg.audio),
                         device="cuda")
     no_chance_stops(synth.model)
-    synth.tts_many(SENTENCES[:1])                  # one-time set-up, not measured
-    torch.cuda.synchronize()
-
-    counters = (tacotron2_decode_cuda, wavernn_generate_cuda) + gl_counters()
-    for c in counters:
-        c.launches = 0
-    t0 = time.perf_counter()
-    batch = synth.tts_many(SENTENCES)
-    t_batch = time.perf_counter() - t0
-    lat = []
-    for s in SENTENCES[:5]:
-        t0 = time.perf_counter()
-        one = synth.tts_many([s])
-        lat.append(time.perf_counter() - t0)
-    launches = {c.__name__: c.launches for c in counters}
-
-    sr, hop = synth.ap.sample_rate, synth.ap.hop_length
-    frames = SERVE_FRAMES * len(SENTENCES)        # every row decodes all 250 steps
-    audio_s = sum(len(w) for w in batch) / sr
-    check(all(w.ndim == 1 and len(w) > 0 and bool(torch.isfinite(torch.from_numpy(w)).all())
-              for w in batch + one), "vocoder path waveforms")
-    check(all(len(w) <= SERVE_FRAMES * hop for w in batch), "vocoder path waveform lengths")
-    p50 = statistics.median(lat)
-    print(f"[vocoder] batch of 8 through WaveRNN: {t_batch * 1e3:.1f} ms, "
-          f"{frames / t_batch:.0f} mel frames/s, {audio_s:.2f} s of audio, real-time factor "
-          f"{audio_s / t_batch:.1f}x realtime")
-    print(f"[vocoder] batch-1 latency p50 {p50 * 1e3:.1f} ms (all: "
-          f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms)")
-    print(f"[vocoder] launches on the vocoder path: {launches}")
+    numbers = serve_counted("vocoder", synth, kernels=(wavernn_generate_cuda,))
+    launches = numbers["launches"]
     check(launches["tacotron2_decode_cuda"] > 0 and launches["wavernn_generate_cuda"] > 0
-          and not any(c.launches for c in gl_counters()), "vocoder path kernels")
-    report["vocoder"] = dict(batch_ms=t_batch * 1e3, mel_frames_per_s=frames / t_batch,
-                             rtf_x_realtime=audio_s / t_batch, p50_batch1_ms=p50 * 1e3,
-                             batch1_ms=[x * 1e3 for x in lat], launches=launches)
+          and not any(launches[c.__name__] for c in gl_counters()), "vocoder path kernels")
+    report["vocoder"] = numbers
     return launches, synth
 
 
-def phase_vocoder_profile(report, synth, out_dir: str):
-    """One batch-1 request on the vocoder path under torch.profiler."""
+def phase_vocoder_profile(report, synth, out_dir: str, tag: str = "vocoder"):
+    """One batch-1 request on a vocoder path (`tag`: vocoder, WaveRNN; melgan)
+    under torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1349,15 +1414,303 @@ def phase_vocoder_profile(report, synth, out_dir: str):
         synth.tts_many(SENTENCES[:1])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(os.path.join(out_dir, "vocoder_profile_trace.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_profile_trace.json"))
     rows = device_rows(prof)
     busy_ms = sum(dev(e) for e in rows)
-    print(f"[vocoder-profile] batch-1 request: wall {wall_ms:.1f} ms, device busy "
+    print(f"[{tag}-profile] batch-1 request: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms (idle share {1 - busy_ms / wall_ms:.3f})")
     for e in rows[:12]:
-        print(f"[vocoder-profile]   {dev(e):8.2f} ms  {e.count:6d} calls  {e.key[:90]}")
-    report["vocoder_profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
-                                     kernels={e.key: [dev(e), e.count] for e in rows[:40]})
+        print(f"[{tag}-profile]   {dev(e):8.2f} ms  {e.count:6d} calls  {e.key[:90]}")
+    report[f"{tag}_profile"] = dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                                    kernels={e.key: [dev(e), e.count] for e in rows[:40]})
+
+
+# ----------------------------------------- MelGAN / PWGAN serving, speaker cloning
+
+
+def phase_melgan_main(report):
+    """Config #2: Synthesizer with the default MelGAN vocoder at full width."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.vocoder.config import VocoderConfig
+    from your_voice_tts_torch.vocoder.synthesizer import VocoderSynthesizer
+
+    cfg = full_width_config()
+    # the default MelganConfig: factors (8, 8, 2, 2) = the hop 256, 512 channels
+    synth = Synthesizer(cfg, vocoder_config=VocoderConfig(model="melgan", audio=cfg.audio),
+                        device="cuda")
+    no_chance_stops(synth.model)
+    gen = synth.vocoder.model
+    check(gen.hop == synth.ap.hop_length, "MelGAN hop")
+    numbers = serve_counted("melgan-main", synth)
+    seen = numbers["launches"]
+    check(seen["tacotron2_decode_cuda"] > 0 and not any(
+        seen[c.__name__] for c in gl_counters()), "MelGAN path: the decode, no Griffin-Lim")
+
+    # the generator alone at bench config 2's shape: one call on the padded
+    # [8, 500, 80] batch of the decoded mels
+    text, lengths = _pad_texts([text_to_seq(t, synth.cfg) for t in SENTENCES])
+    mels = synth.model.inference(text, lengths)["postnet_outputs"]
+    sr = synth.ap.sample_rate
+    with torch.no_grad():
+        wav = gen(mels)
+        check(tuple(wav.shape) == (8, SERVE_FRAMES * gen.hop)
+              and bool(torch.isfinite(wav).all()), "MelGAN batch output")
+        gen_ms = cuda_ms(lambda: gen(mels), 5)
+        row_ms = cuda_ms(lambda: gen(mels[:1]), 5)        # the path vocodes a row a call
+    gen_audio_s = wav.numel() / sr
+    # bench config 2 end to end: 8 rows of 64 random symbols, 250 steps, the
+    # generator on the decoder's padded output
+    g = torch.Generator().manual_seed(8)
+    text64 = torch.randint(1, synth.model.embedding.num_embeddings, (8, 64), generator=g)
+    lens64 = torch.full((8,), 64)
+
+    def taco_melgan():
+        with torch.no_grad():
+            return gen(synth.model.inference(text64, lens64)["postnet_outputs"])
+
+    bench_ms = cuda_ms(taco_melgan, 3)
+    bench_audio_s = 8 * DECODE_STEPS * 2 * gen.hop / sr
+    print(f"[melgan-main] generator alone on [8, {SERVE_FRAMES}, 80]: {gen_ms:.2f} ms "
+          f"({gen_audio_s / gen_ms * 1e3:.0f}x realtime), on one row {row_ms:.2f} ms; "
+          f"bench config 2 (8 x 64 symbols, "
+          f"{DECODE_STEPS} steps, decode + generator): {bench_ms:.2f} ms, "
+          f"{bench_audio_s / bench_ms * 1e3:.1f}x realtime")
+
+    # one PWGAN row at its default config (30 layers in 3 stacks, factors
+    # (4, 4, 4, 4) = the hop), random weights, noise from the facade's generator
+    pw = VocoderSynthesizer(VocoderConfig(model="pwgan", audio=cfg.audio), device="cuda")
+    row = mels[1].T.cpu().numpy()
+    pw_wav = pw.mel_to_wav(row)
+    check(pw_wav.shape == (SERVE_FRAMES * pw.model.hop,) and bool(np.isfinite(pw_wav).all()),
+          "PWGAN row")
+    pw_ms = cuda_ms(lambda: pw.mel_to_wav(row), 3)
+    print(f"[melgan-main] PWGAN row ({SERVE_FRAMES} frames -> {len(pw_wav)} samples): "
+          f"{pw_ms:.2f} ms ({len(pw_wav) / sr / pw_ms * 1e3:.0f}x realtime)")
+    report["melgan_main"] = dict(numbers, generator_ms=gen_ms,
+                                 generator_x_realtime=gen_audio_s / gen_ms * 1e3,
+                                 generator_row_ms=row_ms,
+                                 bench_config2_ms=bench_ms,
+                                 bench_config2_x_realtime=bench_audio_s / bench_ms * 1e3,
+                                 pwgan_row_ms=pw_ms)
+    return seen, synth
+
+
+def phase_melgan_asset(report):
+    """The trained MelGAN asset on the card against the same port on the CPU."""
+    import glob
+
+    import numpy as np
+
+    from your_voice_tts_torch.audio import AudioProcessor
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.vocoder.config import load_vocoder_config
+    from your_voice_tts_torch.vocoder.synthesizer import VocoderSynthesizer
+
+    cfg = os.path.join(ROOT, "configs/melgan_smoke.json")
+    ckpt = os.path.join(ROOT, "assets/bench_trained_melgan.npz")
+    ap = AudioProcessor(load_vocoder_config(cfg).audio)
+    with tempfile.TemporaryDirectory() as tmp:
+        make_synthetic_corpus(tmp, n_items=1, sr=8000, seed=11)
+        mel = ap.melspectrogram(ap.load_wav(glob.glob(os.path.join(tmp, "wavs", "*.wav"))[0]))
+    card = VocoderSynthesizer(cfg, ckpt, device="cuda").mel_to_wav(mel)
+    cpu = VocoderSynthesizer(cfg, ckpt, device="cpu").mel_to_wav(mel)
+    err = float(np.abs(card - cpu).max())
+    # float32 on both sides, TF32 off: cuDNN's sums in another order only
+    tol = 1e-4
+    print(f"[melgan-asset] trained asset, mel [20, {mel.shape[1]}] -> {len(card)} samples "
+          f"(peak {np.abs(cpu).max():.3f}): card vs CPU max_abs_err {err:.3e} (tol {tol})")
+    check(card.shape == cpu.shape and err <= tol, "trained MelGAN differs between card and CPU")
+    report["melgan_asset"] = dict(max_abs_err=err, tol=tol, samples=len(card))
+
+
+CLONING_E = ((256, 768), (0, 1024))    # (spk_dim, E): GE2E d-vectors, the 512-wide table
+
+
+@contextlib.contextmanager
+def plain_decode_on_card():
+    """Tacotron2.inference's decode through its plain PyTorch version on the
+    card's tensors: the comparison route of the cloning phase (serving never
+    takes it; this script switches it here and back)."""
+    import your_voice_tts_torch.models.tacotron2 as t2
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_plain
+
+    saved = t2.tacotron2_decode
+    t2.tacotron2_decode = tacotron2_decode_plain
+    try:
+        yield
+    finally:
+        t2.tacotron2_decode = saved
+
+
+def hold_conditioned_decode(report) -> dict:
+    """(a) kernel 1 against its plain version at E = 768 and 1,024, B=8
+    and B=1, with the decode phase's inputs, steps and tolerances."""
+    import torch
+
+    from your_voice_tts_torch.ops.taco2_decode import (launch_plan, tacotron2_decode_cuda,
+                                                       tacotron2_decode_plain)
+
+    tol = (5e-3, 2e-3, 2e-3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    base = report["decode"]
+    rows = {}
+    for spk_dim, E in CLONING_E:
+        for B in (DECODE_B, 1):
+            w, enc, pinp, mask, kw = decode_inputs(B, spk_dim)
+            check(w["dims"]["E"] == E and enc.shape[-1] == E, f"conditioned width E={E}")
+            plan = launch_plan(w["dims"], B, mask.shape[1], sms)
+            before = tacotron2_decode_cuda.launches
+            got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+            per_decode = tacotron2_decode_cuda.launches - before
+            ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+            e = [float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3])]
+            stop_pattern = [1] + [DECODE_STEPS] * 7 if B == DECODE_B else [DECODE_STEPS]
+            print(f"[cloning] E={E} B={B}: plan shared memory {plan['smem_bytes']} B, "
+                  f"WB_ROUNDS {plan['WB_ROUNDS']}, PRE_SMEM {plan['PRE_SMEM']}; lengths kernel "
+                  f"{got[3].tolist()} plain {ref[3].tolist()}; max_abs_err frames {e[0]:.3e}, "
+                  f"alignments {e[1]:.3e}, stops {e[2]:.3e} (tol {tol})")
+            check(torch.equal(got[3].cpu(), ref[3].cpu()) and got[3].tolist() == stop_pattern,
+                  f"conditioned decode lengths (E={E}, B={B})")
+            check(all(x <= t for x, t in zip(e, tol)) and per_decode == 1,
+                  f"conditioned decode kernel disagrees with plain (E={E}, B={B})")
+            ms = cuda_ms(lambda: tacotron2_decode_cuda(w, enc, pinp, mask, **kw), 5)
+            plain_ms = cuda_ms(lambda: tacotron2_decode_plain(w, enc, pinp, mask, **kw), 1) \
+                if B == DECODE_B else None
+            bound_ms, bound_by, wmb, _ = decode_bound(w, enc, pinp, mask, DECODE_STEPS)
+            e512 = base["ms"] if B == DECODE_B else base["b1"]["ms"]
+            print(f"[cloning] E={E} B={B}: kernel_ms {ms:.2f} (E=512: {e512:.2f})  plain_ms "
+                  f"{'%.2f' % plain_ms if plain_ms else 'not timed'}  bound_ms {bound_ms:.3f} "
+                  f"({bound_by}; {wmb:.1f} MB bf16 weights)")
+            rows[f"E{E}_B{B}"] = dict(errs=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by, weight_mb=wmb, e512_ms=e512,
+                                      smem_bytes=plan["smem_bytes"],
+                                      WB_ROUNDS=plan["WB_ROUNDS"], PRE_SMEM=plan["PRE_SMEM"])
+    return rows
+
+
+def cloning_trials(model, enc, dvecs: dict, cfg) -> list[float]:
+    """bench.py's cloning_extras: one synthesis a speaker and sentence with
+    the speaker's d-vector, the mel re-embedded by the trained encoder at 40
+    frames; each trial's cos(target) - max cos(other speaker)."""
+    import numpy as np
+
+    from your_voice_tts_torch.infer.synthesis import text_to_seq
+
+    names = sorted(dvecs)
+    margins = []
+    for spk in names:
+        for sent in ("the quick brown fox jumps over a lazy dog.",
+                     "seven wizards brew magic tonic under calm evening skies."):
+            seq = text_to_seq(sent, cfg)
+            out = model.inference(np.asarray(seq)[None], [len(seq)],
+                                  speaker_embeddings=dvecs[spk][None])
+            n = int(out["mel_lengths"][0]) or out["postnet_outputs"].shape[1]
+            e = enc.compute_embedding(out["postnet_outputs"][0, :n], num_frames=40).cpu().numpy()
+            sims = {o: float(e @ dvecs[o]) for o in names}
+            margins.append(sims[spk] - max(v for o, v in sims.items() if o != spk))
+    return margins
+
+
+def phase_cloning(report):
+    """Config #5: kernel 1 at the conditioned widths, then cloning through
+    Synthesizer with a d-vector mapping written by bin/compute_embeddings
+    (E=768) and with an id mapping (E=1,024), then the trained assets'
+    selectivity on the kernel route and on the plain route."""
+    import io
+
+    import numpy as np
+
+    from your_voice_tts_torch.bin import compute_embeddings
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
+    from your_voice_tts_torch.speaker_encoder.model import load_encoder
+    from your_voice_tts_torch.text import symbols
+    from your_voice_tts_torch.train.checkpoint import load_checkpoint
+    from your_voice_tts_torch.utils.speakers import load_speaker_mapping, parse_speakers
+
+    out = {"kernel": hold_conditioned_decode(report)}
+    cfg = full_width_config()
+    launches: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) d-vectors of a full-width random GE2E encoder (80 -> 3 x 768 / 256)
+        corpus = make_synthetic_corpus(os.path.join(tmp, "corpus"), n_items=16, sr=22050,
+                                       n_speakers=4, seed=5)
+        dvec_json = os.path.join(tmp, "dvectors.json")
+        t0 = time.perf_counter()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            compute_embeddings.main(["--config",
+                                     os.path.join(ROOT, "configs/ljspeech_tacotron2.json"),
+                                     "--data_path", corpus, "--formatter", "synthetic",
+                                     "--output", dvec_json])
+        embed_s = time.perf_counter() - t0
+        mapping = load_speaker_mapping(dvec_json)
+        check(sorted(mapping) == [f"SYN{i:02d}" for i in range(4)]
+              and all(len(c) == 4 and all(len(v["embedding"]) == 256 for v in c.values())
+                      for c in mapping.values()), "compute_embeddings mapping")
+        print(f"[cloning] bin/compute_embeddings on the card: 16 clips, 4 speakers, 256-wide "
+              f"d-vectors in {embed_s:.2f} s ({log.getvalue().strip().splitlines()[-1].strip()})")
+        id_json = os.path.join(tmp, "ids.json")
+        with open(id_json, "w") as f:
+            json.dump({f"SYN{i:02d}": i for i in range(4)}, f)
+        for tag, path, speakers, E in (
+                ("cloning-dvec", dvec_json, [f"SYN{i % 4:02d}" for i in range(8)], 768),
+                ("cloning-id", id_json, [i % 4 for i in range(8)], 1024)):
+            synth = Synthesizer(cfg, speakers_json=path, device="cuda")
+            no_chance_stops(synth.model)
+            check(synth.model.decoder.decode_weights(synth.decode_dtype)["dims"]["E"] == E,
+                  f"{tag} width")
+            numbers = serve_counted(tag, synth, speakers)
+            seen = numbers["launches"]
+            check(seen["tacotron2_decode_cuda"] > 0 and seen["griffin_lim_wave_cuda"] > 0
+                  and not seen["griffin_lim_full_cuda"] and not seen["gl_iteration_cuda"],
+                  f"{tag} kernels")
+            out[tag] = dict(numbers, E=E)
+            for k, v in seen.items():
+                launches[k] = launches.get(k, 0) + v
+            del synth
+
+    # (d) the trained assets, bench.py's cloning_extras procedure
+    _, dvecs = parse_speakers(load_speaker_mapping(
+        os.path.join(ROOT, "assets/speakers_smoke.json")))
+    spk_dim = len(next(iter(dvecs.values())))
+    smoke = load_config(os.path.join(ROOT, "configs/smoke_synthetic.json"))
+    smoke = dataclasses.replace(
+        smoke, model=dataclasses.replace(smoke.model, max_decoder_steps=256),
+        speakers=dataclasses.replace(smoke.speakers, use_speaker_embedding=True,
+                                     use_external_speaker_embedding_file=True,
+                                     speaker_embedding_dim=spk_dim))
+    model = setup_model(len(symbols), smoke, device="cuda", num_speakers=len(dvecs),
+                        speaker_embedding_dim=spk_dim)
+    meta = load_checkpoint(model, os.path.join(ROOT, "assets/bench_trained_multispeaker.npz"))
+    model.set_r(meta.get("r", smoke.model.r))
+    enc = load_encoder(os.path.join(ROOT, "assets/speaker_encoder_smoke.npz"), device="cuda")
+    tacotron2_decode_cuda.launches = 0
+    kernel = cloning_trials(model, enc, dvecs, smoke)
+    n_kernel = tacotron2_decode_cuda.launches
+    with plain_decode_on_card():
+        plain = cloning_trials(model, enc, dvecs, smoke)
+    check(n_kernel == len(kernel) and tacotron2_decode_cuda.launches == n_kernel,
+          "cloning trials: one kernel launch a trial, none on the plain route")
+    launches["tacotron2_decode_cuda"] += n_kernel
+    for name, m in (("kernel", kernel), ("plain", plain)):
+        print(f"[cloning] trained assets, {name} route: cloning_mean_margin {np.mean(m):.3f}, "
+              f"cloning_selective_frac {sum(x > 0 for x in m) / len(m):.2f} over {len(m)} "
+              f"trials (margins {', '.join(f'{x:+.3f}' for x in m)})")
+        out[f"assets_{name}"] = dict(mean_margin=float(np.mean(m)),
+                                     selective_frac=sum(x > 0 for x in m) / len(m), margins=m)
+    check([x > 0 for x in kernel] == [x > 0 for x in plain],
+          "a cloning trial's margin sign differs between the kernel and the plain route")
+    out["launches"] = launches
+    report["cloning"] = out
+    return launches
 
 
 def dev(e) -> float:
@@ -2017,6 +2370,16 @@ def main() -> int:
     launches["wavernn_generate_cuda"] = voc_launches["wavernn_generate_cuda"]
     if args.profile:
         timed("vocoder-profile", phase_vocoder_profile, report, synth, args.out)
+    del synth
+    # configs #2 and #5: kernel 1's and Griffin-Lim's launches on their paths add up
+    melgan_launches, synth = timed("melgan-main", phase_melgan_main, report)
+    if args.profile:
+        timed("melgan-profile", phase_vocoder_profile, report, synth, args.out, "melgan")
+    del synth
+    for seen in (melgan_launches, timed("cloning", phase_cloning, report)):
+        for k in ("tacotron2_decode_cuda", "griffin_lim_wave_cuda"):
+            launches[k] += seen.get(k, 0)
+    timed("melgan-asset", phase_melgan_asset, report)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -168,23 +168,27 @@ def test_decode_kernel_exits_early_on_the_device(cuda, B):
     assert int(_launch(w, enc, pinp, mask, thresh=0.6, probe=0, **kw)[3].item()) == 7
 
 
-def full_width_case(cuda, B, stop_rows, T=152):
+def full_width_case(cuda, B, stop_rows, T=152, spk_dim=None):
     """configs/ljspeech_tacotron2.json's widths (r=2 of r_init 7), seeded
     random weights, the stop row's bias at -10 and `stop_rows` pushed to
-    stop at once. Returns (w, enc, pinp, mask, stop threshold)."""
+    stop at once. spk_dim conditions the model on speakers (d-vectors of
+    that width, or with 0 the 512-wide table): the memory is E = 512 +
+    spk_dim wide, or 1,024. Returns (w, enc, pinp, mask, stop threshold)."""
     import dataclasses
 
     from your_voice_tts_torch.config import load_config
 
     cfg = load_config("configs/ljspeech_tacotron2.json")
+    spk = {} if spk_dim is None else dict(num_speakers=4, speaker_embedding_dim=spk_dim)
     model = Tacotron2(60, dataclasses.replace(cfg.model, r=2), n_mels=80, r_init=7,
-                      device=cuda, seed=2)
+                      device=cuda, seed=2, **spk)
+    E = 512 + model.spk_dim
     with torch.no_grad():
         model.decoder.stopnet.bias.fill_(-10.0)
     g = torch.Generator().manual_seed(4)
-    enc = (0.5 * torch.randn(B, T, 512, generator=g)).to(cuda)
+    enc = (0.5 * torch.randn(B, T, E, generator=g)).to(cuda)
     w = model.decoder.decode_weights(torch.bfloat16)
-    c = w["o_w"][-1, 1024:1536].float()
+    c = w["o_w"][-1, 1024:1024 + E].float()
     enc[list(stop_rows)] += 20.0 * c / (c @ c)
     pinp = model.decoder.attention.preprocess_inputs(enc).detach()
     lengths = 150 - 4 * (torch.arange(B, device=cuda) % 32)
@@ -199,6 +203,78 @@ def test_decode_kernel_at_full_width(cuda):
     ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
     assert got[3].tolist() == [1] + [40] * 7
     assert_decode_holds(got, ref)
+
+
+@pytest.mark.parametrize("spk_dim,E", [(256, 768), (0, 1024)])
+@pytest.mark.parametrize("B", [8, 1])
+def test_decode_kernel_at_speaker_conditioned_widths(cuda, spk_dim, E, B):
+    """The memory of a speaker-conditioned model: 256-wide d-vectors (E =
+    768) or the 512-wide speaker table (E = 1,024) concatenated onto the
+    encoder's 512, full width, T=152, 40 steps, dropout on; row 0 stops at
+    once. E = 768 at B=8 fills 229,376 of the 232,448 bytes of shared
+    memory a block; at E = 1,024 one round's weight tiles are read from L2
+    instead of prefetched (WB_ROUNDS 47 where E = 512 has 63)."""
+    from your_voice_tts_torch.ops.taco2_decode import launch_plan
+
+    w, enc, pinp, mask, thresh = full_width_case(cuda, B, [0], spk_dim=spk_dim)
+    assert w["dims"]["E"] == E
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = launch_plan(w["dims"], B, 152, sms)
+    kw = dict(r=2, max_steps=40, seed=7, thresh=thresh)
+    before = tacotron2_decode_cuda.launches
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    assert tacotron2_decode_cuda.launches == before + 1
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+    assert got[3].tolist() == [1] + [40] * (B - 1)
+    assert_decode_holds(got, ref)
+    assert plan["PRE_SMEM"] == 1
+
+
+def test_decode_kernel_reads_w_k_m_from_global_memory_at_e768(cuda):
+    """E = 768 at B=64, one launch: the block's W_k m pairs do not fit
+    shared memory (PRE_SMEM 0) and are read from global memory, and one
+    round's weight tiles come from L2 (WB_ROUNDS 47); the same outputs as
+    plain."""
+    from your_voice_tts_torch.ops.taco2_decode import launch_plan
+
+    B = 64
+    w, enc, pinp, mask, thresh = full_width_case(cuda, B, range(0, B, 5), spk_dim=256)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert launch_plan(w["dims"], B, 152, sms)["PRE_SMEM"] == 0
+    kw = dict(r=2, max_steps=30, seed=7, thresh=thresh)
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+    assert got[3].tolist() == [1 if b % 5 == 0 else 30 for b in range(B)]
+    assert_decode_holds(got, ref)
+
+
+def test_melgan_on_the_card_matches_the_cpu(cuda):
+    """The trained MelGAN asset (cuDNN convolutions, TF32 off) against the
+    same generator on the CPU, on a seeded mel: 1e-4."""
+    from your_voice_tts_torch.vocoder.synthesizer import VocoderSynthesizer
+
+    cfg, ckpt = "configs/melgan_smoke.json", "assets/bench_trained_melgan.npz"
+    mel = np.random.default_rng(0).uniform(-4, 4, (20, 37)).astype(np.float32)
+    got = VocoderSynthesizer(cfg, ckpt, device=cuda).mel_to_wav(mel)
+    ref = VocoderSynthesizer(cfg, ckpt, device="cpu").mel_to_wav(mel)
+    assert got.shape == ref.shape == (37 * 64,)
+    assert float(np.abs(got - ref).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("recur_on_proj", [True, False])
+def test_speaker_encoder_on_the_card_matches_the_cpu(cuda, recur_on_proj):
+    """A full-width GE2E encoder (80 -> 3 x 768 / 256, cuDNN LSTMs, TF32
+    off) against the same weights on the CPU, both window paths of
+    compute_embedding: 1e-5."""
+    from your_voice_tts_torch.speaker_encoder.model import SpeakerEncoder
+
+    enc = SpeakerEncoder(recur_on_proj=recur_on_proj, device=cuda, seed=3)
+    cpu = SpeakerEncoder(recur_on_proj=recur_on_proj, device="cpu", seed=3)
+    rng = np.random.default_rng(1)
+    for T in (120, 400):
+        mel = rng.standard_normal((T, 80)).astype(np.float32)
+        got = enc.compute_embedding(mel).cpu()
+        assert float((got - cpu.compute_embedding(mel)).abs().max()) <= 1e-5
 
 
 def test_decode_kernel_past_one_launch_at_full_width(cuda):

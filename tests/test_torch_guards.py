@@ -193,3 +193,52 @@ def test_tacotron_slice_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tacotron1_decode_cuda({}, torch.ones(1, 4, 8), torch.ones(1, 4, 8),
                               torch.ones(1, 4, dtype=torch.bool), r=1, max_steps=1)
+
+
+@pytest.mark.parametrize("module", ["your_voice_tts_torch.vocoder.models.melgan",
+                                    "your_voice_tts_torch.vocoder.models.pwgan",
+                                    "your_voice_tts_torch.speaker_encoder.model",
+                                    "your_voice_tts_torch.utils.speakers",
+                                    "your_voice_tts_torch.bin.compute_embeddings"])
+def test_serving_slice_modules_import_with_jax_blocked(module):
+    test_tacotron_slice_modules_import_with_jax_blocked(module)
+
+
+def test_gan_vocoders_refuse_to_fall_back_to_cpu(monkeypatch):
+    from your_voice_tts_torch.vocoder.config import VocoderConfig
+    from your_voice_tts_torch.vocoder.models.melgan import MelganGenerator
+    from your_voice_tts_torch.vocoder.models.pwgan import ParallelWaveganGenerator
+    from your_voice_tts_torch.vocoder.synthesizer import VocoderSynthesizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for model in ("melgan", "pwgan"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            VocoderSynthesizer(VocoderConfig(model=model))
+        assert VocoderSynthesizer(VocoderConfig(model=model), device="cpu").model.device.type \
+            == "cpu"
+    for cls in (MelganGenerator, ParallelWaveganGenerator):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cls()
+
+
+def test_speaker_encoder_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    from your_voice_tts_torch.bin import compute_embeddings
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.speaker_encoder.model import SpeakerEncoder, load_encoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SpeakerEncoder()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_encoder(os.path.join(ROOT, "assets/speaker_encoder_smoke.npz"))
+    out = tmp_path / "speakers.json"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compute_embeddings.main(["--config", os.path.join(ROOT, "configs/smoke_synthetic.json"),
+                                 "--data_path", str(tmp_path), "--output", str(out)])
+    assert not out.exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Synthesizer(load_config(os.path.join(ROOT, "configs/smoke_synthetic.json")),
+                    speakers_json=os.path.join(ROOT, "assets/speakers_smoke.json"))
+    assert load_encoder(os.path.join(ROOT, "assets/speaker_encoder_smoke.npz"),
+                        device="cpu").device.type == "cpu"

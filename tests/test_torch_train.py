@@ -392,3 +392,19 @@ def test_trainer_refuses_tacotron1_before_reading_data(tmp_path):
                               model=dataclasses.replace(cfg.model, model="Tacotron"))
     with pytest.raises(NotImplementedError, match="Tacotron\\(1\\) training arrives"):
         Trainer(cfg, verbose=False, device="cpu")
+
+
+@pytest.mark.parametrize("group,match", [("use_speaker_embedding", "multi-speaker training"),
+                                         ("use_gst", "GST training")])
+def test_trainer_refuses_conditioning_before_reading_data(tmp_path, group, match):
+    """A multi-speaker or GST config raises in the constructor, before the
+    audio processor or the dataset is built (the dataset path does not
+    exist): Tacotron2.forward and the training kernels do not condition."""
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    cfg = load_config(SMOKE)
+    ds = dataclasses.replace(cfg.data.datasets[0], path=str(tmp_path / "missing"))
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)),
+                              speakers=dataclasses.replace(cfg.speakers, **{group: True}))
+    with pytest.raises(NotImplementedError, match=f"{match} arrives"):
+        Trainer(cfg, verbose=False, device="cpu")

@@ -74,9 +74,50 @@ def test_vocoder_config_matches_jax(files):
         dataclasses.asdict(jax_load_vocoder_config("configs/melgan_smoke.json"))
 
 
-def test_other_vocoders_wait_for_a_later_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        VocoderSynthesizer("configs/melgan_smoke.json", device="cpu")
+def test_melgan_vocoder_builds_on_cpu():
+    from your_voice_tts_torch.vocoder.models.melgan import MelganGenerator
+
+    voc = VocoderSynthesizer("configs/melgan_smoke.json", device="cpu")
+    assert isinstance(voc.model, MelganGenerator) and voc.model.hop == 64
+    assert voc.model.conv_in.weight.device.type == "cpu"
+    wav = voc.mel_to_wav(np.zeros((20, 5), np.float32))
+    assert wav.shape == (5 * 64,) and wav.dtype == np.float32
+
+
+def test_pwgan_vocoder_builds_on_cpu(tmp_path):
+    from your_voice_tts_torch.vocoder.models.pwgan import ParallelWaveganGenerator
+
+    path = tmp_path / "pwgan.json"
+    path.write_text(json.dumps({"model": "pwgan", "audio": AUDIO,
+                                "pwgan": {"num_layers": 4, "stacks": 2,
+                                          "upsample_factors": [4, 4, 4]}}))
+    voc = VocoderSynthesizer(str(path), device="cpu")
+    assert isinstance(voc.model, ParallelWaveganGenerator) and voc.model.hop == 64
+    wav = voc.mel_to_wav(np.zeros((20, 5), np.float32))
+    assert wav.shape == (5 * 64,) and np.isfinite(wav).all()
+
+
+def test_unknown_vocoder_model_raises(tmp_path):
+    path = tmp_path / "hifigan.json"
+    path.write_text(json.dumps({"model": "hifigan", "audio": AUDIO}))
+    with pytest.raises(ValueError, match="unknown vocoder model 'hifigan'"):
+        VocoderSynthesizer(str(path), device="cpu")
+
+
+def test_synthesizer_with_trained_melgan_matches_jax(files):
+    """Text -> wav through the trained smoke TTS and the trained MelGAN
+    asset in both packages, dropout off: the same lengths, samples within
+    1e-3 (the mels differ by ~1e-4, float32 sum order)."""
+    ckpt = "assets/bench_trained_melgan.npz"
+    ref = JaxSynthesizer(files["tts"], CKPT, vocoder_config="configs/melgan_smoke.json",
+                         vocoder_checkpoint=ckpt).tts_many(TEXTS)
+    port = Synthesizer(files["tts"], CKPT, vocoder_config="configs/melgan_smoke.json",
+                       vocoder_checkpoint=ckpt, device="cpu", decode_dtype=torch.float32)
+    got = port.tts_many(TEXTS)
+    assert [len(w) for w in got] == [len(w) for w in ref]
+    for a, b in zip(got, ref):
+        assert np.abs(a).max() > 1e-2
+        np.testing.assert_allclose(a, b, atol=1e-3)
 
 
 def test_checkpoint_bridge_mel_to_wav_matches_jax(files, monkeypatch):

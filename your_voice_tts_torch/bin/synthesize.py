@@ -2,11 +2,14 @@
 
 python -m your_voice_tts_torch.bin.synthesize "Text to speak." config.json \
     checkpoint.npz out_dir/ [--vocoder_config voc.json [--vocoder_checkpoint
-    wavernn.npz]] [--device cpu]
+    voc.npz]] [--speakers_json speakers.json --speaker_id NAME_OR_ID]
+    [--device cpu]
 
 The checkpoints are JAX-package `.npz` files; without a vocoder config the
-waveform comes from Griffin-Lim, with one from WaveRNN. The port runs on
-CUDA unless --device names another device.
+waveform comes from Griffin-Lim, with one from MelGAN, PWGAN or WaveRNN
+(the config's "model"). --speakers_json conditions a multi-speaker model
+on the mapping's speakers (ids or d-vectors) and --speaker_id picks one.
+The port runs on CUDA unless --device names another device.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("out_path")
     p.add_argument("--vocoder_config", default=None)
     p.add_argument("--vocoder_checkpoint", default=None)
+    p.add_argument("--speaker_id", default=None, help="speaker name or id")
+    p.add_argument("--speakers_json", default=None)
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = p.parse_args(argv)
 
@@ -30,14 +35,16 @@ def main(argv: list[str] | None = None) -> None:
 
     synth = Synthesizer(args.config_path, args.checkpoint_path,
                         vocoder_config=args.vocoder_config,
-                        vocoder_checkpoint=args.vocoder_checkpoint, device=args.device)
+                        vocoder_checkpoint=args.vocoder_checkpoint, device=args.device,
+                        speakers_json=args.speakers_json)
     if os.path.isfile(args.text):
         with open(args.text, encoding="utf-8") as f:
             texts = [line.strip() for line in f if line.strip()]
     else:
         texts = [args.text]
     os.makedirs(args.out_path, exist_ok=True)
-    for i, (text, wav) in enumerate(zip(texts, synth.tts_many(texts))):
+    wavs = synth.tts_many(texts, [args.speaker_id] * len(texts))
+    for i, (text, wav) in enumerate(zip(texts, wavs)):
         out = os.path.join(args.out_path, f"out_{i:03d}.wav")
         synth.ap.save_wav(wav, out)
         print(f" > {out}  ({len(wav) / synth.ap.sample_rate:.2f}s)  <- {text[:60]!r}")

@@ -39,19 +39,25 @@ def _pad_texts(seqs: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
 def synthesis_batch(model, texts: list[str], cfg: Config, ap: AudioProcessor,
                     trim_silence: bool = False,
                     max_decoder_steps: int | None = None, seed: int = 0,
-                    decode_dtype=torch.bfloat16, vocoder=None) -> list[dict]:
+                    decode_dtype=torch.bfloat16, vocoder=None, speaker_ids=None,
+                    d_vectors=None) -> list[dict]:
     """Batched synthesis; one result dict per text (wav, postnet spectrogram
     [F, T]: mel, or linear for Tacotron(1), alignment, stop tokens). `seed`
     seeds the prenets' dropout. `vocoder` (mel [n_mels, T] -> waveform, e.g.
     VocoderSynthesizer.mel_to_wav) replaces Griffin-Lim for a mel model; it
-    runs once per row, in order."""
+    runs once per row, in order. A speaker-conditioned model takes a
+    speaker id a text (speaker_ids) or a d-vector a text (d_vectors
+    [B, spk_dim])."""
     text_arr, lengths = _pad_texts([text_to_seq(t, cfg) for t in texts])
     # the configured inference compute dtype (bf16: the encoder, key
     # projection and postnet in bf16, as the reference's serving path)
     compute_dtype = (torch.bfloat16 if cfg.model.inference_compute_dtype == "bfloat16"
                      else None)
+    spk = {k: v for k, v in (("speaker_ids", speaker_ids), ("speaker_embeddings", d_vectors))
+           if v is not None}
     out = model.inference(text_arr, lengths, max_decoder_steps=max_decoder_steps,
-                          seed=seed, decode_dtype=decode_dtype, compute_dtype=compute_dtype)
+                          seed=seed, decode_dtype=decode_dtype, compute_dtype=compute_dtype,
+                          **spk)
     mels = out["postnet_outputs"].cpu().numpy()
     aligns = out["alignments"].cpu().numpy()
     stops = out["stop_probs"].cpu().numpy()

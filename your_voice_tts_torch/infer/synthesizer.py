@@ -1,8 +1,9 @@
 """Synthesizer, the serving facade (the JAX package's infer/synthesizer.py):
-loads a Tacotron2 or Tacotron(1) checkpoint (and optionally a WaveRNN
-vocoder, which serves Tacotron2's mels), splits
-input into sentences, synthesizes every sentence of every request in one
-batch, and joins each request's sentences with 0.25 s of silence. Runs on
+loads a Tacotron2 or Tacotron(1) checkpoint (and optionally a MelGAN, PWGAN
+or WaveRNN vocoder, which serves Tacotron2's mels, and a speakers.json
+that conditions Tacotron2 on speakers), splits input into sentences,
+synthesizes every sentence of every request in one batch a conditioning
+mode, and joins each request's sentences with 0.25 s of silence. Runs on
 CUDA unless given another device."""
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ..config import Config, load_config
 from ..models import setup_model
 from ..text import symbols
 from ..train.checkpoint import load_checkpoint
+from ..utils.speakers import load_speaker_mapping, parse_speakers
 from .synthesis import synthesis_batch
 
 _SENTENCE_RE = re.compile(r"(?<=[.!?])\s+|\n+")
@@ -33,18 +35,30 @@ def split_into_sentences(text: str) -> list[str]:
 class Synthesizer:
     def __init__(self, tts_config: str | Config, tts_checkpoint: str | None = None,
                  vocoder_config=None, vocoder_checkpoint: str | None = None,
-                 rng_seed: int = 0, device=None, decode_dtype=torch.bfloat16):
+                 rng_seed: int = 0, device=None, decode_dtype=torch.bfloat16,
+                 speakers_json: str | None = None):
         """tts_checkpoint: a JAX-package `.npz` checkpoint; without one the
         model keeps seeded random weights. vocoder_config (a path or a
-        VocoderConfig) adds a WaveRNN vocoder in place of Griffin-Lim, with
-        the weights of vocoder_checkpoint. rng_seed seeds the Griffin-Lim
-        phases and the vocoder's draws; decode_dtype is the decode's working
-        type."""
+        VocoderConfig) adds a MelGAN, PWGAN or WaveRNN vocoder in place of
+        Griffin-Lim, with the weights of vocoder_checkpoint. speakers_json
+        (`utils/speakers.py`) conditions the model on its speakers: by id
+        (the model's own table) or by their d-vectors. rng_seed seeds the
+        Griffin-Lim phases and the vocoder's draws; decode_dtype is the
+        decode's working type."""
         self.cfg = load_config(tts_config) if isinstance(tts_config, str) else tts_config
         self.device = resolve_device(device)
         self.decode_dtype = decode_dtype
         self.ap = AudioProcessor(self.cfg.audio, self.device, seed=rng_seed)
-        self.model = setup_model(len(symbols), self.cfg, self.device)
+        self.speaker_ids: dict[str, int] = {}
+        self.speaker_embeddings = None
+        spk_dim = 0
+        if speakers_json:
+            self.speaker_ids, self.speaker_embeddings = parse_speakers(
+                load_speaker_mapping(speakers_json))
+            if self.speaker_embeddings:
+                spk_dim = len(next(iter(self.speaker_embeddings.values())))
+        self.model = setup_model(len(symbols), self.cfg, self.device,
+                                 num_speakers=len(self.speaker_ids), speaker_embedding_dim=spk_dim)
         if tts_checkpoint:
             meta = load_checkpoint(self.model, tts_checkpoint)
             if "r" in meta:
@@ -59,23 +73,68 @@ class Synthesizer:
         self.vocoder = VocoderSynthesizer(vocoder_config, checkpoint, tts_audio_cfg=self.cfg.audio,
                                           rng_seed=rng_seed, device=self.device)
 
-    def tts(self, text: str) -> np.ndarray:
-        """Text -> waveform (float32)."""
-        return self.tts_many([text])[0]
+    def _resolve_speaker(self, speaker):
+        """speaker (name, id, numeric string or None) -> ("none", None),
+        ("id", int) or ("dvec", d-vector); the JAX package's rules and
+        messages. Without a speakers.json every speaker reads as none."""
+        if speaker is None or not self.speaker_ids:
+            return "none", None
+        if isinstance(speaker, str) and speaker not in self.speaker_ids:
+            try:  # HTTP query strings arrive as text: "2" means id 2
+                speaker = int(speaker)
+            except ValueError:
+                raise ValueError(f"unknown speaker {speaker!r}; known: "
+                                 f"{sorted(self.speaker_ids)}") from None
+        if isinstance(speaker, str):
+            sid = self.speaker_ids[speaker]
+        else:
+            sid = int(speaker)
+            if not 0 <= sid < len(self.speaker_ids):
+                raise ValueError(f"speaker id {sid} out of range "
+                                 f"0..{len(self.speaker_ids) - 1}")
+        if self.speaker_embeddings:
+            name = speaker if isinstance(speaker, str) else sorted(self.speaker_embeddings)[sid]
+            return "dvec", np.asarray(self.speaker_embeddings[name], np.float32)
+        return "id", sid
 
-    def tts_many(self, texts: list[str]) -> list[np.ndarray]:
-        """Several independent requests in ONE device batch: all sentences
-        of all requests ride a single `synthesis_batch`, then regroup per
-        request."""
+    def tts(self, text: str, speaker=None) -> np.ndarray:
+        """Text -> waveform (float32), in `speaker`'s voice where the model
+        is conditioned (`_resolve_speaker`)."""
+        return self.tts_many([text], [speaker])[0]
+
+    def tts_many(self, texts: list[str], speakers: list | None = None) -> list[np.ndarray]:
+        """Several independent requests in one device batch a conditioning
+        mode (none, speaker id, d-vector): the sentences of every request
+        of a mode ride a single `synthesis_batch`, then regroup per
+        request. speakers: one a text (see `tts`), or None."""
+        speakers = [None] * len(texts) if speakers is None else list(speakers)
+        if len(speakers) != len(texts):
+            raise ValueError(f"{len(texts)} texts but {len(speakers)} speakers")
         sent_of_req: list[list[int]] = []
         flat: list[str] = []
-        for text in texts:
+        modes: list[tuple] = []
+        for text, speaker in zip(texts, speakers):
+            mode = self._resolve_speaker(speaker)
             sentences = split_into_sentences(text) or [text]
             sent_of_req.append(list(range(len(flat), len(flat) + len(sentences))))
             flat += sentences
-        results = synthesis_batch(self.model, flat, self.cfg, self.ap, trim_silence=True,
-                                  decode_dtype=self.decode_dtype,
-                                  vocoder=self.vocoder.mel_to_wav if self.vocoder else None)
+            modes += [mode] * len(sentences)
+        results: list = [None] * len(flat)
+        for mode in ("none", "id", "dvec"):
+            rows = [i for i, m in enumerate(modes) if m[0] == mode]
+            if not rows:
+                continue
+            spk = {}
+            if mode == "id":
+                spk["speaker_ids"] = np.asarray([modes[i][1] for i in rows], np.int64)
+            elif mode == "dvec":
+                spk["d_vectors"] = np.stack([modes[i][1] for i in rows])
+            got = synthesis_batch(self.model, [flat[i] for i in rows], self.cfg, self.ap,
+                                  trim_silence=True, decode_dtype=self.decode_dtype,
+                                  vocoder=self.vocoder.mel_to_wav if self.vocoder else None,
+                                  **spk)
+            for i, res in zip(rows, got):
+                results[i] = res
         silence = np.zeros(int(0.25 * self.ap.sample_rate), np.float32)
         out = []
         for idxs in sent_of_req:

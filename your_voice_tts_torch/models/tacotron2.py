@@ -14,8 +14,13 @@ The decode loop follows the reference's kernel route (`Decoder.
 inference_pallas`): it runs on the decode kernel (ops/taco2_decode.py), with
 prenet dropout from the hash PRNG seeded by `seed`, and a row that has
 stopped keeps advancing its state with zeroed frames until the chunk's end.
-Speaker and style conditioning and the bidirectional decoder come with later
-slices of the port.
+
+Speakers (the reference's multi-speaker Tacotron2, `_condition`): a speaker
+vector, a row of the model's own table or an external d-vector, is
+concatenated onto every position of the encoder memory, so the decoder
+(and its decode kernel) sees E = encoder_dim + spk_dim. Inference only:
+training a conditioned model, style conditioning (GST) and the
+bidirectional decoder come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -172,11 +177,16 @@ class Decoder(nn.Module):
 
 
 class Tacotron2(nn.Module):
+    SPEAKER_TABLE_DIM = 512   # the internal table's width (the reference's default)
+
     def __init__(self, num_chars: int, cfg, n_mels: int = 80,
-                 r_init: int | None = None, device=None, seed: int = 0):
+                 r_init: int | None = None, device=None, seed: int = 0,
+                 num_speakers: int = 0, speaker_embedding_dim: int = 0):
         """Weights start seeded random (`seed`, drawn on the CPU from a
         torch.Generator); the model then moves to `device` (CUDA unless
-        given)."""
+        given). num_speakers > 0 conditions on speakers: external d-vectors
+        of width speaker_embedding_dim, or with speaker_embedding_dim 0 a
+        table of SPEAKER_TABLE_DIM-wide rows, one a speaker id."""
         super().__init__()
         if cfg.bidirectional_decoder:
             raise NotImplementedError(
@@ -185,10 +195,16 @@ class Tacotron2(nn.Module):
         self.n_mels = n_mels
         self.r = cfg.r
         self.r_init = max(r_init or cfg.r, cfg.r)
+        self.num_speakers = num_speakers
+        self.use_external_speaker_embedding = num_speakers > 0 and speaker_embedding_dim > 0
+        self.spk_dim = 0 if num_speakers == 0 else (speaker_embedding_dim
+                                                    or self.SPEAKER_TABLE_DIM)
         self.embedding = Embedding(num_chars, cfg.embedding_dim)
         self.encoder = Encoder(cfg.encoder_dim)
-        self.decoder = Decoder(cfg.encoder_dim, n_mels, self.r_init, cfg)
+        self.decoder = Decoder(cfg.encoder_dim + self.spk_dim, n_mels, self.r_init, cfg)
         self.postnet = Postnet(n_mels, cfg.postnet_dim)
+        if num_speakers > 0 and not self.use_external_speaker_embedding:
+            self.speaker_embedding = Embedding(num_speakers, self.spk_dim)
         self._init_random(torch.Generator().manual_seed(seed))
         self.to(resolve_device(device))
         self.eval()
@@ -235,6 +251,9 @@ class Tacotron2(nn.Module):
         Returns decoder_outputs / postnet_outputs [B, T_mel, n_mels],
         alignments [B, T_r, T_in] float32, stop_logits [B, T_r], and "state":
         the BatchNorm running statistics after the pass."""
+        if self.num_speakers:
+            raise NotImplementedError(
+                "training a speaker-conditioned model arrives with a later slice of the port")
         r = r or self.r
         enc_out = self.encoder(self.embedding(text), text_lengths, generator)
         dec_out, aligns, stops = self.decoder(enc_out, text_lengths, mels, r, generator)
@@ -247,10 +266,36 @@ class Tacotron2(nn.Module):
             "state": {k: v.detach().clone() for k, v in self.named_buffers()},
         }
 
+    def _condition(self, enc_out, speaker_ids=None, speaker_embeddings=None, cast=None):
+        """enc_out [B, T, C] -> [B, T, C + spk_dim]: the speaker vector of
+        each row (its row of the table, `cast("speaker_embedding")` where a
+        compute-dtype copy is wanted, or its d-vector from
+        speaker_embeddings [B, spk_dim], float32) cast to the memory's dtype
+        and concatenated onto every position; enc_out itself for an
+        unconditioned model."""
+        if not self.num_speakers:
+            return enc_out
+        B, T, _ = enc_out.shape
+        if self.use_external_speaker_embedding:
+            if speaker_embeddings is None:
+                raise ValueError("this model is conditioned on d-vectors: "
+                                 "pass speaker_embeddings [B, spk_dim]")
+            spk = torch.as_tensor(speaker_embeddings, dtype=torch.float32, device=enc_out.device)
+        else:
+            if speaker_ids is None:
+                raise ValueError("this model is conditioned on speaker ids: pass speaker_ids [B]")
+            ids = torch.as_tensor(speaker_ids, dtype=torch.long, device=enc_out.device)
+            spk = (cast("speaker_embedding") if cast else self.speaker_embedding)(ids)
+        if tuple(spk.shape) != (B, self.spk_dim):
+            raise ValueError(f"speaker vectors of shape {tuple(spk.shape)}, "
+                             f"expected {(B, self.spk_dim)}")
+        spk = spk.to(enc_out.dtype)[:, None, :].expand(B, T, self.spk_dim)
+        return torch.cat([enc_out, spk], -1)
+
     @torch.no_grad()
     def inference(self, text, text_lengths, max_decoder_steps: int | None = None,
                   r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16,
-                  compute_dtype=None):
+                  compute_dtype=None, speaker_ids=None, speaker_embeddings=None):
         """Free-running synthesis on the model's device. text [B, T] symbol
         ids, text_lengths [B]. Output lengths are in mel frames; frames past
         a row's length are zero. decode_dtype is the decode's working type
@@ -261,7 +306,10 @@ class Tacotron2(nn.Module):
         the postnet, and every output comes back float32. None runs them
         in float32. BatchNorm normalizes with its running statistics
         whatever the module's mode, as the reference's inference does
-        (train=False)."""
+        (train=False). A speaker-conditioned model takes speaker_ids [B]
+        (table) or speaker_embeddings [B, spk_dim] (d-vectors); under a
+        compute_dtype the table and the d-vectors are cast to it, as the
+        reference casts them."""
         r = r or self.r
         max_steps = max_decoder_steps or self.cfg.max_decoder_steps
         dev = self.device
@@ -274,6 +322,7 @@ class Tacotron2(nn.Module):
         self.eval()
         try:
             enc_out = cast("encoder")(cast("embedding")(text), text_lengths)
+            enc_out = self._condition(enc_out, speaker_ids, speaker_embeddings, cast)
             dec_out, aligns, stops, lengths = self.decoder.inference(
                 enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype,
                 compute_dtype=dt)

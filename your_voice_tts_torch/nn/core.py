@@ -22,16 +22,23 @@ GAINS = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0}
 
 class Conv1d(nn.Module):
     """Channel-last 1D convolution [B, T, C_in] -> [B, T', C_out], stride 1,
-    zero padding as the JAX package's Conv1d: "same" keeps T, "valid" pads
-    nothing, an int pads both sides by it."""
+    padded as the JAX package's Conv1d: "same" keeps T (dilation d pads
+    d * (k - 1) in all, the odd one on the right), "valid" pads nothing, an
+    int pads both sides by it. pad_mode "reflect" mirrors the input instead
+    of zero-filling it (the MelGAN family's choice). init_gain names the
+    nonlinearity whose gain the owning model's xavier init uses."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
-                 use_bias: bool = True, padding: str | int = "same"):
+                 use_bias: bool = True, padding: str | int = "same", dilation: int = 1,
+                 pad_mode: str = "zeros", init_gain: str = "linear"):
         super().__init__()
+        if pad_mode not in ("zeros", "reflect"):
+            raise ValueError(f"pad_mode must be zeros or reflect, got {pad_mode!r}")
         self.weight = nn.Parameter(torch.zeros(out_dim, in_dim, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
+        self.dilation, self.pad_mode, self.gain = dilation, pad_mode, GAINS[init_gain]
         if padding == "same":
-            total = kernel_size - 1
+            total = dilation * (kernel_size - 1)
             self.pad = (total // 2, total - total // 2)
         elif padding == "valid":
             self.pad = (0, 0)
@@ -39,8 +46,32 @@ class Conv1d(nn.Module):
             self.pad = (int(padding), int(padding))
 
     def forward(self, x):
-        x = F.pad(x.transpose(1, 2), self.pad)
-        return F.conv1d(x, self.weight, self.bias).transpose(1, 2)
+        mode = "reflect" if self.pad_mode == "reflect" and self.pad != (0, 0) else "constant"
+        x = F.pad(x.transpose(1, 2), self.pad, mode=mode)
+        return F.conv1d(x, self.weight, self.bias, dilation=self.dilation).transpose(1, 2)
+
+
+class ConvTranspose1d(nn.Module):
+    """Channel-last transposed 1D convolution [B, T, C_in] -> [B, T * stride,
+    C_out], the MelGAN upsampler's (the JAX package's ConvTranspose1d):
+    padding stride // 2 + stride % 2 and output_padding stride % 2, for even
+    and odd strides. The weight is torch's [in, out, k]; the JAX package's
+    is [k, in, out] with the kernel axis flipped (`jax_layout` tells
+    train/checkpoint.params_from_jax so)."""
+
+    jax_layout = "conv_transpose"
+
+    def __init__(self, in_dim: int, out_dim: int, kernel_size: int, stride: int,
+                 use_bias: bool = True, init_gain: str = "linear"):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(in_dim, out_dim, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
+        self.stride, self.gain = stride, GAINS[init_gain]
+
+    def forward(self, x):
+        u = self.stride
+        return F.conv_transpose1d(x.transpose(1, 2), self.weight, self.bias, stride=u,
+                                  padding=u // 2 + u % 2, output_padding=u % 2).transpose(1, 2)
 
 
 class BatchNorm1d(nn.Module):
@@ -84,6 +115,18 @@ class BatchNorm1d(nn.Module):
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
+def init_convs_(model: nn.Module, generator: torch.Generator) -> None:
+    """Xavier-uniform weights at each convolution's own `gain` and zero
+    biases, for every Conv1d and ConvTranspose1d of `model` in module
+    order."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (Conv1d, ConvTranspose1d)):
+                xavier_uniform_(m.weight, m.gain, generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
 def dropout(x, rate: float, generator: torch.Generator | None):
     """Inverted dropout drawn from `generator` (on x's device); the identity
     when no generator is given, as the JAX package skips it for rng=None."""
@@ -95,8 +138,9 @@ def dropout(x, rate: float, generator: torch.Generator | None):
 
 
 def xavier_uniform_(w: torch.Tensor, gain: float, generator: torch.Generator):
-    """Xavier-uniform init of a Linear [out, in] or Conv1d [out, in, k]
-    weight, drawn from `generator` (JAX package nn/core.xavier_uniform)."""
+    """Xavier-uniform init of a Linear [out, in], Conv1d [out, in, k] or
+    ConvTranspose1d [in, out, k] weight, drawn from `generator` (JAX package
+    nn/core.xavier_uniform)."""
     rf = w.shape[2] if w.dim() == 3 else 1
     fan_out, fan_in = w.shape[0] * rf, w.shape[1] * rf
     a = gain * math.sqrt(6.0 / (fan_in + fan_out))

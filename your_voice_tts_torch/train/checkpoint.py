@@ -22,7 +22,18 @@ layout map of the JAX package's utils/torch_import.py in reverse:
   Tacotron(1) decoder's); a CBHG's ``gru_fwd`` / ``gru_bwd`` pair -> its
   bidirectional nn.GRU ``gru`` (``..._l0`` and ``..._l0_reverse``);
 - BatchNorm ``scale``/``bias`` + state ``mean``/``var`` -> ``weight``/``bias``
-  + ``running_mean``/``running_var``.
+  + ``running_mean``/``running_var``;
+- modules whose port class names a ``jax_layout`` (`jax_layouts`), which
+  the generic rules above would misread:
+  - ``"conv_transpose"``, a ConvTranspose1d: ``w`` [k, in, out] with the
+    kernel axis flipped -> ``weight`` [in, out, k];
+  - ``"lstmp"`` / ``"lstm_proj"``, the speaker encoder's LSTM with
+    projection: ``wx`` / ``wh`` / ``b`` -> its nn.LSTM ``lstm`` (``..._l0``,
+    zero ``bias_hh``), ``proj`` [H, P] -> ``lstm.weight_hr_l0`` (recurring on
+    the projection) or the Linear ``proj.weight``.
+
+`load_generator` reads the generator (the ``['g']`` subtree) of a GAN
+vocoder checkpoint, which also holds the discriminator.
 
 `save_checkpoint` writes the same format from a port model (`params_to_jax`
 is the map above, forwards), so the JAX package's `restore_partial` loads
@@ -108,12 +119,40 @@ def _walk(tree, prefix=()):
 _ENCODER_LSTM = {"lstm_fwd": "", "lstm_bwd": "_reverse"}
 _CBHG_GRU = {"gru_fwd": "", "gru_bwd": "_reverse"}
 _GRU_LEAF = {"wx": "weight_ih", "wh": "weight_hh", "bx": "bias_ih", "bh": "bias_hh"}
+_LSTMP_LEAF = {"wx": "lstm.weight_ih_l0", "wh": "lstm.weight_hh_l0"}
 
 
-def params_from_jax(params: dict, state: dict) -> dict[str, torch.Tensor]:
-    """JAX-layout params/state (numpy trees) of a Tacotron2, a Tacotron(1)
-    or a WaveRNN -> the port model's ``state_dict`` (float32 CPU tensors)."""
+def jax_layouts(model: torch.nn.Module) -> dict[str, str]:
+    """{module name: its class's ``jax_layout``} for the modules of `model`
+    whose JAX leaves the generic rules of `params_from_jax` would misread."""
+    return {name: m.jax_layout for name, m in model.named_modules()
+            if getattr(m, "jax_layout", None)}
+
+
+def _special_leaf(put, kind: str, base: str, leaf: str, arr, path) -> None:
+    if kind == "conv_transpose" and leaf in ("w", "b"):
+        put(f"{base}.{'weight' if leaf == 'w' else 'bias'}",
+            arr[::-1].transpose(1, 2, 0) if leaf == "w" else arr)
+    elif kind in ("lstmp", "lstm_proj") and leaf in ("wx", "wh", "b", "proj"):
+        if leaf == "b":
+            put(f"{base}.lstm.bias_ih_l0", arr)
+            put(f"{base}.lstm.bias_hh_l0", np.zeros_like(arr))
+        elif leaf == "proj":
+            put(f"{base}.{'lstm.weight_hr_l0' if kind == 'lstmp' else 'proj.weight'}", arr.T)
+        else:
+            put(f"{base}.{_LSTMP_LEAF[leaf]}", arr.T)
+    else:
+        raise KeyError(f"unexpected {kind} leaf {path}")
+
+
+def params_from_jax(params: dict, state: dict,
+                    layouts: dict[str, str] | None = None) -> dict[str, torch.Tensor]:
+    """JAX-layout params/state (numpy trees) of a Tacotron2, a Tacotron(1),
+    a WaveRNN, a GAN generator or a speaker encoder -> the port model's
+    ``state_dict`` (float32 CPU tensors). `layouts` (`jax_layouts` of the
+    model) names the modules the generic rules would misread."""
     sd: dict[str, torch.Tensor] = {}
+    layouts = layouts or {}
 
     def put(name, arr):
         sd[name] = torch.from_numpy(np.array(arr, np.float32))
@@ -121,6 +160,10 @@ def params_from_jax(params: dict, state: dict) -> dict[str, torch.Tensor]:
     for path, arr in _walk(params):
         *mods, leaf = path
         arr = np.asarray(arr)
+        name = ".".join(map(str, mods))
+        if name in layouts:
+            _special_leaf(put, layouts[name], name, leaf, arr, path)
+            continue
         if len(mods) >= 2 and mods[-2] == "encoder" and mods[-1] in _ENCODER_LSTM:
             sfx = _ENCODER_LSTM[mods[-1]]
             base = ".".join(map(str, mods[:-1] + ["lstm"]))
@@ -173,7 +216,19 @@ def params_from_jax(params: dict, state: dict) -> dict[str, torch.Tensor]:
 def load_checkpoint(model: torch.nn.Module, path: str) -> dict:
     """Load a JAX-package checkpoint into `model` (strict); returns meta."""
     params, state, meta = read_checkpoint(path)
-    model.load_state_dict(params_from_jax(params, state), strict=True)
+    model.load_state_dict(params_from_jax(params, state, jax_layouts(model)), strict=True)
+    return meta
+
+
+def load_generator(model: torch.nn.Module, path: str) -> dict:
+    """Load the generator of a GAN vocoder checkpoint (its ``['g']``
+    subtree; the discriminator's ``['d']`` and the optimizer state are left
+    out) into `model` (strict), as the JAX package's
+    `_restore_generator_subtree`; returns meta."""
+    params, _, meta = read_checkpoint(path)
+    if "g" not in params:
+        raise KeyError(f"{path} holds no generator subtree ['g']")
+    model.load_state_dict(params_from_jax(params["g"], {}, jax_layouts(model)), strict=True)
     return meta
 
 

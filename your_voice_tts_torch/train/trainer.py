@@ -62,6 +62,10 @@ class Trainer:
             raise NotImplementedError(f"gradient accumulation {_LATER}")
         if cfg.model.model == "Tacotron":
             raise NotImplementedError(f"Tacotron(1) training {_LATER}")
+        if cfg.speakers.use_speaker_embedding:
+            raise NotImplementedError(f"multi-speaker training {_LATER}")
+        if cfg.speakers.use_gst:
+            raise NotImplementedError(f"GST training {_LATER}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.verbose = verbose

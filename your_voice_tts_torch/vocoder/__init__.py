@@ -1,3 +1,4 @@
-"""Neural vocoders (the JAX package's vocoder/): WaveRNN with batched
-sequence folding. MelGAN and PWGAN come with a later slice; their config
-groups load already."""
+"""Neural vocoders (the JAX package's vocoder/): MelGAN and Parallel
+WaveGAN generators, and WaveRNN with batched sequence folding. GAN
+training (the discriminators, losses and trainer) comes with a later
+slice."""

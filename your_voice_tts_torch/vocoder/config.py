@@ -1,7 +1,7 @@
 """Vocoder configs (the JAX package's vocoder/config.py, copied whole).
 
-The MelGAN and PWGAN groups are data only here: the port runs WaveRNN, and
-the groups load so that every vocoder JSON of the JAX package loads.
+The discriminator and training fields load so that every vocoder JSON of
+the JAX package loads; the port serves the generators only.
 """
 
 from __future__ import annotations
