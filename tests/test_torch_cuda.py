@@ -297,6 +297,90 @@ def test_decode_kernel_past_one_launch_at_full_width(cuda):
     assert_decode_holds(got, ref)
 
 
+def seeded_stream(cuda, B, H=48, n_mels=20, seed=3):
+    """((h1, c1), (h2, c2), frame) on the card, float32, from a seed."""
+    g = torch.Generator().manual_seed(seed)
+    h1, h2 = (torch.tanh(torch.randn(B, H, generator=g)).to(cuda) for _ in range(2))
+    c1, c2 = (torch.randn(B, H, generator=g).to(cuda) for _ in range(2))
+    return (h1, c1), (h2, c2), torch.randn(B, n_mels, generator=g).to(cuda)
+
+
+def stream_tensors(stream):
+    (h1, c1), (h2, c2), frame = stream
+    return [h1, c1, h2, c2, frame]
+
+
+def assert_stream_holds(got, ref, tol=5e-3):
+    """The five stream tensors: shapes equal, within the frames' 5e-3."""
+    for a, b in zip(stream_tensors(got), stream_tensors(ref)):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert float((a - b).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("B", [1, 11])
+def test_decode_kernel_with_stream_state(cuda, B):
+    """Kernel 1's stream branch against plain: chunk 1 fresh, chunk 2 from
+    each side's chunk-1 stream, and a seeded stream given to both; one row
+    stops at once. Asking for the stream changes no output bit."""
+    w, enc, pinp, mask = decode_case(cuda, B)
+    kw = dict(r=2, max_steps=30, seed=5, chunk=7, return_stream=True)
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+    assert_decode_holds(got[:4], ref[:4])
+    assert_stream_holds(got[4], ref[4])
+    bare = tacotron2_decode_cuda(w, enc, pinp, mask, r=2, max_steps=30, seed=5, chunk=7)
+    assert all(torch.equal(a, b) for a, b in zip(bare, got[:4]))
+    for stream_got, stream_ref in ((got[4], ref[4]),
+                                   (seeded_stream(cuda, B),) * 2):
+        before = [t.clone() for t in stream_tensors(stream_got)]
+        got2 = tacotron2_decode_cuda(w, enc, pinp, mask, stream=stream_got, **kw)
+        ref2 = tacotron2_decode_plain(w, enc, pinp, mask, stream=stream_ref, **kw)
+        assert_decode_holds(got2[:4], ref2[:4])
+        assert_stream_holds(got2[4], ref2[4])
+        assert not torch.allclose(got2[0], got[0], atol=1e-2)
+        assert all(torch.equal(a, b) for a, b in zip(before, stream_tensors(stream_got)))
+
+
+@pytest.mark.parametrize("B", [3, 11])
+def test_decode_kernel_stream_freezes_at_the_all_done_boundary(cuda, B):
+    """Every row stops at its first step: the kernel leaves at step 7, and
+    its stream is the state there, as plain's and as a 7-step launch's."""
+    w, enc, pinp, mask = decode_case(cuda, B, stop_rows=range(B))
+    kw = dict(r=2, seed=5, chunk=7, stream=seeded_stream(cuda, B), return_stream=True)
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, max_steps=30, **kw)
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, max_steps=30, **kw)
+    assert got[3].tolist() == [1] * B and not got[1][7:].any()
+    assert_decode_holds(got[:4], ref[:4])
+    assert_stream_holds(got[4], ref[4])
+    seven = tacotron2_decode_cuda(w, enc, pinp, mask, max_steps=7, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(stream_tensors(seven[4]),
+                                                stream_tensors(got[4])))
+    assert not got[4][2].any()
+
+
+def test_decode_kernel_stream_in_batch_slices(cuda, monkeypatch):
+    """A stream through a batch cut into slices: the first slice's rows
+    stop at once, it leaves at step 7 and runs again, from a fresh copy of
+    its rows of the stream, to the others' step count; the stream out is
+    plain's over the whole batch."""
+    from your_voice_tts_torch.ops import taco2_decode as dec
+
+    B, T = 40, 13
+    w, enc, pinp, mask = decode_case(cuda, B, stop_rows=range(16))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    monkeypatch.setattr(dec, "SMEM_LIMIT", fixed_smem(dec, w["dims"], 16, T, sms))
+    assert dec.batch_slices(w["dims"], B, T, sms) == [(0, 16), (16, 32), (32, 40)]
+    stream = seeded_stream(cuda, B)
+    kw = dict(r=2, max_steps=30, seed=5, chunk=7, prenet_dropout=True, stream=stream,
+              return_stream=True)
+    before = tacotron2_decode_cuda.launches
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    assert tacotron2_decode_cuda.launches > before + 3         # a slice ran again
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+    assert_decode_holds(got[:4], ref[:4])
+    assert_stream_holds(got[4], ref[4])
+
+
 @pytest.mark.parametrize("probe", ["barriers_only", "copies_only", "dots_only"])
 def test_decode_probe_launches_run(cuda, probe):
     from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_probe_cuda

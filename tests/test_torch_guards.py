@@ -242,3 +242,10 @@ def test_speaker_encoder_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tm
                     speakers_json=os.path.join(ROOT, "assets/speakers_smoke.json"))
     assert load_encoder(os.path.join(ROOT, "assets/speaker_encoder_smoke.npz"),
                         device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", ["your_voice_tts_torch.infer.batching",
+                                    "your_voice_tts_torch.infer.server",
+                                    "your_voice_tts_torch.bin.server"])
+def test_server_slice_modules_import_with_jax_blocked(module):
+    test_tacotron_slice_modules_import_with_jax_blocked(module)

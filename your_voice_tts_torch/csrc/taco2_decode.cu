@@ -41,6 +41,13 @@
 //   The LSTM products that are not on the chain run where their input is
 //   already staged, so no round waits on more than one short product; a
 //   prologue computes them for the initial state.
+// - Stream state (the Pallas kernel's `stream=` / `return_stream`): the
+//   initial h1, c1, h2, c2 and fed-back frame come from the wrapper's
+//   buffers, zeros or a previous text chunk's final state (h and the frame
+//   as bf16, the only form any product reads them in; c in f32), while
+//   attention and context start at zero. At the end the cell states go back
+//   to their buffers and, where asked, the hiddens' f32 values to h1f /
+//   h2f; an early exit leaves them as at the all-done chunk boundary.
 // - Products run on the tensor cores: mma.sync.m16n8k16 (16 weight rows x
 //   8 batch rows x 16 columns, f32 accumulation). pack_weights stores each
 //   matrix in the A operand's register order, so a lane loads a 16 x 16
@@ -115,6 +122,7 @@ struct Params {
     float *out, *aligns, *stops;                              // [S, B, OW], [S, B, T], [S, B]
     int* ran;
     float* prof;                                              // [G, 7, 2] (kProfile)
+    float *h1f, *h2f;                                         // [B, H] f32 stream out, or null
     int B, T, NT, NM, NM16, P, P16, E16, H1, H116, H2, H216, A, K, OW, r;
     int KA, KD, KO;                                           // k-tiles of a, d, o
     int steps, chunk, softmax, dropout;
@@ -332,9 +340,10 @@ __device__ void move_cells(float* cs, float* c, int H, const Params& p) {
 
 // LSTM cell update from the accumulated gates of this block's units (a row
 // tile holds 4 units' interleaved i, f, g, o): c in shared memory, h as
-// bf16 into hb [B, H16]; the accumulators are cleared.
+// bf16 into hb [B, H16] and, for a stream, as f32 into hf [B, H] (null
+// without one); the accumulators are cleared.
 __device__ void lstm_epilogue(const Params& p, float* acc, const float* bias, float* cs, int H,
-                              int H16, bf16* hb) {
+                              int H16, bf16* hb, float* hf) {
     const int ng = tiles_here((4 * H + kRows - 1) / kRows), G = gridDim.x;
     for (int idx = threadIdx.x; idx < ng * p.NT * 32; idx += blockDim.x) {
         const int j = idx / (p.NT * 32), rem = idx - j * p.NT * 32;
@@ -349,7 +358,9 @@ __device__ void lstm_epilogue(const Params& p, float* acc, const float* bias, fl
         float* c = cs + (j * 4 + u) * p.NT * kTile + b;
         const float cn = sigmoidf_(gf) * *c + sigmoidf_(gi) * tanhf(gg);
         *c = cn;
-        hb[(size_t)b * H16 + n] = __float2bfloat16_rn(sigmoidf_(go) * tanhf(cn));
+        const float h = sigmoidf_(go) * tanhf(cn);
+        hb[(size_t)b * H16 + n] = __float2bfloat16_rn(h);
+        if (hf) hf[(size_t)b * H + n] = h;
     }
 }
 
@@ -528,7 +539,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
         // R2
         run_products<PR>(p, s, {p.x, p.P16}, none, none, pA2, pA2, pA2, 1, nothing);
         if (fetch) fetch_weights(s.wbuf, pQ, pD3, pD3, 2);
-        if (work) lstm_epilogue(p, s.acc_a, s.ba, s.ca, p.H1, p.H116, p.h1);
+        if (work) lstm_epilogue(p, s.acc_a, s.ba, s.ca, p.H1, p.H116, p.h1, p.h1f);
         sync(1);
         // R3
         run_products<PR>(p, s, {p.h1, p.H116}, none, none, pQ, pD3, pD3, 2, nothing);
@@ -550,7 +561,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
         // R6
         run_products<PR>(p, s, {p.ctx, p.E16}, none, none, pD6, pO6, pA6, 3, nothing);
         if (fetch) fetch_weights(s.wbuf, pO7, pD7, pD7, 2);
-        if (work) lstm_epilogue(p, s.acc_d, s.bd, s.cd, p.H2, p.H216, p.h2);
+        if (work) lstm_epilogue(p, s.acc_d, s.bd, s.cd, p.H2, p.H216, p.h2, p.h2f);
         sync(5);
         // R7
         run_products<PR>(p, s, {p.h2, p.H216}, none, none, pO7, pD7, pD7, 2, nothing);
@@ -614,7 +625,11 @@ extern "C" {
 
 // ptrs: p1, p2, a, q, d, o, u, p1_b, p2_b, a_b, d_b, o_b, v_w, enc, pinp,
 // maskadd, frame, x1, x, h1, h2, ctx, c1, c2, att, cum, done, pq, e, pre,
-// out, aligns, stops, ran, prof. dims: the launch plan (ops/taco2_decode.py
+// out, aligns, stops, ran, prof, h1f, h2f. The state buffers (frame, h1,
+// h2 as bf16 product inputs, c1, c2 in f32) hold the initial state, zeros
+// or a previous text chunk's stream; c1 and c2 hold the final cell states
+// after the launch, and h1f / h2f, where not null, the final hiddens in
+// f32 (the stream out). dims: the launch plan (ops/taco2_decode.py
 // `launch_plan`, `_DIMS` order), the eleven products' k-tile slices, blocks,
 // shared memory bytes. fl: v_b, thresh. probe: 0 serves, 1 keeps only the
 // barriers, 2 only the stage-input copies, 3 only the products, 4 serves
@@ -639,6 +654,8 @@ int taco2_decode(const void* const* ptrs, const int* dims, const float* fl, unsi
     for (int i = 0; i < 11; ++i) *sf[i] = static_cast<float*>(const_cast<void*>(ptrs[22 + i]));
     p.ran = static_cast<int*>(const_cast<void*>(ptrs[33]));
     p.prof = static_cast<float*>(const_cast<void*>(ptrs[34]));
+    p.h1f = static_cast<float*>(const_cast<void*>(ptrs[35]));
+    p.h2f = static_cast<float*>(const_cast<void*>(ptrs[36]));
     int* di[] = {&p.B, &p.T, &p.NT, &p.NM, &p.NM16, &p.P, &p.P16, &p.E16, &p.H1, &p.H116,
                  &p.H2, &p.H216, &p.A, &p.K, &p.OW, &p.r, &p.KA, &p.KD, &p.KO, &p.steps,
                  &p.chunk, &p.softmax, &p.dropout, &p.XLD, &p.ALN, &p.CPB, &p.PPB, &p.GA,

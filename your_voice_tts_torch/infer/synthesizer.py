@@ -3,13 +3,15 @@ loads a Tacotron2 or Tacotron(1) checkpoint (and optionally a MelGAN, PWGAN
 or WaveRNN vocoder, which serves Tacotron2's mels, and a speakers.json
 that conditions Tacotron2 on speakers), splits input into sentences,
 synthesizes every sentence of every request in one batch a conditioning
-mode, and joins each request's sentences with 0.25 s of silence. Runs on
-CUDA unless given another device."""
+mode, and joins each request's sentences with 0.25 s of silence; or
+streams a text chunk by chunk (`tts_streaming`). Runs on CUDA unless given
+another device."""
 
 from __future__ import annotations
 
 import io
 import re
+import threading
 import wave
 
 import numpy as np
@@ -22,7 +24,7 @@ from ..models import setup_model
 from ..text import symbols
 from ..train.checkpoint import load_checkpoint
 from ..utils.speakers import load_speaker_mapping, parse_speakers
-from .synthesis import synthesis_batch
+from .synthesis import synthesis_batch, text_to_seq
 
 _SENTENCE_RE = re.compile(r"(?<=[.!?])\s+|\n+")
 
@@ -30,6 +32,19 @@ _SENTENCE_RE = re.compile(r"(?<=[.!?])\s+|\n+")
 def split_into_sentences(text: str) -> list[str]:
     parts = [s.strip() for s in _SENTENCE_RE.split(text)]
     return [s for s in parts if s]
+
+
+def stream_pieces(text: str, chunk_chars: int = 120) -> list[str]:
+    """The text chunks `tts_streaming` decodes one after another: its
+    sentences, each longer than chunk_chars cut every chunk_chars
+    characters."""
+    pieces: list[str] = []
+    for s in split_into_sentences(text) or [text]:
+        while len(s) > chunk_chars:
+            pieces.append(s[:chunk_chars])
+            s = s[chunk_chars:]
+        pieces.append(s)
+    return pieces
 
 
 class Synthesizer:
@@ -44,10 +59,15 @@ class Synthesizer:
         (`utils/speakers.py`) conditions the model on its speakers: by id
         (the model's own table) or by their d-vectors. rng_seed seeds the
         Griffin-Lim phases and the vocoder's draws; decode_dtype is the
-        decode's working type."""
+        decode's working type. `lock` serializes the device work of
+        `tts_many` and of each `tts_streaming` chunk, which a server runs
+        on different threads: they share the cached decode weights, the
+        Griffin-Lim phase generator and the kernels' launch counters, and
+        one cooperative decode launch must not race another."""
         self.cfg = load_config(tts_config) if isinstance(tts_config, str) else tts_config
         self.device = resolve_device(device)
         self.decode_dtype = decode_dtype
+        self.lock = threading.Lock()
         self.ap = AudioProcessor(self.cfg.audio, self.device, seed=rng_seed)
         self.speaker_ids: dict[str, int] = {}
         self.speaker_embeddings = None
@@ -110,6 +130,10 @@ class Synthesizer:
         speakers = [None] * len(texts) if speakers is None else list(speakers)
         if len(speakers) != len(texts):
             raise ValueError(f"{len(texts)} texts but {len(speakers)} speakers")
+        with self.lock:
+            return self._tts_many(texts, speakers)
+
+    def _tts_many(self, texts: list[str], speakers: list) -> list[np.ndarray]:
         sent_of_req: list[list[int]] = []
         flat: list[str] = []
         modes: list[tuple] = []
@@ -146,6 +170,40 @@ class Synthesizer:
             out.append(np.concatenate(pieces))
         return out
 
+    def tts_streaming(self, text: str, chunk_chars: int = 120, speaker=None):
+        """Generator of waveform chunks, one a text piece (`stream_pieces`),
+        each yielded as soon as it is decoded and vocoded: the decoder's
+        LSTM states and last frame carry over from piece to piece through
+        `Tacotron2.inference_truncated`, so a long text streams with memory
+        bounded by the chunk. `speaker` conditions every piece (as in
+        `tts`). As in the JAX package, streaming ignores
+        `inference_compute_dtype`: the encoder and postnet run in float32,
+        the decode in `decode_dtype` (bf16, the kernel's). Streaming
+        bypasses the batching of `tts_many`; the lock is held for each
+        piece's device work, never across a yield. A model without
+        `inference_truncated` (Tacotron(1)) yields one `tts` waveform."""
+        if not hasattr(self.model, "inference_truncated"):
+            yield self.tts(text, speaker=speaker)
+            return
+        mode, val = self._resolve_speaker(speaker)
+        spk = {}
+        if mode == "id":
+            spk["speaker_ids"] = np.asarray([val], np.int64)
+        elif mode == "dvec":
+            spk["speaker_embeddings"] = np.asarray(val, np.float32)[None]
+        stream = None
+        for piece in stream_pieces(text, chunk_chars):
+            seq = text_to_seq(piece, self.cfg)
+            with self.lock:
+                out, stream = self.model.inference_truncated(
+                    seq[None], [len(seq)], decode_dtype=self.decode_dtype, stream_state=stream,
+                    **spk)
+                n = int(out["mel_lengths"][0])
+                mel = out["postnet_outputs"][0, :max(n, 1)].cpu().numpy()
+                wav = (self.vocoder.mel_to_wav(mel.T) if self.vocoder is not None
+                       else self.ap.inv_melspectrogram_batch([mel.T])[0])
+            yield np.asarray(wav, np.float32)
+
     def encode_wav_bytes(self, wav: np.ndarray) -> bytes:
         """Float waveform -> 16-bit mono WAV container bytes."""
         if wav.size == 0:
@@ -159,5 +217,6 @@ class Synthesizer:
             f.writeframes(norm.astype(np.int16).tobytes())
         return buf.getvalue()
 
-    def tts_to_wav_bytes(self, text: str) -> bytes:
-        return self.encode_wav_bytes(self.tts(text))
+    def tts_to_wav_bytes(self, text: str, **kw) -> bytes:
+        """`tts(text, **kw)` (e.g. speaker=) as WAV container bytes."""
+        return self.encode_wav_bytes(self.tts(text, **kw))

@@ -158,6 +158,23 @@ class Decoder(nn.Module):
         [B, max_steps], lengths [B] in mel frames). With a compute_dtype
         the memory's key projection W_k m runs in it (the decode itself
         keeps its f32 state and `dtype` matrix inputs)."""
+        return self._decode(inputs, input_lengths, max_steps, r, seed, dtype, compute_dtype)
+
+    @torch.no_grad()
+    def inference_truncated(self, inputs, input_lengths, max_steps: int, r: int,
+                            seed: int = 0, dtype=torch.bfloat16, compute_dtype=None,
+                            stream=None):
+        """`inference` from a previous text chunk's stream state ((h1, c1),
+        (h2, c2), last frame), or from zeros without one; attention starts
+        afresh on this chunk's memory (the JAX package's
+        `inference_truncated_pallas`). Returns `inference`'s outputs and
+        the stream state to pass on, frozen where every row stopped (see
+        ops/taco2_decode.py)."""
+        return self._decode(inputs, input_lengths, max_steps, r, seed, dtype, compute_dtype,
+                            stream=stream, return_stream=True)
+
+    def _decode(self, inputs, input_lengths, max_steps, r, seed, dtype, compute_dtype,
+                **stream):
         B = inputs.shape[0]
         mask = sequence_mask(input_lengths, inputs.shape[1])
         if compute_dtype is None:
@@ -167,13 +184,14 @@ class Decoder(nn.Module):
                 inputs.to(compute_dtype)).float()
             inputs = inputs.float()
         _, dropout = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
-        out, aligns, stops, lengths = tacotron2_decode(
+        out, aligns, stops, lengths, *stream_out = tacotron2_decode(
             self.decode_weights(dtype), inputs, pinp, mask, r=r,
             max_steps=max_steps, norm=self.attention.norm,
-            thresh=self.cfg.stop_threshold, prenet_dropout=dropout, seed=seed)
+            thresh=self.cfg.stop_threshold, prenet_dropout=dropout, seed=seed, **stream)
         dec_out = out[..., : self.n_mels * r].transpose(0, 1) \
             .reshape(B, max_steps * r, self.n_mels)
-        return dec_out, aligns.transpose(0, 1), stops.transpose(0, 1), lengths * r
+        return (dec_out, aligns.transpose(0, 1), stops.transpose(0, 1), lengths * r,
+                *stream_out)
 
 
 class Tacotron2(nn.Module):
@@ -310,6 +328,29 @@ class Tacotron2(nn.Module):
         (table) or speaker_embeddings [B, spk_dim] (d-vectors); under a
         compute_dtype the table and the d-vectors are cast to it, as the
         reference casts them."""
+        return self._infer(text, text_lengths, max_decoder_steps, r, seed, decode_dtype,
+                           compute_dtype, speaker_ids, speaker_embeddings)
+
+    @torch.no_grad()
+    def inference_truncated(self, text, text_lengths, max_decoder_steps: int | None = None,
+                            r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16,
+                            compute_dtype=None, speaker_ids=None, speaker_embeddings=None,
+                            stream_state=None):
+        """Streaming synthesis of one text chunk (the JAX package's
+        `Tacotron2.inference_truncated` on its kernel route): `inference`
+        with the decoder's LSTM states and last frame carried in from the
+        previous chunk's `stream_state` ((h1, c1), (h2, c2), frame), or
+        from zeros with None, and attention restarted on this chunk's
+        memory. Returns (`inference`'s outputs, the stream state to pass to
+        the next chunk); with stream_state=None the outputs equal
+        `inference`'s."""
+        return self._infer(text, text_lengths, max_decoder_steps, r, seed, decode_dtype,
+                           compute_dtype, speaker_ids, speaker_embeddings, truncated=True,
+                           stream_state=stream_state)
+
+    def _infer(self, text, text_lengths, max_decoder_steps, r, seed, decode_dtype,
+               compute_dtype, speaker_ids, speaker_embeddings, truncated=False,
+               stream_state=None):
         r = r or self.r
         max_steps = max_decoder_steps or self.cfg.max_decoder_steps
         dev = self.device
@@ -323,9 +364,10 @@ class Tacotron2(nn.Module):
         try:
             enc_out = cast("encoder")(cast("embedding")(text), text_lengths)
             enc_out = self._condition(enc_out, speaker_ids, speaker_embeddings, cast)
-            dec_out, aligns, stops, lengths = self.decoder.inference(
-                enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype,
-                compute_dtype=dt)
+            args = (enc_out, text_lengths, max_steps, r, seed, decode_dtype, dt)
+            dec_out, aligns, stops, lengths, *stream_out = (
+                self.decoder.inference_truncated(*args, stream=stream_state) if truncated
+                else self.decoder.inference(*args))
             if dt is not None:
                 dec_out = dec_out.to(dt)
             post = dec_out + cast("postnet")(dec_out)
@@ -333,10 +375,11 @@ class Tacotron2(nn.Module):
             self.train(was_training)
         if dt is not None:
             dec_out, post = dec_out.float(), post.float()
-        return {
+        out = {
             "decoder_outputs": dec_out,
             "postnet_outputs": post,
             "alignments": aligns,
             "stop_probs": stops,
             "mel_lengths": lengths,
         }
+        return (out, stream_out[0]) if truncated else out

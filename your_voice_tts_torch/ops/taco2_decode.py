@@ -20,7 +20,12 @@ Semantics of the Pallas route, which both versions keep:
   and 12, element index row * width + col;
 - the stopnet is folded through the projection;
 - matrix inputs are rounded to the working dtype (bf16 by default), with
-  f32 accumulation, f32 state and f32 outputs.
+  f32 accumulation, f32 state and f32 outputs;
+- stream state (`stream=`, `return_stream`): a previous text chunk's
+  ((h1, c1), (h2, c2), frame) seeds the LSTMs and the fed-back frame while
+  attention, context and the done mask start at zero; the state after the
+  last step run comes back, frozen at the all-done chunk boundary where
+  every row stopped, else after ceil(max_steps / chunk) * chunk steps.
 
 `tacotron2_decode` runs the plain version for a CPU tensor and the kernel
 for a CUDA tensor; the kernel wrapper raises on what it does not take and
@@ -112,6 +117,21 @@ def prepare_weights(prenet, attention_rnn, query_w, loc_u, v_w, v_b,
     }
 
 
+def _stream_in(stream, B: int, dims: dict, dev) -> list:
+    """((h1, c1), (h2, c2), frame) -> [h1, c1, h2, c2, frame] as float32
+    copies, checked against the batch and the decoder's widths."""
+    (h1, c1), (h2, c2), frame = stream
+    H1, H2, NM = dims["H1"], dims["H2"], dims["n_in"]
+    want = [(B, H1), (B, H1), (B, H2), (B, H2), (B, NM)]
+    got = []
+    for name, t, shape in zip(("h1", "c1", "h2", "c2", "frame"), (h1, c1, h2, c2, frame), want):
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"stream {name} is {tuple(t.shape)} on {t.device}, "
+                             f"expected {shape} on {dev}")
+        got.append(t.to(F32, memory_format=torch.contiguous_format, copy=True))
+    return got
+
+
 def _drive(n_steps: int, chunk: int, step, all_done) -> int:
     """Run step(s) for s < n_steps; at each chunk boundary stop once every
     row is done. Returns the number of steps run."""
@@ -160,7 +180,8 @@ def attention_plain(h, att, cum, q_w, u, v_w, v_b: float, pinp, enc, maskadd,
 def tacotron2_decode_plain(w: dict, enc_out, pinp, mask, *, r: int,
                            max_steps: int, norm: str = "sigmoid",
                            thresh: float = 0.6, prenet_dropout: bool = True,
-                           seed: int = 0, chunk: int = 50):
+                           seed: int = 0, chunk: int = 50, stream=None,
+                           return_stream: bool = False):
     """The decode in plain PyTorch ops, on any device: the reference the
     kernel is held against. Arguments as `tacotron2_decode`."""
     d = w["dims"]
@@ -173,8 +194,9 @@ def tacotron2_decode_plain(w: dict, enc_out, pinp, mask, *, r: int,
     pinp = pinp.float()
     maskadd = torch.where(mask, 0.0, -1e9).to(F32)
     z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
-    h1, c1, h2, c2 = z(B, H1), z(B, H1), z(B, H2), z(B, H2)
-    ctx, att, cum, frame, done = z(B, E), z(B, T), z(B, T), z(B, NM), z(B)
+    h1, c1, h2, c2, frame = (z(B, H1), z(B, H1), z(B, H2), z(B, H2), z(B, NM)) \
+        if stream is None else _stream_in(stream, B, d, dev)
+    ctx, att, cum, done = z(B, E), z(B, T), z(B, T), z(B)
     n_steps = -(-max_steps // chunk) * chunk
     out = torch.empty(n_steps, B, OW, device=dev)
     aligns = torch.empty(n_steps, B, T, device=dev)
@@ -211,7 +233,8 @@ def tacotron2_decode_plain(w: dict, enc_out, pinp, mask, *, r: int,
         out[s], aligns[s], stops[s] = dec, align, stop
 
     ran = _drive(n_steps, chunk, step, lambda s: bool(done.min() > 0))
-    return _finish(out, aligns, stops, ran, max_steps, thresh)
+    got = _finish(out, aligns, stops, ran, max_steps, thresh)
+    return (*got, ((h1, c1), (h2, c2), frame)) if return_stream else got
 
 
 # ---------------------------------------------------------------- the kernel
@@ -439,10 +462,12 @@ def _check_inputs(w, enc_out, pinp, mask, norm):
 
 
 def _launch(w, enc_out, pinp, mask, *, r, max_steps, norm, thresh, prenet_dropout, seed,
-            chunk, probe, row0=0):
+            chunk, probe, row0=0, stream=None, return_stream=False):
     """One launch of the kernel (probe 0 serves) over rows of the batch
-    whose first is batch row `row0`; returns (out, aligns, stops, steps ran,
-    the profile's cycles or None)."""
+    whose first is batch row `row0`, from `stream`'s state or zeros; returns
+    (out, aligns, stops, steps ran, the profile's cycles or None, the final
+    (h1, c1, h2, c2) in f32 with return_stream, else None). Every launch
+    fills its own state buffers from `stream`, which it never writes."""
     _check_inputs(w, enc_out, pinp, mask, norm)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -457,10 +482,17 @@ def _launch(w, enc_out, pinp, mask, *, r, max_steps, norm, thresh, prenet_dropou
     maskadd = torch.where(mask, 0.0, -1e9).to(F32).contiguous()
     zb = lambda n: torch.zeros(B, n, device=dev, dtype=BF16)  # noqa: E731
     z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
-    # the initial state: zeros (a later stream= passes the previous chunk's)
+    # the initial state: zeros, or the stream's h and frame rounded to bf16
+    # (they feed only products, which round them so) and its cells in f32
     state = [zb(plan["NM16"]), zb(plan["P16"]), zb(plan["P16"]), zb(plan["H116"]),
              zb(plan["H216"]), zb(plan["E16"]), z(B, H1), z(B, H2), z(B, T), z(B, T),
              z(2, B)]
+    if stream is not None:
+        h1, c1, h2, c2, frame = _stream_in(stream, B, d, dev)
+        for buf, t in ((state[0], frame), (state[3], h1), (state[4], h2)):
+            buf[:, :t.shape[1]] = t.to(BF16)
+        state[6], state[7] = c1, c2
+    hf = [z(B, H1), z(B, H2)] if return_stream else [None, None]
     n_steps = -(-max_steps // chunk) * chunk
     out = torch.empty(n_steps, B, OW, device=dev)
     aligns = torch.empty(n_steps, B, T, device=dev)
@@ -471,7 +503,7 @@ def _launch(w, enc_out, pinp, mask, *, r, max_steps, norm, thresh, prenet_dropou
     scratch = [z(B, A), z(B, T), z(B, T, A)]
     ptrs = [pk[k] for k in ("p1", "p2", "a", "q", "d", "o", "u", "p1_b", "p2_b", "a_b",
                             "d_b", "o_b", "v_w")]
-    ptrs += [enc, pinp, maskadd] + state + scratch + [out, aligns, stops, ran, prof]
+    ptrs += [enc, pinp, maskadd] + state + scratch + [out, aligns, stops, ran, prof] + hf
     vals = dict(plan, B=B, T=T, NT=plan["tiles"], NM=NM, P=P, H1=H1, H2=H2, A=A, K=d["K"],
                 OW=OW, r=r, steps=n_steps, chunk=chunk, softmax=int(norm == "softmax"),
                 dropout=int(bool(prenet_dropout)), row0=row0)
@@ -484,43 +516,63 @@ def _launch(w, enc_out, pinp, mask, *, r, max_steps, norm, thresh, prenet_dropou
     if err == -1:
         raise RuntimeError("the decode kernel's grid cannot be co-resident")
     cuda_build.check(err, "taco2_decode")
-    return out, aligns, stops, ran, prof
+    final = (hf[0], state[6], hf[1], state[7]) if return_stream else None
+    return out, aligns, stops, ran, prof, final
 
 
 def tacotron2_decode_cuda(w: dict, enc_out, pinp, mask, *, r: int,
                           max_steps: int, norm: str = "sigmoid",
                           thresh: float = 0.6, prenet_dropout: bool = True,
-                          seed: int = 0, chunk: int = 50):
+                          seed: int = 0, chunk: int = 50, stream=None,
+                          return_stream: bool = False):
     """The decode as one persistent launch on the current stream; the
     steps that ran come back in a device int, read once after the launch.
-    A batch that `batch_slices` cuts runs a launch a slice (`run_slices`)."""
+    A batch that `batch_slices` cuts runs a launch a slice (`launch_slices`),
+    each from its rows of `stream`. The stream out: the launches' final h
+    and c, and the fed-back frame, which is the last step's r-th output
+    frame (zero for a row that was done)."""
     _check_inputs(w, enc_out, pinp, mask, norm)
     B, T, _ = enc_out.shape
     slices = batch_slices(w["dims"], B, T, _sm_count(enc_out.device))
     kw = dict(r=r, norm=norm, thresh=thresh, prenet_dropout=prenet_dropout, seed=seed,
-              probe=0)
+              probe=0, return_stream=return_stream)
+
+    def rows(b0, b1):
+        if stream is None:
+            return None
+        (h1, c1), (h2, c2), frame = stream
+        return (h1[b0:b1], c1[b0:b1]), (h2[b0:b1], c2[b0:b1]), frame[b0:b1]
 
     def run(b0, b1, steps, every):
         got = _launch(w, enc_out[b0:b1], pinp[b0:b1], mask[b0:b1], max_steps=steps,
-                      chunk=every, row0=b0, **kw)
+                      chunk=every, row0=b0, stream=rows(b0, b1), **kw)
         tacotron2_decode_cuda.launches += 1
         return got
 
-    return run_slices(slices, run, max_steps, chunk, thresh)
+    out, aligns, stops, ran, parts = launch_slices(slices, run, max_steps, chunk)
+    NM = w["dims"]["n_in"]
+    frame = out[ran - 1, :, NM * (r - 1): NM * r].clone() if return_stream else None
+    got = _finish(out, aligns, stops, ran, max_steps, thresh)
+    if not return_stream:
+        return got
+    h1, c1, h2, c2 = (torch.cat([part[5][i] for part in parts]) for i in range(4))
+    return (*got, ((h1, c1), (h2, c2), frame))
 
 
-def run_slices(slices, run, max_steps: int, chunk: int, thresh: float):
+def launch_slices(slices, run, max_steps: int, chunk: int):
     """The decode of a batch as launches over its slices: run(b0, b1, steps,
     chunk) launches rows [b0, b1) and returns (out, aligns, stops, steps ran
     as a device int, ...). A slice that left before the slowest one runs
     again to its step count, with no exit on the way, so that every row
     advances as far as in one launch (the rows do not interact; the dropout
-    keys on the batch row). Returns `_finish`'s outputs."""
+    keys on the batch row). Returns the whole batch's (out, aligns, stops)
+    over ceil(max_steps / chunk) * chunk steps, the steps ran, and each
+    slice's last launch's outputs."""
     parts = [run(b0, b1, max_steps, chunk) for b0, b1 in slices]
     rans = [int(part[3].item()) for part in parts]
     ran = max(rans)
     if len(slices) == 1:
-        return _finish(*parts[0][:3], ran, max_steps, thresh)
+        return (*parts[0][:3], ran, parts)
     for i, (b0, b1) in enumerate(slices):
         if rans[i] < ran:
             parts[i] = run(b0, b1, ran, ran)
@@ -528,6 +580,12 @@ def run_slices(slices, run, max_steps: int, chunk: int, thresh: float):
     n_steps = -(-max_steps // chunk) * chunk
     out, aligns, stops = (F.pad(t, (0, 0) * (t.dim() - 1) + (0, n_steps - ran))
                           for t in (out, aligns, stops))
+    return out, aligns, stops, ran, parts
+
+
+def run_slices(slices, run, max_steps: int, chunk: int, thresh: float):
+    """`launch_slices`, then `_finish`'s outputs."""
+    out, aligns, stops, ran, _ = launch_slices(slices, run, max_steps, chunk)
     return _finish(out, aligns, stops, ran, max_steps, thresh)
 
 
@@ -560,7 +618,7 @@ def round_profile(launch, rounds) -> dict:
     cycles convert to time by the launch's own duration (CUDA events)."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    *_, ran, prof = launch()
+    ran, prof = launch()[3:5]
     end.record()
     end.synchronize()
     steps = int(ran.item())
@@ -580,13 +638,16 @@ tacotron2_decode_cuda.launches = 0
 def tacotron2_decode(w: dict, enc_out, pinp, mask, *, r: int, max_steps: int,
                      norm: str = "sigmoid", thresh: float = 0.6,
                      prenet_dropout: bool = True, seed: int = 0,
-                     chunk: int = 50):
+                     chunk: int = 50, stream=None, return_stream: bool = False):
     """Free-running decode. w: `prepare_weights` output on the inputs'
     device; enc_out [B, T, E] encoder memory; pinp [B, T, A] = W_k m; mask
     [B, T] bool. Returns (frames [max_steps, B, OW], alignments
     [max_steps, B, T], stop probabilities [max_steps, B], lengths [B] in
-    r-groups). CPU tensors run the plain version, CUDA tensors the kernel."""
+    r-groups). stream: a previous text chunk's ((h1, c1), (h2, c2), frame)
+    (f32 [B, H1], [B, H2], [B, n_mels]) to start from; return_stream
+    appends the final such tuple (see the module's docstring for when it
+    freezes). CPU tensors run the plain version, CUDA tensors the kernel."""
     fn = tacotron2_decode_plain if enc_out.device.type == "cpu" else tacotron2_decode_cuda
     return fn(w, enc_out, pinp, mask, r=r, max_steps=max_steps, norm=norm,
               thresh=thresh, prenet_dropout=prenet_dropout, seed=seed,
-              chunk=chunk)
+              chunk=chunk, stream=stream, return_stream=return_stream)
