@@ -131,10 +131,30 @@ Phases, each fatal on failure:
    (framing, header, a chunk a piece, the time to the first audio chunk),
    a stream with a speaker (E = 768) and one with an unknown speaker (500);
    the decode and Griffin-Lim kernels launched while serving.
+14. attention-variants: kernel 1 against its plain version for windowing,
+   forward attention (u = 0.5), forward attention with the transition
+   agent and the forward mask, windowing with forward attention, softmax
+   with windowing, and Graves (K = 4), each with its switches flipped in
+   configs/ljspeech_tacotron2.json, at the decode phase's inputs and
+   tolerances (B=8 and B=1, 250 steps, dropout on); forward and Graves
+   are held over every step. A variant that takes a first maximum may fork
+   where the kernel's and the plain version's first maxima differ: a
+   window's fork is held up to and over that step (it ran with the same
+   centre); a forward mask's before it, and the step itself must be a tie
+   of the plain version's alignment before the mask (within the
+   alignment tolerance). The fork is printed beside the step where the
+   plain version forks from itself under a 1e-6 nudge of the memory.
+   Kernel ms and each round's work and wait beside the location route's
+   on the decode phase's inputs in the same phase, the bound. Then
+   Synthesizer.tts_many (the 8 sentences, 5 batch-1 requests) for a Graves
+   and a forward_ta_mask model, and one four-piece tts_streaming of the
+   latter, the counters set to 0 just before each and read just after.
 
 The decode's and the wave route's launches in the kernel line add up
-the main, melgan-main, cloning and server paths' counts (each path's counters set
-to 0 just before it and read just after). Each phase prints its seconds.
+the main, melgan-main, cloning, server and attention-variants paths' counts
+(each path's counters set to 0 just before it and read just after); the
+decode's max_abs_err is the largest of the decode phase's and the
+variants' holds. Each phase prints its seconds.
 Then the kernel line (JSON), the card's
 name and power limit, and the contract line {"ok": true, "device": {...}}. Details also go to
 chip_smoke.json in the output directory (--out, default build/chip_smoke).
@@ -246,7 +266,8 @@ def no_chance_stops(model):
 DECODE_B, DECODE_T, DECODE_STEPS = 8, 152, 250
 
 
-def decode_inputs(B: int = DECODE_B, spk_dim: int | None = None, stop_all: bool = False):
+def decode_inputs(B: int = DECODE_B, spk_dim: int | None = None, stop_all: bool = False,
+                  variant: str | None = None):
     """The decode phase's inputs: configs/ljspeech_tacotron2.json at full
     width (r=2 of r_init 7), seeded random weights (stopnet bias -10), a
     batch of 8 texts of 122-150 symbols padded to T=152 through the
@@ -256,14 +277,17 @@ def decode_inputs(B: int = DECODE_B, spk_dim: int | None = None, stop_all: bool 
     (seeded, unit length), or with 0 its own 512-wide table (ids 0-3 in
     turn), concatenated onto the memory: E = 512 + spk_dim, or 1,024.
     stop_all pushes every row as row 0, so that every row stops at once.
-    Returns (bf16 decode weights, enc, pinp, mask, decode keywords)."""
+    variant names an attention variant (models/attention.py VARIANTS): its switches flip
+    in the config, the keywords carry its norm and flags, and Graves has no
+    pinp (None). Returns (bf16 decode weights, enc, pinp, mask, decode
+    keywords)."""
     import torch
 
     from your_voice_tts_torch.models import setup_model
     from your_voice_tts_torch.models.common import sequence_mask
     from your_voice_tts_torch.text import symbols
 
-    cfg = full_width_config()
+    cfg = full_width_config() if variant is None else variant_config(variant)
     spk = {} if spk_dim is None else dict(num_speakers=4, speaker_embedding_dim=spk_dim)
     model = no_chance_stops(setup_model(len(symbols), cfg, device="cuda", **spk))
     T = DECODE_T
@@ -289,26 +313,36 @@ def decode_inputs(B: int = DECODE_B, spk_dim: int | None = None, stop_all: bool 
     mask = sequence_mask(lengths.cuda(), T)
     kw = dict(r=2, max_steps=DECODE_STEPS, seed=7, prenet_dropout=True,
               thresh=cfg.model.stop_threshold)
+    if variant is not None:
+        kw.update(norm=dec.attention.norm, **dec.attn_kernel_flags())
     return dec.decode_weights(torch.bfloat16), enc, pinp, mask, kw
 
 
-def decode_bound(w, enc, pinp, mask, steps: int) -> tuple[float, str, float, float]:
+def decode_bound(w, enc, pinp, mask, steps: int,
+                 options: bool = False) -> tuple[float, str, float, float]:
     """(bound ms, what bounds it, weight MB, ms to stream the weights every
-    step): a step's products at the bf16 rate, the location, energy and
-    context work at the float32 rate; bytes: weights and inputs read once,
-    outputs written once."""
+    step): a step's products at the bf16 rate (Graves: l1 in the query's
+    place, and l2), the location, energy and context work at the float32
+    rate (Graves: its mixture, ~8 operations a component a position, in
+    place of location and energies; `options`: forward attention's ~12 a
+    position and the transition agent's E + H1 products); bytes: weights
+    and inputs read once, outputs written once."""
     import torch
 
     d = w["dims"]
-    NM, P, H1, H2, E, A, K, OW = (d[k] for k in ("n_in", "P", "H1", "H2", "E", "A", "K", "OW"))
+    NM, P, H1, H2, E, A, K, OW, GK = (d[k] for k in ("n_in", "P", "H1", "H2", "E", "A", "K",
+                                                     "OW", "GK"))
     B, T = mask.shape
     macs = (P * NM + P * P + 4 * H1 * (P + E + H1) + A * H1
-            + 4 * H2 * (H1 + E + H2) + (OW + 1) * (H2 + E))
-    f32_ops = T * A * (4 * K + 4) + 2 * T * E            # location, energies, context
+            + 4 * H2 * (H1 + E + H2) + (OW + 1) * (H2 + E) + 3 * GK * H1)
+    attn_ops = 8 * T * GK if GK else T * A * (4 * K + 4)      # mixture; location, energies
+    if options:
+        attn_ops += 12 * T + 2 * (E + H1)
+    f32_ops = attn_ops + 2 * T * E                            # and the context
     ops_s = steps * B * (2 * macs / BF16_FLOPS + f32_ops / F32_FLOPS)
     wbytes = sum(v.nbytes for v in w.values() if isinstance(v, torch.Tensor))
-    io_bytes = (wbytes + enc.numel() * 2 + pinp.numel() * 4 + mask.numel()
-                + 4 * steps * B * (OW + T + 1))
+    io_bytes = (wbytes + enc.numel() * 2 + (0 if pinp is None else pinp.numel() * 4)
+                + mask.numel() + 4 * steps * B * (OW + T + 1))
     bound_ms, bound_by = bound(io_bytes, ops_s)
     return bound_ms, bound_by, wbytes / 1e6, steps * wbytes / HBM_BYTES_PER_S * 1e3
 
@@ -2061,6 +2095,174 @@ def phase_server(report) -> dict:
     return launches
 
 
+# ------------------------------------------------ kernel 1's attention variants
+
+# the variants held, each with its switches (VARIANTS) flipped in
+# configs/ljspeech_tacotron2.json
+SMOKE_VARIANTS = ("windowing", "forward", "forward_ta_mask", "window_forward",
+                  "softmax_window", "graves")
+DECODE_TOL = (5e-3, 2e-3, 2e-3)          # the decode phase's: frames, alignments, stops
+
+
+def variant_config(variant: str):
+    """full_width_config with an attention variant's switches flipped."""
+    from your_voice_tts_torch.models.attention import VARIANTS
+
+    cfg = full_width_config()
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                              **VARIANTS[variant]))
+
+
+def hold_variants(report) -> tuple[list[float], dict]:
+    """Kernel 1 against its plain version for each attention variant at the
+    decode phase's inputs (full width, B=8 and B=1, 250 steps, dropout on):
+    errors over the steps `held_steps` holds, a forward mask's fork a tie,
+    launches a decode, kernel ms beside the location route's on the decode
+    phase's inputs, the bound.
+    Returns (every held error, the numbers)."""
+    import torch
+
+    from your_voice_tts_torch.ops.taco2_decode import (ATTN_OPTIONS, attention_route,
+                                                       first_fork, held_steps, launch_plan,
+                                                       tacotron2_decode_cuda,
+                                                       tacotron2_decode_plain,
+                                                       tacotron2_decode_profile_cuda)
+
+    smi, steps = report["nvidia_smi"], DECODE_STEPS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    def show_rounds(tag, rounds):
+        print(f"[attention-variants] {tag} rounds, us a step (work mean / largest block, "
+              f"barrier wait mean): " + "; ".join(
+                  f"{k.split()[0]} {v['work_mean_us']:.2f} / {v['work_max_us']:.2f}, "
+                  f"{v['wait_mean_us']:.2f}" for k, v in rounds.items()))
+
+    loc_ms = {}
+    for B in (DECODE_B, 1):
+        w, enc, pinp, mask, kw = decode_inputs(B)
+        loc_ms[B] = cuda_ms(lambda: tacotron2_decode_cuda(w, enc, pinp, mask, **kw), 5)
+        show_rounds(f"location route B={B}",
+                    tacotron2_decode_profile_cuda(w, enc, pinp, mask, **kw)["rounds"])
+    errs, out = [], {}
+    for variant in SMOKE_VARIANTS:
+        for B in (DECODE_B, 1):
+            w, enc, pinp, mask, kw = decode_inputs(B, variant=variant)
+            attn = {k: v for k, v in kw.items() if k in ATTN_OPTIONS}
+            route = attention_route(w, **attn)
+            plan = launch_plan(w["dims"], B, mask.shape[1], sms, route)
+            before = tacotron2_decode_cuda.launches
+            got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+            per_decode = tacotron2_decode_cuda.launches - before
+            premask = []
+            ref = tacotron2_decode_plain(w, enc, pinp, mask, premask=premask, **kw)
+            torch.cuda.synchronize()
+            # held_steps: every step of a variant that takes no maximum; up
+            # to a window's fork and over it; before a forward mask's fork,
+            # which must be a tie of the plain version's alignment
+            n, fork, gap = held_steps(got, ref, premask, **attn)
+            tag = f"{variant} B={B}"
+            e = [float((a[:n] - b[:n]).abs().max()) for a, b in zip(got[:3], ref[:3])]
+            spread = None
+            if fork is not None:
+                # the plain version's own fork under a 1e-6 relative nudge of
+                # the memory, for scale
+                g = torch.Generator().manual_seed(11)
+                nudge = 1 + 1e-6 * torch.randn(enc.shape, generator=g).to(enc.device)
+                spread = first_fork(
+                    tacotron2_decode_plain(w, enc * nudge, pinp, mask, **kw)[1], ref[1])
+            print(f"[attention-variants] {tag}: route {route}, shared memory "
+                  f"{plan['smem_bytes']} B, WB_ROUNDS {plan['WB_ROUNDS']}, launches a decode "
+                  f"{per_decode}; lengths kernel {got[3].tolist()} plain {ref[3].tolist()}; "
+                  + ("no fork" if fork is None else
+                     f"first fork at step {fork}: held over steps 0-{n - 1}"
+                     + ("" if gap is None else f", the plain version's pre-mask tie gap "
+                        f"there {gap:.3e}")
+                     + f" (the plain version under a 1e-6 nudge of the memory forks at "
+                     f"step {spread})")
+                  + f"; max_abs_err frames {e[0]:.3e}, alignments {e[1]:.3e}, stops "
+                  f"{e[2]:.3e} (tol {DECODE_TOL})")
+            check(n > 0, f"{tag}: forked at step 0")
+            check(all(x <= t for x, t in zip(e, DECODE_TOL)), f"{tag}: kernel disagrees")
+            check(gap is None or gap <= DECODE_TOL[1],
+                  f"{tag}: the forward mask forked at step {fork} on no tie (gap {gap})")
+            check(per_decode == 1, f"{tag}: one launch a decode")
+            if fork is None:
+                check(torch.equal(got[3].cpu(), ref[3].cpu()), f"{tag}: lengths differ")
+            if B == DECODE_B:
+                check(int(got[3][0]) == 1, f"{tag}: row 0 stops at once")
+            errs += e
+            ms = cuda_ms(lambda: tacotron2_decode_cuda(w, enc, pinp, mask, **kw), 5)
+            bound_ms, bound_by, wmb, _ = decode_bound(w, enc, pinp, mask, steps,
+                                                      options=route == 1)
+            print(f"[attention-variants] {tag}: kernel_ms {ms:.2f} beside the location "
+                  f"route's {loc_ms[B]:.2f} on the decode phase's inputs; bound_ms "
+                  f"{bound_ms:.3f} ({bound_by}; {wmb:.1f} MB bf16 weights) ({smi})")
+            rounds = tacotron2_decode_profile_cuda(w, enc, pinp, mask, **kw)["rounds"]
+            show_rounds(tag, rounds)
+            out[tag] = dict(route=route, fork=fork, held_steps=n, tie_gap=gap,
+                            nudged_fork=spread, errs=e, ms=ms,
+                            location_ms=loc_ms[B],
+                            rounds_us_per_step=rounds,
+                            bound_ms=bound_ms, bound_by=bound_by, weight_mb=wmb,
+                            launches_per_decode=per_decode, smem_bytes=plan["smem_bytes"],
+                            lengths=got[3].tolist())
+    return errs, out
+
+
+def phase_attention_variants(report) -> tuple[dict, float]:
+    """(a) `hold_variants`; (b) Synthesizer.tts_many on the main path's 8
+    sentences and 5 batch-1 requests for a Graves model and a
+    forward_ta_mask model (seeded random weights, Griffin-Lim), and one
+    four-piece tts_streaming of the forward_ta_mask model, the launch
+    counters set to 0 just before each and read just after. Returns (the
+    launches, the largest held error)."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer, stream_pieces
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
+
+    errs, holds = hold_variants(report)
+    launches = {"tacotron2_decode_cuda": 0, "griffin_lim_wave_cuda": 0}
+    serving = {}
+    for variant in ("graves", "forward_ta_mask"):
+        synth = Synthesizer(variant_config(variant), device="cuda")
+        no_chance_stops(synth.model)
+        numbers = serve_counted(f"attention-variants {variant}", synth)
+        seen = numbers["launches"]
+        check(seen["tacotron2_decode_cuda"] > 0 and seen["griffin_lim_wave_cuda"] > 0,
+              f"{variant} path: {seen}")
+        serving[variant] = numbers
+        for k in launches:
+            launches[k] += seen[k]
+    pieces = stream_pieces(STREAM_TEXT)
+    list(synth.tts_streaming("Set up."))               # one-time set-up, not measured
+    torch.cuda.synchronize()
+    counters = (tacotron2_decode_cuda,) + gl_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    at, chunks = [], []
+    for wav in synth.tts_streaming(STREAM_TEXT):
+        chunks.append(wav)
+        at.append(time.perf_counter() - t0)
+    seen = {c.__name__: c.launches for c in counters}
+    check(len(pieces) == 4 and len(chunks) == 4
+          and all(c.ndim == 1 and len(c) > 0 and bool(np.isfinite(c).all()) for c in chunks),
+          f"forward_ta_mask stream: {len(chunks)} chunks for {len(pieces)} pieces")
+    check(seen["tacotron2_decode_cuda"] == 4 and seen["griffin_lim_wave_cuda"] > 0,
+          f"forward_ta_mask stream launches: {seen}")
+    for k in launches:
+        launches[k] += seen[k]
+    print(f"[attention-variants] forward_ta_mask tts_streaming, 4 pieces: chunks at "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in at)} ms; launches {seen} "
+          f"({report['nvidia_smi']})")
+    print(f"[attention-variants] launches on the variants' paths: {launches}")
+    report["attention_variants"] = dict(holds=holds, serving=serving,
+                                        stream_chunk_ms=[x * 1e3 for x in at],
+                                        launches=launches)
+    return launches, max(errs)
+
+
 def dev(e) -> float:
     """A profiler row's own device time, ms."""
     return getattr(e, "self_device_time_total", 0.0) / 1e3
@@ -2732,6 +2934,11 @@ def main() -> int:
                  timed("server", phase_server, report)):
         for k in ("tacotron2_decode_cuda", "griffin_lim_wave_cuda"):
             launches[k] += seen.get(k, 0)
+    variant_launches, variant_err = timed("attention-variants", phase_attention_variants,
+                                          report)
+    for k, n in variant_launches.items():
+        launches[k] += n
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], variant_err)
     timed("melgan-asset", phase_melgan_asset, report)
     for k in kernels:
         k["launches"] = launches[k["name"]]

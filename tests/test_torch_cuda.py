@@ -8,18 +8,21 @@ mode). On a machine with the card and nvcc, without JAX:
 Whether a card is present is decided inside the fixture, never at import.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 from your_voice_tts_torch.config import ModelConfig
+from your_voice_tts_torch.models.attention import VARIANTS
 from your_voice_tts_torch.models.common import sequence_mask
 from your_voice_tts_torch.models.tacotron2 import Tacotron2
 from your_voice_tts_torch.ops.filters import hann_window
 from your_voice_tts_torch.ops.griffin_lim import (griffin_lim_wave, griffin_lim_wave_cuda,
                                                   griffin_lim_wave_plain, packed_constants)
-from your_voice_tts_torch.ops.taco2_decode import (tacotron2_decode, tacotron2_decode_cuda,
-                                                   tacotron2_decode_plain)
+from your_voice_tts_torch.ops.taco2_decode import (ATTN_OPTIONS, held_steps, tacotron2_decode,
+                                                   tacotron2_decode_cuda, tacotron2_decode_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -295,6 +298,173 @@ def test_decode_kernel_past_one_launch_at_full_width(cuda):
     ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
     assert got[3].tolist() == [1] * 160 + [40] * 152
     assert_decode_holds(got, ref)
+
+
+# kernel 1's attention variants (models/attention.py VARIANTS;
+# tests/test_torch_attention_variants.py holds their plain version against
+# the JAX package's Pallas kernel)
+
+
+def variant_case(cuda, B, variant, stop_rows=None, T=13, width=None):
+    """decode_case's smoke widths (or, with width="full",
+    configs/ljspeech_tacotron2.json's, T=152, the stop row's bias at -10)
+    with an attention variant. Returns (w, enc, pinp or None, mask,
+    keywords of the decode: norm and the variant's flags)."""
+    import dataclasses
+
+    from your_voice_tts_torch.config import load_config
+
+    if width == "full":
+        cfg = dataclasses.replace(load_config("configs/ljspeech_tacotron2.json").model, r=2,
+                                  **VARIANTS[variant])
+        model = Tacotron2(60, cfg, n_mels=80, r_init=7, device=cuda, seed=2)
+        with torch.no_grad():
+            model.decoder.stopnet.bias.fill_(-10.0)
+        E, H2 = 512, 1024
+    else:
+        cfg = ModelConfig(r=2, embedding_dim=32, encoder_dim=32, decoder_rnn_dim=48,
+                          attention_rnn_dim=48, attention_dim=24, attention_location_filters=8,
+                          attention_location_kernel_size=15, prenet_dim=24, postnet_dim=32,
+                          **VARIANTS[variant])
+        model = Tacotron2(30, cfg, n_mels=20, r_init=3, device=cuda, seed=1)
+        E, H2 = 32, 48
+    g = torch.Generator().manual_seed(0)
+    enc = (0.5 * torch.randn(B, T, E, generator=g)).to(cuda)
+    w = model.decoder.decode_weights(torch.bfloat16)
+    c = w["o_w"][-1, H2:H2 + E].float()
+    for row in (min(3, B - 1),) if stop_rows is None else stop_rows:
+        enc[row] += (20.0 if width == "full" else 8.0) * c / (c @ c)
+    pinp = model.decoder.attention.preprocess_inputs(enc)
+    lengths = (T - torch.arange(B, device=cuda) % T).clamp_min(2)
+    kw = dict(norm=model.decoder.attention.norm, **model.decoder.attn_kernel_flags())
+    return w, enc, None if pinp is None else pinp.detach(), sequence_mask(lengths, T), kw
+
+
+def assert_variant_holds(w, enc, pinp, mask, kw, got):
+    """assert_decode_holds against the plain version over the steps
+    `held_steps` holds for the variant's options: every step of a variant
+    that takes no maximum, a window's fork step too, a forward mask's
+    fork a tie of the plain version's alignment before the mask."""
+    premask = []
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, premask=premask, **kw)
+    n, fork, gap = held_steps(got, ref, premask,
+                              **{k: v for k, v in kw.items() if k in ATTN_OPTIONS})
+    if fork is None:
+        return assert_decode_holds(got, ref)
+    assert n > 0 and (gap is None or gap <= 2e-3), (fork, gap)
+    assert_decode_holds([t[:n] for t in got[:3]] + [ref[3]],
+                        [t[:n] for t in ref[:3]] + [ref[3]])
+
+
+@pytest.mark.parametrize("B", [1, 11])
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_decode_attention_variant_matches_plain(cuda, variant, B):
+    """Each attention variant, one launch a decode, against the plain
+    version at smoke widths; one row pushed to stop at once."""
+    w, enc, pinp, mask, akw = variant_case(cuda, B, variant)
+    kw = dict(r=2, max_steps=30, seed=5, chunk=7, **akw)
+    before = tacotron2_decode_cuda.launches
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    assert tacotron2_decode_cuda.launches == before + 1
+    assert int(got[3][min(3, B - 1)]) == 1
+    assert_variant_holds(w, enc, pinp, mask, kw, got)
+    assert torch.equal(tacotron2_decode(w, enc, pinp, mask, **kw)[0], got[0])
+
+
+@pytest.mark.parametrize("variant", ["graves", "forward_ta_mask"])
+def test_decode_attention_variant_in_batch_slices(cuda, monkeypatch, variant):
+    """A batch past one launch's plan (a smaller limit of shared memory
+    stands in for a larger batch) with Graves's and the options' state in
+    each block: slices of whole batch tiles, the first slice's rows stop at
+    once and it runs again; the same outputs as plain."""
+    from your_voice_tts_torch.ops import taco2_decode as dec
+
+    B, T = 40, 13
+    w, enc, pinp, mask, akw = variant_case(cuda, B, variant, stop_rows=range(16))
+    route = dec.attention_route(w, **{k: v for k, v in akw.items() if k in ATTN_OPTIONS})
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = dec.launch_plan(w["dims"], 16, T, sms, route)
+    pre = -(-plan["PPB"] * w["dims"]["A"] * 4 // 16) * 16 * plan["PRE_SMEM"]
+    monkeypatch.setattr(dec, "SMEM_LIMIT", plan["smem_bytes"] - plan["WBUF"] * 512 - pre)
+    assert dec.batch_slices(w["dims"], B, T, sms, functools.partial(
+        dec.launch_plan, route=route)) == [(0, 16), (16, 32), (32, 40)]
+    kw = dict(r=2, max_steps=30, seed=5, chunk=7, **akw)
+    before = tacotron2_decode_cuda.launches
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    assert tacotron2_decode_cuda.launches > before + 3         # a slice ran again
+    assert got[3][:16].tolist() == [1] * 16
+    assert_variant_holds(w, enc, pinp, mask, kw, got)
+
+
+@pytest.mark.parametrize("variant", ["graves", "forward_ta_mask", "window_forward"])
+def test_decode_attention_variant_at_full_width(cuda, variant):
+    """Full width, B=8, T=152, 40 steps, dropout on; row 0 stops at once.
+    Graves reads its 2 MB l1 in R3's query product."""
+    w, enc, pinp, mask, akw = variant_case(cuda, 8, variant, stop_rows=[0], T=152,
+                                           width="full")
+    kw = dict(r=2, max_steps=40, seed=7, **akw)
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+    assert got[3].tolist() == [1] + [40] * 7
+    assert_variant_holds(w, enc, pinp, mask, kw, got)
+
+
+def test_decode_attention_variant_with_stream_state(cuda):
+    """Forward attention with a stream in and out: the attention state
+    starts afresh, the LSTM state streams; chunk 2 from chunk 1's stream."""
+    B = 11
+    w, enc, pinp, mask, akw = variant_case(cuda, B, "forward_ta")
+    stream = seeded_stream(cuda, B)
+    kw = dict(r=2, max_steps=30, seed=5, chunk=7, return_stream=True, **akw)
+    got = tacotron2_decode_cuda(w, enc, pinp, mask, stream=stream, **kw)
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, stream=stream, **kw)
+    assert_decode_holds(got[:4], ref[:4])
+    assert_stream_holds(got[4], ref[4])
+    got2 = tacotron2_decode_cuda(w, enc, pinp, mask, stream=got[4], **kw)
+    ref2 = tacotron2_decode_plain(w, enc, pinp, mask, stream=ref[4], **kw)
+    assert_decode_holds(got2[:4], ref2[:4])
+
+
+def test_decode_attention_variant_refusals(cuda):
+    """What the kernel lacks raises, and nothing launches: Graves with a
+    location option, the agent without its weights, a probe launch off the
+    location route, more Graves components than a warp's lanes."""
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_probe_cuda
+
+    w, enc, pinp, mask, _ = variant_case(cuda, 3, "graves")
+    loc_w, _, loc_pinp, _, _ = variant_case(cuda, 3, "forward")
+    before = tacotron2_decode_cuda.launches
+    kw = dict(r=2, max_steps=4)
+    with pytest.raises(ValueError, match="Graves attention takes none"):
+        tacotron2_decode_cuda(w, enc, pinp, mask, windowing=True, **kw)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        tacotron2_decode_cuda(w, enc, loc_pinp, mask, **kw)
+    with pytest.raises(ValueError, match="transition agent needs its weights"):
+        tacotron2_decode_cuda(loc_w, enc, loc_pinp, mask, forward_attn=True, trans_agent=True,
+                              **kw)
+    with pytest.raises(TypeError, match="unknown attention options"):
+        tacotron2_decode_cuda(loc_w, enc, loc_pinp, mask, window=True, **kw)
+    with pytest.raises(ValueError, match="probe launches take the location route only"):
+        from your_voice_tts_torch.ops.taco2_decode import _launch
+        _launch(loc_w, enc, loc_pinp, mask, r=2, max_steps=4, norm="sigmoid", thresh=0.6,
+                prenet_dropout=True, seed=0, chunk=4, probe=1, forward_attn=True)
+    wide = {**w, "dims": dict(w["dims"], GK=33)}
+    with pytest.raises(ValueError, match="Graves components"):
+        tacotron2_decode_cuda(wide, enc, pinp, mask, **kw)
+    tacotron2_decode_probe_cuda(loc_w, enc, loc_pinp, mask, "barriers_only", r=2, max_steps=4)
+    assert tacotron2_decode_cuda.launches == before
+
+
+@pytest.mark.parametrize("variant", ["graves", "window_forward"])
+def test_decode_attention_variant_profile_times_every_round(cuda, variant):
+    """The profiling instantiation of a variant's route runs every step
+    and times each round."""
+    from your_voice_tts_torch.ops.taco2_decode import ROUNDS, tacotron2_decode_profile_cuda
+
+    w, enc, pinp, mask, akw = variant_case(cuda, 11, variant)
+    kw = dict(r=2, max_steps=20, seed=5, chunk=50, **akw)
+    prof = tacotron2_decode_profile_cuda(w, enc, pinp, mask, **kw)
+    assert list(prof["rounds"]) == list(ROUNDS) and prof["steps"] == 50
+    assert all(v["work_max_us"] >= v["work_mean_us"] > 0 for v in prof["rounds"].values())
 
 
 def seeded_stream(cuda, B, H=48, n_mels=20, seed=3):

@@ -173,8 +173,20 @@ def test_sequence_mask_matches_jax():
 
 
 def test_unsupported_attention_raises():
+    """Every attention variant of the JAX package builds (their decode is
+    held in tests/test_torch_attention_variants.py); an unknown attention
+    type raises, and so do the variants in Tacotron(1), whose decode kernel
+    has none."""
+    from your_voice_tts_torch.models.tacotron import Tacotron
+
+    with pytest.raises(ValueError, match="unknown attention type"):
+        Tacotron2(CHARS, dataclasses.replace(ModelConfig(**SMALL), attention_type="dca"),
+                  n_mels=N_MELS, device="cpu")
     for kw in (dict(attention_type="graves"), dict(windowing=True),
                dict(use_forward_attn=True), dict(transition_agent=True)):
-        with pytest.raises(NotImplementedError):
-            Tacotron2(CHARS, dataclasses.replace(ModelConfig(**SMALL), **kw),
-                      n_mels=N_MELS, device="cpu")
+        cfg = dataclasses.replace(ModelConfig(**SMALL), **kw)
+        Tacotron2(CHARS, cfg, n_mels=N_MELS, device="cpu")
+        with pytest.raises(NotImplementedError, match="Tacotron\\(1\\)"):
+            Tacotron(CHARS, dataclasses.replace(cfg, model="Tacotron", tacotron_width=32,
+                                                memory_size=5), n_mels=N_MELS, num_freq=33,
+                     device="cpu")

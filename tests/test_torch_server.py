@@ -96,6 +96,15 @@ def stream_raw(base, text, **params):
     return head.decode(), chunks
 
 
+def head_without_date(head):
+    """A response head as (status line, {header: value}) without `Date`,
+    which BaseHTTPRequestHandler stamps with the current second."""
+    status, *lines = head.split("\r\n")
+    fields = dict(line.split(": ", 1) for line in lines)
+    fields.pop("Date")
+    return status, fields
+
+
 def concurrently(fns):
     """Run the callables at once on threads; their results in order."""
     out = [None] * len(fns)
@@ -233,13 +242,18 @@ def test_a_stream_and_a_batch_at_once_equal_their_solo_runs():
     """With a deterministic vocoder (MelGAN) a request's bytes do not depend
     on what else the server does: a stream and a /api/tts request served
     at once (the Synthesizer's lock keeps their device work apart) give
-    the bytes each gives alone."""
+    the bytes each gives alone: the /api/tts response and every chunk of
+    the stream byte for byte, and the stream's status line and headers but
+    its `Date`, which names the second it was answered in."""
     synth = Synthesizer(smoke(), CKPT, vocoder_config=MELGAN[0], vocoder_checkpoint=MELGAN[1],
                         device="cpu")
     base, srv = serve(synth)
     try:
         batch = lambda: get(tts_url(base, "The quick brown fox."))  # noqa: E731
-        stream = lambda: stream_raw(base, STREAM_TEXT)  # noqa: E731
+        def stream():
+            head, chunks = stream_raw(base, STREAM_TEXT)
+            return head_without_date(head), chunks
+
         solo = [batch(), stream()]
         for _ in range(2):
             assert concurrently([stream, batch])[::-1] == solo

@@ -3,9 +3,10 @@
 // cp.async copies of stage inputs into a batch tile, the m16n8k16 product,
 // and the location-sensitive attention's three parts on the device (the
 // location features of a block's (row, t) pairs, their energies, and the
-// norm over T with the context in 8-column chunks). The attention parts
-// read the fields they name from the kernel's own Params and Smem. Each
-// source includes it into its own anonymous namespace.
+// norm over T with the context in 8-column chunks, whose norm of a row a
+// caller can replace, as taco2_decode.cu's attention variants do). The
+// attention parts read the fields they name from the kernel's own Params
+// and Smem. Each source includes it into its own anonymous namespace.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -173,13 +174,41 @@ __device__ void load_cum(const Params& p, const Smem& s) {
     }
 }
 
+// The norm over T of row rb's energies into al [T], by one warp: sigmoid
+// or softmax (p.softmax). With kWin, energies at t outside [lo, hi] count
+// as -1e9 (windowed attention's window).
+template <bool kWin = false, class Params>
+__device__ void norm_energies(const Params& p, int rb, float* al, int lo = 0, int hi = 0) {
+    const int lane = threadIdx.x & 31;
+    const float* er = p.e + (size_t)rb * p.T;
+    float m = -INFINITY;
+    for (int t = lane; t < p.T; t += 32) {
+        const float v = !kWin || (t >= lo && t <= hi) ? __ldcg(er + t) : -1e9f;
+        al[t] = v;
+        m = fmaxf(m, v);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float part = 0.f;
+    for (int t = lane; t < p.T; t += 32) {
+        const float v = p.softmax ? expf(al[t] - m) : sigmoidf_(al[t]);
+        al[t] = v;
+        part += v;
+    }
+    const float total = warp_sum(part);
+    const float inv = 1.f / (p.softmax ? total : fmaxf(total, 1e-8f));
+    for (int t = lane; t < p.T; t += 32) al[t] *= inv;
+}
+
 // R5: the norm over T of the rows this block's context items touch (warps
 // from the last down), the context chunks (warps from the first up; each
 // loads its first chunk's encoder columns before the norm, which does not
 // need them), and, for each row whose first chunk is here, the alignment
-// output, att and cum (kept in s.cum).
-template <class Params, class Smem>
-__device__ void context(const Params& p, const Smem& s, int step) {
+// output, att and cum (kept in s.cum). norm(rb, i, al) writes row rb's
+// alignment into al [T] with one warp; i = rb - the block's first row
+// indexes the block's own state of the row.
+template <class Params, class Smem, class Norm>
+__device__ void context(const Params& p, const Smem& s, int step, Norm norm) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int CE = p.E16 / 8;
     const CtxRange c = ctx_range(p);
@@ -197,27 +226,8 @@ __device__ void context(const Params& p, const Smem& s, int step) {
                             : make_uint4(0u, 0u, 0u, 0u);
         }
     }
-    for (int rb = c.rb0 + (kNW - 1 - warp); rb <= c.rb1; rb += kNW) {
-        const float* er = p.e + (size_t)rb * p.T;
-        float* al = s.aln + (rb - c.rb0) * p.T;
-        float m = -INFINITY;
-        for (int t = lane; t < p.T; t += 32) {
-            const float v = __ldcg(er + t);
-            al[t] = v;
-            m = fmaxf(m, v);
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-        float part = 0.f;
-        for (int t = lane; t < p.T; t += 32) {
-            const float v = p.softmax ? expf(al[t] - m) : sigmoidf_(al[t]);
-            al[t] = v;
-            part += v;
-        }
-        const float total = warp_sum(part);
-        const float inv = 1.f / (p.softmax ? total : fmaxf(total, 1e-8f));
-        for (int t = lane; t < p.T; t += 32) al[t] *= inv;
-    }
+    for (int rb = c.rb0 + (kNW - 1 - warp); rb <= c.rb1; rb += kNW)
+        norm(rb, rb - c.rb0, s.aln + (rb - c.rb0) * p.T);
     __syncthreads();
     for (int it = it0; it < c.i1; it += kNW) {
         const int b = it / CE, ch = it - b * CE;
@@ -264,6 +274,12 @@ __device__ void context(const Params& p, const Smem& s, int step) {
             p.cum[k] = sc[t];
         }
     }
+}
+
+// R5 with the location-sensitive attention's own norm.
+template <class Params, class Smem>
+__device__ void context(const Params& p, const Smem& s, int step) {
+    context(p, s, step, [&](int rb, int, float* al) { norm_energies(p, rb, al); });
 }
 
 }  // namespace

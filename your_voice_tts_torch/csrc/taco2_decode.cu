@@ -71,6 +71,29 @@
 //   the location features of a block's (row, t) pairs and the cum rows it
 //   writes stay in its shared memory.
 //
+// - The attention variants of the Pallas kernel are the kernel's second
+//   template parameter, so that the location route's instantiation stays
+//   as it was: kOptions serves windowing, forward attention, the
+//   transition agent and the forward mask (runtime flags within it), and
+//   kGraves the GMM attention. Both add no round:
+//     windowing: the norm of a row in R5 takes the energies outside the
+//        window as -1e9, and then the row's next centre, the first
+//        maximum of the final alignment;
+//     forward attention: the alpha recursion, the forward mask and the
+//        second norm run in R5 after the norm over T;
+//     transition agent: u = sigmoid(ta . [ctx_prev | h1] + b), a warp a
+//        row beside R4's energies (both inputs are final since R2 / R5);
+//     Graves: l1 over h1 takes the query product's place in R3 (its
+//        epilogue writes tanh(l1 h1 + b) as bf16, the only form l2 reads);
+//        l2 over it runs in R4 beside a_w over h1, on the staged
+//        [h1 | qg]; the mixture over T replaces the norm in R5. No W_k m,
+//        energies or location features.
+//   A row's norm in R5 runs, one warp each, on every block whose context
+//   chunks touch the row, from the same inputs: each keeps the row's
+//   attention state (alpha, the window's centre, Graves's means) in its
+//   own shared memory, bit for bit the same in every such block, so no
+//   state goes through global memory and none races.
+//
 // Probe launches: the same kernel with every part of a step left out but
 // the barriers (the floor), or but the stage-input copies, or but the
 // products (weight copies and mma), for the per-part breakdown; and a
@@ -108,8 +131,14 @@ constexpr int kRounds = kBarriers;
 // the last block down, or every tile to every block that takes part.
 enum { kDealUp = 0, kDealDown = 1, kDealAll = 2 };
 
-// Products, in the order of `Params::ks`: the round and the input.
-enum { kP1, kP2, kA2, kQ, kD3, kA4, kD6, kO6, kA6, kO7, kD7, kNumProducts };
+// Products, in the order of `Params::ks`: the round and the input (kG2:
+// Graves's l2, R4).
+enum { kP1, kP2, kA2, kQ, kD3, kA4, kD6, kO6, kA6, kO7, kD7, kG2, kNumProducts };
+
+// Attention routes: location-sensitive attention alone, with its options
+// (windowing, forward attention, transition agent, forward mask), Graves.
+enum { kLocation = 0, kOptions = 1, kGraves = 2 };
+constexpr int kMaxGK = 32;            // Graves's components: one a lane
 
 struct Params {
     const bf16 *p1, *p2, *a, *q, *d, *o, *u;                 // packed weights
@@ -123,13 +152,21 @@ struct Params {
     int* ran;
     float* prof;                                              // [G, 7, 2] (kProfile)
     float *h1f, *h2f;                                         // [B, H] f32 stream out, or null
+    const bf16* ta;                                           // [E16 + H116] transition agent
+    const float* g1_b;                                        // [Q16] Graves's l1 bias
+    const bf16* g2;                                           // packed l2 [3K -> 16, Q16]
+    const float* g2_b;                                        // [16] its bias
+    float* uta;                                               // [B] the agent's u
+    bf16* qg;                                                 // [B, H116] tanh(l1 h1 + b)
+    float* gbk;                                               // [B, 3K] l2's output
     int B, T, NT, NM, NM16, P, P16, E16, H1, H116, H2, H216, A, K, OW, r;
     int KA, KD, KO;                                           // k-tiles of a, d, o
     int steps, chunk, softmax, dropout;
     int row0;                                                 // batch row of row 0 (dropout)
     int XLD, X2LD, ALN, CPB, PPB, GA, GD, GO, GP, GQ, SLOTS, WBUF, WB_ROUNDS, PRE_SMEM;
     int ks[kNumProducts];
-    float v_b, thresh;
+    int windowing, win_back, win_front, fwd, ta_on, fmask, GK;  // the attention's options
+    float v_b, thresh, ta_b;
     uint32_t seed;
 };
 
@@ -148,6 +185,9 @@ struct Smem {
     float* aln;                                // [ALN][T] normalized alignments
     float* cum;                                // [ALN][T] cum of the rows it writes
     float* xw;                                 // [kNW][2][K rounded up to 32] location windows
+    float* alpha;                              // [ALN][T] forward attention's alpha (kOptions)
+    int* wctr;                                 // [ALN] the windows' centres (kOptions)
+    float* mu;                                 // [ALN][kMaxGK] Graves's means (kGraves)
 };
 
 // A product over a column segment of a packed matrix (fragment order,
@@ -379,7 +419,154 @@ __device__ void rows_epilogue(const Params& p, float* acc, const float* bias, in
     }
 }
 
-template <int PR>
+// The first maximum over a warp: each lane holds its own (v, t), the first
+// maximum of its values; every lane gets the larger v, on a tie the smaller t.
+__device__ __forceinline__ void warp_first_max(float& v, int& t) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+        const int ot = __shfl_xor_sync(0xffffffffu, t, o);
+        if (ov > v || (ov == v && ot < t)) {
+            v = ov;
+            t = ot;
+        }
+    }
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// log(1 + e^x) as jax.nn.softplus computes it
+__device__ __forceinline__ float softplusf(float x) {
+    return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+// R4, beside the energies: the transition agent's u = sigmoid(ta . [ctx_prev
+// | h1] + ta_b) of each row (bf16 inputs, f32 sums), a warp a row from the
+// last warp of block 0 down (the energies take the first warps).
+__device__ void trans_agent(const Params& p) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int n = p.E16 + p.H116;
+    for (int b = (int)blockIdx.x * kNW + (kNW - 1 - warp); b < p.B; b += (int)gridDim.x * kNW) {
+        float acc = 0.f;
+        for (int c = 8 * lane; c < n; c += 256) {
+            const uint4 xv = c < p.E16
+                ? __ldcg(reinterpret_cast<const uint4*>(p.ctx + (size_t)b * p.E16 + c))
+                : __ldcg(reinterpret_cast<const uint4*>(p.h1 + (size_t)b * p.H116 + c - p.E16));
+            float x[8], wv[8];
+            unpack8(xv, x);
+            unpack8(__ldg(reinterpret_cast<const uint4*>(p.ta + c)), wv);
+#pragma unroll
+            for (int k = 0; k < 8; ++k) acc = fmaf(x[k], wv[k], acc);
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) p.uta[b] = sigmoidf_(acc + p.ta_b);
+    }
+}
+
+// R5's norm of row rb under the location-sensitive attention's options, by
+// one warp; i indexes the block's state of the row. The window, the norm
+// over T, forward attention (alpha from the previous alpha, its shift
+// rounded to bf16, u, the forward mask, pads zeroed, normalised; alpha is
+// the alignment), then the window's next centre.
+__device__ void norm_options(const Params& p, const Smem& s, int rb, int i, float* al) {
+    const int lane = threadIdx.x & 31;
+    if (p.windowing) {
+        const int c = s.wctr[i];
+        norm_energies<true>(p, rb, al, c - p.win_back, c + p.win_front);
+    } else {
+        norm_energies(p, rb, al);
+    }
+    if (p.fwd) {
+        float* ap = s.alpha + (size_t)i * p.T;
+        const float* mk = p.maskadd + (size_t)rb * p.T;
+        const float u = p.ta_on ? __ldcg(p.uta + rb) : 0.5f;
+        float mx = -INFINITY;
+        int at = p.T;
+        for (int t = lane; t < p.T; t += 32) {
+            const float sh = t > 0 ? bf16_round(ap[t - 1]) : 0.f;
+            const float v = ((1.f - u) * ap[t] + u * sh + 1e-8f) * al[t];
+            al[t] = v;
+            if (v > mx) {
+                mx = v;
+                at = t;
+            }
+        }
+        warp_first_max(mx, at);
+        float part = 0.f;
+        for (int t = lane; t < p.T; t += 32) {
+            float v = al[t];
+            if (p.fmask) v = (t >= at - 1 ? v : 0.f) + 1e-8f;
+            if (__ldg(mk + t) < -0.5f) v = 0.f;
+            al[t] = v;
+            part += v;
+        }
+        const float d = fmaxf(warp_sum(part), 1e-8f);
+        __syncwarp();                                  // every lane has read ap
+        for (int t = lane; t < p.T; t += 32) {
+            const float v = al[t] / d;
+            al[t] = v;
+            ap[t] = v;
+        }
+    }
+    if (p.windowing) {
+        float mx = -INFINITY;
+        int at = p.T;
+        for (int t = lane; t < p.T; t += 32)
+            if (al[t] > mx) {
+                mx = al[t];
+                at = t;
+            }
+        warp_first_max(mx, at);
+        if (lane == 0) s.wctr[i] = at;
+    }
+    __syncwarp();
+}
+
+// R5's alignment of row rb under Graves attention, by one warp: lane j < K
+// takes component j's (g, b, k) from l2's output: weights softmax(g) +
+// 1e-5, widths softplus(b) + 1e-5, its mean advanced by softplus(k); the
+// mixture 1/sqrt(2 pi) sum_j g_j exp(-z_j^2 / 2), z_j = (mu_j - t) / sig_j,
+// pads zeroed, normalised.
+__device__ void norm_graves(const Params& p, const Smem& s, int rb, int i, float* al) {
+    const int lane = threadIdx.x & 31, K = p.GK;
+    const float* gb = p.gbk + (size_t)rb * 3 * K;
+    const bool on = lane < K;
+    const float g = on ? __ldcg(gb + lane) : -INFINITY;
+    float gm = g;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, o));
+    const float ge = on ? expf(g - gm) : 0.f;
+    const float gw = ge / warp_sum(ge) + 1e-5f;
+    const float sig = on ? softplusf(__ldcg(gb + K + lane)) + 1e-5f : 1.f;
+    float* mu = s.mu + (size_t)i * kMaxGK;
+    const float m = on ? mu[lane] + softplusf(__ldcg(gb + 2 * K + lane)) : 0.f;
+    if (on) mu[lane] = m;
+    const float* mk = p.maskadd + (size_t)rb * p.T;
+    float part = 0.f;
+    for (int t0 = 0; t0 < p.T; t0 += 32) {
+        const int t = t0 + lane;
+        float a = 0.f;
+        for (int j = 0; j < K; ++j) {
+            const float gj = __shfl_sync(0xffffffffu, gw, j);
+            const float sj = __shfl_sync(0xffffffffu, sig, j);
+            const float mj = __shfl_sync(0xffffffffu, m, j);
+            const float z = (mj - (float)t) / sj;
+            a += gj * expf(-0.5f * z * z);
+        }
+        if (t < p.T) {
+            a = __ldg(mk + t) < -0.5f ? 0.f : 0.3989422917366028f * a;
+            al[t] = a;
+            part += a;
+        }
+    }
+    const float d = fmaxf(warp_sum(part), 1e-8f);
+    for (int t = lane; t < p.T; t += 32) al[t] = al[t] / d;
+    __syncwarp();
+}
+
+template <int PR, int AT>
 __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
     extern __shared__ __align__(16) unsigned char smem[];
     cg::grid_group grid = cg::this_grid();
@@ -394,11 +581,13 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
     const int TA = (4 * p.H1 + kRows - 1) / kRows, TD = (4 * p.H2 + kRows - 1) / kRows;
     const int TP = (p.P + kRows - 1) / kRows, TQ = (p.A + kRows - 1) / kRows;
     const int TO = (OR + kRows - 1) / kRows;
+    const int TG2 = (3 * p.GK + kRows - 1) / kRows;    // Graves's l2
+    constexpr bool kLoc = AT != kGraves;               // energies, location features
     const size_t nt_acc = (size_t)p.NT * kAcc;
     s.wbuf = reinterpret_cast<uint4*>(take((size_t)p.WBUF * 32, 16));
     s.xs = reinterpret_cast<bf16*>(take((size_t)kTile * p.XLD, 2));
-    s.us = reinterpret_cast<float*>(take((size_t)2 * p.K * p.A, 4));
-    s.vw = reinterpret_cast<float*>(take(p.A, 4));
+    s.us = reinterpret_cast<float*>(take(kLoc ? (size_t)2 * p.K * p.A : 0, 4));
+    s.vw = reinterpret_cast<float*>(take(kLoc ? p.A : 0, 4));
     s.acc_a = reinterpret_cast<float*>(
         take((p.GA + p.GD + p.GO + max(p.GP, p.GQ)) * nt_acc, 4));
     s.acc_d = s.acc_a + p.GA * nt_acc;
@@ -415,15 +604,30 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
     s.cd = s.ca + 4 * p.GA * p.NT * kTile;
     s.aln = reinterpret_cast<float*>(take((size_t)p.ALN * p.T, 4));
     s.cum = reinterpret_cast<float*>(take((size_t)p.ALN * p.T, 4));
-    s.xw = reinterpret_cast<float*>(take((size_t)kNW * 2 * ((p.K + 31) / 32 * 32), 4));
+    s.xw = reinterpret_cast<float*>(take(kLoc ? (size_t)kNW * 2 * ((p.K + 31) / 32 * 32) : 0, 4));
     s.xs2 = reinterpret_cast<bf16*>(take((size_t)kTile * p.X2LD, 2));
+    s.alpha = reinterpret_cast<float*>(take(AT == kOptions ? (size_t)p.ALN * p.T : 0, 4));
+    s.wctr = reinterpret_cast<int*>(take(AT == kOptions ? p.ALN : 0, 4));
+    s.mu = reinterpret_cast<float*>(take(AT == kGraves ? (size_t)p.ALN * kMaxGK : 0, 4));
     // this block's pairs' W_k m + location: in shared memory when the plan
     // has room for it, else in its rows of the global scratch
-    s.pre = p.PRE_SMEM ? reinterpret_cast<float*>(take((size_t)p.PPB * p.A, 4))
+    s.pre = !kLoc ? nullptr
+          : p.PRE_SMEM ? reinterpret_cast<float*>(take((size_t)p.PPB * p.A, 4))
                        : p.pre + (size_t)blockIdx.x * p.PPB * p.A;
-    for (int i = threadIdx.x; i < 2 * p.K * p.A; i += blockDim.x)
-        s.us[i] = __bfloat162float(p.u[i]);
-    for (int i = threadIdx.x; i < p.A; i += blockDim.x) s.vw[i] = p.v_w[i];
+    if (kLoc) {
+        for (int i = threadIdx.x; i < 2 * p.K * p.A; i += blockDim.x)
+            s.us[i] = __bfloat162float(p.u[i]);
+        for (int i = threadIdx.x; i < p.A; i += blockDim.x) s.vw[i] = p.v_w[i];
+    }
+    // the attention state of the rows this block's context chunks touch:
+    // alpha [1, 0, ...], the windows' centres 0, Graves's means 0
+    if (AT == kOptions) {
+        for (int i = threadIdx.x; i < p.ALN * p.T; i += blockDim.x)
+            s.alpha[i] = i % p.T == 0 ? 1.f : 0.f;
+        for (int i = threadIdx.x; i < p.ALN; i += blockDim.x) s.wctr[i] = 0;
+    }
+    if (AT == kGraves)
+        for (int i = threadIdx.x; i < p.ALN * kMaxGK; i += blockDim.x) s.mu[i] = 0.f;
     const size_t nacc = (p.GA + p.GD + p.GO + max(p.GP, p.GQ)) * nt_acc;
     for (size_t i = threadIdx.x; i < nacc; i += blockDim.x) s.acc_a[i] = 0.f;
     for (int i = threadIdx.x; i < kTile * p.X2LD; i += blockDim.x)    // its pad columns
@@ -462,6 +666,9 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
     const Prod pO7{p.o, p.KO, 0, 0, H216k, TO, p.ks[kO7], wb(5, 0), kDealDown, s.acc_o};
     const Prod pD7{p.d, p.KD, H116k + E16k, 0, H216k, TD, p.ks[kD7], wb(5, nO7), kDealUp,
                    s.acc_d};
+    // Graves's l2 over the staged [h1 | qg], after a_w's tiles in R4's buffer
+    const Prod pG2{p.g2, H116k, 0, p.H116, H116k, TG2, p.ks[kG2],
+                   wb(3, tiles_here(TA) * H116k), kDealDown, s.acc_1};
     // the prologue's products of the initial state, from L2
     const Prod pA0{p.a, p.KA, P16k, 0, p.KA - P16k, TA, p.ks[kA4], -1, kDealUp, s.acc_a};
     const Prod pD0{p.d, p.KD, H116k + E16k, 0, H216k, TD, p.ks[kD7], -1, kDealUp, s.acc_d};
@@ -497,7 +704,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
         run_products<PR>(p, s, {p.h2, p.H216}, none, none, pD0, pD0, pD0, 1, nothing);
     }
     if (fetch) fetch_weights(s.wbuf, pP1, pP2, pP2, 2);
-    if (work) location(p, s);
+    if (work && kLoc) location(p, s);
     grid.sync();
     if (prof) t_mark = clock64();
     int step = 0;
@@ -543,20 +750,42 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
         sync(1);
         // R3
         run_products<PR>(p, s, {p.h1, p.H116}, none, none, pQ, pD3, pD3, 2, nothing);
-        if (fetch) fetch_weights(s.wbuf, pA4, pA4, pA4, 1);
-        if (work)
+        if (fetch) fetch_weights(s.wbuf, pA4, pG2, pG2, kLoc ? 1 : 2);
+        if (work && kLoc)
             rows_epilogue(p, s.acc_1, nullptr, p.A, [&](int row, int b, float v) {
                 p.pq[(size_t)b * p.A + row] = v;
             });
+        if (work && !kLoc)                             // Graves: l1 in q's place
+            rows_epilogue(p, s.acc_1, nullptr, p.A, [&](int row, int b, float v) {
+                p.qg[(size_t)b * p.H116 + row] = __float2bfloat16_rn(tanhf(v + __ldg(p.g1_b + row)));
+            });
         sync(2);
-        // R4: the energies while h1 is staged again, then a_w over h1
-        run_products<PR>(p, s, {p.h1, p.H116}, none, none, pA4, pA4, pA4, 1, [&] {
-            if (work) energies(p, s);
-        });
+        // R4: the energies (and the transition agent's u) while h1 is staged
+        // again, then a_w over h1; Graves: a_w over h1 and l2 over qg
+        if constexpr (kLoc) {
+            run_products<PR>(p, s, {p.h1, p.H116}, none, none, pA4, pA4, pA4, 1, [&] {
+                if (work) energies(p, s);
+                if (work && AT == kOptions && p.ta_on) trans_agent(p);
+            });
+        } else {
+            run_products<PR>(p, s, {p.h1, p.H116}, {p.qg, p.H116}, none, pA4, pG2, pG2, 2,
+                             nothing);
+        }
         if (fetch) fetch_weights(s.wbuf, pD6, pO6, pA6, 3);
+        if (work && !kLoc)
+            rows_epilogue(p, s.acc_1, nullptr, 3 * p.GK, [&](int row, int b, float v) {
+                p.gbk[(size_t)b * 3 * p.GK + row] = v + __ldg(p.g2_b + row);
+            });
         sync(3);
         // R5
-        if (work) context(p, s, step);
+        if (work) {
+            if constexpr (AT == kOptions)
+                context(p, s, step, [&](int rb, int i, float* al) { norm_options(p, s, rb, i, al); });
+            else if constexpr (AT == kGraves)
+                context(p, s, step, [&](int rb, int i, float* al) { norm_graves(p, s, rb, i, al); });
+            else
+                context(p, s, step);
+        }
         sync(4);
         // R6
         run_products<PR>(p, s, {p.ctx, p.E16}, none, none, pD6, pO6, pA6, 3, nothing);
@@ -567,7 +796,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
         run_products<PR>(p, s, {p.h2, p.H216}, none, none, pO7, pD7, pD7, 2, nothing);
         if (fetch) fetch_weights(s.wbuf, pP1, pP2, pP2, 2);
         if (work) {
-            location(p, s);                            // the next step's pre
+            if (kLoc) location(p, s);                  // the next step's pre
             rows_epilogue(p, s.acc_o, s.bo, OR, [&](int row, int b, float v) {
                 const float dn = __ldcg(done_in + b);
                 if (row < p.OW) {
@@ -598,10 +827,15 @@ __global__ void __launch_bounds__(kThreads, 1) decode_kernel(Params p) {
     if (blockIdx.x == 0 && threadIdx.x == 0) *p.ran = step;
 }
 
-template <int PR>
-const void* kernel_of() { return reinterpret_cast<const void*>(decode_kernel<PR>); }
+template <int PR, int AT = kLocation>
+const void* kernel_of() { return reinterpret_cast<const void*>(decode_kernel<PR, AT>); }
 
-const void* kernel_for(int probe) {
+// The probes take the location route only; every route serves and profiles.
+const void* kernel_for(int probe, int route) {
+    if (route == kOptions)
+        return probe == kProfile ? kernel_of<kProfile, kOptions>() : kernel_of<kServe, kOptions>();
+    if (route == kGraves)
+        return probe == kProfile ? kernel_of<kProfile, kGraves>() : kernel_of<kServe, kGraves>();
     switch (probe) {
         case kBarriersOnly: return kernel_of<kBarriersOnly>();
         case kCopiesOnly: return kernel_of<kCopiesOnly>();
@@ -625,13 +859,18 @@ extern "C" {
 
 // ptrs: p1, p2, a, q, d, o, u, p1_b, p2_b, a_b, d_b, o_b, v_w, enc, pinp,
 // maskadd, frame, x1, x, h1, h2, ctx, c1, c2, att, cum, done, pq, e, pre,
-// out, aligns, stops, ran, prof, h1f, h2f. The state buffers (frame, h1,
-// h2 as bf16 product inputs, c1, c2 in f32) hold the initial state, zeros
-// or a previous text chunk's stream; c1 and c2 hold the final cell states
-// after the launch, and h1f / h2f, where not null, the final hiddens in
-// f32 (the stream out). dims: the launch plan (ops/taco2_decode.py
-// `launch_plan`, `_DIMS` order), the eleven products' k-tile slices, blocks,
-// shared memory bytes. fl: v_b, thresh. probe: 0 serves, 1 keeps only the
+// out, aligns, stops, ran, prof, h1f, h2f, ta, g1_b, g2, g2_b, uta, qg, gbk
+// (the attention variants' weights and scratch, null where the route has
+// none; Graves: q holds l1, pinp, pq, e and pre are null, u and v_w
+// unread). The state buffers (frame, h1, h2 as bf16 product inputs, c1, c2
+// in f32) hold the initial state, zeros or a previous text chunk's
+// stream; c1 and c2 hold the final cell states after the launch, and h1f /
+// h2f, where not null, the final hiddens in f32 (the stream out). dims: the launch plan (ops/taco2_decode.py
+// `launch_plan`, `_DIMS` order), the twelve products' k-tile slices, blocks,
+// shared memory bytes, then the attention: route (0 location, 1 with
+// options, 2 Graves), windowing, win_back, win_front, forward attention,
+// transition agent, forward mask, Graves's components. fl: v_b, thresh,
+// ta_b. probe (1-3 on the location route only): 0 serves, 1 keeps only the
 // barriers, 2 only the stage-input copies, 3 only the products, 4 serves
 // and writes each block's cycles a round (work, then barrier wait) to
 // prof [G, 7, 2] (null for the other launches). Returns a cudaError_t, or
@@ -656,6 +895,13 @@ int taco2_decode(const void* const* ptrs, const int* dims, const float* fl, unsi
     p.prof = static_cast<float*>(const_cast<void*>(ptrs[34]));
     p.h1f = static_cast<float*>(const_cast<void*>(ptrs[35]));
     p.h2f = static_cast<float*>(const_cast<void*>(ptrs[36]));
+    p.ta = static_cast<const bf16*>(ptrs[37]);
+    p.g1_b = static_cast<const float*>(ptrs[38]);
+    p.g2 = static_cast<const bf16*>(ptrs[39]);
+    p.g2_b = static_cast<const float*>(ptrs[40]);
+    p.uta = static_cast<float*>(const_cast<void*>(ptrs[41]));
+    p.qg = static_cast<bf16*>(const_cast<void*>(ptrs[42]));
+    p.gbk = static_cast<float*>(const_cast<void*>(ptrs[43]));
     int* di[] = {&p.B, &p.T, &p.NT, &p.NM, &p.NM16, &p.P, &p.P16, &p.E16, &p.H1, &p.H116,
                  &p.H2, &p.H216, &p.A, &p.K, &p.OW, &p.r, &p.KA, &p.KD, &p.KO, &p.steps,
                  &p.chunk, &p.softmax, &p.dropout, &p.XLD, &p.ALN, &p.CPB, &p.PPB, &p.GA,
@@ -665,12 +911,23 @@ int taco2_decode(const void* const* ptrs, const int* dims, const float* fl, unsi
     for (int i = 0; i < nd; ++i) *di[i] = dims[i];
     for (int i = 0; i < kNumProducts; ++i) p.ks[i] = dims[nd + i];
     const int blocks = dims[nd + kNumProducts], smem = dims[nd + kNumProducts + 1];
+    const int* at = dims + nd + kNumProducts + 2;
+    const int route = at[0];
+    int* da[] = {&p.windowing, &p.win_back, &p.win_front, &p.fwd, &p.ta_on, &p.fmask, &p.GK};
+    for (int i = 0; i < 7; ++i) *da[i] = at[1 + i];
     p.v_b = fl[0];
     p.thresh = fl[1];
+    p.ta_b = fl[2];
     p.seed = seed;
     if (p.K < 1 || p.B < 1 || p.chunk < 1 || (probe == kProfile && !p.prof))
         return (int)cudaErrorInvalidValue;
-    const void* kernel = kernel_for(probe);
+    if (route < kLocation || route > kGraves ||
+        (route != kLocation && probe != kServe && probe != kProfile) ||
+        (route == kGraves && (p.GK < 1 || p.GK > kMaxGK || !p.g2 || !p.g1_b || !p.g2_b ||
+                              !p.qg || !p.gbk)) ||
+        (route == kOptions && p.ta_on && (!p.ta || !p.uta)))
+        return (int)cudaErrorInvalidValue;
+    const void* kernel = kernel_for(probe, route);
     int per_sm = 0, e;
     if ((e = occupancy(kernel, smem, &per_sm)) != 0) return e;
     int dev = 0, sms = 0;

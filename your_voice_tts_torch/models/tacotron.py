@@ -103,6 +103,13 @@ class TacotronDecoder(nn.Module):
         self.prenet = Prenet(n_mels * self.memory_size, cfg.prenet_type, cfg.prenet_dropout,
                              (w, w // 2))
         self.attention_rnn = GRUCell(w // 2 + in_dim, w)
+        if cfg.attention_type == "graves" or any(
+                getattr(cfg, f) for f in ("windowing", "use_forward_attn", "transition_agent",
+                                          "forward_attn_mask")):
+            # the JAX package decodes these through its scan, not a kernel
+            raise NotImplementedError("Tacotron(1) with Graves attention or the location "
+                                      "attention's options arrives with a later slice of "
+                                      "the port")
         self.attention = init_attn(cfg, w, in_dim)
         self.project = Dense(w + in_dim, w)
         self.decoder_rnns = nn.ModuleList([GRUCell(w, w), GRUCell(w, w)])

@@ -1,7 +1,9 @@
 """Tacotron2 (the JAX package's models/tacotron2.py): embedding -> 3 x
 conv5+BN+ReLU -> BiLSTM encoder -> decoder (prenet, attention LSTM,
-location-sensitive attention, decoder LSTM, mel x r projection and stop
-token) -> 5-conv postnet residual.
+attention, decoder LSTM, mel x r projection and stop token) -> 5-conv
+postnet residual. The attention is location-sensitive (with windowing,
+forward attention, the transition agent or the forward mask as options)
+or Graves GMM attention (models/attention.py).
 
 `Tacotron2.forward` is the teacher-forced training pass: BatchNorm takes
 batch statistics in training mode (the encoder's masked by the text
@@ -14,6 +16,8 @@ The decode loop follows the reference's kernel route (`Decoder.
 inference_pallas`): it runs on the decode kernel (ops/taco2_decode.py), with
 prenet dropout from the hash PRNG seeded by `seed`, and a row that has
 stopped keeps advancing its state with zeroed frames until the chunk's end.
+Every attention variant decodes there (`Decoder.attn_kernel_flags`);
+training takes location-sensitive attention only.
 
 Speakers (the reference's multi-speaker Tacotron2, `_condition`): a speaker
 vector, a row of the model's own table or an external d-vector, is
@@ -34,7 +38,7 @@ from .. import resolve_device
 from ..nn.core import GAINS, Conv1d, Dense, Embedding, xavier_uniform_
 from ..nn.rnn import LSTMCell, bilstm
 from ..ops.taco2_decode import prepare_weights, tacotron2_decode
-from .attention import init_attn
+from .attention import GravesAttention, init_attn
 from .decoder_grad import DecoderCore, dropout_masks
 from .common import (ConvBNBlock, Prenet, cached_decode_weights, compute_copy,
                      kernel_prenet, sequence_mask)
@@ -102,18 +106,32 @@ class Decoder(nn.Module):
         return cached_decode_weights(self, dtype, self._build_decode_weights)
 
     def _build_decode_weights(self, dtype) -> dict:
+        """What each attention reads: Graves its l1 and l2 in place of the
+        query, location and v weights; the transition agent its `ta`."""
         prenet, _ = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
         a = self.attention
+        rnn = lambda c: (c.weight_ih, c.weight_hh, c.bias)  # noqa: E731
+        rest = dict(decoder_rnn=rnn(self.decoder_rnn),
+                    projection=(self.projection.weight, self.projection.bias),
+                    stopnet=(self.stopnet.weight, self.stopnet.bias), dtype=dtype)
+        if isinstance(a, GravesAttention):
+            return prepare_weights(prenet, rnn(self.attention_rnn), None, None, None, None,
+                                   graves=(a.l1.weight, a.l1.bias, a.l2.weight, a.l2.bias),
+                                   **rest)
         return prepare_weights(
-            prenet,
-            (self.attention_rnn.weight_ih, self.attention_rnn.weight_hh,
-             self.attention_rnn.bias),
-            a.query.weight, a.location_kernel() if a.location_attention else None,
-            a.v.weight, a.v.bias,
-            (self.decoder_rnn.weight_ih, self.decoder_rnn.weight_hh,
-             self.decoder_rnn.bias),
-            (self.projection.weight, self.projection.bias),
-            (self.stopnet.weight, self.stopnet.bias), dtype=dtype)
+            prenet, rnn(self.attention_rnn), a.query.weight,
+            a.location_kernel() if a.location_attention else None, a.v.weight, a.v.bias,
+            trans_agent=(a.ta.weight, a.ta.bias) if a.trans_agent else None, **rest)
+
+    def attn_kernel_flags(self) -> dict:
+        """The attention options the decode is given (the JAX package's
+        `Decoder._attn_kernel_flags`); Graves comes with its weights."""
+        a = self.attention
+        if isinstance(a, GravesAttention):
+            return {}
+        return dict(windowing=a.windowing, win_back=a.win_back, win_front=a.win_front,
+                    forward_attn=a.forward_attn, trans_agent=a.trans_agent,
+                    forward_attn_mask=a.forward_attn_mask)
 
     def forward(self, inputs, input_lengths, mels, r: int,
                 generator: torch.Generator | None = None):
@@ -122,12 +140,22 @@ class Decoder(nn.Module):
         is the go frame (s = 0) or the last frame of r-group s - 1. Dropout
         (prenet 0.5, LSTM outputs 0.1) is drawn from `generator` in training
         mode. Returns (frames [B, T_mel, n_mels], alignments [B, T_r, T_in]
-        float32, stop logits [B, T_r])."""
+        float32, stop logits [B, T_r]). Location-sensitive attention only:
+        windowing acts at inference only; Graves, forward attention and the
+        transition agent raise."""
+        a = self.attention
+        if isinstance(a, GravesAttention):
+            raise NotImplementedError(
+                "the teacher-forced pass with Graves attention arrives with a later slice of "
+                "the port")
+        for flag in ("forward_attn", "trans_agent"):
+            if getattr(a, flag):
+                raise NotImplementedError(f"the teacher-forced pass with {flag} arrives with a "
+                                          "later slice of the port")
         B, T_mel, _ = mels.shape
         if T_mel % r:
             raise ValueError(f"mel length {T_mel} is not a multiple of r={r}")
         T_r = T_mel // r
-        a = self.attention
         mask = sequence_mask(input_lengths, inputs.shape[1])
         pinp = a.preprocess_inputs(inputs)
         memories = torch.cat([torch.zeros_like(mels[:, :1]), mels[:, r - 1::r][:, :-1]], 1)
@@ -177,17 +205,18 @@ class Decoder(nn.Module):
                 **stream):
         B = inputs.shape[0]
         mask = sequence_mask(input_lengths, inputs.shape[1])
-        if compute_dtype is None:
-            pinp = self.attention.preprocess_inputs(inputs)
+        if compute_dtype is None or isinstance(self.attention, GravesAttention):
+            pinp = self.attention.preprocess_inputs(inputs)     # None for Graves
         else:
             pinp = compute_copy(self.attention, "inputs", compute_dtype)(
                 inputs.to(compute_dtype)).float()
-            inputs = inputs.float()
+        inputs = inputs.float()
         _, dropout = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
         out, aligns, stops, lengths, *stream_out = tacotron2_decode(
             self.decode_weights(dtype), inputs, pinp, mask, r=r,
             max_steps=max_steps, norm=self.attention.norm,
-            thresh=self.cfg.stop_threshold, prenet_dropout=dropout, seed=seed, **stream)
+            thresh=self.cfg.stop_threshold, prenet_dropout=dropout, seed=seed,
+            **self.attn_kernel_flags(), **stream)
         dec_out = out[..., : self.n_mels * r].transpose(0, 1) \
             .reshape(B, max_steps * r, self.n_mels)
         return (dec_out, aligns.transpose(0, 1), stops.transpose(0, 1), lengths * r,
@@ -258,6 +287,9 @@ class Tacotron2(nn.Module):
                         p.zero_()
                     else:
                         p.uniform_(-s, s, generator=generator)
+        for mod in self.modules():
+            if isinstance(mod, GravesAttention):
+                mod.init_bias()
 
     def forward(self, text, text_lengths, mels, mel_lengths=None, r: int | None = None,
                 generator: torch.Generator | None = None) -> dict:

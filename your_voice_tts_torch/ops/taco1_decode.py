@@ -54,7 +54,7 @@ import torch.nn.functional as F
 from . import cuda_build
 from .prng import step_key, uniform
 from .taco2_decode import (_drive, _finish, _pad16, _round_up, _rows, _segments,
-                           _sm_count, attention_plain, batch_slices, fragment_order,
+                           _sm_count, alignment_plain, batch_slices, fragment_order,
                            round_profile, run_slices)
 
 F32 = torch.float32
@@ -170,8 +170,9 @@ def tacotron1_decode_plain(w: dict, enc_out, pinp, mask, *, r: int, max_steps: i
         x = dropout(torch.relu(rnd(queue) @ W["p1_w"][:, :NQ].T + W["p1_b"]), key, 21)
         x = dropout(torch.relu(rnd(x) @ W["p2_w"][:, :P1].T + W["p2_b"]), key, 22)
         ah = gru("a_", [x, ctx], ah)
-        ctx, align = attention_plain(ah, att, cum, W["q_w"][:, :H], W["u"], W["v_w"],
-                                     w["v_b"], pinp, enc, maskadd, norm, rnd)
+        align = alignment_plain(ah, att, cum, W["q_w"][:, :H], W["u"], W["v_w"], w["v_b"],
+                                pinp, maskadd, norm, rnd)
+        ctx = (align[:, :, None] * enc).sum(1)
         xd = rnd(torch.cat([ah, ctx], 1)) @ W["pj_w"][:, :H + E].T + W["pj_b"]
         h1 = gru("d1_", [xd], h1)
         xd = xd + h1

@@ -16,6 +16,7 @@ encoder's BiLSTM's too (cuDNN's LSTM runs in bf16).
 
 Later slices bring Tacotron(1) training, data parallelism, gradient
 accumulation, the bidirectional decoder, GST and speaker conditioning, the phoneme frontend,
+forward attention (with its transition agent) and Graves attention,
 TensorBoard logging, test-sentence synthesis and the profiler server; they
 raise NotImplementedError here.
 """
@@ -66,6 +67,15 @@ class Trainer:
             raise NotImplementedError(f"multi-speaker training {_LATER}")
         if cfg.speakers.use_gst:
             raise NotImplementedError(f"GST training {_LATER}")
+        # the JAX package trains these through its scan, not the training
+        # kernels; windowing acts at inference only and trains as plain
+        # location-sensitive attention
+        m = cfg.model
+        if m.attention_type == "graves":
+            raise NotImplementedError(f"training Graves attention {_LATER}")
+        for flag in ("use_forward_attn", "transition_agent"):
+            if getattr(m, flag):
+                raise NotImplementedError(f"training with {flag} {_LATER}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.verbose = verbose
