@@ -115,6 +115,20 @@ Phases, each fatal on failure:
    the kernel route and on the plain route on the same card:
    cloning_mean_margin and cloning_selective_frac of each, every trial's
    margin sign equal;
+11b. conditioned: (a) configs/ljspeech_tacotron2.json with use_phonemes
+   set and the G2P backend pinned to CMUDictBackend (whether the machine
+   has espeak cannot change the ids; their sha256 printed) through
+   Synthesizer: the batch of 8 and 5 batch-1 requests; (b) a GST
+   Tacotron2 at full width (E = 512, GST 256 / 4 heads / 10 tokens) with
+   a seeded synthetic style wav: kernel 1 against plain on the
+   style-shifted memory at B=8 and B=1 (the decode phase's tolerances),
+   then the same requests with style_wav; (c) Tacotron(1) with its
+   256-wide speaker table and with 256-wide d-vectors plus GST (both
+   E = 512): kernel 8 against plain at B=8 and B=1, T=160, r = 7, 250
+   steps (the taco1-decode phase's tolerances), each launch plan and
+   time beside E = 256's, then a batch of 8 over 4 speakers through
+   tts_many. Each path's counters set to 0 just before it and read just
+   after; their launches join the kernel line.
 12. melgan-asset: the trained MelGAN asset (configs/melgan_smoke.json)
    through VocoderSynthesizer on the card against the CPU on one mel,
    1e-4 (float32, TF32 off).
@@ -151,10 +165,13 @@ Phases, each fatal on failure:
    latter, the counters set to 0 just before each and read just after.
 
 The decode's and the wave route's launches in the kernel line add up
-the main, melgan-main, cloning, server and attention-variants paths' counts
+the main, melgan-main, cloning, conditioned, server and attention-variants
+paths' counts, the Tacotron(1) decode's and gl-iteration's the taco1-main
+and conditioned paths' counts
 (each path's counters set to 0 just before it and read just after); the
 decode's max_abs_err is the largest of the decode phase's and the
-variants' holds. Each phase prints its seconds.
+variants' and the GST holds, the Tacotron(1) decode's the largest of its
+phase's and the E = 512 holds. Each phase prints its seconds.
 Then the kernel line (JSON), the card's
 name and power limit, and the contract line {"ok": true, "device": {...}}. Details also go to
 chip_smoke.json in the output directory (--out, default build/chip_smoke).
@@ -267,7 +284,7 @@ DECODE_B, DECODE_T, DECODE_STEPS = 8, 152, 250
 
 
 def decode_inputs(B: int = DECODE_B, spk_dim: int | None = None, stop_all: bool = False,
-                  variant: str | None = None):
+                  variant: str | None = None, style_wav=None):
     """The decode phase's inputs: configs/ljspeech_tacotron2.json at full
     width (r=2 of r_init 7), seeded random weights (stopnet bias -10), a
     batch of 8 texts of 122-150 symbols padded to T=152 through the
@@ -279,8 +296,9 @@ def decode_inputs(B: int = DECODE_B, spk_dim: int | None = None, stop_all: bool 
     stop_all pushes every row as row 0, so that every row stops at once.
     variant names an attention variant (models/attention.py VARIANTS): its switches flip
     in the config, the keywords carry its norm and flags, and Graves has no
-    pinp (None). Returns (bf16 decode weights, enc, pinp, mask, decode
-    keywords)."""
+    pinp (None). style_wav makes it a GST model (256 / 4 heads / 10 tokens)
+    whose style of that waveform is added to the memory (E stays 512).
+    Returns (bf16 decode weights, enc, pinp, mask, decode keywords)."""
     import torch
 
     from your_voice_tts_torch.models import setup_model
@@ -288,6 +306,8 @@ def decode_inputs(B: int = DECODE_B, spk_dim: int | None = None, stop_all: bool 
     from your_voice_tts_torch.text import symbols
 
     cfg = full_width_config() if variant is None else variant_config(variant)
+    if style_wav is not None:
+        cfg = gst_config(cfg)
     spk = {} if spk_dim is None else dict(num_speakers=4, speaker_embedding_dim=spk_dim)
     model = no_chance_stops(setup_model(len(symbols), cfg, device="cuda", **spk))
     T = DECODE_T
@@ -303,6 +323,8 @@ def decode_inputs(B: int = DECODE_B, spk_dim: int | None = None, stop_all: bool 
                 dvec / dvec.norm(dim=-1, keepdim=True)).cuda())
         elif spk_dim == 0:
             enc = model._condition(enc, speaker_ids=torch.arange(8) % 4)
+        if style_wav is not None:
+            enc = model._condition(enc, style_mel=style_mels(cfg, style_wav, 8))
         w32 = dec.decode_weights(torch.float32)
         H2, E = w32["dims"]["H2"], w32["dims"]["E"]
         c = w32["o_w"][-1, H2:H2 + E]
@@ -784,13 +806,16 @@ def taco1_config():
         max_decoder_steps=TACO1_STEPS))
 
 
-def taco1_inputs(B: int = 8):
+def taco1_inputs(B: int = 8, spk_dim: int | None = None, style_wav=None):
     """The taco1-decode phase's inputs: `taco1_config` at full width, seeded
     random weights (stopnet bias -10), the 8 sentences through the CBHG
     encoder (T=160); row 0 gets the folded stop row's direction through
     the projection's context columns, so it stops at once. B=1 takes row 1
-    alone (it decodes all 250 steps). Returns (bf16 decode weights, enc,
-    pinp, mask, decode keywords but r)."""
+    alone (it decodes all 250 steps). spk_dim conditions the model on 4
+    speakers (256-wide d-vectors, seeded and of unit length, or with 0
+    its 256-wide table, ids 0-3 in turn) and style_wav adds GST: the memory
+    is E = 256 + 256 = 512. Returns (bf16 decode weights, enc, pinp, mask,
+    decode keywords but r)."""
     import torch
 
     from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
@@ -798,14 +823,23 @@ def taco1_inputs(B: int = 8):
     from your_voice_tts_torch.models.common import sequence_mask
     from your_voice_tts_torch.text import symbols
 
-    cfg = taco1_config()
-    model = no_chance_stops(setup_model(len(symbols), cfg, device="cuda"))
+    cfg = taco1_config() if style_wav is None else gst_config(taco1_config())
+    spk = {} if spk_dim is None else dict(num_speakers=4, speaker_embedding_dim=spk_dim)
+    model = no_chance_stops(setup_model(len(symbols), cfg, device="cuda", **spk))
     text, lengths = _pad_texts([text_to_seq(t, cfg) for t in SENTENCES])
     text, lengths = torch.as_tensor(text).cuda(), torch.as_tensor(lengths).cuda()
     dec = model.decoder
+    cond = {}
+    if spk_dim:
+        dvec = torch.randn(8, spk_dim, generator=torch.Generator().manual_seed(2))
+        cond["speaker_embeddings"] = (dvec / dvec.norm(dim=-1, keepdim=True)).cuda()
+    elif spk_dim == 0:
+        cond["speaker_ids"] = torch.arange(8) % 4
+    if style_wav is not None:
+        cond["style_mel"] = style_mels(cfg, style_wav, 8)
     with torch.no_grad():
         gen = torch.Generator(device="cuda").manual_seed(1)
-        enc = model.encoder_cbhg(model.enc_prenet(model.embedding(text), gen))
+        enc = model._encode(text, generator=gen, **cond)
         w32 = dec.decode_weights(torch.float32)
         H, E, D = (w32["dims"][k] for k in ("H", "E", "D"))
         v = w32["pj_w"][:, H:H + E].T @ w32["m_w"][-1, :D]
@@ -1386,17 +1420,19 @@ def phase_wavernn(report):
             "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"], "library_ms": None}
 
 
-def serve_requests(synth, speakers=None):
+def serve_requests(synth, speakers=None, style_wav=None):
     """The batch of 8 sentences and 5 batch-1 requests through tts_many
-    (`speakers`: one a sentence, or None); returns (batch waveforms, batch
-    seconds, batch-1 seconds, batch-1 waveforms)."""
+    (`speakers`: one a sentence, or None; style_wav: a GST model's style
+    reference); returns (batch waveforms, batch seconds, batch-1 seconds,
+    batch-1 waveforms)."""
     t0 = time.perf_counter()
-    batch = synth.tts_many(SENTENCES, speakers)
+    batch = synth.tts_many(SENTENCES, speakers, style_wav=style_wav)
     t_batch = time.perf_counter() - t0
     lat, ones = [], []
     for i, s in enumerate(SENTENCES[:5]):
         t0 = time.perf_counter()
-        ones += synth.tts_many([s], None if speakers is None else [speakers[i]])
+        ones += synth.tts_many([s], None if speakers is None else [speakers[i]],
+                               style_wav=style_wav)
         lat.append(time.perf_counter() - t0)
     return batch, t_batch, lat, ones
 
@@ -1425,7 +1461,7 @@ def serving_numbers(tag: str, synth, served, launches: dict) -> dict:
                 batch1_ms=[x * 1e3 for x in lat], launches=launches)
 
 
-def serve_counted(tag: str, synth, speakers=None, kernels=()) -> dict:
+def serve_counted(tag: str, synth, speakers=None, kernels=(), style_wav=None) -> dict:
     """`serve_requests` after a one-time set-up call, with the launch counters of the
     decode, of `kernels` and of every Griffin-Lim route set to 0 just before
     and read just after; `serving_numbers` of it."""
@@ -1433,12 +1469,13 @@ def serve_counted(tag: str, synth, speakers=None, kernels=()) -> dict:
 
     from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
 
-    synth.tts_many(SENTENCES[:1], None if speakers is None else speakers[:1])
+    synth.tts_many(SENTENCES[:1], None if speakers is None else speakers[:1],
+                   style_wav=style_wav)
     torch.cuda.synchronize()
     counters = (tacotron2_decode_cuda, *kernels) + gl_counters()
     for c in counters:
         c.launches = 0
-    served = serve_requests(synth, speakers)
+    served = serve_requests(synth, speakers, style_wav)
     return serving_numbers(tag, synth, served, {c.__name__: c.launches for c in counters})
 
 
@@ -1767,6 +1804,326 @@ def phase_cloning(report):
     out["launches"] = launches
     report["cloning"] = out
     return launches
+
+
+# ------------------------------------------------- phonemes, GST, Tacotron(1) with speakers
+
+STYLE_SECONDS = 2.0
+
+
+def gst_config(cfg):
+    """`cfg` with Global Style Tokens on (the GSTConfig defaults: 256 wide,
+    4 heads, 10 tokens)."""
+    return dataclasses.replace(cfg, speakers=dataclasses.replace(cfg.speakers, use_gst=True))
+
+
+def style_wav(sr: int, seed: int = 3):
+    """A seeded synthetic style reference of STYLE_SECONDS: ten harmonics
+    of a pitch gliding 95-145 Hz under a syllable-rate envelope, and a
+    little noise; peak 0.5."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(STYLE_SECONDS * sr)) / sr
+    f0 = 120.0 + 25.0 * np.sin(2 * np.pi * 0.7 * t + rng.uniform(0, 2 * np.pi))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    y = sum(np.sin(k * phase + rng.uniform(0, 2 * np.pi)) / k for k in range(1, 11))
+    y *= 0.6 + 0.4 * np.sin(2 * np.pi * 4.0 * t) ** 2
+    y += 0.02 * rng.standard_normal(t.shape)
+    return (0.5 * y / np.abs(y).max()).astype(np.float32)
+
+
+def style_mels(cfg, wav, B: int):
+    """The style mel of `wav` as synthesis_batch computes it, [B, T, n_mels]
+    on the card."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.audio import AudioProcessor
+
+    mel = AudioProcessor(cfg.audio, "cuda").melspectrogram(wav).T.astype(np.float32)
+    return torch.from_numpy(mel).cuda()[None].expand(B, -1, -1)
+
+
+def ids_checksum(cfg) -> tuple[str, int]:
+    """sha256 (16 hex digits) of the 8 sentences' ids under `cfg`, and how
+    many ids there are."""
+    import hashlib
+
+    import numpy as np
+
+    from your_voice_tts_torch.infer.synthesis import text_to_seq
+
+    seqs = [np.asarray(text_to_seq(t, cfg), np.int32) for t in SENTENCES]
+    h = hashlib.sha256()
+    for q in seqs:
+        h.update(np.int32(len(q)).tobytes() + q.tobytes())
+    return h.hexdigest()[:16], sum(len(q) for q in seqs)
+
+
+def hold_taco1_e512(report) -> tuple[dict, float]:
+    """(c) kernel 8 against its plain version at E = 512: the speaker table
+    and GST-styled d-vectors, B=8 and B=1, T=160, r = 7, 250 steps, the
+    taco1-decode phase's tolerances; each plan and time beside E = 256's
+    from the same run."""
+    import torch
+
+    from your_voice_tts_torch.ops.taco1_decode import (_blocks, launch_plan,
+                                                       tacotron1_decode_cuda,
+                                                       tacotron1_decode_plain)
+    from your_voice_tts_torch.ops.taco2_decode import batch_slices
+
+    tol = (5e-3, 2e-3, 2e-3)
+    base = report["taco1_decode"]
+    wav = style_wav(22050)
+    rows, errs = {}, []
+    for tag, spk_dim, sty in (("table", 0, None), ("dvec_gst", 256, wav)):
+        for B in (8, 1):
+            w, enc, pinp, mask, kw = taco1_inputs(B, spk_dim, sty)
+            kw = dict(kw, r=TACO1_R)
+            E, T = w["dims"]["E"], mask.shape[1]
+            check(E == 512 and enc.shape[-1] == 512, f"taco1 {tag} width E={E}")
+            G = _blocks(enc.device)
+            plan = launch_plan(w["dims"], B, T, G)
+            slices = batch_slices(w["dims"], B, T, G, plan=launch_plan)
+            before = tacotron1_decode_cuda.launches
+            got = tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
+            per_decode = tacotron1_decode_cuda.launches - before
+            ref = tacotron1_decode_plain(w, enc, pinp, mask, **kw)
+            torch.cuda.synchronize()
+            e = [float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3])]
+            errs += e
+            pattern = [1] + [TACO1_STEPS] * 7 if B == 8 else [TACO1_STEPS]
+            print(f"[conditioned] taco1 {tag} E={E} B={B} T={T}: plan {plan['blocks']} blocks, "
+                  f"shared memory {plan['smem_bytes']} B (resident {plan['RES'] * 512} B), "
+                  f"XLD {plan['XLD']}, CPB {plan['CPB']}, ALN {plan['ALN']}, PIN_SMEM "
+                  f"{plan['PIN_SMEM']}, slices {slices}; lengths kernel {got[3].tolist()} plain "
+                  f"{ref[3].tolist()}; max_abs_err frames {e[0]:.3e}, alignments {e[1]:.3e}, "
+                  f"stops {e[2]:.3e} (tol {tol}); launches a decode {per_decode}")
+            check(torch.equal(got[3].cpu(), ref[3].cpu()) and got[3].tolist() == pattern,
+                  f"taco1 decode lengths at E=512 ({tag}, B={B})")
+            check(all(x <= t for x, t in zip(e, tol)) and per_decode == 1,
+                  f"taco1 decode kernel disagrees with plain at E=512 ({tag}, B={B})")
+            ms = cuda_ms(lambda: tacotron1_decode_cuda(w, enc, pinp, mask, **kw), 5)
+            plain_ms = (cuda_ms(lambda: tacotron1_decode_plain(w, enc, pinp, mask, **kw), 1)
+                        if B == 8 and tag == "table" else None)
+            bound_ms, bound_by, wmb = taco1_bound(w, enc, pinp, mask, TACO1_STEPS)
+            e256 = base["ms"] if B == 8 else base["b1"]["ms"]
+            print(f"[conditioned] taco1 {tag} E=512 B={B}: kernel_ms {ms:.2f} (E=256 in this "
+                  f"run: {e256:.2f})  plain_ms {'%.2f' % plain_ms if plain_ms else 'not timed'}  "
+                  f"bound_ms {bound_ms:.3f} ({bound_by}; {wmb:.1f} MB bf16 weights)")
+            rows[f"{tag}_B{B}"] = dict(errs=e, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by, weight_mb=wmb, e256_ms=e256,
+                                       smem_bytes=plan["smem_bytes"], RES=plan["RES"],
+                                       slices=slices, blocks=plan["blocks"])
+    return rows, max(errs)
+
+
+def hold_gst_decode(report, wav) -> tuple[dict, float]:
+    """(b) kernel 1 against its plain version on GST-shifted memory (E =
+    512), B=8 and B=1, the decode phase's inputs, steps and tolerances."""
+    import torch
+
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda, tacotron2_decode_plain
+
+    tol = (5e-3, 2e-3, 2e-3)
+    rows, errs = {}, []
+    for B in (DECODE_B, 1):
+        w, enc, pinp, mask, kw = decode_inputs(B, style_wav=wav)
+        before = tacotron2_decode_cuda.launches
+        got = tacotron2_decode_cuda(w, enc, pinp, mask, **kw)
+        per_decode = tacotron2_decode_cuda.launches - before
+        ref = tacotron2_decode_plain(w, enc, pinp, mask, **kw)
+        e = [float((a - b).abs().max()) for a, b in zip(got[:3], ref[:3])]
+        errs += e
+        pattern = [1] + [DECODE_STEPS] * 7 if B == DECODE_B else [DECODE_STEPS]
+        print(f"[conditioned] GST E={enc.shape[-1]} B={B}: lengths kernel {got[3].tolist()} "
+              f"plain {ref[3].tolist()}; max_abs_err frames {e[0]:.3e}, alignments {e[1]:.3e}, "
+              f"stops {e[2]:.3e} (tol {tol})")
+        check(torch.equal(got[3].cpu(), ref[3].cpu()) and got[3].tolist() == pattern,
+              f"GST decode lengths (B={B})")
+        check(all(x <= t for x, t in zip(e, tol)) and per_decode == 1,
+              f"decode kernel disagrees with plain on GST memory (B={B})")
+        ms = cuda_ms(lambda: tacotron2_decode_cuda(w, enc, pinp, mask, **kw), 5)
+        base = report["decode"]["ms"] if B == DECODE_B else report["decode"]["b1"]["ms"]
+        print(f"[conditioned] GST B={B}: kernel_ms {ms:.2f} (no style, this run: {base:.2f})")
+        rows[f"B{B}"] = dict(errs=e, ms=ms, base_ms=base)
+    return rows, max(errs)
+
+
+def gst_breakdown(synth, wav, p50_ms: float, reps: int = 5) -> dict:
+    """The two pieces a GST request adds to a plain one, timed apart at
+    batch 1 and at the batch of 8 (medians of `reps`): the style mel
+    (`ap.melspectrogram` of the style wav, host wall time from a
+    synchronized start, its device work and copy back included) and
+    `add_style` (the GST once on the [1, T, n_mels] mel at the config's
+    compute dtype and the sum into the memory, as `synthesis_batch` runs
+    it: host wall time and CUDA-event time), beside the GST path's
+    batch-1 p50 over the main path's (the same widths without a style).
+    Then the whole cost end to end: 2 x `reps` + 2 batch-1 requests to the
+    same model, alternately with the style wav and without it (the GST
+    branch skipped, its warning silenced), p50 of each."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
+    from your_voice_tts_torch.models.common import add_style, compute_copy
+
+    model = synth.model
+    dt = torch.bfloat16 if synth.cfg.model.inference_compute_dtype == "bfloat16" else None
+    cast = ((lambda name: getattr(model, name)) if dt is None      # noqa: E731
+            else (lambda name: compute_copy(model, name, dt)))
+    mel = synth.ap.melspectrogram(wav).T[None].astype(np.float32)
+    out = {}
+    for B in (1, len(SENTENCES)):
+        text, lengths = _pad_texts([text_to_seq(t, synth.cfg) for t in SENTENCES[:B]])
+        with torch.no_grad():
+            enc = cast("encoder")(cast("embedding")(torch.as_tensor(text, device="cuda")),
+                                  torch.as_tensor(lengths, device="cuda"))
+        walls = {"mel": [], "style": []}
+        dev = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            synth.ap.melspectrogram(wav)
+            walls["mel"].append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            with torch.no_grad():
+                add_style(model, enc, mel, cast)
+            ev[1].record()
+            torch.cuda.synchronize()
+            walls["style"].append(time.perf_counter() - t0)
+            dev.append(ev[0].elapsed_time(ev[1]))
+        row = dict(mel_ms=statistics.median(walls["mel"][1:]) * 1e3,
+                   add_style_ms=statistics.median(walls["style"][1:]) * 1e3,
+                   add_style_device_ms=statistics.median(dev[1:]))
+        print(f"[conditioned] GST pieces at B={B}: style mel {row['mel_ms']:.2f} ms, "
+              f"add_style {row['add_style_ms']:.2f} ms host wall ({row['add_style_device_ms']:.2f} "
+              f"ms between CUDA events), {mel.shape[1]} style frames")
+        out[f"B{B}"] = row
+    print(f"[conditioned] GST batch-1 p50 over the main path's: {p50_ms:.1f} ms")
+    out["p50_over_main_ms"] = p50_ms
+    lat: dict = {"style": [], "none": []}
+    log = logging.getLogger("your_voice_tts_torch.models.common")
+    level = log.level
+    log.setLevel(logging.ERROR)
+    try:
+        for i in range(2 * reps + 2):
+            for kind in (("style", "none") if i % 2 else ("none", "style")):
+                t0 = time.perf_counter()
+                synth.tts_many([SENTENCES[i % 5]], style_wav=wav if kind == "style" else None)
+                lat[kind].append(time.perf_counter() - t0)
+    finally:
+        log.setLevel(level)
+    ab = {k: statistics.median(v) * 1e3 for k, v in lat.items()}
+    print(f"[conditioned] GST A/B at batch 1 (the same model, {len(lat['style'])} pairs "
+          f"interleaved): p50 with the style {ab['style']:.1f} ms, without {ab['none']:.1f} ms: "
+          f"{ab['style'] - ab['none']:+.1f} ms")
+    out["ab_p50_ms"] = ab
+    return out
+
+
+def phase_conditioned(report):
+    """(a) a phoneme Synthesizer (CMUDict pinned), (b) a GST Tacotron2 held
+    and served with a style wav, (c) kernel 8 at E = 512 and a
+    multi-speaker Tacotron(1) served; each path's counters set to 0 just
+    before it and read just after."""
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.ops.griffin_lim import gl_iteration_cuda
+    from your_voice_tts_torch.ops.taco1_decode import tacotron1_decode_cuda
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
+    from your_voice_tts_torch.text import CMUDictBackend, phonemes
+
+    out: dict = {}
+    launches: dict = {}
+
+    def add(seen):
+        for k, v in seen.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (a) phonemes
+    cfg = full_width_config()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, use_phonemes=True, g2p_backend="CMUDictBackend"))
+    synth = Synthesizer(cfg, device="cuda")
+    no_chance_stops(synth.model)
+    from your_voice_tts_torch.infer.synthesis import g2p_backend
+
+    g2p = g2p_backend(synth.cfg)
+    digest, n_ids = ids_checksum(synth.cfg)
+    check(isinstance(g2p, CMUDictBackend)
+          and synth.model.embedding.num_embeddings == len(phonemes), "phoneme model")
+    numbers = serve_counted("phonemes", synth)
+    seen = numbers["launches"]
+    print(f"[conditioned] phonemes: {n_ids} ids over the 8 sentences, sha256 {digest}; "
+          f"CMUDict OOV rate {g2p.oov_rate:.3f} over {g2p.word_count} words")
+    check(seen["tacotron2_decode_cuda"] > 0 and seen["griffin_lim_wave_cuda"] > 0
+          and not seen["griffin_lim_full_cuda"] and not seen["gl_iteration_cuda"],
+          "phoneme path kernels")
+    out["phonemes"] = dict(numbers, ids_sha256=digest, n_ids=n_ids, oov_rate=g2p.oov_rate)
+    add(seen)
+    del synth
+
+    # (b) GST Tacotron2: kernel 1 on style-shifted memory, then served
+    wav = style_wav(cfg.audio.sample_rate)
+    out["gst_kernel"], gst_err = hold_gst_decode(report, wav)
+    synth = Synthesizer(gst_config(full_width_config()), device="cuda")
+    no_chance_stops(synth.model)
+    check(synth.model.decoder.decode_weights(synth.decode_dtype)["dims"]["E"] == 512,
+          "GST width")
+    numbers = serve_counted("gst", synth, style_wav=wav)
+    seen = numbers["launches"]
+    check(seen["tacotron2_decode_cuda"] > 0 and seen["griffin_lim_wave_cuda"] > 0,
+          "GST path kernels")
+    out["gst"] = numbers
+    add(seen)
+    out["gst_pieces"] = gst_breakdown(synth, wav, numbers["p50_batch1_ms"]
+                                      - report["main"]["p50_batch1_ms"])
+    del synth
+
+    # (c) kernel 8 at E = 512, then a multi-speaker Tacotron(1) served
+    out["taco1_kernel"], taco1_err = hold_taco1_e512(report)
+    with tempfile.TemporaryDirectory() as tmp:
+        ids = os.path.join(tmp, "ids.json")
+        with open(ids, "w") as f:
+            json.dump({f"SYN{i:02d}": i for i in range(4)}, f)
+        synth = Synthesizer(taco1_config(), speakers_json=ids, device="cuda")
+    no_chance_stops(synth.model)
+    check(synth.model.decoder.decode_weights(synth.decode_dtype)["dims"]["E"] == 512,
+          "multi-speaker Tacotron(1) width")
+    speakers = [i % 4 for i in range(len(SENTENCES))]
+    synth.tts_many(SENTENCES[:1], speakers[:1])         # one-time set-up, not measured
+    import torch
+
+    torch.cuda.synchronize()
+    counters = (tacotron1_decode_cuda, tacotron2_decode_cuda) + gl_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    batch = synth.tts_many(SENTENCES, speakers)
+    t_batch = time.perf_counter() - t0
+    seen = {c.__name__: c.launches for c in counters}
+    frames = TACO1_STEPS * TACO1_R * len(SENTENCES)
+    check(all(w.ndim == 1 and len(w) > 0 and bool(torch.isfinite(torch.from_numpy(w)).all())
+              for w in batch), "multi-speaker Tacotron(1) waveforms")
+    check(seen["tacotron1_decode_cuda"] > 0 and seen["gl_iteration_cuda"] > 0
+          and not seen["tacotron2_decode_cuda"], "multi-speaker Tacotron(1) kernels")
+    decoded_s = frames * synth.ap.hop_length / synth.ap.sample_rate
+    print(f"[conditioned] taco1 with speakers: batch of 8 over 4 speakers {t_batch * 1e3:.1f} ms, "
+          f"{frames / t_batch:.0f} mel frames/s, real-time factor {decoded_s / t_batch:.1f}x "
+          f"over the {decoded_s:.2f} s decoded; launches {seen}")
+    out["taco1_speakers"] = dict(batch_ms=t_batch * 1e3, mel_frames_per_s=frames / t_batch,
+                                 rtf_x_realtime=decoded_s / t_batch, launches=seen)
+    add(seen)
+    del synth
+    out["launches"] = launches
+    report["conditioned"] = out
+    return launches, gst_err, taco1_err
 
 
 # ------------------------------------------------- the HTTP server, kernel 1's stream
@@ -2930,9 +3287,15 @@ def main() -> int:
     if args.profile:
         timed("melgan-profile", phase_vocoder_profile, report, synth, args.out, "melgan")
     del synth
-    for seen in (melgan_launches, timed("cloning", phase_cloning, report),
+    cloning_launches = timed("cloning", phase_cloning, report)
+    # phonemes, GST and Tacotron(1) with speakers: kernels 1, 2, 4 and 8
+    cond_launches, gst_err, taco1_err = timed("conditioned", phase_conditioned, report)
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], gst_err)
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], taco1_err)
+    for seen in (melgan_launches, cloning_launches, cond_launches,
                  timed("server", phase_server, report)):
-        for k in ("tacotron2_decode_cuda", "griffin_lim_wave_cuda"):
+        for k in ("tacotron2_decode_cuda", "griffin_lim_wave_cuda", "tacotron1_decode_cuda",
+                  "gl_iteration_cuda"):
             launches[k] += seen.get(k, 0)
     variant_launches, variant_err = timed("attention-variants", phase_attention_variants,
                                           report)

@@ -1185,15 +1185,19 @@ def test_taco1_decode_kernel_in_batch_slices(cuda, monkeypatch):
     assert dec.tacotron1_decode_cuda.launches == before + 3 + again
 
 
-def taco1_full_width_case(cuda, B, push_rows, T=160):
+def taco1_full_width_case(cuda, B, push_rows, T=160, spk_dim=None):
     """The Tacotron(1) path's widths (width 256, memory 5, 80 mels, r_init
     7, attention 128, filter 31), seeded random weights, the stop bias at
-    -10 and `push_rows` pushed to stop at once."""
+    -10 and `push_rows` pushed to stop at once. spk_dim conditions the
+    model on 4 speakers (d-vectors of that width, or with 0 its 256-wide
+    table): the memory is E = 256 + 256 = 512 wide."""
     from your_voice_tts_torch.models.tacotron import Tacotron
 
     cfg = ModelConfig(model="Tacotron", r=7, memory_size=5, tacotron_width=256,
                       attention_dim=128)
-    dec = Tacotron(60, cfg, n_mels=80, num_freq=513, r_init=7, device=cuda, seed=2).decoder
+    spk = {} if spk_dim is None else dict(num_speakers=4, speaker_embedding_dim=spk_dim)
+    dec = Tacotron(60, cfg, n_mels=80, num_freq=513, r_init=7, device=cuda, seed=2,
+                   **spk).decoder
     with torch.no_grad():
         dec.stopnet.bias.fill_(-10.0)
     w = dec.decode_weights(torch.bfloat16)
@@ -1220,6 +1224,82 @@ def test_taco1_decode_kernel_at_full_width(cuda):
     ref = tacotron1_decode_plain(w, enc, pinp, mask, **kw)
     assert got[3].tolist() == [1] + [40] * 7
     assert_decode_holds(got, ref)
+
+
+@pytest.mark.parametrize("spk_dim", [256, 0])
+@pytest.mark.parametrize("B", [8, 1])
+def test_taco1_decode_kernel_at_e512(cuda, spk_dim, B):
+    """A speaker-conditioned Tacotron(1)'s memory, the CBHG's 256 columns
+    and a 256-wide d-vector or table row: E = 512, full width, T=160, 40
+    steps, r = 7, dropout on; row 0 stops at once. The resident a_x and
+    projection matrices, the staged context and the context chunks all
+    grow with E; one launch, the same outputs as plain."""
+    from your_voice_tts_torch.ops.taco1_decode import (_blocks, launch_plan,
+                                                       tacotron1_decode_cuda,
+                                                       tacotron1_decode_plain)
+
+    w, enc, pinp, mask = taco1_full_width_case(cuda, B, [0], spk_dim=spk_dim)
+    assert w["dims"]["E"] == 512
+    plan = launch_plan(w["dims"], B, 160, _blocks(enc.device))
+    assert plan["E16"] == 512 and plan["RES"] == 168
+    kw = dict(r=7, max_steps=40, seed=7)
+    before = tacotron1_decode_cuda.launches
+    got = tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
+    assert tacotron1_decode_cuda.launches == before + 1
+    ref = tacotron1_decode_plain(w, enc, pinp, mask, **kw)
+    assert got[3].tolist() == [1] + [40] * (B - 1)
+    assert_decode_holds(got, ref)
+
+
+def test_taco1_decode_kernel_at_e512_past_one_launch(cuda):
+    """E = 512 past what one launch holds at T=160 (72 rows): B=80 runs as
+    slices of whole tiles; the same outputs as plain."""
+    from your_voice_tts_torch.ops.taco1_decode import (_blocks, launch_plan,
+                                                       tacotron1_decode_cuda,
+                                                       tacotron1_decode_plain)
+    from your_voice_tts_torch.ops.taco2_decode import batch_slices
+
+    B = 80
+    w, enc, pinp, mask = taco1_full_width_case(cuda, B, range(0, B, 7), spk_dim=256)
+    slices = batch_slices(w["dims"], B, 160, _blocks(enc.device), plan=launch_plan)
+    assert len(slices) == 2
+    kw = dict(r=7, max_steps=20, seed=7)
+    before = tacotron1_decode_cuda.launches
+    got = tacotron1_decode_cuda(w, enc, pinp, mask, **kw)
+    assert tacotron1_decode_cuda.launches - before >= 2
+    ref = tacotron1_decode_plain(w, enc, pinp, mask, **kw)
+    assert got[3].tolist() == [1 if b % 7 == 0 else 20 for b in range(B)]
+    assert_decode_holds(got, ref)
+
+
+def test_gst_on_the_card_matches_the_cpu(cuda):
+    """The GST at its default widths (80 mels, 256 / 4 heads / 10 tokens,
+    projected to 512; cuDNN convolutions and GRU, TF32 off) against the
+    same weights on the CPU, BatchNorm running statistics moved off (0, 1):
+    1e-5 in float32; its bf16 copy within 5e-2 of float32."""
+    from your_voice_tts_torch.models.common import compute_copy
+    from your_voice_tts_torch.models.gst import GST
+
+    g = torch.Generator().manual_seed(0)
+    cpu = GST(80, 512)
+    cpu.init_random_(g)
+    with torch.no_grad():
+        for blk in cpu.ref.convs:
+            blk.bn.running_mean.normal_(0.0, 0.3, generator=g)
+            blk.bn.running_var.uniform_(0.5, 2.0, generator=g)
+    cpu.eval()
+    card = GST(80, 512).to(cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    mel = torch.randn(4, 173, 80, generator=g)
+    with torch.no_grad():
+        ref = cpu(mel)
+        got = card(mel.to(cuda)).cpu()
+        assert float((got - ref).abs().max()) <= 1e-5
+        holder = torch.nn.Module()
+        holder.gst = card
+        half = compute_copy(holder, "gst", torch.bfloat16)(mel.to(cuda, torch.bfloat16))
+    assert half.dtype == torch.bfloat16
+    assert float((half.float().cpu() - ref).abs().max()) <= 5e-2
 
 
 @pytest.mark.parametrize("probe", ["barriers_only", "copies_only", "dots_only"])

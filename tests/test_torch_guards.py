@@ -249,3 +249,31 @@ def test_speaker_encoder_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tm
                                     "your_voice_tts_torch.bin.server"])
 def test_server_slice_modules_import_with_jax_blocked(module):
     test_tacotron_slice_modules_import_with_jax_blocked(module)
+
+
+@pytest.mark.parametrize("module", ["your_voice_tts_torch.text",
+                                    "your_voice_tts_torch.text.cmudict",
+                                    "your_voice_tts_torch.models.gst"])
+def test_phoneme_and_gst_slice_modules_import_with_jax_blocked(module):
+    test_tacotron_slice_modules_import_with_jax_blocked(module)
+
+
+@pytest.mark.parametrize("group,kw", [("data", dict(use_phonemes=True)),
+                                      ("speakers", dict(use_gst=True)),
+                                      ("model", dict(model="Tacotron", memory_size=5,
+                                                     tacotron_width=32, attention_dim=24))])
+def test_phoneme_gst_and_taco1_speaker_entry_points_refuse_to_fall_back_to_cpu(
+        monkeypatch, group, kw):
+    """A phoneme config, a GST config and a multi-speaker Tacotron(1) raise
+    without CUDA and a device, and build on the CPU when asked."""
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+
+    cfg = load_config(os.path.join(ROOT, "configs/smoke_synthetic.json"))
+    cfg = dataclasses.replace(cfg, **{group: dataclasses.replace(getattr(cfg, group), **kw)})
+    spk = os.path.join(ROOT, "assets/speakers_smoke.json") if group == "model" else None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Synthesizer(cfg, speakers_json=spk)
+    synth = Synthesizer(cfg, speakers_json=spk, device="cpu")
+    assert synth.model.device.type == "cpu"

@@ -174,7 +174,12 @@ def test_launch_plan_covers_every_tile_pair_and_chunk(B, G, T):
     group whole on one block, a GRU's two matrices on the same blocks; the
     k-tile slices of an item cover every k-tile once; the (row, t) pairs
     and the context chunks are covered; shared memory fits at full width."""
-    d = FULL
+    check_plan(FULL, B, T, G)
+
+
+def check_plan(d, B, T, G):
+    """The checks of `test_launch_plan_covers_every_tile_pair_and_chunk`
+    on the plan at dims d; returns the plan."""
     plan = launch_plan(d, B, T, G)
     own = owned_tiles(d, G)
     assert plan["blocks"] == G and plan["threads"] == 32 * WARPS
@@ -212,6 +217,7 @@ def test_launch_plan_covers_every_tile_pair_and_chunk(B, G, T):
                               + [2 * r16(d["D"])]) + 8
     assert (plan["XLD"] // 2) % 8 == 4
     assert plan["smem_bytes"] <= SMEM_LIMIT
+    return plan
 
 
 def test_launch_plan_at_full_width():

@@ -1,4 +1,11 @@
-"""Bucketed TTS dataset (the JAX package's data/dataset.py), grapheme path.
+"""Bucketed TTS dataset (the JAX package's data/dataset.py).
+
+Texts become grapheme ids, or phoneme ids through one G2P backend for the
+whole dataset (`default_g2p_backend`, honouring a pinned
+cfg.data.g2p_backend), whose class name the trainer writes into its
+checkpoints. With a cache directory the phoneme ids are kept as .npy files
+under phonemes/, keyed by the sha1 of (text, backend name, language,
+EOS/BOS, cleaner), so a change of any of them misses the cache.
 
 Mels are computed once, in batched calls through the AudioProcessor, and
 cached in memory and, with a cache directory, as .npy files keyed by the
@@ -15,11 +22,14 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import logging
 import os
 
 import numpy as np
 
-from ..text import text_to_sequence
+from ..text import default_g2p_backend, phoneme_to_sequence, text_to_sequence
+
+_log = logging.getLogger(__name__)
 
 TEXT_PAD = 8
 FRAME_PAD = 8
@@ -33,20 +43,52 @@ class TTSDataset:
     _B_QUANTUM = 8  # batch-dim quantum of token batching
 
     def __init__(self, items: list[list[str]], cfg, ap, cache_dir: str | None = None):
-        if cfg.data.use_phonemes:
-            raise NotImplementedError("the phoneme frontend arrives with a later slice of the port")
         self.cfg, self.ap, self.cache_dir = cfg, ap, cache_dir
         if cache_dir:
             os.makedirs(cache_dir, exist_ok=True)
+        d = cfg.data
+        self.g2p = (default_g2p_backend(d.phoneme_language, d.cmudict_path, prefer=d.g2p_backend)
+                    if d.use_phonemes else None)
+        self.g2p_backend_name = type(self.g2p).__name__ if self.g2p else None
+        self._ph_cache = None
+        if cache_dir and d.use_phonemes:
+            self._ph_cache = os.path.join(cache_dir, "phonemes")
+            os.makedirs(self._ph_cache, exist_ok=True)
         self.entries = []
         for text, wav_path, speaker in items:
-            seq = text_to_sequence(text, cfg.data.text_cleaner)
-            if cfg.data.min_seq_len <= len(seq) <= cfg.data.max_seq_len:
+            seq = (self._phoneme_seq(text) if d.use_phonemes
+                   else text_to_sequence(text, d.text_cleaner))
+            if d.min_seq_len <= len(seq) <= d.max_seq_len:
                 self.entries.append({"text": text, "seq": seq, "wav": wav_path,
                                      "speaker": speaker})
+        # how much of the corpus the lexicon covered
+        self.g2p_oov_rate = getattr(self.g2p, "oov_rate", None)
+        if self.g2p_oov_rate is not None:
+            _log.info(
+                f" > G2P ({self.g2p_backend_name}): {self.g2p.word_count} words, "
+                f"{getattr(self.g2p, 'derived_count', 0)} derived, "
+                f"OOV rate {self.g2p_oov_rate:.1%}")
         self.speakers = {n: i for i, n in enumerate(sorted({e["speaker"] for e in self.entries}))}
         self._compute_mels()
         self.entries.sort(key=lambda e: e["mel_len"])
+
+    def _phoneme_seq(self, text: str) -> np.ndarray:
+        d = self.cfg.data
+
+        def seq():
+            return phoneme_to_sequence(text, d.text_cleaner, language=d.phoneme_language,
+                                       enable_eos_bos=d.enable_eos_bos_chars, backend=self.g2p)
+
+        if self._ph_cache is None:
+            return seq()
+        key = hashlib.sha1(repr((text, self.g2p_backend_name, d.phoneme_language,
+                                 d.enable_eos_bos_chars, d.text_cleaner)).encode()).hexdigest()
+        fn = os.path.join(self._ph_cache, key + ".npy")
+        if os.path.exists(fn):
+            return np.load(fn)
+        out = seq()
+        np.save(fn, out)
+        return out
 
     def _cache_path(self, wav_path: str) -> str | None:
         if not self.cache_dir:

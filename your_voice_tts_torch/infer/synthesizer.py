@@ -1,7 +1,7 @@
 """Synthesizer, the serving facade (the JAX package's infer/synthesizer.py):
 loads a Tacotron2 or Tacotron(1) checkpoint (and optionally a MelGAN, PWGAN
 or WaveRNN vocoder, which serves Tacotron2's mels, and a speakers.json
-that conditions Tacotron2 on speakers), splits input into sentences,
+that conditions the model on speakers), splits input into sentences,
 synthesizes every sentence of every request in one batch a conditioning
 mode, and joins each request's sentences with 0.25 s of silence; or
 streams a text chunk by chunk (`tts_streaming`). Runs on CUDA unless given
@@ -9,6 +9,7 @@ another device."""
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import re
 import threading
@@ -21,7 +22,7 @@ from .. import resolve_device
 from ..audio import AudioProcessor
 from ..config import Config, load_config
 from ..models import setup_model
-from ..text import symbols
+from ..text import phonemes, symbols
 from ..train.checkpoint import load_checkpoint
 from ..utils.speakers import load_speaker_mapping, parse_speakers
 from .synthesis import synthesis_batch, text_to_seq
@@ -57,7 +58,10 @@ class Synthesizer:
         VocoderConfig) adds a MelGAN, PWGAN or WaveRNN vocoder in place of
         Griffin-Lim, with the weights of vocoder_checkpoint. speakers_json
         (`utils/speakers.py`) conditions the model on its speakers: by id
-        (the model's own table) or by their d-vectors. rng_seed seeds the
+        (the model's own table) or by their d-vectors. A phoneme config
+        builds the model on the phoneme table, and a checkpoint's
+        `g2p_backend` meta pins the G2P backend it was trained with.
+        rng_seed seeds the
         Griffin-Lim phases and the vocoder's draws; decode_dtype is the
         decode's working type. `lock` serializes the device work of
         `tts_many` and of each `tts_streaming` chunk, which a server runs
@@ -77,10 +81,16 @@ class Synthesizer:
                 load_speaker_mapping(speakers_json))
             if self.speaker_embeddings:
                 spk_dim = len(next(iter(self.speaker_embeddings.values())))
-        self.model = setup_model(len(symbols), self.cfg, self.device,
+        num_chars = len(phonemes) if self.cfg.data.use_phonemes else len(symbols)
+        self.model = setup_model(num_chars, self.cfg, self.device,
                                  num_speakers=len(self.speaker_ids), speaker_embedding_dim=spk_dim)
         if tts_checkpoint:
             meta = load_checkpoint(self.model, tts_checkpoint)
+            if meta.get("g2p_backend") and self.cfg.data.use_phonemes and \
+                    self.cfg.data.g2p_backend != meta["g2p_backend"]:
+                # the phoneme stream the model was trained on
+                self.cfg = dataclasses.replace(self.cfg, data=dataclasses.replace(
+                    self.cfg.data, g2p_backend=meta["g2p_backend"]))
             if "r" in meta:
                 self.model.set_r(meta["r"])
         self.vocoder = None
@@ -117,23 +127,26 @@ class Synthesizer:
             return "dvec", np.asarray(self.speaker_embeddings[name], np.float32)
         return "id", sid
 
-    def tts(self, text: str, speaker=None) -> np.ndarray:
+    def tts(self, text: str, speaker=None, style_wav: np.ndarray | None = None) -> np.ndarray:
         """Text -> waveform (float32), in `speaker`'s voice where the model
-        is conditioned (`_resolve_speaker`)."""
-        return self.tts_many([text], [speaker])[0]
+        is conditioned (`_resolve_speaker`), in the style of style_wav (a
+        waveform at the config's sample rate) for a GST model."""
+        return self.tts_many([text], [speaker], style_wav=style_wav)[0]
 
-    def tts_many(self, texts: list[str], speakers: list | None = None) -> list[np.ndarray]:
+    def tts_many(self, texts: list[str], speakers: list | None = None,
+                 style_wav: np.ndarray | None = None) -> list[np.ndarray]:
         """Several independent requests in one device batch a conditioning
         mode (none, speaker id, d-vector): the sentences of every request
         of a mode ride a single `synthesis_batch`, then regroup per
-        request. speakers: one a text (see `tts`), or None."""
+        request. speakers: one a text (see `tts`), or None; style_wav
+        styles every request (see `tts`)."""
         speakers = [None] * len(texts) if speakers is None else list(speakers)
         if len(speakers) != len(texts):
             raise ValueError(f"{len(texts)} texts but {len(speakers)} speakers")
         with self.lock:
-            return self._tts_many(texts, speakers)
+            return self._tts_many(texts, speakers, style_wav)
 
-    def _tts_many(self, texts: list[str], speakers: list) -> list[np.ndarray]:
+    def _tts_many(self, texts: list[str], speakers: list, style_wav) -> list[np.ndarray]:
         sent_of_req: list[list[int]] = []
         flat: list[str] = []
         modes: list[tuple] = []
@@ -156,7 +169,7 @@ class Synthesizer:
             got = synthesis_batch(self.model, [flat[i] for i in rows], self.cfg, self.ap,
                                   trim_silence=True, decode_dtype=self.decode_dtype,
                                   vocoder=self.vocoder.mel_to_wav if self.vocoder else None,
-                                  **spk)
+                                  style_wav=style_wav, **spk)
             for i, res in zip(rows, got):
                 results[i] = res
         silence = np.zeros(int(0.25 * self.ap.sample_rate), np.float32)

@@ -1,5 +1,6 @@
 """Shared model blocks (the JAX package's models/common.py): Prenet, conv+BN
-blocks, sequence masks and the prenet fold the decode kernel needs.
+blocks, sequence masks, the prenet fold the decode kernel needs, and the
+style and speaker conditioning of the encoder outputs both Tacotrons use.
 
 Training mode follows the module's `training` flag for BatchNorm; dropout
 is drawn only when a torch.Generator is passed (the JAX package's
@@ -8,11 +9,14 @@ is drawn only when a torch.Generator is passed (the JAX package's
 from __future__ import annotations
 
 import copy
+import logging
 
 import torch
 from torch import nn
 
 from ..nn.core import BatchNorm1d, Conv1d, Dense, dropout
+
+_log = logging.getLogger(__name__)
 
 
 def sequence_mask(lengths, max_len: int):
@@ -117,3 +121,48 @@ class ConvBNBlock(nn.Module):
         elif self.activation == "tanh":
             x = torch.tanh(x)
         return dropout(x, 0.5, generator) if self.training else x
+
+
+def add_style(model, enc_out, style_mel, cast=None):
+    """A GST model's style of style_mel [B, T_style, n_mels], or [1, ...]
+    for one style of every row (float32, cast to the memory's dtype as the
+    reference casts it) through `cast("gst")`, added to every position of
+    enc_out [B, T, C]; with no style_mel the reference's warning, and
+    enc_out as it is. enc_out itself for a model without GST."""
+    if not model.use_gst:
+        return enc_out
+    if style_mel is None:
+        _log.warning("GST model conditioned WITHOUT a style reference: the GST branch is "
+                     "skipped and the decoder sees encoder outputs it never saw un-shifted "
+                     "in training — pass style_wav/style_mel")
+        return enc_out
+    mel = torch.as_tensor(style_mel, dtype=torch.float32, device=enc_out.device)
+    style = (cast("gst") if cast else model.gst)(mel.to(enc_out.dtype))
+    return enc_out + style[:, None, :]
+
+
+def concat_speaker(model, enc_out, speaker_ids=None, speaker_embeddings=None, cast=None):
+    """enc_out [B, T, C] -> [B, T, C + spk_dim] for a speaker-conditioned
+    model (Tacotron2 or Tacotron(1)): the speaker vector of each row (its
+    row of the table, `cast("speaker_embedding")` where a compute-dtype
+    copy is wanted, or its d-vector from speaker_embeddings [B, spk_dim])
+    cast to the memory's dtype and concatenated onto every position;
+    enc_out itself for an unconditioned model."""
+    if not model.num_speakers:
+        return enc_out
+    B, T, _ = enc_out.shape
+    if model.use_external_speaker_embedding:
+        if speaker_embeddings is None:
+            raise ValueError("this model is conditioned on d-vectors: "
+                             "pass speaker_embeddings [B, spk_dim]")
+        spk = torch.as_tensor(speaker_embeddings, dtype=torch.float32, device=enc_out.device)
+    else:
+        if speaker_ids is None:
+            raise ValueError("this model is conditioned on speaker ids: pass speaker_ids [B]")
+        ids = torch.as_tensor(speaker_ids, dtype=torch.long, device=enc_out.device)
+        spk = (cast("speaker_embedding") if cast else model.speaker_embedding)(ids)
+    if tuple(spk.shape) != (B, model.spk_dim):
+        raise ValueError(f"speaker vectors of shape {tuple(spk.shape)}, "
+                         f"expected {(B, model.spk_dim)}")
+    spk = spk.to(enc_out.dtype)[:, None, :].expand(B, T, model.spk_dim)
+    return torch.cat([enc_out, spk], -1)

@@ -13,8 +13,13 @@ zeroed frames until the chunk's end. The encoder prenet's dropout stays on
 at inference too, as in the reference; the reference draws it from a
 threefry key, which torch cannot reproduce, so the port draws it from a
 torch.Generator seeded by `seed` on the model's device, fresh per call.
-Serving only: teacher-forced training, speaker and style conditioning come
-with later slices of the port.
+
+Conditioning (the reference's `_encode`): a GST model adds the style of a
+reference mel to the CBHG outputs, then a speaker vector (a row of the
+model's own table, tacotron_width wide, or an external d-vector) is
+concatenated onto every position, so the decode kernel sees
+E = 2 * (tacotron_width // 2) + spk_dim. Serving only: teacher-forced
+training comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ from ..nn.core import GAINS, BatchNorm1d, Conv1d, Dense, Embedding, xavier_unifo
 from ..nn.rnn import GRUCell
 from ..ops.taco1_decode import prepare_weights, tacotron1_decode
 from .attention import init_attn
-from .common import (Prenet, cached_decode_weights, compute_copy, kernel_prenet,
-                     sequence_mask)
+from .common import (Prenet, add_style, cached_decode_weights, compute_copy, concat_speaker,
+                     kernel_prenet, sequence_mask)
+from .gst import GST
 
 
 class Highway(nn.Module):
@@ -167,24 +173,38 @@ class Tacotron(nn.Module):
     output_type = "linear"
 
     def __init__(self, num_chars: int, cfg, n_mels: int = 80, num_freq: int = 513,
-                 r_init: int | None = None, device=None, seed: int = 0):
+                 r_init: int | None = None, device=None, seed: int = 0,
+                 num_speakers: int = 0, speaker_embedding_dim: int = 0,
+                 use_gst: bool = False, gst_cfg=None):
         """Weights start seeded random (`seed`, drawn on the CPU from a
         torch.Generator); the model then moves to `device` (CUDA unless
-        given)."""
+        given). num_speakers > 0 conditions on speakers: external d-vectors
+        of width speaker_embedding_dim, or with speaker_embedding_dim 0 a
+        table of tacotron_width-wide rows, one a speaker id. use_gst adds
+        Global Style Tokens (gst_cfg: a GSTConfig) projected to the CBHG's
+        output width."""
         super().__init__()
         self.cfg = cfg
         self.n_mels, self.num_freq = n_mels, num_freq
         self.r = cfg.r
         self.r_init = max(r_init or cfg.r, cfg.r)
         w, h = cfg.tacotron_width, cfg.tacotron_width // 2
+        self.num_speakers = num_speakers
+        self.use_external_speaker_embedding = num_speakers > 0 and speaker_embedding_dim > 0
+        self.spk_dim = 0 if num_speakers == 0 else (speaker_embedding_dim or w)
         self.embedding = Embedding(num_chars, w)
         self.enc_prenet = Prenet(w, cfg.prenet_type, cfg.prenet_dropout, (w, h))
         self.encoder_cbhg = CBHG(h, bank_channels=h, projections=(h, h), highway_dim=h,
                                  gru_dim=h)
-        self.decoder = TacotronDecoder(self.encoder_cbhg.out_dim, n_mels, self.r_init,
-                                       cfg.memory_size, cfg)
+        self.use_gst = use_gst
+        if use_gst:
+            self.gst = GST(n_mels, self.encoder_cbhg.out_dim, gst_cfg)
+        self.decoder = TacotronDecoder(self.encoder_cbhg.out_dim + self.spk_dim, n_mels,
+                                       self.r_init, cfg.memory_size, cfg)
         self.post_cbhg = CBHG(n_mels, K=8, projections=(w, n_mels), highway_dim=h, gru_dim=h)
         self.last_linear = Dense(self.post_cbhg.out_dim, num_freq)
+        if num_speakers > 0 and not self.use_external_speaker_embedding:
+            self.speaker_embedding = Embedding(num_speakers, self.spk_dim)
         self._init_random(torch.Generator().manual_seed(seed))
         self.to(resolve_device(device))
         self.eval()
@@ -231,11 +251,26 @@ class Tacotron(nn.Module):
         for cbhg in (self.encoder_cbhg, self.post_cbhg):
             for hw in cbhg.highways:
                 hw.T.bias.fill_(-1.0)
+        if self.use_gst:
+            self.gst.init_random_(generator)
+
+    def _encode(self, text, speaker_ids=None, speaker_embeddings=None, style_mel=None,
+                generator: torch.Generator | None = None, cast=None):
+        """text [B, T] ids -> encoder memory [B, T, E]: embedding, prenet
+        (dropout from `generator`), CBHG; then the style of style_mel added
+        (GST) and the speaker vector concatenated (`add_style`,
+        `concat_speaker`). cast(name) gives the module that runs (a
+        compute-dtype copy, or the module itself without one)."""
+        cast = cast or (lambda name: getattr(self, name))  # noqa: E731
+        enc_out = cast("encoder_cbhg")(cast("enc_prenet")(cast("embedding")(text), generator))
+        enc_out = add_style(self, enc_out, style_mel, cast)
+        return concat_speaker(self, enc_out, speaker_ids, speaker_embeddings, cast)
 
     @torch.no_grad()
     def inference(self, text, text_lengths, max_decoder_steps: int | None = None,
                   r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16,
-                  compute_dtype=None):
+                  compute_dtype=None, speaker_ids=None, speaker_embeddings=None,
+                  style_mel=None):
         """Free-running synthesis on the model's device (the signature of
         `Tacotron2.inference`, compute_dtype included: bf16 runs the
         embedding, encoder prenet and CBHG, the key projection and the
@@ -244,7 +279,10 @@ class Tacotron(nn.Module):
         (linear [B, T_out, num_freq]), alignments, stop_probs and mel_lengths
         (in frames; frames past a row's length decode from zeros). `seed`
         seeds both prenets' dropout. BatchNorm normalizes with its running
-        statistics whatever the module's mode."""
+        statistics whatever the module's mode. A speaker-conditioned model
+        takes speaker_ids [B] or speaker_embeddings [B, spk_dim], a GST
+        model style_mel [B or 1, T_style, n_mels], as `Tacotron2.inference`
+        does."""
         r = r or self.r
         max_steps = max_decoder_steps or self.cfg.max_decoder_steps
         dev = self.device
@@ -258,7 +296,7 @@ class Tacotron(nn.Module):
         try:
             gen = (torch.Generator(device=dev).manual_seed(seed)
                    if self.enc_prenet.dropout_enabled else None)
-            enc_out = cast("encoder_cbhg")(cast("enc_prenet")(cast("embedding")(text), gen))
+            enc_out = self._encode(text, speaker_ids, speaker_embeddings, style_mel, gen, cast)
             dec_out, aligns, stops, lengths = self.decoder.inference(
                 enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype,
                 compute_dtype=dt)

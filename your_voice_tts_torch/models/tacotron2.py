@@ -19,12 +19,13 @@ stopped keeps advancing its state with zeroed frames until the chunk's end.
 Every attention variant decodes there (`Decoder.attn_kernel_flags`);
 training takes location-sensitive attention only.
 
-Speakers (the reference's multi-speaker Tacotron2, `_condition`): a speaker
-vector, a row of the model's own table or an external d-vector, is
-concatenated onto every position of the encoder memory, so the decoder
-(and its decode kernel) sees E = encoder_dim + spk_dim. Inference only:
-training a conditioned model, style conditioning (GST) and the
-bidirectional decoder come with later slices of the port.
+Conditioning (the reference's `_condition`): a GST model adds the style
+of a reference mel (models/gst.py) to every position of the encoder
+outputs, keeping their width; then a speaker vector, a row of the model's
+own table or an external d-vector, is concatenated onto every position,
+so the decoder (and its decode kernel) sees E = encoder_dim + spk_dim.
+Inference only: training a conditioned or GST model and the bidirectional
+decoder come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ from ..nn.rnn import LSTMCell, bilstm
 from ..ops.taco2_decode import prepare_weights, tacotron2_decode
 from .attention import GravesAttention, init_attn
 from .decoder_grad import DecoderCore, dropout_masks
-from .common import (ConvBNBlock, Prenet, cached_decode_weights, compute_copy,
-                     kernel_prenet, sequence_mask)
+from .common import (ConvBNBlock, Prenet, add_style, cached_decode_weights, compute_copy,
+                     concat_speaker, kernel_prenet, sequence_mask)
+from .gst import GST
 
 
 class Encoder(nn.Module):
@@ -228,12 +230,15 @@ class Tacotron2(nn.Module):
 
     def __init__(self, num_chars: int, cfg, n_mels: int = 80,
                  r_init: int | None = None, device=None, seed: int = 0,
-                 num_speakers: int = 0, speaker_embedding_dim: int = 0):
+                 num_speakers: int = 0, speaker_embedding_dim: int = 0,
+                 use_gst: bool = False, gst_cfg=None):
         """Weights start seeded random (`seed`, drawn on the CPU from a
         torch.Generator); the model then moves to `device` (CUDA unless
         given). num_speakers > 0 conditions on speakers: external d-vectors
         of width speaker_embedding_dim, or with speaker_embedding_dim 0 a
-        table of SPEAKER_TABLE_DIM-wide rows, one a speaker id."""
+        table of SPEAKER_TABLE_DIM-wide rows, one a speaker id. use_gst adds
+        Global Style Tokens (gst_cfg: a GSTConfig) projected to
+        encoder_dim."""
         super().__init__()
         if cfg.bidirectional_decoder:
             raise NotImplementedError(
@@ -252,6 +257,9 @@ class Tacotron2(nn.Module):
         self.postnet = Postnet(n_mels, cfg.postnet_dim)
         if num_speakers > 0 and not self.use_external_speaker_embedding:
             self.speaker_embedding = Embedding(num_speakers, self.spk_dim)
+        self.use_gst = use_gst
+        if use_gst:
+            self.gst = GST(n_mels, cfg.encoder_dim, gst_cfg)
         self._init_random(torch.Generator().manual_seed(seed))
         self.to(resolve_device(device))
         self.eval()
@@ -290,6 +298,8 @@ class Tacotron2(nn.Module):
         for mod in self.modules():
             if isinstance(mod, GravesAttention):
                 mod.init_bias()
+        if self.use_gst:
+            self.gst.init_random_(generator)
 
     def forward(self, text, text_lengths, mels, mel_lengths=None, r: int | None = None,
                 generator: torch.Generator | None = None) -> dict:
@@ -304,6 +314,8 @@ class Tacotron2(nn.Module):
         if self.num_speakers:
             raise NotImplementedError(
                 "training a speaker-conditioned model arrives with a later slice of the port")
+        if self.use_gst:
+            raise NotImplementedError("training a GST model arrives with a later slice of the port")
         r = r or self.r
         enc_out = self.encoder(self.embedding(text), text_lengths, generator)
         dec_out, aligns, stops = self.decoder(enc_out, text_lengths, mels, r, generator)
@@ -316,36 +328,24 @@ class Tacotron2(nn.Module):
             "state": {k: v.detach().clone() for k, v in self.named_buffers()},
         }
 
-    def _condition(self, enc_out, speaker_ids=None, speaker_embeddings=None, cast=None):
-        """enc_out [B, T, C] -> [B, T, C + spk_dim]: the speaker vector of
-        each row (its row of the table, `cast("speaker_embedding")` where a
+    def _condition(self, enc_out, speaker_ids=None, speaker_embeddings=None, cast=None,
+                   style_mel=None):
+        """enc_out [B, T, C] -> [B, T, C + spk_dim]: for a GST model the
+        style of style_mel [B or 1, T_style, n_mels] (through `cast("gst")`)
+        added to every position first; then the speaker vector of each row
+        (its row of the table, `cast("speaker_embedding")` where a
         compute-dtype copy is wanted, or its d-vector from
         speaker_embeddings [B, spk_dim], float32) cast to the memory's dtype
         and concatenated onto every position; enc_out itself for an
         unconditioned model."""
-        if not self.num_speakers:
-            return enc_out
-        B, T, _ = enc_out.shape
-        if self.use_external_speaker_embedding:
-            if speaker_embeddings is None:
-                raise ValueError("this model is conditioned on d-vectors: "
-                                 "pass speaker_embeddings [B, spk_dim]")
-            spk = torch.as_tensor(speaker_embeddings, dtype=torch.float32, device=enc_out.device)
-        else:
-            if speaker_ids is None:
-                raise ValueError("this model is conditioned on speaker ids: pass speaker_ids [B]")
-            ids = torch.as_tensor(speaker_ids, dtype=torch.long, device=enc_out.device)
-            spk = (cast("speaker_embedding") if cast else self.speaker_embedding)(ids)
-        if tuple(spk.shape) != (B, self.spk_dim):
-            raise ValueError(f"speaker vectors of shape {tuple(spk.shape)}, "
-                             f"expected {(B, self.spk_dim)}")
-        spk = spk.to(enc_out.dtype)[:, None, :].expand(B, T, self.spk_dim)
-        return torch.cat([enc_out, spk], -1)
+        return concat_speaker(self, add_style(self, enc_out, style_mel, cast), speaker_ids,
+                              speaker_embeddings, cast)
 
     @torch.no_grad()
     def inference(self, text, text_lengths, max_decoder_steps: int | None = None,
                   r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16,
-                  compute_dtype=None, speaker_ids=None, speaker_embeddings=None):
+                  compute_dtype=None, speaker_ids=None, speaker_embeddings=None,
+                  style_mel=None):
         """Free-running synthesis on the model's device. text [B, T] symbol
         ids, text_lengths [B]. Output lengths are in mel frames; frames past
         a row's length are zero. decode_dtype is the decode's working type
@@ -357,17 +357,18 @@ class Tacotron2(nn.Module):
         in float32. BatchNorm normalizes with its running statistics
         whatever the module's mode, as the reference's inference does
         (train=False). A speaker-conditioned model takes speaker_ids [B]
-        (table) or speaker_embeddings [B, spk_dim] (d-vectors); under a
-        compute_dtype the table and the d-vectors are cast to it, as the
+        (table) or speaker_embeddings [B, spk_dim] (d-vectors), a GST model
+        style_mel [B or 1, T_style, n_mels]; under a compute_dtype the table,
+        the d-vectors, the style mel and the GST are cast to it, as the
         reference casts them."""
         return self._infer(text, text_lengths, max_decoder_steps, r, seed, decode_dtype,
-                           compute_dtype, speaker_ids, speaker_embeddings)
+                           compute_dtype, speaker_ids, speaker_embeddings, style_mel)
 
     @torch.no_grad()
     def inference_truncated(self, text, text_lengths, max_decoder_steps: int | None = None,
                             r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16,
                             compute_dtype=None, speaker_ids=None, speaker_embeddings=None,
-                            stream_state=None):
+                            stream_state=None, style_mel=None):
         """Streaming synthesis of one text chunk (the JAX package's
         `Tacotron2.inference_truncated` on its kernel route): `inference`
         with the decoder's LSTM states and last frame carried in from the
@@ -377,11 +378,11 @@ class Tacotron2(nn.Module):
         the next chunk); with stream_state=None the outputs equal
         `inference`'s."""
         return self._infer(text, text_lengths, max_decoder_steps, r, seed, decode_dtype,
-                           compute_dtype, speaker_ids, speaker_embeddings, truncated=True,
-                           stream_state=stream_state)
+                           compute_dtype, speaker_ids, speaker_embeddings, style_mel,
+                           truncated=True, stream_state=stream_state)
 
     def _infer(self, text, text_lengths, max_decoder_steps, r, seed, decode_dtype,
-               compute_dtype, speaker_ids, speaker_embeddings, truncated=False,
+               compute_dtype, speaker_ids, speaker_embeddings, style_mel, truncated=False,
                stream_state=None):
         r = r or self.r
         max_steps = max_decoder_steps or self.cfg.max_decoder_steps
@@ -395,7 +396,7 @@ class Tacotron2(nn.Module):
         self.eval()
         try:
             enc_out = cast("encoder")(cast("embedding")(text), text_lengths)
-            enc_out = self._condition(enc_out, speaker_ids, speaker_embeddings, cast)
+            enc_out = self._condition(enc_out, speaker_ids, speaker_embeddings, cast, style_mel)
             args = (enc_out, text_lengths, max_steps, r, seed, decode_dtype, dt)
             dec_out, aligns, stops, lengths, *stream_out = (
                 self.decoder.inference_truncated(*args, stream=stream_state) if truncated
@@ -415,3 +416,4 @@ class Tacotron2(nn.Module):
             "mel_lengths": lengths,
         }
         return (out, stream_out[0]) if truncated else out
+

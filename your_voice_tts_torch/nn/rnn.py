@@ -1,8 +1,9 @@
 """Recurrent layers (the JAX package's nn/rnn.py).
 
 `LSTMCell` keeps the reference's gate order (i, f, g, o) and ONE summed bias.
-`GRUCell` is torch.nn.GRUCell, the reference's GRU; `gru_gates` is its
-update from the two precomputed products.
+`GRUCell` is torch.nn.GRUCell, the reference's GRU, and `GRU` the same
+cell scanned over a sequence; `gru_gates` is its update from the two
+precomputed products.
 `bilstm` runs the encoder's bidirectional LSTM over padded sequences: packing
 the sequences makes the backward direction start at each row's own last
 valid step, which is what the JAX package gets by right-aligning each row's
@@ -35,6 +36,14 @@ class LSTMCell(nn.Module):
 # The JAX package's GRUCell (gates r, z, n; separate input and hidden
 # biases; n = tanh(W_in x + b_in + r * (W_hn h + b_hn))) is torch's own.
 GRUCell = nn.GRUCell
+
+
+class GRU(nn.GRU):
+    """A one-layer, one-direction nn.GRU (cuDNN on the card) over a whole
+    sequence: the JAX package's `gru` scan of a GRUCell, whose leaves wx,
+    wh, bx, bh (`jax_layout`) are its ..._l0 weights and biases."""
+
+    jax_layout = "gru"
 
 
 def gru_gates(gx, gh, h):

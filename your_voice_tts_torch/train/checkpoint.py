@@ -30,7 +30,14 @@ layout map of the JAX package's utils/torch_import.py in reverse:
   - ``"lstmp"`` / ``"lstm_proj"``, the speaker encoder's LSTM with
     projection: ``wx`` / ``wh`` / ``b`` -> its nn.LSTM ``lstm`` (``..._l0``,
     zero ``bias_hh``), ``proj`` [H, P] -> ``lstm.weight_hr_l0`` (recurring on
-    the projection) or the Linear ``proj.weight``.
+    the projection) or the Linear ``proj.weight``;
+  - ``"gru"``, a GRU over a sequence (the GST reference encoder's):
+    ``wx`` / ``wh`` / ``bx`` / ``bh`` -> its nn.GRU's ``..._l0``;
+  - ``"conv2d_bn"``, a GST convolution: ``w`` [3, 3, in, ch] (HWIO) ->
+    ``conv.weight`` [ch, in, 3, 3] (OIHW), ``b`` -> ``conv.bias``, and the
+    BatchNorm's state ``mean`` / ``var``, kept beside ``w`` rather than
+    under ``bn``, -> ``bn.running_mean`` / ``bn.running_var``;
+- the GST style tokens ``tokens`` -> ``tokens``.
 
 `load_generator` reads the generator (the ``['g']`` subtree) of a GAN
 vocoder checkpoint, which also holds the discriminator.
@@ -133,6 +140,11 @@ def _special_leaf(put, kind: str, base: str, leaf: str, arr, path) -> None:
     if kind == "conv_transpose" and leaf in ("w", "b"):
         put(f"{base}.{'weight' if leaf == 'w' else 'bias'}",
             arr[::-1].transpose(1, 2, 0) if leaf == "w" else arr)
+    elif kind == "gru" and leaf in _GRU_LEAF:
+        put(f"{base}.{_GRU_LEAF[leaf]}_l0", arr.T if leaf in ("wx", "wh") else arr)
+    elif kind == "conv2d_bn" and leaf in ("w", "b"):
+        put(f"{base}.conv.{'weight' if leaf == 'w' else 'bias'}",
+            arr.transpose(3, 2, 0, 1) if leaf == "w" else arr)
     elif kind in ("lstmp", "lstm_proj") and leaf in ("wx", "wh", "b", "proj"):
         if leaf == "b":
             put(f"{base}.lstm.bias_ih_l0", arr)
@@ -193,6 +205,8 @@ def params_from_jax(params: dict, state: dict,
             put(f"{base}.bias", arr)
         elif leaf in ("table", "scale"):
             put(f"{base}.weight", arr)
+        elif leaf == "tokens":
+            put(f"{base}.tokens", arr)
         elif leaf == "wx":
             put(f"{base}.weight_ih", arr.T)
         elif leaf == "wh":
@@ -204,6 +218,8 @@ def params_from_jax(params: dict, state: dict,
     for path, arr in _walk(state):
         *mods, leaf = path
         base = ".".join(map(str, mods))
+        if layouts.get(base) == "conv2d_bn":
+            base += ".bn"
         if leaf == "mean":
             put(f"{base}.running_mean", arr)
         elif leaf == "var":
@@ -247,9 +263,11 @@ def params_to_jax(model: torch.nn.Module) -> tuple[dict, dict]:
     """The port's Tacotron2 or Tacotron(1) -> (params, model_state) as flat
     {keystr: numpy float32} in the JAX package's layouts (the inverse of
     `params_from_jax`)."""
+    from ..models.gst import StyleTokenLayer
     from ..nn.core import BatchNorm1d, Conv1d
-    from ..nn.rnn import LSTMCell
+    from ..nn.rnn import GRU, LSTMCell
 
+    layouts = jax_layouts(model)
     params: dict[str, np.ndarray] = {}
     state: dict[str, np.ndarray] = {}
     npy = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
@@ -270,8 +288,19 @@ def params_to_jax(model: torch.nn.Module) -> tuple[dict, dict]:
         elif isinstance(mod, BatchNorm1d):
             put("scale", npy(mod.weight))
             put("bias", npy(mod.bias))
-            put("mean", npy(mod.running_mean), state)
-            put("var", npy(mod.running_var), state)
+            owner = path[:-1] if layouts.get(".".join(map(str, path[:-1]))) == "conv2d_bn" \
+                else path
+            put("mean", npy(mod.running_mean), state, owner)
+            put("var", npy(mod.running_var), state, owner)
+        elif layouts.get(name) == "conv2d_bn":
+            put("w", npy(mod.conv.weight).transpose(2, 3, 1, 0))
+            put("b", npy(mod.conv.bias))
+        elif isinstance(mod, StyleTokenLayer):
+            put("tokens", npy(mod.tokens))
+        elif isinstance(mod, GRU):
+            for leaf, name in _GRU_LEAF.items():
+                t = npy(getattr(mod, f"{name}_l0"))
+                put(leaf, t.T if leaf in ("wx", "wh") else t)
         elif isinstance(mod, LSTMCell):
             put("wx", npy(mod.weight_ih).T)
             put("wh", npy(mod.weight_hh).T)

@@ -15,7 +15,7 @@ stay float32, and the losses are float32. Every parameter is cast, the
 encoder's BiLSTM's too (cuDNN's LSTM runs in bf16).
 
 Later slices bring Tacotron(1) training, data parallelism, gradient
-accumulation, the bidirectional decoder, GST and speaker conditioning, the phoneme frontend,
+accumulation, the bidirectional decoder, GST and speaker conditioning,
 forward attention (with its transition agent) and Graves attention,
 TensorBoard logging, test-sentence synthesis and the profiler server; they
 raise NotImplementedError here.
@@ -35,11 +35,11 @@ from ..audio import AudioProcessor
 from ..data import TTSDataset, load_meta_data
 from ..models import setup_model
 from ..models.losses import TacotronLoss
-from ..text import symbols
+from ..text import phonemes, symbols
 from ..utils.logging import ConsoleLogger
 from ..utils.measures import alignment_diagonal_score
-from .checkpoint import (params_from_jax, read_checkpoint, read_optimizer_state,
-                         save_best_model, save_checkpoint)
+from .checkpoint import (jax_layouts, params_from_jax, read_checkpoint,
+                         read_optimizer_state, save_best_model, save_checkpoint)
 from .optim import build_optimizer
 
 _LATER = "arrives with a later slice of the port"
@@ -84,7 +84,8 @@ class Trainer:
         self.train_data = TTSDataset(train_items, cfg, self.ap,
                                      cache_dir=cfg.data.phoneme_cache_path)
         self.eval_data = TTSDataset(eval_items, cfg, self.ap) if eval_items else None
-        self.model = setup_model(len(symbols), cfg, device=self.device)
+        self.num_chars = len(phonemes) if cfg.data.use_phonemes else len(symbols)
+        self.model = setup_model(self.num_chars, cfg, device=self.device)
         t = cfg.training
         self.criterion = TacotronLoss(cfg.model.model, t.loss_masking, t.seq_len_norm,
                                       cfg.model.stopnet, t.stopnet_pos_weight, t.ga_alpha,
@@ -238,7 +239,7 @@ class Trainer:
     def _save(self, step: int, epoch: int, r: int) -> None:
         path = os.path.join(self.output_path, f"checkpoint_{step}.npz")
         save_checkpoint(path, self.model, self.optimizer, step=step, epoch=epoch, r=r,
-                        extra={"g2p_backend": ""})
+                        extra={"g2p_backend": self.train_data.g2p_backend_name or ""})
         if self.verbose:
             print(f" > CHECKPOINT: {path}")
 
@@ -248,7 +249,7 @@ class Trainer:
         values of leaves whose name or shape does not match, with a
         warning, and leaves the optimizer as it is."""
         params, state, meta = read_checkpoint(path)
-        sd = params_from_jax(params, state)
+        sd = params_from_jax(params, state, jax_layouts(self.model))
         own = self.model.state_dict()
         if lenient:
             skipped = [k for k in own if k not in sd or sd[k].shape != own[k].shape]
