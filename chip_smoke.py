@@ -74,6 +74,29 @@ Phases, each fatal on failure:
    (B=32, 128 symbols, 400 mel frames), dropout off, on the kernels and on
    the plain versions: loss and every gradient leaf compared; (c) the timed
    train step at that shape (train step ms, mel frames/s, launches).
+7b. train-cond (the "your voice" path): (a) kernels 5 and 6 against their
+   plain versions at the speaker-conditioned memory widths, phases 5-6's
+   inputs and tolerances otherwise: E = 768 (256-wide d-vectors) and
+   E = 1,024 (the 512-wide speaker table) at T_in = 128, where the
+   forward's attention stages the encoder's columns, and the forward at
+   E = 1,024, T_in = 320, where it reads them from global memory; each
+   plan's clusters, shared memory (the C layout functions against the
+   Python copies) and staging route, kernel, plain and bound ms, launches
+   a call, the forward's launches' device times beside E = 512's;
+   (c) on a synthetic 4-speaker corpus (sr 22050, as bench.py makes it):
+   SpeakerEncoderTrainer at full width (80 -> 3 x 768 / 256, N = M = 4,
+   20 steps; a held batch's GE2E loss before and after; its checkpoint
+   through load_encoder), each speaker's d-vector, then
+   Trainer(speaker_embeddings=...).fit(max_steps=5) for the d-vector
+   (E = 768), table (E = 1,024) and d-vector + GST configs (finite losses
+   and gradient norms, moved parameters, a checkpoint, the table and the
+   GST moved, the GST's running statistics off zero), each with its
+   counters set to 0 just before and read just after, and after each fit
+   (b) one train step at the bench shape, dropout off, on the kernels and
+   on the plain versions: the loss and every gradient leaf, the table's and
+   the GST's included, at phase 7(a)'s tolerances; then Synthesizer from
+   the trained d-vector checkpoint answers a batch of 8 over the 4
+   speakers (its decode and Griffin-Lim launches counted).
 
 8. wavernn: the WaveRNN sample-loop kernel at full width (WaveRNNConfig
    defaults: n_mels 80, R = F = 512, 10-bit mu-law; seeded random weights,
@@ -165,13 +188,15 @@ Phases, each fatal on failure:
    latter, the counters set to 0 just before each and read just after.
 
 The decode's and the wave route's launches in the kernel line add up
-the main, melgan-main, cloning, conditioned, server and attention-variants
-paths' counts, the Tacotron(1) decode's and gl-iteration's the taco1-main
-and conditioned paths' counts
+the main, train-cond, melgan-main, cloning, conditioned, server and
+attention-variants paths' counts, the training scans' the train phase's
+timed steps and the train-cond fits', the Tacotron(1) decode's and
+gl-iteration's the taco1-main and conditioned paths' counts
 (each path's counters set to 0 just before it and read just after); the
 decode's max_abs_err is the largest of the decode phase's and the
 variants' and the GST holds, the Tacotron(1) decode's the largest of its
-phase's and the E = 512 holds. Each phase prints its seconds.
+phase's and the E = 512 holds, the training scans' the largest of phases
+5-6's and train-cond's. Each phase prints its seconds.
 Then the kernel line (JSON), the card's
 name and power limit, and the contract line {"ok": true, "device": {...}}. Details also go to
 chip_smoke.json in the output directory (--out, default build/chip_smoke).
@@ -2788,19 +2813,17 @@ def kernel_times(run, key, keys) -> dict:
                 "launches": len(v)} for k, v in durs.items()}
 
 
-def phase_train_fwd(report, state):
+def hold_train_fwd(tag: str, w, x) -> dict:
+    """The forward kernel against its plain version on `core_inputs`' x:
+    each stack's max abs error and rel L2 against the tolerances below,
+    launches a call (2 a step plus one). Returns the kernel's stacks, the
+    errors and the launches."""
     import torch
 
-    from your_voice_tts_torch.models import setup_model
-    from your_voice_tts_torch.ops.taco2_train import (mma_fragments, taco2_train_fwd_cuda,
-                                                      taco2_train_fwd_plain,
-                                                      taco2_train_fwd_probe_cuda)
-    from your_voice_tts_torch.text import symbols
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_fwd_cuda, taco2_train_fwd_plain
 
-    steps, B, T = TRAIN_T_MEL // 2, TRAIN_B, TRAIN_T_TEXT
-    model = setup_model(len(symbols), train_config(), device="cuda", seed=1)
-    w, x = core_inputs(model, steps, B, T, seed=11)
     args = (w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"])
+    steps = x["prenet_t"].shape[0]
     before = taco2_train_fwd_cuda.launches
     got = taco2_train_fwd_cuda(*args)
     launches = taco2_train_fwd_cuda.launches - before
@@ -2819,11 +2842,28 @@ def phase_train_fwd(report, state):
         tol = 2e-3 if k == "align" else peak / 32
         errs[k] = dict(max_abs_err=e, tol=tol, peak=peak, rel_l2=rel)
         ok = ok and e <= tol and rel <= 1e-2
-        print(f"[train-fwd] {k:5s} max_abs_err {e:.3e} (tol {tol:.3e}, peak {peak:.3e}) "
+        print(f"[{tag}] {k:5s} max_abs_err {e:.3e} (tol {tol:.3e}, peak {peak:.3e}) "
               f"rel L2 {rel:.3e} (tol 1e-2)")
-    check(ok, "training forward kernel disagrees with plain")
+    check(ok, f"{tag}: training forward kernel disagrees with plain")
     check(launches == 2 * steps + 1,
-          f"train-fwd: {launches} launches a call, expected {2 * steps + 1}")
+          f"{tag}: {launches} launches a call, expected {2 * steps + 1}")
+    return dict(got=got, errs=errs, launches=launches, args=args)
+
+
+def phase_train_fwd(report, state):
+    import torch
+
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.ops.taco2_train import (mma_fragments, taco2_train_fwd_cuda,
+                                                      taco2_train_fwd_plain,
+                                                      taco2_train_fwd_probe_cuda)
+    from your_voice_tts_torch.text import symbols
+
+    steps, B, T = TRAIN_T_MEL // 2, TRAIN_B, TRAIN_T_TEXT
+    model = setup_model(len(symbols), train_config(), device="cuda", seed=1)
+    w, x = core_inputs(model, steps, B, T, seed=11)
+    held = hold_train_fwd("train-fwd", w, x)
+    got, errs, launches, args = held["got"], held["errs"], held["launches"], held["args"]
     # the same launches without programmatic dependence: the same bits (no
     # atomics), and each launch's device time on its own
     serial = lambda: taco2_train_fwd_probe_cuda(*args, probe="serial")  # noqa: E731
@@ -2903,17 +2943,16 @@ def bwd_launch_times(run) -> dict:
     return kernel_times(run, key, BWD_LAUNCHES + ("other",))
 
 
-def phase_train_bwd(report, state):
+def hold_train_bwd(tag: str, w, x, fwd) -> dict:
+    """The backward kernel against its plain version on the forward's
+    residuals `fwd` and seeded random cotangents: each output's rel L2
+    against the tolerance below, launches a call (4 a step)."""
     import torch
 
-    from your_voice_tts_torch.ops.taco2_train import (mma_fragments, taco2_train_bwd_cuda,
-                                                      taco2_train_bwd_plain,
-                                                      taco2_train_bwd_probe_cuda)
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_bwd_cuda, taco2_train_bwd_plain
 
-    w, x, fwd = state["w"], state["x"], state["fwd"]
-    steps, B, T = fwd["align"].shape
+    steps = fwd["align"].shape[0]
     args = train_bwd_args(w, x, fwd)
-    res, cot = args[1], args[2:5]
     before = taco2_train_bwd_cuda.launches
     got = taco2_train_bwd_cuda(*args)
     launches = taco2_train_bwd_cuda.launches - before
@@ -2929,9 +2968,24 @@ def phase_train_bwd(report, state):
         e = float((got[k].float() - ref[k].float()).abs().max())
         errs[k] = dict(rel_l2=rel, max_abs_err=e)
         ok = ok and rel <= 5e-2
-        print(f"[train-bwd] {k:8s} rel L2 {rel:.3e} (tol 5e-2)  max_abs_err {e:.3e}")
-    check(ok, "training backward kernel disagrees with plain")
-    check(launches == 4 * steps, f"train-bwd: {launches} launches a call, expected {4 * steps}")
+        print(f"[{tag}] {k:8s} rel L2 {rel:.3e} (tol 5e-2)  max_abs_err {e:.3e}")
+    check(ok, f"{tag}: training backward kernel disagrees with plain")
+    check(launches == 4 * steps, f"{tag}: {launches} launches a call, expected {4 * steps}")
+    return dict(got=got, errs=errs, launches=launches, args=args)
+
+
+def phase_train_bwd(report, state):
+    import torch
+
+    from your_voice_tts_torch.ops.taco2_train import (mma_fragments, taco2_train_bwd_cuda,
+                                                      taco2_train_bwd_plain,
+                                                      taco2_train_bwd_probe_cuda)
+
+    w, x, fwd = state["w"], state["x"], state["fwd"]
+    steps, B, T = fwd["align"].shape
+    held = hold_train_bwd("train-bwd", w, x, fwd)
+    got, errs, launches, args = held["got"], held["errs"], held["launches"], held["args"]
+    res, cot = args[1], args[2:5]
     # the same launches without programmatic dependence: the same bits (no
     # atomics), and each launch's device time on its own
     serial = lambda: taco2_train_bwd_probe_cuda(*args, probe="serial")  # noqa: E731
@@ -3188,6 +3242,377 @@ def phase_train_main(report, tmp: str):
     return trainer, launches
 
 
+# ----------------------------------------- training the "your voice" path
+
+SPK_DIM = 256          # the GE2E encoder's d-vector width (E = 512 + 256 = 768)
+N_SPK = 4
+
+
+def lstm_smem(dims: dict, B: int, plan: dict) -> int:
+    """The forward's LSTM launch's dynamic shared memory (bf16), as
+    csrc/taco2_train.cu `fwd_scan` sizes it from `lstm_mma_smem`: the larger
+    product's staged k-tiles of its batch rows, or its partial sums."""
+    ntl, cs = min(8, -(-B // 8)), plan["cluster"]
+    P, E, H1, H2 = (dims[k] for k in ("P", "E", "H1", "H2"))
+
+    def one(n):
+        per = -(-(-(-n // 16)) // cs)
+        return max(ntl * 8 * (per * 16 + 8) * 2, 128 * (ntl * 8 + 1) * 4)
+
+    return max(one(P + E + H1), one(H1 + E + H2))
+
+
+def hold_wide_train_kernels(report) -> tuple[dict, dict]:
+    """Kernels 5 and 6 at the conditioned memory widths, phases 5-6's inputs
+    otherwise: E = 768 (256-wide d-vectors) and E = 1,024 (the 512-wide
+    speaker table) at T_in = 128, where the forward's attention stages the
+    encoder's columns in shared memory, and the forward at E = 1,024 and
+    T_in = 320, past the staged limit (global memory). Each plan's clusters,
+    shared memory (the C layout function against `attn_fwd_smem` /
+    `attn_bwd_smem`) and staging route; kernel, plain and bound ms,
+    launches a call; the forward's launches' device times beside E = 512's.
+    Returns ({kernel name: largest max abs error}, the numbers)."""
+    import torch
+
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.ops.taco2_train import (SMEM_LIMIT, _lib, attn_bwd_smem,
+                                                      attn_fwd_smem, bwd_plan, fwd_plan,
+                                                      t_in_limits, taco2_train_bwd_cuda,
+                                                      taco2_train_bwd_plain,
+                                                      taco2_train_fwd_cuda,
+                                                      taco2_train_fwd_plain,
+                                                      taco2_train_fwd_probe_cuda)
+    from your_voice_tts_torch.text import symbols
+
+    steps, B = TRAIN_T_MEL // 2, TRAIN_B
+    lib = _lib()
+    errs = {"taco2_train_fwd_cuda": 0.0, "taco2_train_bwd_cuda": 0.0}
+    out: dict = {}
+    e512 = report["train_fwd"]["per_launch"]
+    for spk_kw, Ts in ((dict(speaker_embedding_dim=SPK_DIM), (128,)), ({}, (128, 320))):
+        model = setup_model(len(symbols), train_config(), device="cuda", seed=1,
+                            num_speakers=N_SPK, **spk_kw)
+        for T in Ts:
+            w, x = core_inputs(model, steps, B, T, seed=11)
+            d = w["dims"]
+            P, E, H1, H2, A, K = (d[k] for k in ("P", "E", "H1", "H2", "A", "K"))
+            tag = f"train-wide E={E} T_in={T}"
+            plan = fwd_plan(d, B, T)
+            acs = plan["attn"]["cluster"]
+            f_smem, staged = attn_fwd_smem(T, A, K, H1, E, acs, 2)
+            c_smem = lib.taco2_train_attn_fwd_smem(T, A, K, H1, E, acs, 1)
+            check(c_smem == f_smem, f"{tag}: attn_fwd_smem {f_smem} != the C layout's {c_smem}")
+            l_smem = lstm_smem(d, B, plan)
+            limits = t_in_limits(d, 2)
+            print(f"[{tag}] plan: LSTM cluster {plan['cluster']} (k-tiles a = "
+                  f"{plan['a']['k_tiles']}, d = {plan['d']['k_tiles']}; after the wait "
+                  f"{len(plan['a']['after_wait'][0])} / {len(plan['d']['after_wait'][0])} a "
+                  f"block), LSTM shared memory {l_smem} B; attention cluster {acs}, shared "
+                  f"memory {f_smem} B of {SMEM_LIMIT}, encoder columns "
+                  f"{'staged' if staged else 'from global memory'} (staged up to T_in "
+                  f"{limits['fwd_staged']}, runs up to {limits['fwd']})")
+            fwd = hold_train_fwd(tag, w, x)
+            args = fwd["args"]
+            errs["taco2_train_fwd_cuda"] = max(errs["taco2_train_fwd_cuda"], max(
+                v["max_abs_err"] for v in fwd["errs"].values()))
+            ms = cuda_ms(lambda: taco2_train_fwd_cuda(*args), 5)
+            plain_ms = cuda_ms(lambda: taco2_train_fwd_plain(*args), 2)
+            per_launch = fwd_launch_times(
+                lambda: taco2_train_fwd_probe_cuda(*args, probe="serial"))
+            io = nbytes(x["prenet_t"], x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"],
+                        *(w[k] for k in ("a_w", "a_b", "d_w", "d_b", "q_w", "u", "v_w",
+                                         "v_b")), *fwd["got"].values())
+            bound_ms, bound_by = core_bound(w, B, T, steps, io, backward=False)
+            weights_mb = nbytes(w["a_w"], w["d_w"]) / 1e6
+            print(f"[{tag}] forward kernel_ms {ms:.2f}  plain_ms {plain_ms:.2f}  bound_ms "
+                  f"{bound_ms:.3f} ({bound_by}; {io / 1e6:.0f} MB moved; LSTM weights "
+                  f"{weights_mb:.1f} MB a step)  launches a call {fwd['launches']}; serial "
+                  f"launches, us a launch (E = 512 at T_in 128 beside): " + ", ".join(
+                      f"{k} {v['us_a_launch']:.2f} ({e512[k]['us_a_launch']:.2f})"
+                      for k, v in per_launch.items() if k != "other"))
+            row = dict(E=E, T_in=T, fwd_ms=ms, fwd_plain_ms=plain_ms, fwd_bound_ms=bound_ms,
+                       fwd_bound_by=bound_by, fwd_launches=fwd["launches"],
+                       fwd_errs=fwd["errs"], per_launch=per_launch, lstm_cluster=plan["cluster"],
+                       lstm_smem=l_smem, attn_cluster=acs, attn_smem=f_smem, staged=staged,
+                       limits=limits, lstm_weights_mb=weights_mb)
+            if T == TRAIN_T_TEXT:
+                bplan = bwd_plan(d, B, T)
+                ldq = w["q_w"].shape[1]
+                b_smem = attn_bwd_smem(T, A, K, E, ldq, H1, bplan["attn"]["cluster"], 2)
+                check(b_smem == lib.taco2_train_attn_bwd_smem(T, A, K, E, ldq, H1,
+                                                              bplan["attn"]["cluster"], 1),
+                      f"{tag}: attn_bwd_smem differs from the C layout's")
+                bwd = hold_train_bwd(tag, w, x, fwd["got"])
+                bargs = bwd["args"]
+                errs["taco2_train_bwd_cuda"] = max(errs["taco2_train_bwd_cuda"], max(
+                    v["max_abs_err"] for v in bwd["errs"].values()))
+                bms = cuda_ms(lambda: taco2_train_bwd_cuda(*bargs), 5)
+                bplain_ms = cuda_ms(lambda: taco2_train_bwd_plain(*bargs), 2)
+                res, cot = bargs[1], bargs[2:5]
+                bio = nbytes(*cot, x["enc"], x["pinp"], x["maskf"], x["m_a"], x["m_d"],
+                             *res.values(), w["a_wT"], w["d_wT"], w["q_w"], w["u"], w["v_w"],
+                             *bwd["got"].values())
+                bbound, bbound_by = core_bound(w, B, T, steps, bio, backward=True)
+                print(f"[{tag}] backward plan: W^T clusters a {bplan['a']['cluster']} / d "
+                      f"{bplan['d']['cluster']} ({bplan['a']['k_tiles']} / "
+                      f"{bplan['d']['k_tiles']} k-tiles), attention cluster "
+                      f"{bplan['attn']['cluster']}, shared memory {b_smem} B of {SMEM_LIMIT} "
+                      f"(runs up to T_in {limits['bwd']}); kernel_ms {bms:.2f}  plain_ms "
+                      f"{bplain_ms:.2f}  bound_ms {bbound:.3f} ({bbound_by}; {bio / 1e6:.0f} MB "
+                      f"moved)  launches a call {bwd['launches']}")
+                row.update(bwd_ms=bms, bwd_plain_ms=bplain_ms, bwd_bound_ms=bbound,
+                           bwd_bound_by=bbound_by, bwd_launches=bwd["launches"],
+                           bwd_errs=bwd["errs"], bwd_attn_smem=b_smem)
+            out[f"E{E}_T{T}"] = row
+            del fwd, w, x
+        del model
+        torch.cuda.empty_cache()
+    check(any(not r["staged"] for r in out.values()) and any(r["staged"] for r in out.values()),
+          "train-wide: both staging routes of the forward's attention held")
+    return errs, out
+
+
+def conditioned_cfg(kind: str, corpus: str, cache: str):
+    """train_config() on the 4-speaker corpus, conditioned: "table" (the
+    512-wide speaker table, E = 1,024), "dvec" (256-wide d-vectors,
+    E = 768) or "dvec+gst" (those and GST, 256 / 4 heads / 10 tokens); mels
+    cached in `cache`."""
+    cfg = train_config()
+    ds = dataclasses.replace(cfg.data.datasets[0], name="synthetic", path=corpus)
+    sp = dict(use_speaker_embedding=True)
+    if kind != "table":
+        sp.update(use_external_speaker_embedding_file=True, speaker_embedding_dim=SPK_DIM)
+    if kind.endswith("gst"):
+        sp["use_gst"] = True
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, datasets=(ds,), phoneme_cache_path=cache),
+        speakers=dataclasses.replace(cfg.speakers, **sp))
+
+
+def hold_conditioned_step(tag: str, trainer, batch: dict) -> dict:
+    """One train step's loss and every gradient leaf on the kernels and on
+    the plain versions, dropout off, with phase 7(a)'s measure and
+    tolerances; the speaker and GST leaves printed apart."""
+    import torch
+
+    import your_voice_tts_torch.models.decoder_grad as dg
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_bwd_plain, taco2_train_fwd_plain
+
+    b = trainer._tensors(batch)
+    grads = {}
+    for route, fns in (("kernel", (dg.taco2_train_fwd, dg.taco2_train_bwd)),
+                       ("plain", (taco2_train_fwd_plain, taco2_train_bwd_plain))):
+        kept = dg.taco2_train_fwd, dg.taco2_train_bwd
+        dg.taco2_train_fwd, dg.taco2_train_bwd = fns
+        try:
+            total, _, _ = trainer._loss_fn(b, 2, None)
+            g = torch.autograd.grad(total, trainer.params)
+            grads[route] = (total.item(), [x.float() for x in g])
+        finally:
+            dg.taco2_train_fwd, dg.taco2_train_bwd = kept
+    (lk, gk), (lp, gp) = grads["kernel"], grads["plain"]
+    names = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+    gscale = max(float(c.abs().max()) for c in gp)
+    leaf = {n: float((a - c).abs().max()) / max(float(c.abs().max()), 1e-2 * gscale)
+            for n, a, c in zip(names, gk, gp)}
+    cat = lambda gs: torch.cat([x.flatten() for x in gs])  # noqa: E731
+    glob = float((cat(gk) - cat(gp)).norm() / cat(gp).norm())
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst = max(leaf, key=leaf.get)
+    cond = {n: e for n, e in leaf.items() if n.startswith(("speaker_embedding", "gst."))}
+    E = trainer.model.decoder.attention_rnn.weight_ih.shape[1] - trainer.cfg.model.prenet_dim
+    print(f"[{tag}] one step (E = {E}, B={TRAIN_B}, T_text={TRAIN_T_TEXT}, "
+          f"T_mel={TRAIN_T_MEL}, bf16 mixed precision, dropout off): loss kernel {lk:.6f} "
+          f"plain {lp:.6f} (rel {loss_rel:.2e}, tol 1e-3); all gradients rel L2 {glob:.3e} "
+          f"(tol 5e-2); {len(leaf)} leaves, largest leaf error {leaf[worst]:.3e} ({worst}; "
+          f"tol 0.08); conditioning leaves: " + (", ".join(
+              f"{n} {e:.2e}" for n, e in sorted(cond.items(), key=lambda kv: -kv[1])[:4])
+              + f" ({len(cond)} leaves, largest {max(cond.values()):.2e})" if cond else "none"))
+    check(loss_rel <= 1e-3 and glob <= 5e-2 and leaf[worst] <= 0.08,
+          f"{tag}: kernel and plain train steps disagree")
+    m = trainer.model
+    want = ({"speaker_embedding.weight"} if m.num_speakers and not
+            m.use_external_speaker_embedding else set()) | \
+        ({"gst.style.tokens", "gst.proj.weight"} if m.use_gst else set())
+    check(want <= set(cond), f"{tag}: conditioning leaves {sorted(want - set(cond))} not held")
+    return dict(E=E, loss_kernel=lk, loss_plain=lp, loss_rel=loss_rel, grad_rel_l2=glob,
+                worst_leaf=worst, worst_leaf_err=leaf[worst], conditioning_leaves=cond)
+
+
+def train_speaker_encoder_on_card(corpus: str, tmp: str) -> tuple[dict, dict]:
+    """SpeakerEncoderTrainer at full width (80 -> 3 x 768 / 256), N = 4,
+    M = 4, 160 frames, 20 steps at lr 1e-3; the GE2E loss of one fixed
+    held batch before and after; its checkpoint through load_encoder; each
+    speaker's d-vector as the normalized mean of its clips' embeddings."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.audio import AudioProcessor
+    from your_voice_tts_torch.data.formatters import synthetic
+    from your_voice_tts_torch.speaker_encoder.dataset import SpeakerEncoderDataset
+    from your_voice_tts_torch.speaker_encoder.model import SpeakerEncoder, load_encoder
+    from your_voice_tts_torch.speaker_encoder.train import SpeakerEncoderTrainer
+
+    ap = AudioProcessor(train_config().audio, "cuda")
+    t0 = time.perf_counter()
+    ds = SpeakerEncoderDataset(synthetic(corpus), ap, num_frames=160)
+    ds_s = time.perf_counter() - t0
+    enc = SpeakerEncoder(input_dim=80, device="cuda")
+    tr = SpeakerEncoderTrainer(enc, ds, lr=1e-3, num_speakers_per_batch=N_SPK,
+                               num_utters_per_speaker=4, verbose=False, device="cuda")
+    held = torch.as_tensor(ds.sample_batch(N_SPK, 4, np.random.default_rng(7)), device="cuda")
+    with torch.no_grad():
+        before = float(tr.loss(held))
+    rng, losses = np.random.default_rng(0), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        losses.append(tr.train_step(ds.sample_batch(N_SPK, 4, rng)))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    with torch.no_grad():
+        after = float(tr.loss(held))
+    path = tr.save(os.path.join(tmp, "speaker_encoder.npz"))
+    loaded = load_encoder(path, device="cuda")
+    same = all(torch.equal(a, b) for a, b in zip(enc.state_dict().values(),
+                                                  loaded.state_dict().values()))
+    dvecs = {}
+    for spk in ds.speakers:
+        embs = torch.stack([loaded.compute_embedding(m) for m in ds.by_speaker[spk]]).mean(0)
+        dvecs[spk] = (embs / embs.norm().clamp_min(1e-8)).cpu().numpy().astype(np.float32)
+    names = sorted(dvecs)
+    cos = np.array([[float(dvecs[a] @ dvecs[b]) for b in names] for a in names])
+    print(f"[train-cond] GE2E: {len(ds.speakers)} speakers, {sum(map(len, ds.by_speaker.values()))} "
+          f"clips (mels {ds_s:.2f} s); 20 steps at N=4 M=4, {step_ms:.1f} ms a step; loss by "
+          f"step {', '.join(f'{x:.3f}' for x in losses)}; held batch {before:.4f} -> {after:.4f}; "
+          f"checkpoint loads back {'equal' if same else 'DIFFERENT'}; d-vector cosines off "
+          f"the diagonal {np.round(cos[~np.eye(len(names), dtype=bool)], 3).tolist()}")
+    check(all(math.isfinite(x) for x in losses) and after < before,
+          "GE2E training: the held batch's loss did not fall")
+    check(same and tr.step == 20, "speaker encoder checkpoint")
+    return dvecs, dict(losses=losses, held_before=before, held_after=after, step_ms=step_ms,
+                       dvector_cos=cos.tolist())
+
+
+def phase_train_conditioned(report, tmp: str) -> tuple[dict, dict]:
+    """Phase 7b: (a) kernels 5 and 6 at E = 768 / 1,024; (c) the "your
+    voice" path on a synthetic 4-speaker corpus: the GE2E encoder, the
+    d-vectors, Trainer.fit(max_steps=5) for the d-vector, table and
+    d-vector + GST configs, a batch of 8 over the 4 speakers through
+    Synthesizer from the trained d-vector checkpoint; (b) after each fit,
+    one train step at the bench shape on the kernels and on the plain
+    versions. Each path's counters set to 0 just before it, read just
+    after. Returns ({kernel: largest max abs error}, launches)."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_bwd_cuda, taco2_train_fwd_cuda
+    from your_voice_tts_torch.train.trainer import Trainer
+    from your_voice_tts_torch.utils.speakers import save_speaker_mapping
+
+    errs, out = hold_wide_train_kernels(report)
+    result = {"kernels": out}
+    corpus = make_synthetic_corpus(os.path.join(tmp, "corpus4"), n_items=64, sr=22050,
+                                   n_speakers=N_SPK, max_words=15)
+    dvecs, result["ge2e"] = train_speaker_encoder_on_card(corpus, tmp)
+    batch = bench_batch()
+    batch["speaker_ids"] = np.arange(TRAIN_B, dtype=np.int32) % N_SPK
+    counters = (taco2_train_fwd_cuda, taco2_train_bwd_cuda)
+    launches = {c.__name__: 0 for c in counters}
+    ckpt = {}
+    for kind in ("dvec", "table", "dvec+gst"):
+        cfg = conditioned_cfg(kind, corpus, os.path.join(tmp, "mels"))
+        run = os.path.join(tmp, f"run-{kind}")
+        trainer = Trainer(cfg, output_path=run, device="cuda", verbose=False,
+                          speaker_embeddings=None if kind == "table" else dvecs)
+        before = [p.detach().clone() for p in trainer.params]
+        gst_bn = None
+        if trainer.model.use_gst:
+            gst_bn = trainer.model.gst.ref.convs[0].bn
+            check(float(gst_bn.running_mean.abs().max()) == 0.0, "GST running mean starts at 0")
+        seen: list = []
+        step = trainer.train_step
+        trainer.train_step = lambda b, r: seen.append(step(b, r)) or seen[-1]
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        trainer.fit(max_steps=5)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = {c.__name__: c.launches for c in counters}
+        trainer.train_step = step
+        moved = max(float((p.detach() - q).abs().max()) for p, q in zip(trainer.params, before))
+        cond_moved = {n: float((p.detach() - q).abs().max())
+                      for (n, p), q in zip(((n, p) for n, p in trainer.model.named_parameters()
+                                            if p.requires_grad), before)
+                      if n.startswith(("speaker_embedding", "gst."))}
+        ckpts = sorted(f for f in os.listdir(run) if f.endswith(".npz"))
+        gst_stat = None if gst_bn is None else float(gst_bn.running_mean.abs().max())
+        E = trainer.model.decoder.attention_rnn.weight_ih.shape[1] - cfg.model.prenet_dim
+        print(f"[train-cond] {kind} (E = {E}): fit(max_steps=5) {fit_s:.1f} s; loss "
+              f"{[round(m['loss'], 4) for m in seen]} grad_norm "
+              f"{[round(m['grad_norm'], 4) for m in seen]}; largest parameter move "
+              f"{moved:.3e}, of the conditioning leaves {max(cond_moved.values(), default=0):.3e}"
+              f"; checkpoints {ckpts}; GST running mean max {gst_stat}; launches {fit_launches}")
+        check(len(seen) == 5 and all(math.isfinite(m[k]) for m in seen
+                                     for k in ("loss", "grad_norm")),
+              f"{kind}: fit losses / gradient norms not finite")
+        check(moved > 0 and "checkpoint_5.npz" in ckpts, f"{kind}: fit moved or saved nothing")
+        check(kind != "table" or cond_moved.get("speaker_embedding.weight", 0) > 0,
+              "the speaker table did not move")
+        check(gst_bn is None or (gst_stat > 0 and cond_moved["gst.style.tokens"] > 0
+                                 and cond_moved["gst.proj.weight"] > 0),
+              f"{kind}: GST running statistics or parameters did not move")
+        check(all(n > 0 for n in fit_launches.values()), f"{kind}: no training kernel launched")
+        for k, n in fit_launches.items():
+            launches[k] += n
+        if kind != "table":
+            batch["speaker_embeddings"] = np.stack(
+                [dvecs[f"SYN{i % N_SPK:02d}"] for i in range(TRAIN_B)])
+        step_held = hold_conditioned_step(f"train-cond {kind}", trainer, batch)
+        batch.pop("speaker_embeddings", None)
+        result[kind] = dict(fit_s=fit_s, fit_steps=seen, fit_launches=fit_launches,
+                            moved=moved, conditioning_moved=cond_moved, gst_running_mean=gst_stat,
+                            step=step_held)
+        ckpt[kind] = os.path.join(run, "checkpoint_5.npz")
+        del trainer
+        torch.cuda.empty_cache()
+
+    # the clone: the trained d-vector checkpoint through Synthesizer
+    spk_json = os.path.join(tmp, "dvectors.json")
+    save_speaker_mapping(spk_json, {n: {"mean": v.tolist()} for n, v in dvecs.items()})
+    cfg = conditioned_cfg("dvec", corpus, os.path.join(tmp, "mels"))
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, max_decoder_steps=250))
+    synth = Synthesizer(cfg, tts_checkpoint=ckpt["dvec"], speakers_json=spk_json, device="cuda")
+    speakers = [f"SYN{i % N_SPK:02d}" for i in range(len(SENTENCES))]
+    synth.tts_many(SENTENCES[:1], speakers[:1])
+    torch.cuda.synchronize()
+    clone_counters = (tacotron2_decode_cuda,) + gl_counters()
+    for c in clone_counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    wavs = synth.tts_many(SENTENCES, speakers)
+    clone_ms = (time.perf_counter() - t0) * 1e3
+    clone_launches = {c.__name__: c.launches for c in clone_counters}
+    print(f"[train-cond] clone: the trained d-vector checkpoint, a batch of 8 over "
+          f"{N_SPK} speakers in {clone_ms:.1f} ms, {sum(len(w) for w in wavs)} samples; "
+          f"launches {clone_launches}")
+    check(len(wavs) == len(SENTENCES) and all(w.ndim == 1 and len(w) > 0
+                                               and bool(np.isfinite(w).all()) for w in wavs),
+          "the clone's waveforms")
+    check(clone_launches["tacotron2_decode_cuda"] > 0
+          and clone_launches["griffin_lim_wave_cuda"] > 0, "the clone's kernels")
+    for k, n in clone_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    result.update(clone_ms=clone_ms, clone_launches=clone_launches, launches=launches)
+    report["train_conditioned"] = result
+    return errs, launches
+
+
 def phase_train_profile(report, trainer, out_dir: str):
     """One train step at the bench shape under torch.profiler."""
     import torch
@@ -3275,6 +3700,14 @@ def main() -> int:
             timed("train-profile", phase_train_profile, report, trainer, args.out)
     del trainer
     launches.update(train_launches)
+    # phase 7b: kernels 5 and 6 at E = 768 / 1,024, the "your voice" path
+    with tempfile.TemporaryDirectory() as tmp:
+        wide_errs, voice_launches = timed("train-cond", phase_train_conditioned, report, tmp)
+    for kern in kernels:
+        if kern["name"] in wide_errs:
+            kern["max_abs_err"] = max(kern["max_abs_err"], wide_errs[kern["name"]])
+    for k in ("taco2_train_fwd_cuda", "taco2_train_bwd_cuda"):
+        launches[k] += voice_launches[k]
     kernels.append(timed("wavernn", phase_wavernn, report))
     voc_launches, synth = timed("vocoder", phase_vocoder_path, report)
     launches["wavernn_generate_cuda"] = voc_launches["wavernn_generate_cuda"]
@@ -3292,7 +3725,7 @@ def main() -> int:
     cond_launches, gst_err, taco1_err = timed("conditioned", phase_conditioned, report)
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], gst_err)
     kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"], taco1_err)
-    for seen in (melgan_launches, cloning_launches, cond_launches,
+    for seen in (melgan_launches, cloning_launches, cond_launches, voice_launches,
                  timed("server", phase_server, report)):
         for k in ("tacotron2_decode_cuda", "griffin_lim_wave_cuda", "tacotron1_decode_cuda",
                   "gl_iteration_cuda"):

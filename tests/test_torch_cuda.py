@@ -933,6 +933,129 @@ def test_train_bwd_refused_cluster_raises(cuda, monkeypatch, which):
     torch.cuda.synchronize()
 
 
+# --- the training scans at the speaker-conditioned widths -------------------
+
+@pytest.mark.parametrize("E,T", [(768, 128), (1024, 128), (1024, 320)])
+def test_train_kernels_at_conditioned_widths(cuda, E, T):
+    """Full width with the memory E = 512 + spk_dim wide (768: 256-wide
+    d-vectors; 1,024: the 512-wide speaker table): at T_in 128 the forward's
+    attention stages the encoder's columns, at E = 1,024 and T_in 320 (past
+    the staged limit of 297) it reads them from global memory. Both scans
+    hold their plain versions at test_train_fwd_kernel_matches_plain's and
+    test_train_bwd_kernel_matches_plain's bf16 tolerances."""
+    from your_voice_tts_torch.ops.taco2_train import (attn_fwd_smem, fwd_plan, t_in_limits,
+                                                      taco2_train_bwd_cuda,
+                                                      taco2_train_bwd_plain,
+                                                      taco2_train_fwd_cuda,
+                                                      taco2_train_fwd_plain)
+
+    widths = (256, E, 1024, 1024, 128)
+    w, x, (m_a, m_d) = train_case(torch.bfloat16, "sigmoid", True, True, cuda, widths, B=8,
+                                  T=T, steps=6, K=31, scale=0.03)
+    staged = attn_fwd_smem(T, 128, 31, 1024, E, fwd_plan(w["dims"], 8, T)["attn"]["cluster"],
+                           2)[1]
+    assert staged == (T <= t_in_limits(w["dims"], 2)["fwd_staged"]) == (T == 128)
+    args = (w, x["prenet_t"], x["enc"], x["pinp"], x["maskf"], m_a, m_d)
+    got = taco2_train_fwd_cuda(*args)
+    ref = taco2_train_fwd_plain(*args)
+    torch.cuda.synchronize()
+    for k in ref:
+        assert rel_l2(got[k], ref[k]) <= 1e-2, (k, rel_l2(got[k], ref[k]))
+    bargs = train_bwd_args(w, x, m_a, m_d, "sigmoid", cuda)
+    got = taco2_train_bwd_cuda(*bargs)
+    ref = taco2_train_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    for k in ref:
+        assert rel_l2(got[k], ref[k]) <= 2e-2, (k, rel_l2(got[k], ref[k]))
+
+
+def test_attention_shared_memory_mirrors_the_c_layout(cuda):
+    """`attn_fwd_smem` and `attn_bwd_smem`, which `t_in_limits` and the
+    wrapper's docstring read, give the C layout functions' bytes at every
+    memory width, T_in around each limit, both element sizes and every
+    cluster size."""
+    from your_voice_tts_torch.ops.taco2_train import (_lib, attn_bwd_smem, attn_fwd_smem,
+                                                      t_in_limits)
+
+    lib = _lib()
+    for E in (512, 768, 1024):
+        for esize in (2, 4):
+            lim = t_in_limits({"A": 128, "K": 31, "H1": 1024, "E": E}, esize)
+            for T in (3, 37, 128, *(v + d for v in lim.values() for d in (0, 1))):
+                for cs in (1, 2, 4):
+                    assert attn_fwd_smem(T, 128, 31, 1024, E, cs, esize)[0] == \
+                        lib.taco2_train_attn_fwd_smem(T, 128, 31, 1024, E, cs, esize == 2)
+                    assert attn_bwd_smem(T, 128, 31, E, 1024, 1024, cs, esize) == \
+                        lib.taco2_train_attn_bwd_smem(T, 128, 31, E, 1024, 1024, cs,
+                                                      esize == 2)
+
+
+@pytest.mark.parametrize("kind", ["table", "dvec+gst"])
+def test_conditioned_train_step_on_the_card(cuda, kind):
+    """A speaker-conditioned Tacotron2 at smoke widths (the 512-wide table,
+    E = 544; or 24-wide d-vectors with GST, E = 56) in float32, dropout off:
+    the loss and every gradient leaf, the table's and the GST's included,
+    on the kernels against the plain versions on the card, within 1e-4 of
+    each leaf's largest magnitude (float32 sums in another order), and the
+    GST's running statistics moved the same."""
+    import dataclasses
+
+    import your_voice_tts_torch.models.decoder_grad as dg
+    from your_voice_tts_torch.config import GSTConfig, load_config
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.models.losses import TacotronLoss
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_bwd_plain, taco2_train_fwd_plain
+
+    cfg = load_config("configs/smoke_synthetic.json")
+    sp = dict(use_speaker_embedding=True)
+    if kind != "table":
+        sp.update(use_external_speaker_embedding_file=True, speaker_embedding_dim=24,
+                  use_gst=True, gst=GSTConfig(gst_embedding_dim=32, gst_num_heads=4,
+                                              gst_style_tokens=6))
+    cfg = dataclasses.replace(cfg, speakers=dataclasses.replace(cfg.speakers, **sp))
+    model = setup_model(60, cfg, device=cuda, num_speakers=4,
+                        speaker_embedding_dim=sp.get("speaker_embedding_dim", 0))
+    model.train()
+    g = torch.Generator().manual_seed(0)
+    B, T, Tm = 5, 17, 40
+    tl = torch.tensor([17, 15, 12, 9, 6])
+    ml = torch.tensor([40, 33, 28, 21, 14])
+    text = torch.randint(1, 60, (B, T), generator=g) * (torch.arange(T) < tl[:, None])
+    mel = torch.randn(B, Tm, 20, generator=g) * (torch.arange(Tm) < ml[:, None])[..., None]
+    stop = (torch.arange(Tm // 2) >= ((ml + 1) // 2 - 1)[:, None]).float()
+    kw = dict(speaker_ids=torch.tensor([0, 3, 1, 2, 1], device=cuda),
+              speaker_embeddings=torch.randn(B, 24, generator=g).to(cuda))
+    crit = TacotronLoss("Tacotron2", stopnet_pos_weight=10.0, ga_alpha=5.0)
+    bufs0 = {k: v.clone() for k, v in model.named_buffers()}
+    out = {}
+    for route, fns in (("kernel", (dg.taco2_train_fwd, dg.taco2_train_bwd)),
+                       ("plain", (taco2_train_fwd_plain, taco2_train_bwd_plain))):
+        kept = dg.taco2_train_fwd, dg.taco2_train_bwd
+        dg.taco2_train_fwd, dg.taco2_train_bwd = fns
+        try:
+            with torch.no_grad():
+                for k, v in model.named_buffers():
+                    v.copy_(bufs0[k])
+            o = model(text.to(cuda), tl.to(cuda), mel.to(cuda), mel_lengths=ml.to(cuda), r=2,
+                      **kw)
+            loss, _ = crit(o, mel.to(cuda), ml.to(cuda), stop.to(cuda), tl.to(cuda), step=0,
+                           r=2)
+            params = [p for p in model.parameters() if p.requires_grad]
+            out[route] = (loss.item(), torch.autograd.grad(loss, params), o["state"])
+        finally:
+            dg.taco2_train_fwd, dg.taco2_train_bwd = kept
+    (lk, gk, sk), (lp, gp, stp) = out["kernel"], out["plain"]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    assert any(n.startswith("speaker_embedding" if kind == "table" else "gst.") for n in names)
+    gscale = max(float(c.abs().max()) for c in gp)
+    for n, a, c in zip(names, gk, gp):
+        err = float((a - c).abs().max()) / max(float(c.abs().max()), 1e-2 * gscale)
+        assert err <= 1e-4, (n, err)
+    for k in stp:
+        torch.testing.assert_close(sk[k], stp[k], rtol=1e-5, atol=1e-6)
+
+
 def wavernn_case(mode, bits, cuda, n_mels=20, B=3, L=96, width=32, model_out=None):
     """A small WaveRNN (R = F = width, aux 4) with seeded random weights and
     inputs on the card."""

@@ -5,7 +5,8 @@ layer, the whole GST, a GST Tacotron2 with and without a speaker table
 through `inference` against the JAX kernel route (the Pallas decode in
 interpret mode), the strict load of a JAX-saved GST checkpoint and its way
 back, the warning of a GST model used without a style reference, bf16
-serving, and the refusals to train GST.
+serving, and GST training in the teacher-forced pass (Tacotron(1)'s is
+refused).
 
 Weights come from the JAX `init` through the checkpoint bridge; inputs are
 made with numpy from a seed and handed to both sides. Tolerances: the GST
@@ -382,23 +383,39 @@ def test_gst_bf16_inference_matches_jax(monkeypatch):
 
 
 def test_gst_training_is_refused(tmp_path):
+    """GST training is Tacotron2's now (tests/test_torch_train_speakers.py
+    holds it against the JAX package), not yet Tacotron(1)'s: a GST
+    Tacotron2's teacher-forced pass in training mode reads the style of the
+    teacher mels and moves the reference encoder's running statistics; a
+    GST Tacotron(1) config is refused before its data is read."""
     from your_voice_tts_torch.config import load_config
     from your_voice_tts_torch.train.trainer import Trainer
 
     _, _, pm = gst_models()
     text, lengths, _ = inputs()
-    mels = torch.zeros(B, 8, N_MELS)
+    mels = torch.from_numpy(np.random.default_rng(2).standard_normal((B, 16, N_MELS))
+                            .astype(np.float32))
+    kept = {k: v.clone() for k, v in pm.named_buffers()}
     pm.train()
     try:
-        with pytest.raises(NotImplementedError, match="training a GST model"):
-            pm(torch.from_numpy(text), torch.from_numpy(lengths), mels)
+        out = pm(torch.from_numpy(text), torch.from_numpy(lengths), mels,
+                 mel_lengths=torch.tensor([16, 12, 7]))
+        grads = torch.autograd.grad(out["postnet_outputs"].square().mean(), pm.gst.style.tokens)
     finally:
         pm.eval()
+        with torch.no_grad():
+            for k, v in pm.named_buffers():
+                v.copy_(kept[k])
+    assert bool(torch.isfinite(out["postnet_outputs"]).all())
+    assert float(grads[0].abs().max()) > 0
+    assert not torch.equal(out["state"]["gst.ref.convs.0.bn.running_mean"],
+                           kept["gst.ref.convs.0.bn.running_mean"])
     cfg = load_config("configs/smoke_synthetic.json")
     ds = dataclasses.replace(cfg.data.datasets[0], path=str(tmp_path / "missing"))
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)),
-                              speakers=dataclasses.replace(cfg.speakers, use_gst=True))
-    with pytest.raises(NotImplementedError, match="GST training arrives"):
+                              speakers=dataclasses.replace(cfg.speakers, use_gst=True),
+                              model=dataclasses.replace(cfg.model, model="Tacotron"))
+    with pytest.raises(NotImplementedError, match="Tacotron\\(1\\) training arrives"):
         Trainer(cfg, verbose=False, device="cpu")
 
 

@@ -277,3 +277,39 @@ def test_phoneme_gst_and_taco1_speaker_entry_points_refuse_to_fall_back_to_cpu(
         Synthesizer(cfg, speakers_json=spk)
     synth = Synthesizer(cfg, speakers_json=spk, device="cpu")
     assert synth.model.device.type == "cpu"
+
+
+def test_training_slice_modules_import_with_jax_blocked():
+    """The speaker-encoder training modules and utils/io, in one process
+    (one `import a, b, ...`): each interpreter costs ~4 s of torch import."""
+    test_tacotron_slice_modules_import_with_jax_blocked(", ".join(
+        f"your_voice_tts_torch.{m}" for m in ("speaker_encoder.losses", "speaker_encoder.dataset",
+                                              "speaker_encoder.train",
+                                              "bin.train_speaker_encoder", "utils.io")))
+
+
+def test_speaker_encoder_training_refuses_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    """SpeakerEncoderTrainer and bin/train_speaker_encoder raise without
+    CUDA and a device (the CLI before it makes its run folder), and train
+    on the CPU when asked; a conditioned Trainer raises likewise."""
+    from your_voice_tts_torch.bin import train_speaker_encoder
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.speaker_encoder.model import SpeakerEncoder
+    from your_voice_tts_torch.speaker_encoder.train import SpeakerEncoderTrainer
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = SpeakerEncoder(20, 16, 32, 1, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SpeakerEncoderTrainer(model, None)
+    assert SpeakerEncoderTrainer(model, None, device="cpu").params[0].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_speaker_encoder.main(["--config", os.path.join(ROOT, "configs/smoke_synthetic.json"),
+                                    "--data_path", str(tmp_path), "--output_path",
+                                    str(tmp_path / "runs")])
+    assert not (tmp_path / "runs").exists()
+    cfg = load_config(os.path.join(ROOT, "configs/smoke_synthetic.json"))
+    cfg = dataclasses.replace(cfg, speakers=dataclasses.replace(
+        cfg.speakers, use_speaker_embedding=True, use_gst=True))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg)

@@ -42,8 +42,15 @@ def _bucket(n: int, q: int) -> int:
 class TTSDataset:
     _B_QUANTUM = 8  # batch-dim quantum of token batching
 
-    def __init__(self, items: list[list[str]], cfg, ap, cache_dir: str | None = None):
+    def __init__(self, items: list[list[str]], cfg, ap, speakers: dict[str, int] | None = None,
+                 speaker_embeddings: dict | None = None, cache_dir: str | None = None):
+        """speakers: the speaker name -> id map (the trainer's, built over
+        its train and eval items together), or None to number this
+        dataset's own speakers in sorted order. speaker_embeddings: speaker
+        name -> d-vector; with it every batch carries speaker_embeddings
+        [B, D] float32."""
         self.cfg, self.ap, self.cache_dir = cfg, ap, cache_dir
+        self.speaker_embeddings = speaker_embeddings
         if cache_dir:
             os.makedirs(cache_dir, exist_ok=True)
         d = cfg.data
@@ -68,7 +75,9 @@ class TTSDataset:
                 f" > G2P ({self.g2p_backend_name}): {self.g2p.word_count} words, "
                 f"{getattr(self.g2p, 'derived_count', 0)} derived, "
                 f"OOV rate {self.g2p_oov_rate:.1%}")
-        self.speakers = {n: i for i, n in enumerate(sorted({e["speaker"] for e in self.entries}))}
+        if speakers is None:
+            speakers = {n: i for i, n in enumerate(sorted({e["speaker"] for e in self.entries}))}
+        self.speakers = speakers
         self._compute_mels()
         self.entries.sort(key=lambda e: e["mel_len"])
 
@@ -126,7 +135,8 @@ class TTSDataset:
                 drop_last: bool = False):
         """Yield numpy batches: text [B, T_text], text_lengths, mel
         [B, T_mel, n_mels], mel_lengths, stop_targets [B, T_mel / r],
-        speaker_ids, n_real (rows before padding)."""
+        speaker_ids, n_real (rows before padding), and with d-vectors
+        speaker_embeddings [B, D] (zero on phantom rows)."""
         idxs = list(range(len(self.entries)))
         rng = np.random.default_rng(seed)
         bgs = self.cfg.data.batch_group_size * batch_size
@@ -183,10 +193,21 @@ class TTSDataset:
             L, M = len(e["seq"]), e["mel_len"]
             text[i, :L], text_len[i] = e["seq"], L
             mel[i, :M], mel_len[i] = e["mel"], M
+            if e["speaker"] not in self.speakers:
+                raise KeyError(f"speaker {e['speaker']!r} missing from the speaker mapping: "
+                               "refusing to alias it onto id 0 (rebuild the mapping to "
+                               "include every corpus speaker)")
             spk[i] = self.speakers[e["speaker"]]
         dec_steps = (mel_len + r - 1) // r
         stop_targets = (np.arange(t_mel // r)[None, :] >= (dec_steps - 1)[:, None]
                         ).astype(np.float32)
-        return {"text": text, "text_lengths": text_len, "mel": mel, "mel_lengths": mel_len,
-                "stop_targets": stop_targets, "speaker_ids": spk,
-                "n_real": np.int32(len(entries))}
+        batch = {"text": text, "text_lengths": text_len, "mel": mel, "mel_lengths": mel_len,
+                 "stop_targets": stop_targets, "speaker_ids": spk,
+                 "n_real": np.int32(len(entries))}
+        if self.speaker_embeddings is not None:
+            dim = len(next(iter(self.speaker_embeddings.values())))
+            emb = np.zeros((B, dim), np.float32)
+            for i, e in enumerate(entries):
+                emb[i] = self.speaker_embeddings[e["speaker"]]
+            batch["speaker_embeddings"] = emb
+        return batch

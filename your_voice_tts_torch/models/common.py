@@ -123,12 +123,14 @@ class ConvBNBlock(nn.Module):
         return dropout(x, 0.5, generator) if self.training else x
 
 
-def add_style(model, enc_out, style_mel, cast=None):
+def add_style(model, enc_out, style_mel, cast=None, style_len=None):
     """A GST model's style of style_mel [B, T_style, n_mels], or [1, ...]
     for one style of every row (float32, cast to the memory's dtype as the
     reference casts it) through `cast("gst")`, added to every position of
-    enc_out [B, T, C]; with no style_mel the reference's warning, and
-    enc_out as it is. enc_out itself for a model without GST."""
+    enc_out [B, T, C]; with style_len [B] the reference encoder reads each
+    row's last real step (training passes the teacher mels and their
+    lengths). With no style_mel the reference's warning, and enc_out as it
+    is. enc_out itself for a model without GST."""
     if not model.use_gst:
         return enc_out
     if style_mel is None:
@@ -137,7 +139,7 @@ def add_style(model, enc_out, style_mel, cast=None):
                      "in training — pass style_wav/style_mel")
         return enc_out
     mel = torch.as_tensor(style_mel, dtype=torch.float32, device=enc_out.device)
-    style = (cast("gst") if cast else model.gst)(mel.to(enc_out.dtype))
+    style = (cast("gst") if cast else model.gst)(mel.to(enc_out.dtype), style_len)
     return enc_out + style[:, None, :]
 
 

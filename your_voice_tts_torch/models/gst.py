@@ -6,6 +6,12 @@ style up. StyleTokenLayer: multi-head attention of that summary over a bank
 of learned tokens. GST projects the result to the encoder width; the model
 adds it to every position of the encoder outputs.
 
+In training mode the reference encoder's BatchNorms normalize with the
+batch statistics over (B, T, F) and move their running statistics towards
+them (the JAX package's `train=True`), which the model's "state" then
+carries beside the encoder's and the postnet's; in eval mode the running
+statistics normalize.
+
 The reference runs its convolutions channel-last (NHWC, H = time, W = mel
 bins) and flattens [B, T, F, C] to [B, T, F * C] with C minor. Here they are
 torch's Conv2d in NCHW, so the activations go to [B, T, F, C] (a permute)
@@ -25,6 +31,20 @@ from ..nn.core import BatchNorm1d, Dense
 from ..nn.rnn import GRU
 
 
+class Conv2d(nn.Conv2d):
+    """torch's Conv2d, but a bf16 convolution of CPU tensors sums in
+    float32 and rounds once, as cuDNN's bf16 convolution accumulates:
+    oneDNN's bf16 Conv2d on the CPU returns wrong sums (or NaN) where the
+    mel axis is 1 or 2 wide and 64 channels or more come in, which a
+    20-mel config reaches in its last two convolutions."""
+
+    def forward(self, x):
+        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+            return self._conv_forward(x.float(), self.weight.float(),
+                                      self.bias.float()).to(x.dtype)
+        return super().forward(x)
+
+
 class Conv2dBN(nn.Module):
     """A 3x3 stride-2 convolution (explicit (1, 1) padding: each side of
     length L becomes (L + 1) // 2) + BatchNorm over (B, T, F) per channel +
@@ -36,7 +56,7 @@ class Conv2dBN(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, 3, stride=2, padding=1)
+        self.conv = Conv2d(in_ch, out_ch, 3, stride=2, padding=1)
         self.bn = BatchNorm1d(out_ch)
 
     def forward(self, x):

@@ -23,9 +23,10 @@ Conditioning (the reference's `_condition`): a GST model adds the style
 of a reference mel (models/gst.py) to every position of the encoder
 outputs, keeping their width; then a speaker vector, a row of the model's
 own table or an external d-vector, is concatenated onto every position,
-so the decoder (and its decode kernel) sees E = encoder_dim + spk_dim.
-Inference only: training a conditioned or GST model and the bidirectional
-decoder come with later slices of the port.
+so the decoder (and its decode kernel, or the training kernels) sees
+E = encoder_dim + spk_dim. Training conditions the same way, with the
+teacher mels as the style. The bidirectional decoder comes with a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -302,22 +303,26 @@ class Tacotron2(nn.Module):
             self.gst.init_random_(generator)
 
     def forward(self, text, text_lengths, mels, mel_lengths=None, r: int | None = None,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None, speaker_ids=None,
+                speaker_embeddings=None) -> dict:
         """Teacher-forced pass (the JAX package's `Tacotron2.forward`): text
         [B, T] ids, text_lengths [B], mels [B, T_mel, n_mels] in the working
         dtype, mel_lengths [B] (masks the postnet's BatchNorm statistics).
         In training mode BatchNorm takes batch statistics and updates its
-        running ones; dropout is drawn from `generator` (none without one).
-        Returns decoder_outputs / postnet_outputs [B, T_mel, n_mels],
-        alignments [B, T_r, T_in] float32, stop_logits [B, T_r], and "state":
-        the BatchNorm running statistics after the pass."""
-        if self.num_speakers:
-            raise NotImplementedError(
-                "training a speaker-conditioned model arrives with a later slice of the port")
-        if self.use_gst:
-            raise NotImplementedError("training a GST model arrives with a later slice of the port")
+        running ones (the GST reference encoder's too); dropout is drawn
+        from `generator` (none without one). The memory is conditioned as
+        at inference (`_condition`): a GST model takes the teacher mels as
+        its style, each row's read at its last real frame of mel_lengths;
+        a speaker-conditioned model takes speaker_ids [B] (table) or
+        speaker_embeddings [B, spk_dim] (d-vectors), so the decoder's
+        memory is E = encoder_dim + spk_dim wide. Returns decoder_outputs /
+        postnet_outputs [B, T_mel, n_mels], alignments [B, T_r, T_in]
+        float32, stop_logits [B, T_r], and "state": the BatchNorm running
+        statistics after the pass."""
         r = r or self.r
         enc_out = self.encoder(self.embedding(text), text_lengths, generator)
+        enc_out = self._condition(enc_out, speaker_ids, speaker_embeddings, style_mel=mels,
+                                  style_len=mel_lengths)
         dec_out, aligns, stops = self.decoder(enc_out, text_lengths, mels, r, generator)
         mel_mask = None if mel_lengths is None else sequence_mask(mel_lengths, dec_out.shape[1])
         return {
@@ -329,17 +334,18 @@ class Tacotron2(nn.Module):
         }
 
     def _condition(self, enc_out, speaker_ids=None, speaker_embeddings=None, cast=None,
-                   style_mel=None):
+                   style_mel=None, style_len=None):
         """enc_out [B, T, C] -> [B, T, C + spk_dim]: for a GST model the
-        style of style_mel [B or 1, T_style, n_mels] (through `cast("gst")`)
-        added to every position first; then the speaker vector of each row
+        style of style_mel [B or 1, T_style, n_mels] (through `cast("gst")`;
+        with style_len [B], each row's read at its last real frame) added to
+        every position first; then the speaker vector of each row
         (its row of the table, `cast("speaker_embedding")` where a
         compute-dtype copy is wanted, or its d-vector from
         speaker_embeddings [B, spk_dim], float32) cast to the memory's dtype
         and concatenated onto every position; enc_out itself for an
         unconditioned model."""
-        return concat_speaker(self, add_style(self, enc_out, style_mel, cast), speaker_ids,
-                              speaker_embeddings, cast)
+        return concat_speaker(self, add_style(self, enc_out, style_mel, cast, style_len),
+                              speaker_ids, speaker_embeddings, cast)
 
     @torch.no_grad()
     def inference(self, text, text_lengths, max_decoder_steps: int | None = None,

@@ -193,6 +193,65 @@ def fwd_plan(dims: dict, B: int, T: int) -> dict:
             "attn": {"cluster": acs, "t": _even(T, acs), "h1": chunks(H1), "e": chunks(E)}}
 
 
+SMEM_LIMIT = 232448          # dynamic shared memory a block may use on the H100
+Q2_PARTS = 4                 # csrc/taco2_train.cu kQ2Parts
+
+
+def attn_fwd_smem(T: int, A: int, K: int, H1: int, E: int, cs: int, esize: int):
+    """(bytes, staged): a block's dynamic shared memory in the forward's
+    attention cluster and whether the encoder's columns are staged in it,
+    as csrc/taco2_train.cu `attn_fwd_layout` computes them (the card holds
+    this copy against the C function). The rest (the filter, W_k m of the
+    block's positions, the alignments of its row, ...) takes about
+    4 (8.6k + 1.03 T) bytes at full width; the staged columns take T rows
+    of ELD elements, ELD = E / cs rounded to an odd multiple of 16 bytes,
+    so the T up to which they fit falls as E grows."""
+    Tq = -(-T // cs)
+    Jq = -(-(-(-H1 // 8)) // cs) * 8
+    Ec = -(-(-(-E // 8)) // cs) * 8
+    eld = (Ec * esize // 16 | 1) * 16 // esize
+    o = (2 * K + 1) * A + 3 * A + 2 * (Tq + K - 1) + Tq * A + Tq + T + 32 + 4 + 8
+    hq = (o + 3) & ~3
+    rest = 4 * (hq + (Jq * esize + 15) // 16 * 4)
+    enc = T * eld * esize
+    staged = rest + enc <= SMEM_LIMIT
+    return rest + (enc if staged else 0), staged
+
+
+def attn_bwd_smem(T: int, A: int, K: int, E: int, ldq: int, H1: int, cs: int, esize: int):
+    """A block's dynamic shared memory in the backward's attention cluster,
+    as csrc/taco2_train.cu `attn_layout` computes it: the tanh stack
+    [A][T / cs] and the location correlation rows dominate, d_ctx keeps E
+    floats."""
+    Tq = -(-T // cs)
+    tld, K2 = Tq | 1, 2 * K
+    Jq = -(-H1 // cs)
+    o = ((2 * K + 1) * A + 4 * A + 2 * (Tq + K2) + 2 * Tq + 32 + 4 + 4 + A * tld + Tq * K2
+         + (Tq + K - 1) * K2 + E + Q2_PARTS * Jq)
+    return 4 * ((o + 3) & ~3) + ldq * esize
+
+
+def t_in_limits(dims: dict, esize: int) -> dict:
+    """The text lengths the scans take at these widths and element size
+    (2 bf16, 4 float32): "fwd_staged", the longest T_in whose encoder
+    columns the forward's attention stages in shared memory; "fwd", the
+    longest it runs at all (past the staged limit it reads them from
+    global memory); "bwd", the longest the backward's attention runs. Each
+    with the attention cluster of 4 blocks that T_in >= 4 gets."""
+    A, K, H1, E = (dims[k] for k in ("A", "K", "H1", "E"))
+    ldq = -(-H1 // 8) * 8
+
+    def last(ok) -> int:
+        T = 4
+        while ok(T + 1):
+            T += 1
+        return T
+
+    return {"fwd_staged": last(lambda T: attn_fwd_smem(T, A, K, H1, E, 4, esize)[1]),
+            "fwd": last(lambda T: attn_fwd_smem(T, A, K, H1, E, 4, esize)[0] <= SMEM_LIMIT),
+            "bwd": last(lambda T: attn_bwd_smem(T, A, K, E, ldq, H1, 4, esize) <= SMEM_LIMIT)}
+
+
 def _dims(w):
     d = w["dims"]
     return tuple(d[k] for k in ("P", "E", "H1", "H2", "A", "K"))
@@ -368,7 +427,6 @@ def taco2_train_bwd_plain(w: dict, res: dict, d_dech, d_ctx_out, d_align_out, en
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-SMEM_LIMIT = 232448          # dynamic shared memory a block may use on the H100
 
 
 class _FwdScan(ctypes.Structure):
@@ -435,10 +493,18 @@ def taco2_train_fwd_cuda(w: dict, prenet_t, enc, pinp, maskf, m_a=None, m_d=None
     (2 T_r + 1 launches), all issued on the current stream by one C call as
     programmatic dependent launches, no host synchronization. A launch the
     card refuses (a cluster it cannot place) raises, and so does a text
-    longer than the attention's shared memory holds: at full width (A 128,
-    K 31) past T_in 1,460 (the backward's own limit is ~700). Up to T_in
-    484 in bf16 and 296 in float32 the attention keeps the encoder's
-    columns in shared memory, past that it reads them from global memory."""
+    longer than the attention's shared memory holds. Up to a T_in that
+    falls as the memory width E grows, the attention keeps the encoder's
+    columns in shared memory; past it, it reads them from global memory.
+    At full width (A 128, K 31, H1 1,024), as `t_in_limits` computes them:
+
+        E       staged up to (bf16 / f32)   runs up to   backward up to
+        512     484 / 296                   1,464 / 1,460   708 / 700
+        768     368 / 214                   1,464 / 1,460   704 / 696
+        1,024   297 / 167                   1,464 / 1,460   700 / 692
+
+    (E = 512 + spk_dim: 768 with 256-wide d-vectors, 1,024 with the
+    512-wide speaker table.)"""
     out = _fwd_scan(w, prenet_t, enc, pinp, maskf, m_a, m_d, norm, (0, 0, 0))
     taco2_train_fwd_cuda.launches += 2 * prenet_t.shape[0] + 1
     return out

@@ -3,7 +3,10 @@ stack of LSTM-with-projection layers over mel frames; the embedding is the
 L2-normalized projection output at the last frame.
 
 The JAX package has no Pallas kernel here, so the layers are torch's
-nn.LSTM (cuDNN on the card). Runs on CUDA unless given another device.
+nn.LSTM (cuDNN on the card), differentiable for training
+(speaker_encoder/train.py; cuDNN's LSTM backward wants training mode). The
+JAX layout keeps one bias a layer: the LSTM's second bias stays zero and
+out of training. Runs on CUDA unless given another device.
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ class SpeakerEncoder(nn.Module):
             for name, p in self.named_parameters():
                 if "bias_hh" in name:
                     p.zero_()
+                    p.requires_grad_(False)
                 else:
                     p.uniform_(-s, s, generator=g)
         self.to(resolve_device(device))
@@ -101,6 +105,34 @@ class SpeakerEncoder(nn.Module):
         starts = list(range(0, T - num_frames + 1, hop)) or [0]
         mean = self(torch.stack([mel[s: s + num_frames] for s in starts])).mean(0)
         return mean / mean.norm().clamp_min(1e-8)
+
+
+def params_to_jax(tensors: dict) -> dict:
+    """A SpeakerEncoder's parameters, or anything laid out like them (its
+    gradients, Adam's moments), as {name: tensor} -> {keystr: numpy
+    float32} in the JAX package's layout: each layer's wx [in, 4H], wh
+    [rec, 4H], b [4H] (the LSTM's two biases summed) and proj [H, P]. The
+    inverse of `train.checkpoint.params_from_jax` with `jax_layouts`."""
+    out: dict[str, np.ndarray] = {}
+    npy = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+    for name, t in tensors.items():
+        m = re.fullmatch(r"layers\.(\d+)\.(lstm\.\w+|proj\.weight)", name)
+        if m is None:
+            raise KeyError(f"not a speaker-encoder parameter: {name}")
+        key = f"['layers'][{m.group(1)}]"
+        leaf = {"lstm.weight_ih_l0": "wx", "lstm.weight_hh_l0": "wh", "lstm.bias_ih_l0": "b",
+                "lstm.weight_hr_l0": "proj", "proj.weight": "proj"}.get(m.group(2))
+        if leaf is None:
+            if m.group(2) != "lstm.bias_hh_l0":
+                raise KeyError(f"not a speaker-encoder parameter: {name}")
+            continue
+        arr = npy(t)
+        if leaf == "b":
+            hh = tensors.get(name.replace("bias_ih", "bias_hh"))
+            out[f"{key}['b']"] = arr + (0 if hh is None else npy(hh))
+        else:
+            out[f"{key}['{leaf}']"] = np.ascontiguousarray(arr.T)
+    return out
 
 
 def arch_from_checkpoint(path: str) -> dict:

@@ -14,11 +14,21 @@ so gradients come back float32), BatchNorm statistics and running stats
 stay float32, and the losses are float32. Every parameter is cast, the
 encoder's BiLSTM's too (cuDNN's LSTM runs in bf16).
 
-Later slices bring Tacotron(1) training, data parallelism, gradient
-accumulation, the bidirectional decoder, GST and speaker conditioning,
-forward attention (with its transition agent) and Graves attention,
-TensorBoard logging, test-sentence synthesis and the profiler server; they
-raise NotImplementedError here.
+Conditioning follows the JAX package's `Trainer`: with
+cfg.speakers.use_speaker_embedding one sorted speaker map over the train
+and eval items goes to both datasets, and the model conditions on its own
+table (spk_dim 0 -> 512-wide rows, E = encoder_dim + 512) or, with
+use_external_speaker_embedding_file, on the d-vectors handed to the
+constructor (`speaker_embeddings`, name -> vector of
+speaker_embedding_dim); a GST model (cfg.speakers.use_gst) takes the
+teacher mels as its style. Under mixed precision the d-vectors are cast to
+bf16 with the parameters, as the reference casts them.
+
+Later slices bring Tacotron(1) training (with its conditioning), data
+parallelism, gradient accumulation, the bidirectional decoder, forward
+attention (with its transition agent) and Graves attention, TensorBoard
+logging, test-sentence synthesis and the profiler server; they raise
+NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -58,15 +68,16 @@ class Trainer:
     """End-to-end training loop: Trainer(cfg, device=...).fit()."""
 
     def __init__(self, cfg, output_path: str | None = None, verbose: bool = True,
-                 device=None):
+                 device=None, speaker_embeddings: dict | None = None):
         if cfg.training.grad_accum_steps > 1:
             raise NotImplementedError(f"gradient accumulation {_LATER}")
         if cfg.model.model == "Tacotron":
             raise NotImplementedError(f"Tacotron(1) training {_LATER}")
-        if cfg.speakers.use_speaker_embedding:
-            raise NotImplementedError(f"multi-speaker training {_LATER}")
-        if cfg.speakers.use_gst:
-            raise NotImplementedError(f"GST training {_LATER}")
+        sp = cfg.speakers
+        if sp.use_speaker_embedding and sp.use_external_speaker_embedding_file \
+                and speaker_embeddings is None:
+            raise ValueError("this config conditions on external d-vectors: pass "
+                             "Trainer(speaker_embeddings={speaker: vector})")
         # the JAX package trains these through its scan, not the training
         # kernels; windowing acts at inference only and trains as plain
         # location-sensitive attention
@@ -81,11 +92,21 @@ class Trainer:
         self.verbose = verbose
         self.ap = AudioProcessor(cfg.audio, self.device)
         train_items, eval_items = load_meta_data(cfg.data.datasets)
-        self.train_data = TTSDataset(train_items, cfg, self.ap,
+        speakers = None
+        if sp.use_speaker_embedding:
+            names = sorted({it[2] for it in train_items + eval_items})
+            speakers = {n: i for i, n in enumerate(names)}
+        self.train_data = TTSDataset(train_items, cfg, self.ap, speakers=speakers,
+                                     speaker_embeddings=speaker_embeddings,
                                      cache_dir=cfg.data.phoneme_cache_path)
-        self.eval_data = TTSDataset(eval_items, cfg, self.ap) if eval_items else None
+        self.eval_data = TTSDataset(eval_items, cfg, self.ap, speakers=speakers,
+                                    speaker_embeddings=speaker_embeddings) \
+            if eval_items else None
         self.num_chars = len(phonemes) if cfg.data.use_phonemes else len(symbols)
-        self.model = setup_model(self.num_chars, cfg, device=self.device)
+        self.num_speakers = len(speakers) if speakers else 0
+        spk_dim = sp.speaker_embedding_dim if sp.use_external_speaker_embedding_file else 0
+        self.model = setup_model(self.num_chars, cfg, device=self.device,
+                                 num_speakers=self.num_speakers, speaker_embedding_dim=spk_dim)
         t = cfg.training
         self.criterion = TacotronLoss(cfg.model.model, t.loss_masking, t.seq_len_norm,
                                       cfg.model.stopnet, t.stopnet_pos_weight, t.ga_alpha,
@@ -109,11 +130,25 @@ class Trainer:
     # --- steps -------------------------------------------------------------
 
     def _tensors(self, batch: dict) -> dict:
+        """A numpy batch on the device, with what the model conditions on:
+        speaker_ids when it has speakers, speaker_embeddings when the
+        batch carries d-vectors."""
         dev = self.device
-        out = {k: torch.as_tensor(batch[k]).to(dev) for k in
-               ("text", "text_lengths", "mel", "mel_lengths", "stop_targets")}
+        keys = ["text", "text_lengths", "mel", "mel_lengths", "stop_targets"]
+        if self.num_speakers:
+            keys.append("speaker_ids")
+        if "speaker_embeddings" in batch:
+            keys.append("speaker_embeddings")
+        out = {k: torch.as_tensor(batch[k]).to(dev) for k in keys}
         out["text"] = out["text"].long()
+        if "speaker_ids" in out:
+            out["speaker_ids"] = out["speaker_ids"].long()
         return out
+
+    def _forward_kwargs(self, b: dict, r: int) -> dict:
+        return {"mel_lengths": b["mel_lengths"], "r": r,
+                "speaker_ids": b.get("speaker_ids"),
+                "speaker_embeddings": b.get("speaker_embeddings")}
 
     def _loss_fn(self, b: dict, r: int, generator):
         """Forward + criterion on one batch of tensors -> (total, parts,
@@ -121,10 +156,12 @@ class Trainer:
         self.model.train()
         mel_in = b["mel"]
         args = (b["text"], b["text_lengths"])
-        kwargs = {"mel_lengths": b["mel_lengths"], "r": r, "generator": generator}
+        kwargs = {**self._forward_kwargs(b, r), "generator": generator}
         if self.cfg.training.mixed_precision:
             cast = {n: p.to(torch.bfloat16) for n, p in self.model.named_parameters()
                     if p.dtype == torch.float32}
+            if kwargs["speaker_embeddings"] is not None:
+                kwargs["speaker_embeddings"] = kwargs["speaker_embeddings"].to(torch.bfloat16)
             out = torch.func.functional_call(self.model, cast,
                                              args + (mel_in.to(torch.bfloat16),), kwargs)
         else:
@@ -216,7 +253,7 @@ class Trainer:
             real_b = int(batch["n_real"])
             b = self._tensors(batch)
             out = self.model(b["text"], b["text_lengths"], b["mel"],
-                             mel_lengths=b["mel_lengths"], r=r)
+                             **self._forward_kwargs(b, r))
             _, parts = self.criterion(out, b["mel"], b["mel_lengths"], b["stop_targets"],
                                       b["text_lengths"], step=self.step, r=r)
             all_metrics.append({k: float(v) for k, v in parts.items()})
