@@ -186,12 +186,22 @@ Phases, each fatal on failure:
    Synthesizer.tts_many (the 8 sentences, 5 batch-1 requests) for a Graves
    and a forward_ta_mask model, and one four-piece tts_streaming of the
    latter, the counters set to 0 just before each and read just after.
+15. export: the serving program as torch.export artifacts, loaded without
+   the model code, the kernels registered ops (`phase_export`): full-width
+   Tacotron2 + Griffin-Lim at (8, 160) and (1, 160) (kernels 1, 2), the
+   cloning artifact at E = 768 with the smoke speaker encoder's artifact,
+   the smoke MelGAN and Griffin-Lim artifacts (kernel 3), Tacotron(1) at
+   r = 7 (kernels 8, 4); each held against its unexported program (lengths
+   exact, wav <= 1e-5) with its launches counted and no plain version
+   called; export, artifact and live times; bin/server.py --export_dir
+   answering a burst of 8 and refusing stream=1.
 
 The decode's and the wave route's launches in the kernel line add up
-the main, train-cond, melgan-main, cloning, conditioned, server and
-attention-variants paths' counts, the training scans' the train phase's
-timed steps and the train-cond fits', the Tacotron(1) decode's and
-gl-iteration's the taco1-main and conditioned paths' counts
+the main, train-cond, melgan-main, cloning, conditioned, server,
+attention-variants and export paths' counts, the training scans' the train
+phase's timed steps and the train-cond fits', the Tacotron(1) decode's and
+gl-iteration's the taco1-main, conditioned and export paths' counts, the
+gl-full route's the small and export paths'
 (each path's counters set to 0 just before it and read just after); the
 decode's max_abs_err is the largest of the decode phase's and the
 variants' and the GST holds, the Tacotron(1) decode's the largest of its
@@ -2477,6 +2487,343 @@ def phase_server(report) -> dict:
     return launches
 
 
+# -------------------------------------------- the serving export (torch.export)
+
+EXPORT_T = 160           # the text bucket: the 8 sentences' ids, 147-156, fit
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Count the calls of every plain version a serving op could fall to
+    (the decodes', the three Griffin-Lim routes'): yields the dict of counts,
+    and puts the functions back after."""
+    from your_voice_tts_torch.ops import griffin_lim, taco1_decode, taco2_decode
+
+    seen: dict = {}
+    saved = []
+    for mod, name in ((taco2_decode, "tacotron2_decode_plain"),
+                      (taco1_decode, "tacotron1_decode_plain"),
+                      (griffin_lim, "griffin_lim_wave_plain"),
+                      (griffin_lim, "griffin_lim_full_plain"),
+                      (griffin_lim, "gl_iteration_plain")):
+        fn = getattr(mod, name)
+        seen[name] = 0
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            seen[_name] += 1
+            return _fn(*a, **k)
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+    try:
+        yield seen
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def export_counters():
+    from your_voice_tts_torch.ops.taco1_decode import tacotron1_decode_cuda
+    from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
+
+    return (tacotron2_decode_cuda, tacotron1_decode_cuda) + gl_counters()
+
+
+def text_batch(exp, texts, T: int = EXPORT_T):
+    """The artifact's own frontend over `texts`, zero-padded to [B, T]."""
+    import numpy as np
+
+    seqs = [exp.text_to_ids(t) for t in texts]
+    text = np.zeros((len(texts), T), np.int64)
+    for i, s in enumerate(seqs):
+        text[i, :len(s)] = s
+    return text, np.asarray([len(s) for s in seqs], np.int64)
+
+
+def hold_artifact(tag: str, exp, program, text, lens, *cond, seed: int = 3,
+                  kernels: dict) -> dict:
+    """One call of the loaded artifact with the launch counters set to 0
+    just before and read just after, and no plain version called, against
+    the unexported program on the same inputs: lengths exact, wav max abs
+    <= 1e-5. `kernels`: counter name -> True (must launch) / False (must
+    not)."""
+    import numpy as np
+    import torch
+
+    counters = export_counters()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    with plain_calls() as plain:
+        kw = {}
+        if cond:
+            key = "speaker_ids" if cond[0].dtype == np.int64 else "d_vectors"
+            kw[key] = cond[0]
+            if len(cond) > 1:
+                kw["style_mel"] = cond[1]
+        wav, ml = exp(text, lens, seed=seed, **kw)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+    with torch.no_grad():
+        ref_wav, ref_ml = program(*(torch.from_numpy(a).cuda() for a in (text, lens) + cond),
+                                  torch.tensor([seed], device="cuda"))
+    err = float(np.abs(wav - ref_wav.cpu().numpy()).max())
+    print(f"[export] {tag}: artifact against its unexported program: wav {tuple(wav.shape)} "
+          f"max abs {err:.3e} (tol 1e-5), mel_lengths {ml.tolist()}; launches {launches}; "
+          f"plain calls {sum(plain.values())}")
+    check(np.array_equal(ml, ref_ml.cpu().numpy()), f"{tag}: artifact mel lengths")
+    check(err <= 1e-5 and bool(np.isfinite(wav).all()) and float(np.abs(wav).max()) > 0,
+          f"{tag}: artifact wav against its unexported program")
+    check(not any(plain.values()), f"{tag}: a plain version ran: {plain}")
+    for name, must in kernels.items():
+        check((launches[name] > 0) == must, f"{tag}: {name} launches {launches[name]}")
+    return dict(wav_err=err, mel_lengths=ml.tolist(), launches=launches)
+
+
+def phase_export(report) -> dict:
+    """The serving export on the card: torch.export artifacts of the
+    serving program, loaded without the model code, carrying the
+    hand-written kernels as registered ops (`ops/library.py`). Each
+    artifact is held against its unexported program (make_serving_fn) on
+    the same inputs, with the launch counters set to 0 just before the
+    artifact's call and read just after, and no plain version called:
+    (1) full-width Tacotron2 + Griffin-Lim at (B=8, T=160) and (B=1,
+    T=160): kernels 1 and 2; the export's seconds, the artifact's program
+    at B=8 and B=1, the unexported program at B=8, the artifact's and the
+    live Synthesizer's tts_many of the 8 sentences (CUDA events, median of
+    5); (2) the cloning artifact with 256-wide d-vectors (E = 768) over 4
+    speakers, and the smoke speaker encoder's artifact against the live
+    encoder (1e-5); (3) the smoke MelGAN artifact (no Griffin-Lim kernel);
+    (4) Tacotron(1) at r = 7, 250 steps: kernels 8 and 4; (5) the smoke
+    config's artifact: kernel 3; (6) bin/server.py --export_dir on the
+    full-width artifacts in its own process: a burst of 8 concurrent
+    /api/tts requests, WAV bytes, stream=1 answering 400. Returns the
+    launches of the artifacts' calls, which join the kernel line."""
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.infer.export import (ExportedSpeakerEncoder, ExportedSynthesizer,
+                                                   export_serving, export_speaker_encoder,
+                                                   make_serving_fn)
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.speaker_encoder.model import load_encoder
+    from your_voice_tts_torch.utils.speakers import save_speaker_mapping
+
+    smi = report["nvidia_smi"]
+    out: dict = {}
+    launches: dict = {}
+
+    def add(held):
+        for k, n in held["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+
+    tmp = tempfile.mkdtemp(prefix="yvt_export_")
+    try:
+        # (1) full-width Tacotron2 + Griffin-Lim
+        cfg = full_width_config()
+        synth = Synthesizer(cfg, device="cuda")
+        no_chance_stops(synth.model)
+        d1 = os.path.join(tmp, "taco2")
+        t0 = time.perf_counter()
+        manifest = export_serving(synth.model, synth.cfg, synth.ap, d1, batch_sizes=(8, 1),
+                                  text_buckets=(EXPORT_T,))
+        export_s = time.perf_counter() - t0
+        sizes = {e["file"]: os.path.getsize(os.path.join(d1, e["file"]))
+                 for e in manifest["entries"]}
+        t0 = time.perf_counter()
+        exp = ExportedSynthesizer(d1)
+        load_s = time.perf_counter() - t0
+        check(manifest["platforms"] == ["cuda"] and exp.device.type == "cuda",
+              "a cuda artifact")
+        program = make_serving_fn(synth.model, synth.cfg, synth.ap)
+        text, lens = text_batch(exp, SENTENCES)
+        exp(text[:1], lens[:1])                            # one-time set-up, not measured
+        held8 = hold_artifact("taco2 B=8", exp, program, text, lens, kernels={
+            "tacotron2_decode_cuda": True, "griffin_lim_wave_cuda": True,
+            "griffin_lim_full_cuda": False, "gl_iteration_cuda": False})
+        held1 = hold_artifact("taco2 B=1", exp, program, text[1:2], lens[1:2], kernels={
+            "tacotron2_decode_cuda": True, "griffin_lim_wave_cuda": True})
+        check(held8["mel_lengths"] == [SERVE_FRAMES] * 8, "taco2 artifact mel lengths")
+        add(held8)
+        add(held1)
+        args = lambda B: [torch.from_numpy(a).cuda() for a in (text[:B], lens[:B])] + [  # noqa
+            torch.tensor([3], device="cuda")]
+        a8, a1 = args(8), args(1)
+        with torch.no_grad():
+            times = {
+                "artifact_b8_ms": cuda_ms(lambda: exp._fns[(8, EXPORT_T)](*a8), 5),
+                "artifact_b1_ms": cuda_ms(lambda: exp._fns[(1, EXPORT_T)](*a1), 5),
+                "unexported_b8_ms": cuda_ms(lambda: program(*a8), 5),
+                "artifact_tts_many_b8_ms": cuda_ms(lambda: exp.tts_many(SENTENCES), 5),
+                "live_tts_many_b8_ms": cuda_ms(lambda: synth.tts_many(SENTENCES), 5),
+            }
+        print(f"[export] full width: export of (8, {EXPORT_T}) and (1, {EXPORT_T}) "
+              f"{export_s:.2f} s, load {load_s:.2f} s, files "
+              f"{', '.join(f'{k} {v / 2 ** 20:.1f} MiB' for k, v in sizes.items())}")
+        print(f"[export] full width, CUDA events, median of 5: artifact program B=8 "
+              f"{times['artifact_b8_ms']:.2f} ms, B=1 {times['artifact_b1_ms']:.2f} ms; "
+              f"unexported program B=8 {times['unexported_b8_ms']:.2f} ms; tts_many of the 8 "
+              f"sentences: artifact {times['artifact_tts_many_b8_ms']:.2f} ms, live "
+              f"Synthesizer {times['live_tts_many_b8_ms']:.2f} ms ({smi})")
+        out["taco2"] = dict(export_s=export_s, load_s=load_s, file_bytes=sizes, b8=held8,
+                            b1=held1, **times)
+        del program, synth
+
+        # (2) cloning: 256-wide d-vectors (E = 768); the smoke speaker encoder
+        g = torch.Generator().manual_seed(6)
+        vecs = torch.nn.functional.normalize(torch.randn(4, 256, generator=g), dim=-1)
+        spk_json = os.path.join(tmp, "speakers.json")
+        save_speaker_mapping(spk_json, {f"SPK{i}": v.tolist() for i, v in enumerate(vecs)})
+        spk = Synthesizer(cfg, speakers_json=spk_json, device="cuda")
+        no_chance_stops(spk.model)
+        d2 = os.path.join(tmp, "cloning")
+        export_serving(spk.model, spk.cfg, spk.ap, d2, batch_sizes=(8,),
+                       text_buckets=(EXPORT_T,), speaker_mode="dvector", d_dim=256,
+                       speakers=spk.speaker_embeddings)
+        cexp = ExportedSynthesizer(d2)
+        check(spk.model.decoder.decode_weights(spk.decode_dtype)["dims"]["E"] == 768,
+              "the cloning model's width")
+        dv = np.stack([np.asarray(cexp._resolve_speaker(f"SPK{i % 4}")) for i in range(8)])
+        cprog = make_serving_fn(spk.model, spk.cfg, spk.ap, speaker_mode="dvector")
+        held = hold_artifact("cloning E=768 B=8", cexp, cprog, text, lens, dv, kernels={
+            "tacotron2_decode_cuda": True, "griffin_lim_wave_cuda": True})
+        add(held)
+        many = cexp.tts_many(SENTENCES, [f"SPK{i % 4}" for i in range(8)])
+        check(len(many) == 8 and all(len(w) > 0 and np.isfinite(w).all() for w in many),
+              "cloning artifact tts_many")
+        del cprog, spk
+        enc = load_encoder(os.path.join(ROOT, "assets/speaker_encoder_smoke.npz"),
+                           device="cuda")
+        d_se = os.path.join(tmp, "encoder")
+        export_speaker_encoder(enc, d_se, input_dim=enc.layers[0].lstm.input_size,
+                               batch_sizes=(4,), num_frames=160)
+        sexp = ExportedSpeakerEncoder(d_se)
+        rng = np.random.default_rng(3)
+        se_err = 0.0
+        for T in (90, 500):                 # the tile path; 5 windows in chunks of 4
+            mel = rng.standard_normal((T, enc.layers[0].lstm.input_size)).astype(np.float32)
+            live = enc.compute_embedding(mel, num_frames=160).cpu().numpy()
+            se_err = max(se_err, float(np.abs(sexp.embed(mel) - live).max()))
+        print(f"[export] smoke speaker encoder artifact against compute_embedding: max abs "
+              f"{se_err:.3e} (tol 1e-5)")
+        check(se_err <= 1e-5, "speaker encoder artifact")
+        out["cloning"] = dict(held, encoder_err=se_err)
+
+        # (3) the smoke MelGAN artifact; (5) the smoke config's Griffin-Lim artifact
+        scfg = os.path.join(ROOT, "configs/smoke_synthetic.json")
+        sckpt = os.path.join(ROOT, "assets/bench_trained_smoke.npz")
+        for tag, voc in (("melgan", os.path.join(ROOT, "configs/melgan_smoke.json")),
+                         ("smoke", None)):
+            ssynth = Synthesizer(scfg, sckpt, vocoder_config=voc, vocoder_checkpoint=(
+                os.path.join(ROOT, "assets/bench_trained_melgan.npz") if voc else None),
+                device="cuda")
+            dd = os.path.join(tmp, tag)
+            export_serving(ssynth.model, ssynth.cfg, ssynth.ap, dd, batch_sizes=(8,),
+                           text_buckets=(EXPORT_T,), vocoder=ssynth.vocoder)
+            sexp2 = ExportedSynthesizer(dd)
+            stext, slens = text_batch(sexp2, SENTENCES)
+            held = hold_artifact(tag, sexp2, make_serving_fn(
+                ssynth.model, ssynth.cfg, ssynth.ap, vocoder=ssynth.vocoder), stext, slens,
+                kernels={"tacotron2_decode_cuda": True,
+                         "griffin_lim_full_cuda": voc is None,
+                         "griffin_lim_wave_cuda": False, "gl_iteration_cuda": False})
+            add(held)
+            out[tag] = held
+
+        # (4) Tacotron(1) at r = 7: kernels 8 and 4
+        tsynth = Synthesizer(taco1_config(), device="cuda")
+        no_chance_stops(tsynth.model)
+        d4 = os.path.join(tmp, "taco1")
+        t0 = time.perf_counter()
+        export_serving(tsynth.model, tsynth.cfg, tsynth.ap, d4, batch_sizes=(8,),
+                       text_buckets=(EXPORT_T,))
+        t1_export_s = time.perf_counter() - t0
+        texp = ExportedSynthesizer(d4)
+        tprog = make_serving_fn(tsynth.model, tsynth.cfg, tsynth.ap)
+        text, lens = text_batch(texp, SENTENCES)
+        held = hold_artifact("taco1 r=7 B=8", texp, tprog, text, lens, kernels={
+            "tacotron1_decode_cuda": True, "gl_iteration_cuda": True,
+            "tacotron2_decode_cuda": False, "griffin_lim_wave_cuda": False})
+        add(held)
+        with torch.no_grad():
+            t8 = [torch.from_numpy(a).cuda() for a in (text, lens)] + [
+                torch.tensor([3], device="cuda")]
+            t1_ms = cuda_ms(lambda: texp._fns[(8, EXPORT_T)](*t8), 3)
+        print(f"[export] Tacotron(1) r=7: export {t1_export_s:.2f} s, artifact program B=8 "
+              f"{t1_ms:.2f} ms ({smi})")
+        out["taco1"] = dict(held, export_s=t1_export_s, artifact_b8_ms=t1_ms)
+        del tprog, tsynth
+
+        # (6) bin/server.py --export_dir on the full-width artifacts
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        log = open(os.path.join(tmp, "server.log"), "w+")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "your_voice_tts_torch.bin.server", "--export_dir", d1,
+             "--host", "127.0.0.1", "--port", str(port)], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT, env=dict(os.environ, PYTHONPATH=ROOT))
+        base = f"http://127.0.0.1:{port}"
+        try:
+            t0 = time.perf_counter()
+            while True:
+                check(proc.poll() is None, "the --export_dir server exited")
+                check(time.perf_counter() - t0 < 300, "the --export_dir server did not start")
+                try:
+                    if http_get(base, "/", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    time.sleep(0.2)
+            up_s = time.perf_counter() - t0
+            import urllib.parse
+            results: list = [None] * len(SENTENCES)
+
+            def fetch(k):
+                results[k] = http_get(base, "/api/tts?" + urllib.parse.urlencode(
+                    {"text": SENTENCES[k]}))
+
+            for rnd in range(2):       # the first burst is the collator's first device work
+                workers = [threading.Thread(target=fetch, args=(k,))
+                           for k in range(len(SENTENCES))]
+                t0 = time.perf_counter()
+                for w in workers:
+                    w.start()
+                for w in workers:
+                    w.join(300)
+                burst_ms = (time.perf_counter() - t0) * 1e3
+                check(all(r is not None and r[0] == 200 and r[1] == "audio/wav"
+                          and r[2][:4] == b"RIFF" and r[2][8:12] == b"WAVE" and len(r[2]) > 44
+                          for r in results), "the --export_dir server's burst")
+                print(f"[export] bin/server.py --export_dir: burst {rnd + 1} of 8 concurrent "
+                      f"/api/tts requests {burst_ms:.1f} ms wall ({smi})")
+            status, _, body, _ = http_get(base, "/api/tts?text=Hi.&stream=1")
+            check(status == 400 and b"cannot stream" in body, "stream=1 from an artifact")
+            out["server"] = dict(up_s=up_s, burst_ms=burst_ms)
+            print(f"[export] the server came up in {up_s:.1f} s; stream=1 answered {status}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+            log.seek(0)
+            tail = log.read()[-2000:]
+            log.close()
+        check(proc.returncode is not None, "the --export_dir server did not stop")
+        out["server"]["log_tail"] = tail
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[export] launches from the artifacts' calls: {launches}")
+    out["launches"] = launches
+    report["export"] = out
+    return launches
+
+
 # ------------------------------------------------ kernel 1's attention variants
 
 # the variants held, each with its switches (VARIANTS) flipped in
@@ -3736,6 +4083,9 @@ def main() -> int:
         launches[k] += n
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], variant_err)
     timed("melgan-asset", phase_melgan_asset, report)
+    # the serving export: kernels 1-4 and 8 launched from loaded artifacts
+    for k, n in timed("export", phase_export, report).items():
+        launches[k] += n
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1620,3 +1620,87 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         with pytest.raises(ValueError, match="shared memory"):
             tacotron1_decode_cuda(w, enc, pinp, mask, r=2, max_steps=2)
     assert tacotron1_decode_cuda.launches == before
+
+
+def test_registered_decode_op_launches_the_kernel(cuda):
+    """`yvt::taco2_decode` on the card is the kernel (one launch counted, the
+    packed layout passed in, not rebuilt) and holds its plain version; every
+    row stops at once, so the frames past the last step run are zero on
+    both."""
+    from your_voice_tts_torch.ops import library
+    from your_voice_tts_torch.ops.taco2_decode import pack_weights
+
+    w, enc, pinp, mask = decode_case(cuda, 5, stop_rows=range(5))
+    pack_weights(w)
+    spec, tensors = library.flatten_weights(w)
+    assert any(n.startswith("packed.") for n in __import__("json").loads(spec)["names"])
+    seed = torch.tensor([5], device=cuda)
+    kw = dict(r=2, max_steps=120, norm="sigmoid", thresh=0.6, prenet_dropout=True)
+    before = tacotron2_decode_cuda.launches
+    got = library.decode("taco2", spec, tensors, enc, pinp, mask, seed, **kw)
+    assert tacotron2_decode_cuda.launches == before + 1
+    ref = tacotron2_decode_plain(w, enc, pinp, mask, seed=5, chunk=50, **kw)
+    assert_decode_holds(got, ref)
+    assert got[0].shape == (120, 5, w["dims"]["OW"]) and got[3].tolist() == [1] * 5
+    for t in (got, ref):            # the decode left at the first chunk boundary, step 50
+        assert not t[0][1:].any() and t[1][:50].any() and not t[1][50:].any()
+        assert not t[2][50:].any()
+
+
+def test_cuda_artifact_launches_the_kernels(cuda, tmp_path):
+    """A smoke-width Tacotron2 exported on the card and loaded: its call
+    launches the decode kernel and the gl-full kernel (hop 64), runs no
+    plain version, and equals its unexported program (lengths exact, wav
+    1e-5). A Tacotron(1) artifact past 1,024 frames launches kernels 8 and
+    4 likewise."""
+    from your_voice_tts_torch.audio import AudioProcessor
+    from your_voice_tts_torch.config import AudioConfig
+    from your_voice_tts_torch.infer.export import (ExportedSynthesizer, export_serving,
+                                                   make_serving_fn)
+    from your_voice_tts_torch.models.tacotron import Tacotron
+    from your_voice_tts_torch.ops import griffin_lim as gl
+    from your_voice_tts_torch.ops import taco1_decode as t1
+    from your_voice_tts_torch.ops import taco2_decode as t2
+
+    class Cfg:
+        def __init__(self, model):
+            self.model, self.audio, self.data = model, AudioConfig(
+                num_mels=20, fft_size=256, sample_rate=8000, hop_length=64, win_length=256,
+                griffin_lim_iters=4, mel_fmax=None), None
+
+    small = dict(embedding_dim=32, encoder_dim=32, decoder_rnn_dim=48, attention_rnn_dim=48,
+                 attention_dim=24, attention_location_filters=8,
+                 attention_location_kernel_size=15, prenet_dim=24, postnet_dim=32)
+    cases = [("taco2", Cfg(ModelConfig(r=2, max_decoder_steps=10, **small)),
+              t2.tacotron2_decode_cuda, gl.griffin_lim_full_cuda),
+             ("taco1", Cfg(ModelConfig(model="Tacotron", r=7, memory_size=5, tacotron_width=32,
+                                       attention_dim=24, max_decoder_steps=160)),
+              t1.tacotron1_decode_cuda, gl.gl_iteration_cuda)]
+    for name, cfg, decode, gl_kernel in cases:
+        model = (Tacotron2(30, cfg.model, n_mels=20, device=cuda, seed=2) if name == "taco2"
+                 else Tacotron(30, cfg.model, n_mels=20, num_freq=129, device=cuda, seed=2))
+        with torch.no_grad():                                 # no row stops by chance
+            model.decoder.stopnet.bias.fill_(-10.0)
+        ap = AudioProcessor(cfg.audio, cuda)
+        out = str(tmp_path / name)
+        manifest = export_serving(model, cfg, ap, out, batch_sizes=(3,), text_buckets=(16,))
+        assert manifest["platforms"] == ["cuda"]
+        exp = ExportedSynthesizer(out)
+        text = np.random.default_rng(3).integers(1, 30, (3, 16)).astype(np.int64)
+        lens = np.array([16, 12, 7], np.int64)
+        plain = []
+        with pytest.MonkeyPatch.context() as mp:
+            for mod, fn in ((t2, "tacotron2_decode_plain"), (t1, "tacotron1_decode_plain"),
+                            (gl, "griffin_lim_full_plain"), (gl, "gl_iteration_plain")):
+                mp.setattr(mod, fn, lambda *a, _fn=fn, **k: plain.append(_fn))
+            before = (decode.launches, gl_kernel.launches)
+            wav, ml = exp(text, lens, seed=4)
+            assert decode.launches == before[0] + 1 and gl_kernel.launches > before[1]
+        assert not plain
+        with torch.no_grad():
+            ref_wav, ref_ml = make_serving_fn(model, cfg, ap)(
+                torch.from_numpy(text).to(cuda), torch.from_numpy(lens).to(cuda),
+                torch.tensor([4], device=cuda))
+        np.testing.assert_array_equal(ml, ref_ml.cpu().numpy())
+        np.testing.assert_allclose(wav, ref_wav.cpu().numpy(), atol=1e-5)
+        assert np.isfinite(wav).all() and np.abs(wav).max() > 0

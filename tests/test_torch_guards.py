@@ -313,3 +313,92 @@ def test_speaker_encoder_training_refuses_to_fall_back_to_cpu(monkeypatch, tmp_p
         cfg.speakers, use_speaker_embedding=True, use_gst=True))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(cfg)
+
+
+def test_export_slice_modules_import_with_jax_blocked():
+    """The registered ops, the export and its CLI, in one process."""
+    test_tacotron_slice_modules_import_with_jax_blocked(", ".join(
+        f"your_voice_tts_torch.{m}" for m in ("ops.library", "infer.export",
+                                              "bin.export_serving")))
+
+
+def test_registered_ops_do_not_fall_back(monkeypatch):
+    """ops/library.py's ops hand a tensor that is not on the CPU to the
+    kernel wrapper, which raises (here for a meta tensor; on a card without
+    the kernel library, its build's error): no plain version runs in its
+    place."""
+    from your_voice_tts_torch.ops import griffin_lim, library, taco1_decode, taco2_decode
+
+    def never(*a, **k):
+        raise AssertionError("a plain version ran in the kernel's place")
+
+    for mod, names in ((taco2_decode, ("tacotron2_decode_plain",)),
+                       (taco1_decode, ("tacotron1_decode_plain",)),
+                       (griffin_lim, ("griffin_lim_wave_plain", "griffin_lim_full_plain",
+                                      "gl_iteration_plain"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, never)
+    meta = lambda *s, **k: torch.zeros(*s, device="meta", **k)  # noqa: E731
+    spec = library.flatten_weights({"dtype": torch.bfloat16, "dims": {"GK": 0, "OW": 4}})[0]
+    enc, mask, seed = meta(2, 4, 8), meta(2, 4, dtype=torch.bool), torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="tacotron2_decode_cuda takes CUDA tensors"):
+        library.taco2_decode._init_fn([], enc, enc, mask, seed, spec, 1, 1, "sigmoid", 0.5,
+                                      False, False, 1, 3, False, False, False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        library.taco1_decode._init_fn([], enc, enc, mask, seed, spec, 1, 1, "sigmoid", 0.5,
+                                      False)
+    for T, n_fft, hop, what in ((4, 1024, 256, "griffin_lim_wave_cuda"),
+                                (4, 256, 64, "griffin_lim_full_cuda"),
+                                (1100, 256, 64, "gl_iteration_cuda")):
+        F = n_fft // 2 + 1
+        with pytest.raises(ValueError, match=f"{what} takes CUDA tensors"):
+            library.griffin_lim._init_fn(meta(1, T, F), meta(T, F), torch.ones(n_fft), n_fft,
+                                         hop, 1, 0.0)
+
+
+def test_an_artifact_serves_without_model_code(tmp_path):
+    """bin/export_serving writes a smoke-config artifact on the CPU; in a
+    fresh interpreter, ExportedSynthesizer(dir) serves it and bin/server
+    --export_dir --device cpu answers /api/tts with audio/wav and stream=1
+    with 400, with no model code imported (no models/, vocoder/models/ or
+    infer/synthesizer)."""
+    from your_voice_tts_torch.bin import export_serving
+
+    out = str(tmp_path / "exp")
+    export_serving.main(["--config", os.path.join(ROOT, "configs/smoke_synthetic.json"),
+                         "--checkpoint", os.path.join(ROOT, "assets/bench_trained_smoke.npz"),
+                         "--out", out, "--batch", "1", "--text_bucket", "32",
+                         "--max_decoder_steps", "8", "--device", "cpu"])
+    assert sorted(os.listdir(out)) == ["manifest.json", "serve_b1_t32.pt2"]
+    code = (
+        "import socket, sys, threading, time, urllib.error, urllib.request\n"
+        "from your_voice_tts_torch.infer.export import ExportedSynthesizer\n"
+        f"wav = ExportedSynthesizer({out!r}).tts_many(['Hi there.'])[0]\n"
+        "assert wav.ndim == 1 and wav.size > 0\n"
+        "from your_voice_tts_torch.bin import server\n"
+        "with socket.socket() as s:\n"
+        "    s.bind(('127.0.0.1', 0))\n"
+        "    port = s.getsockname()[1]\n"
+        f"argv = ['--export_dir', {out!r}, '--device', 'cpu', '--host', '127.0.0.1',\n"
+        "        '--port', str(port)]\n"
+        "threading.Thread(target=server.main, args=(argv,), daemon=True).start()\n"
+        "base = f'http://127.0.0.1:{port}/api/tts?text='\n"
+        "for _ in range(600):\n"
+        "    try:\n"
+        "        r = urllib.request.urlopen(base + 'hi', timeout=60)\n"
+        "        break\n"
+        "    except urllib.error.URLError:\n"
+        "        time.sleep(0.05)\n"
+        "assert r.headers['Content-Type'] == 'audio/wav' and r.read()[:4] == b'RIFF'\n"
+        "try:\n"
+        "    urllib.request.urlopen(base + 'hi&stream=1', timeout=60)\n"
+        "    raise SystemExit('stream=1 was answered')\n"
+        "except urllib.error.HTTPError as e:\n"
+        "    assert e.code == 400, e.code\n"
+        "bad = [m for m in sys.modules if m.startswith(tuple('your_voice_tts_torch.' + p for p\n"
+        "       in ('models', 'vocoder.models', 'infer.synthesizer')))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    got = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
+    assert got.returncode == 0 and got.stdout.strip().endswith("ok"), got.stderr

@@ -288,8 +288,13 @@ def test_streaming_without_inference_truncated_yields_one_tts():
 
 
 def test_server_cli_refuses_export_dir():
-    with pytest.raises(NotImplementedError, match="later slice of the port"):
+    """--export_dir serves an artifact directory (tests/test_torch_export.py);
+    the CLI refuses one with no manifest, both sources at once, and
+    neither."""
+    with pytest.raises(FileNotFoundError, match="manifest.json"):
         server_cli.main(["--export_dir", "exported"])
+    with pytest.raises(SystemExit):
+        server_cli.main(["--export_dir", "exported", "--tts_config", os.path.join(ROOT, CONFIG)])
     with pytest.raises(SystemExit):
         server_cli.main([])
 

@@ -14,6 +14,10 @@ the batch to a power of two (at most _INV_BATCH_CAP rows per launch), pad
 frames and pad rows hold normalized silence, and the initial phase is one
 [T, n_freq] pattern shared by every row, so a row's audio does not depend on
 its batchmates. The phases come from the processor's own torch.Generator.
+
+`GriffinLimStage` is the same inverse as a module of a traced serving
+program (`infer/export.py`): its constants are buffers, its phase is drawn
+from a seed tensor and Griffin-Lim runs through the registered op.
 """
 
 from __future__ import annotations
@@ -24,9 +28,10 @@ import wave
 
 import numpy as np
 import torch
+from torch import nn
 
 from .config import AudioConfig
-from .ops import dsp
+from .ops import dsp, prng
 from .ops.filters import hann_window, inv_mel_basis, mel_basis
 from .ops.griffin_lim import gl_constants, griffin_lim_batch
 
@@ -265,13 +270,8 @@ class AudioProcessor:
         """[B, T, F] normalized mel or linear spectrogram -> the magnitudes
         Griffin-Lim inverts, [B, T, n_fft/2 + 1]: denormalize, dB ->
         amplitude (mel -> linear for a mel), ** power."""
-        c = self.cfg
-        D = dsp.denormalize_spec(spec_norm, c.min_level_db, c.max_norm,
-                                 c.symmetric_norm, c.clip_norm, c.signal_norm)
-        S = dsp.db_to_amp(D + c.ref_level_db, c.spec_gain)
-        if kind == "mel":
-            S = dsp.mel_to_linear(S, self.inv_mel_basis)
-        return S ** c.power
+        return dsp.gl_magnitudes(spec_norm, self.inv_mel_basis if kind == "mel" else None,
+                                 **gl_magnitude_args(self.cfg))
 
     def _inverse(self, kind: str, spec_norm):
         """[B, T, F] normalized mel or linear spectrogram -> [B, hop * (T - 1)]
@@ -302,3 +302,44 @@ class AudioProcessor:
             f.setsampwidth(2)
             f.setframerate(sr or self.sample_rate)
             f.writeframes(wav_norm.astype(np.int16).tobytes())
+
+
+def gl_magnitude_args(c: AudioConfig) -> dict:
+    """`dsp.gl_magnitudes`'s keyword arguments from an audio config."""
+    return dict(min_level_db=c.min_level_db, max_norm=c.max_norm, symmetric=c.symmetric_norm,
+                clip=c.clip_norm, signal_norm=c.signal_norm, ref_level_db=c.ref_level_db,
+                spec_gain=c.spec_gain, power=c.power)
+
+
+class GriffinLimStage(nn.Module):
+    """`AudioProcessor`'s inverse (`_inverse`) as a module of a traced
+    serving program: normalized spectrograms [B, T, F] (`kind` "mel", or
+    "linear" for Tacotron(1)'s head) and a seed tensor (int64 [1]) ->
+    waveforms [B, hop * (T - 1)]. `dsp.gl_magnitudes`, then Griffin-Lim
+    through the registered op (`ops/library.py`, which routes by the frame
+    count as `griffin_lim_batch` does) from the phase `ops.prng.gl_phase`
+    draws from the seed, every row sharing it, then de-emphasis. The window
+    and the mel pseudo-inverse are buffers, so an exported program carries
+    them."""
+
+    def __init__(self, ap: AudioProcessor, kind: str):
+        from .ops import library  # noqa: F401  (registers the op)
+
+        super().__init__()
+        if kind not in ("mel", "linear"):
+            raise ValueError(f"kind must be mel or linear, got {kind!r}")
+        c = ap.cfg
+        self.register_buffer("window", ap.window_t.clone())
+        self.register_buffer("inv_mel_basis", ap.inv_mel_basis.clone() if kind == "mel"
+                             else None)
+        self.magnitude_args = gl_magnitude_args(c)
+        self.n_fft, self.hop = c.fft_size, ap.hop_length
+        self.n_iters, self.momentum = c.griffin_lim_iters, c.griffin_lim_momentum
+        self.preemphasis = c.preemphasis
+
+    def forward(self, spec_norm, seed):
+        S = dsp.gl_magnitudes(spec_norm, self.inv_mel_basis, **self.magnitude_args)
+        phase = prng.gl_phase(S.shape[1], S.shape[2], seed)
+        y = torch.ops.yvt.griffin_lim(S, phase, self.window, self.n_fft, self.hop,
+                                      self.n_iters, float(self.momentum))
+        return dsp.inv_preemphasis(y, self.preemphasis)

@@ -5,11 +5,14 @@ python -m your_voice_tts_torch.bin.server --tts_config config.json \
     [--vocoder_checkpoint voc.npz]] [--speakers_json speakers.json]
     [--host 0.0.0.0] [--port 5002] [--max_batch 8] [--max_delay_ms 25]
     [--device cpu]
+python -m your_voice_tts_torch.bin.server --export_dir exported/ [--device cpu] ...
 
 Serves GET /api/tts?text=... (micro-batched) and
 GET /api/tts?text=...&stream=1 (chunked, one audio chunk a text piece) on
-CUDA unless --device names another device. Serving an exported artifact
-(--export_dir) arrives with a later slice of the port.
+CUDA unless --device names another device. With --export_dir it serves the
+artifacts of bin/export_serving.py (ExportedSynthesizer, no model code) on
+the device they were exported on (--device, if given, must name it);
+/api/tts micro-batches through one program call, and stream=1 answers 400.
 """
 
 from __future__ import annotations
@@ -39,17 +42,20 @@ def main(argv: list[str] | None = None) -> None:
 
     if (args.export_dir is None) == (args.tts_config is None):
         p.error("pass exactly one of --tts_config or --export_dir")
-    if args.export_dir is not None:
-        raise NotImplementedError("serving an exported artifact (--export_dir) arrives "
-                                  "with a later slice of the port")
 
     from ..infer.server import make_server
-    from ..infer.synthesizer import Synthesizer
 
-    synth = Synthesizer(args.tts_config, args.tts_checkpoint,
-                        vocoder_config=args.vocoder_config,
-                        vocoder_checkpoint=args.vocoder_checkpoint,
-                        speakers_json=args.speakers_json, device=args.device)
+    if args.export_dir is not None:
+        from ..infer.export import ExportedSynthesizer
+
+        synth = ExportedSynthesizer(args.export_dir, device=args.device)
+    else:
+        from ..infer.synthesizer import Synthesizer
+
+        synth = Synthesizer(args.tts_config, args.tts_checkpoint,
+                            vocoder_config=args.vocoder_config,
+                            vocoder_checkpoint=args.vocoder_checkpoint,
+                            speakers_json=args.speakers_json, device=args.device)
     server = make_server(synth, args.host, args.port, max_batch=args.max_batch,
                          max_delay_ms=args.max_delay_ms)
     host, port = server.server_address[:2]

@@ -14,6 +14,10 @@ later ones are still decoding, so the time to the first audio is one
 chunk's decode, not the whole text's. Streaming runs on the request's own
 thread beside the batcher's collator; the Synthesizer's lock keeps their
 device work apart.
+
+An `ExportedSynthesizer` (infer/export.py) serves the same way through its
+`tts_many`; having no `tts_streaming`, it answers stream=1 with 400. This
+module imports no model code, so that an artifact serves without it.
 """
 
 from __future__ import annotations
@@ -23,11 +27,14 @@ import json
 import struct
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import TYPE_CHECKING
 
 import numpy as np
 
 from .batching import MicroBatcher
-from .synthesizer import Synthesizer
+
+if TYPE_CHECKING:
+    from .synthesizer import Synthesizer
 
 
 def _wav_stream_header(sample_rate: int) -> bytes:

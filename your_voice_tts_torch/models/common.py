@@ -1,6 +1,8 @@
 """Shared model blocks (the JAX package's models/common.py): Prenet, conv+BN
 blocks, sequence masks, the prenet fold the decode kernel needs, and the
-style and speaker conditioning of the encoder outputs both Tacotrons use.
+style and speaker conditioning of the encoder outputs both Tacotrons use,
+and `ServingWeights`, what a traced inference reads beside the model's
+parameters.
 
 Training mode follows the module's `training` flag for BatchNorm; dropout
 is drawn only when a torch.Generator is passed (the JAX package's
@@ -168,3 +170,47 @@ def concat_speaker(model, enc_out, speaker_ids=None, speaker_embeddings=None, ca
                          f"expected {(B, model.spk_dim)}")
     spk = spk.to(enc_out.dtype)[:, None, :].expand(B, T, model.spk_dim)
     return torch.cat([enc_out, spk], -1)
+
+
+class ServingWeights(nn.Module):
+    """What a traced inference (`infer/export.py`) reads beside a model's
+    own parameters, registered so that an exported program carries it: the
+    compute-dtype copies (`compute_copy`) of `names` (dotted paths from the
+    model, e.g. "encoder" or "decoder.attention.inputs"; absent ones are
+    skipped) and the decode's weights (`decoder.decode_weights`, with the
+    kernel's packed layout on a CUDA model) as buffers. Passed to the
+    model's `inference` as `traced`, it routes the decode through the
+    registered op (`ops/library.py`) of `kind` ("taco2" or "taco1")."""
+
+    def __init__(self, model: nn.Module, kind: str, names, compute_dtype, decode_dtype,
+                 pack=None):
+        from ..ops.library import flatten_weights
+
+        super().__init__()
+        self.kind = kind
+        self.copies = nn.ModuleDict()
+        if compute_dtype is not None:
+            for name in names:
+                *owner, attr = name.split(".")
+                mod = model
+                for part in owner:
+                    mod = getattr(mod, part, None)
+                if mod is not None and hasattr(mod, attr):
+                    self.copies[name.replace(".", "__")] = compute_copy(mod, attr, compute_dtype)
+        w = model.decoder.decode_weights(decode_dtype)
+        if pack is not None and model.device.type == "cuda":
+            pack(w)
+        self.spec, tensors = flatten_weights(w)
+        self.n_weights = len(tensors)
+        for i, t in enumerate(tensors):
+            self.register_buffer(f"w{i}", t)
+
+    def cast(self, name: str) -> nn.Module:
+        return self.copies[name.replace(".", "__")]
+
+    def decode(self, enc_out, pinp, mask, seed, **kw):
+        """The registered decode on these weights (`ops.library.decode`)."""
+        from ..ops.library import decode
+
+        weights = [getattr(self, f"w{i}") for i in range(self.n_weights)]
+        return decode(self.kind, self.spec, weights, enc_out, pinp, mask, seed, **kw)

@@ -32,11 +32,12 @@ from torch import nn
 
 from .. import resolve_device
 from ..nn.core import GAINS, BatchNorm1d, Conv1d, Dense, Embedding, xavier_uniform_
-from ..nn.rnn import GRUCell
+from ..nn.rnn import GRUCell, run_rnn
+from ..ops.prng import HashDraws
 from ..ops.taco1_decode import prepare_weights, tacotron1_decode
 from .attention import init_attn
-from .common import (Prenet, add_style, cached_decode_weights, compute_copy, concat_speaker,
-                     kernel_prenet, sequence_mask)
+from .common import (Prenet, ServingWeights, add_style, cached_decode_weights, compute_copy,
+                     concat_speaker, kernel_prenet, sequence_mask)
 from .gst import GST
 
 
@@ -93,7 +94,7 @@ class CBHG(nn.Module):
             h = hw(h)
         # unpacked, as the reference passes no lengths: the backward
         # direction starts inside the padding, which reaches valid outputs
-        return self.gru(h)[0]
+        return run_rnn(self.gru, h)[0]
 
 
 class TacotronDecoder(nn.Module):
@@ -142,25 +143,30 @@ class TacotronDecoder(nn.Module):
 
     @torch.no_grad()
     def inference(self, inputs, input_lengths, max_steps: int, r: int, seed: int = 0,
-                  dtype=torch.bfloat16, compute_dtype=None):
+                  dtype=torch.bfloat16, compute_dtype=None, traced=None):
         """inputs [B, T, E] encoder memory -> (frames [B, max_steps * r,
         n_mels], alignments [B, max_steps, T], stop probabilities
         [B, max_steps], lengths [B] in mel frames). With a compute_dtype
         the memory's key projection W_k m runs in it (the decode itself
-        keeps its f32 state and `dtype` matrix inputs)."""
+        keeps its f32 state and `dtype` matrix inputs). traced: as
+        `Decoder.inference`'s (models/tacotron2.py)."""
         B = inputs.shape[0]
         mask = sequence_mask(input_lengths, inputs.shape[1])
         if compute_dtype is None:
             pinp = self.attention.preprocess_inputs(inputs)
         else:
-            pinp = compute_copy(self.attention, "inputs", compute_dtype)(
-                inputs.to(compute_dtype)).float()
+            key_proj = (compute_copy(self.attention, "inputs", compute_dtype) if traced is None
+                        else traced.cast("decoder.attention.inputs"))
+            pinp = key_proj(inputs.to(compute_dtype)).float()
             inputs = inputs.float()
         _, dropout = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
-        out, aligns, stops, lengths = tacotron1_decode(
-            self.decode_weights(dtype), inputs, pinp, mask, r=r, max_steps=max_steps,
-            norm=self.attention.norm, thresh=self.cfg.stop_threshold,
-            prenet_dropout=dropout, seed=seed)
+        kw = dict(r=r, max_steps=max_steps, norm=self.attention.norm,
+                  thresh=self.cfg.stop_threshold, prenet_dropout=dropout)
+        if traced is not None:
+            out, aligns, stops, lengths = traced.decode(inputs, pinp, mask, seed, **kw)
+        else:
+            out, aligns, stops, lengths = tacotron1_decode(
+                self.decode_weights(dtype), inputs, pinp, mask, seed=seed, **kw)
         dec_out = out[..., : self.n_mels * r].transpose(0, 1) \
             .reshape(B, max_steps * r, self.n_mels)
         return dec_out, aligns.transpose(0, 1), stops.transpose(0, 1), lengths * r
@@ -171,6 +177,9 @@ class Tacotron(nn.Module):
     scale with cfg.tacotron_width (the reference's 256)."""
 
     output_type = "linear"
+    # the modules inference runs through `compute_copy` under a compute dtype
+    COMPUTE_COPIES = ("embedding", "enc_prenet", "encoder_cbhg", "gst", "speaker_embedding",
+                      "post_cbhg", "last_linear", "decoder.attention.inputs")
 
     def __init__(self, num_chars: int, cfg, n_mels: int = 80, num_freq: int = 513,
                  r_init: int | None = None, device=None, seed: int = 0,
@@ -266,11 +275,19 @@ class Tacotron(nn.Module):
         enc_out = add_style(self, enc_out, style_mel, cast)
         return concat_speaker(self, enc_out, speaker_ids, speaker_embeddings, cast)
 
+    def serving_weights(self, compute_dtype=None, decode_dtype=torch.bfloat16) -> ServingWeights:
+        """The `ServingWeights` a traced `inference` at these dtypes reads
+        (the kernel's resident layout for this card's block count)."""
+        from ..ops.taco1_decode import _blocks, pack_weights
+
+        return ServingWeights(self, "taco1", self.COMPUTE_COPIES, compute_dtype, decode_dtype,
+                              lambda w: pack_weights(w, _blocks(self.device)))
+
     @torch.no_grad()
     def inference(self, text, text_lengths, max_decoder_steps: int | None = None,
                   r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16,
                   compute_dtype=None, speaker_ids=None, speaker_embeddings=None,
-                  style_mel=None):
+                  style_mel=None, traced: ServingWeights | None = None):
         """Free-running synthesis on the model's device (the signature of
         `Tacotron2.inference`, compute_dtype included: bf16 runs the
         embedding, encoder prenet and CBHG, the key projection and the
@@ -282,7 +299,9 @@ class Tacotron(nn.Module):
         statistics whatever the module's mode. A speaker-conditioned model
         takes speaker_ids [B] or speaker_embeddings [B, spk_dim], a GST
         model style_mel [B or 1, T_style, n_mels], as `Tacotron2.inference`
-        does."""
+        does. traced: the route of a traced program, as
+        `Tacotron2.inference`'s; the encoder prenet's dropout then draws from
+        the hash PRNG on the seed tensor (`ops.prng.HashDraws`)."""
         r = r or self.r
         max_steps = max_decoder_steps or self.cfg.max_decoder_steps
         dev = self.device
@@ -290,16 +309,19 @@ class Tacotron(nn.Module):
         text_lengths = torch.as_tensor(text_lengths, dtype=torch.long, device=dev)
         dt = compute_dtype
         cast = (lambda name: getattr(self, name)) if dt is None else \
+            traced.cast if traced is not None else \
             (lambda name: compute_copy(self, name, dt))  # noqa: E731
         was_training = self.training
         self.eval()
         try:
-            gen = (torch.Generator(device=dev).manual_seed(seed)
-                   if self.enc_prenet.dropout_enabled else None)
+            gen = None
+            if self.enc_prenet.dropout_enabled:
+                gen = (HashDraws(seed) if traced is not None
+                       else torch.Generator(device=dev).manual_seed(seed))
             enc_out = self._encode(text, speaker_ids, speaker_embeddings, style_mel, gen, cast)
             dec_out, aligns, stops, lengths = self.decoder.inference(
                 enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype,
-                compute_dtype=dt)
+                compute_dtype=dt, traced=traced)
             if dt is not None:
                 dec_out = dec_out.to(dt)
             linear = cast("last_linear")(cast("post_cbhg")(dec_out))

@@ -38,12 +38,12 @@ from torch import nn
 
 from .. import resolve_device
 from ..nn.core import GAINS, Conv1d, Dense, Embedding, xavier_uniform_
-from ..nn.rnn import LSTMCell, bilstm
+from ..nn.rnn import LSTMCell, bilstm, bilstm_unpacked
 from ..ops.taco2_decode import prepare_weights, tacotron2_decode
 from .attention import GravesAttention, init_attn
 from .decoder_grad import DecoderCore, dropout_masks
-from .common import (ConvBNBlock, Prenet, add_style, cached_decode_weights, compute_copy,
-                     concat_speaker, kernel_prenet, sequence_mask)
+from .common import (ConvBNBlock, Prenet, ServingWeights, add_style, cached_decode_weights,
+                     compute_copy, concat_speaker, kernel_prenet, sequence_mask)
 from .gst import GST
 
 
@@ -59,13 +59,15 @@ class Encoder(nn.Module):
         self.lstm.bias_hh_l0.requires_grad_(False)
         self.lstm.bias_hh_l0_reverse.requires_grad_(False)
 
-    def forward(self, x, lengths, generator: torch.Generator | None = None):
-        """x [B, T, C] -> [B, T, C]."""
+    def forward(self, x, lengths, generator: torch.Generator | None = None,
+                unpacked: bool = False):
+        """x [B, T, C] -> [B, T, C]; unpacked runs the BiLSTM as
+        `bilstm_unpacked` (a traced program)."""
         mask = sequence_mask(lengths, x.shape[1])
         for blk in self.blocks:
             x = blk(x, mask, generator)
         x = x * mask[..., None].to(x.dtype)
-        return bilstm(self.lstm, x, lengths)
+        return (bilstm_unpacked if unpacked else bilstm)(self.lstm, x, lengths)
 
 
 class Postnet(nn.Module):
@@ -183,13 +185,17 @@ class Decoder(nn.Module):
 
     @torch.no_grad()
     def inference(self, inputs, input_lengths, max_steps: int, r: int,
-                  seed: int = 0, dtype=torch.bfloat16, compute_dtype=None):
+                  seed: int = 0, dtype=torch.bfloat16, compute_dtype=None, traced=None):
         """inputs [B, T, E] encoder memory -> (frames [B, max_steps * r,
         n_mels], alignments [B, max_steps, T], stop probabilities
         [B, max_steps], lengths [B] in mel frames). With a compute_dtype
         the memory's key projection W_k m runs in it (the decode itself
-        keeps its f32 state and `dtype` matrix inputs)."""
-        return self._decode(inputs, input_lengths, max_steps, r, seed, dtype, compute_dtype)
+        keeps its f32 state and `dtype` matrix inputs). traced (a
+        `ServingWeights`; `seed` then an int64 tensor [1]) takes the key
+        projection's copy and the decode's weights from it and decodes
+        through the registered op."""
+        return self._decode(inputs, input_lengths, max_steps, r, seed, dtype, compute_dtype,
+                            traced=traced)
 
     @torch.no_grad()
     def inference_truncated(self, inputs, input_lengths, max_steps: int, r: int,
@@ -205,21 +211,26 @@ class Decoder(nn.Module):
                             stream=stream, return_stream=True)
 
     def _decode(self, inputs, input_lengths, max_steps, r, seed, dtype, compute_dtype,
-                **stream):
+                traced=None, **stream):
         B = inputs.shape[0]
         mask = sequence_mask(input_lengths, inputs.shape[1])
         if compute_dtype is None or isinstance(self.attention, GravesAttention):
             pinp = self.attention.preprocess_inputs(inputs)     # None for Graves
         else:
-            pinp = compute_copy(self.attention, "inputs", compute_dtype)(
-                inputs.to(compute_dtype)).float()
+            key_proj = (compute_copy(self.attention, "inputs", compute_dtype) if traced is None
+                        else traced.cast("decoder.attention.inputs"))
+            pinp = key_proj(inputs.to(compute_dtype)).float()
         inputs = inputs.float()
         _, dropout = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
-        out, aligns, stops, lengths, *stream_out = tacotron2_decode(
-            self.decode_weights(dtype), inputs, pinp, mask, r=r,
-            max_steps=max_steps, norm=self.attention.norm,
-            thresh=self.cfg.stop_threshold, prenet_dropout=dropout, seed=seed,
-            **self.attn_kernel_flags(), **stream)
+        kw = dict(r=r, max_steps=max_steps, norm=self.attention.norm,
+                  thresh=self.cfg.stop_threshold, prenet_dropout=dropout,
+                  **self.attn_kernel_flags())
+        if traced is not None:
+            out, aligns, stops, lengths = traced.decode(inputs, pinp, mask, seed, **kw)
+            stream_out = []
+        else:
+            out, aligns, stops, lengths, *stream_out = tacotron2_decode(
+                self.decode_weights(dtype), inputs, pinp, mask, seed=seed, **kw, **stream)
         dec_out = out[..., : self.n_mels * r].transpose(0, 1) \
             .reshape(B, max_steps * r, self.n_mels)
         return (dec_out, aligns.transpose(0, 1), stops.transpose(0, 1), lengths * r,
@@ -228,6 +239,9 @@ class Decoder(nn.Module):
 
 class Tacotron2(nn.Module):
     SPEAKER_TABLE_DIM = 512   # the internal table's width (the reference's default)
+    # the modules inference runs through `compute_copy` under a compute dtype
+    COMPUTE_COPIES = ("embedding", "encoder", "speaker_embedding", "gst", "postnet",
+                      "decoder.attention.inputs")
 
     def __init__(self, num_chars: int, cfg, n_mels: int = 80,
                  r_init: int | None = None, device=None, seed: int = 0,
@@ -347,11 +361,18 @@ class Tacotron2(nn.Module):
         return concat_speaker(self, add_style(self, enc_out, style_mel, cast, style_len),
                               speaker_ids, speaker_embeddings, cast)
 
+    def serving_weights(self, compute_dtype=None, decode_dtype=torch.bfloat16) -> ServingWeights:
+        """The `ServingWeights` a traced `inference` at these dtypes reads."""
+        from ..ops.taco2_decode import pack_weights
+
+        return ServingWeights(self, "taco2", self.COMPUTE_COPIES, compute_dtype, decode_dtype,
+                              pack_weights)
+
     @torch.no_grad()
     def inference(self, text, text_lengths, max_decoder_steps: int | None = None,
                   r: int | None = None, seed: int = 0, decode_dtype=torch.bfloat16,
                   compute_dtype=None, speaker_ids=None, speaker_embeddings=None,
-                  style_mel=None):
+                  style_mel=None, traced: ServingWeights | None = None):
         """Free-running synthesis on the model's device. text [B, T] symbol
         ids, text_lengths [B]. Output lengths are in mel frames; frames past
         a row's length are zero. decode_dtype is the decode's working type
@@ -366,9 +387,16 @@ class Tacotron2(nn.Module):
         (table) or speaker_embeddings [B, spk_dim] (d-vectors), a GST model
         style_mel [B or 1, T_style, n_mels]; under a compute_dtype the table,
         the d-vectors, the style mel and the GST are cast to it, as the
-        reference casts them."""
+        reference casts them.
+
+        traced: the route a traced program (`infer/export.py`) takes, with
+        the same outputs: `seed` is an int64 tensor [1] on the model's
+        device, the BiLSTM runs unpacked, the compute-dtype copies and the
+        decode's weights come from `traced` (`serving_weights`), and the
+        decode runs through its registered op."""
         return self._infer(text, text_lengths, max_decoder_steps, r, seed, decode_dtype,
-                           compute_dtype, speaker_ids, speaker_embeddings, style_mel)
+                           compute_dtype, speaker_ids, speaker_embeddings, style_mel,
+                           traced=traced)
 
     @torch.no_grad()
     def inference_truncated(self, text, text_lengths, max_decoder_steps: int | None = None,
@@ -389,7 +417,7 @@ class Tacotron2(nn.Module):
 
     def _infer(self, text, text_lengths, max_decoder_steps, r, seed, decode_dtype,
                compute_dtype, speaker_ids, speaker_embeddings, style_mel, truncated=False,
-               stream_state=None):
+               stream_state=None, traced=None):
         r = r or self.r
         max_steps = max_decoder_steps or self.cfg.max_decoder_steps
         dev = self.device
@@ -397,16 +425,18 @@ class Tacotron2(nn.Module):
         text_lengths = torch.as_tensor(text_lengths, dtype=torch.long, device=dev)
         dt = compute_dtype
         cast = (lambda name: getattr(self, name)) if dt is None else \
+            traced.cast if traced is not None else \
             (lambda name: compute_copy(self, name, dt))  # noqa: E731
         was_training = self.training
         self.eval()
         try:
-            enc_out = cast("encoder")(cast("embedding")(text), text_lengths)
+            enc_out = cast("encoder")(cast("embedding")(text), text_lengths,
+                                      unpacked=traced is not None)
             enc_out = self._condition(enc_out, speaker_ids, speaker_embeddings, cast, style_mel)
             args = (enc_out, text_lengths, max_steps, r, seed, decode_dtype, dt)
             dec_out, aligns, stops, lengths, *stream_out = (
                 self.decoder.inference_truncated(*args, stream=stream_state) if truncated
-                else self.decoder.inference(*args))
+                else self.decoder.inference(*args, traced=traced))
             if dt is not None:
                 dec_out = dec_out.to(dt)
             post = dec_out + cast("postnet")(dec_out)

@@ -127,13 +127,16 @@ def init_convs_(model: nn.Module, generator: torch.Generator) -> None:
                     m.bias.zero_()
 
 
-def dropout(x, rate: float, generator: torch.Generator | None):
-    """Inverted dropout drawn from `generator` (on x's device); the identity
+def dropout(x, rate: float, generator):
+    """Inverted dropout drawn from `generator` (a torch.Generator on x's
+    device, or an `ops.prng.HashDraws` in a traced program); the identity
     when no generator is given, as the JAX package skips it for rng=None."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    m = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    u = (torch.rand(x.shape, generator=generator, device=x.device)
+         if isinstance(generator, torch.Generator) else generator.rand(x.shape))
+    m = u < keep
     return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -96,6 +96,20 @@ def db_to_amp(x, spec_gain: float = 20.0):
     return torch.pow(10.0, x / spec_gain)
 
 
+def gl_magnitudes(spec_norm, inv_basis, *, min_level_db: float, max_norm: float,
+                  symmetric: bool, clip: bool, signal_norm: bool, ref_level_db: float,
+                  spec_gain: float, power: float):
+    """[B, T, F] normalized spectrogram -> the magnitudes Griffin-Lim
+    inverts, [B, T, n_fft/2 + 1]: denormalize, dB -> amplitude, mel ->
+    linear through the pseudo-inverse basis `inv_basis` [n_freq, n_mels]
+    (None for a linear spectrogram), ** power."""
+    D = denormalize_spec(spec_norm, min_level_db, max_norm, symmetric, clip, signal_norm)
+    S = db_to_amp(D + ref_level_db, spec_gain)
+    if inv_basis is not None:
+        S = mel_to_linear(S, inv_basis)
+    return S ** power
+
+
 def mel_to_linear(M, inv_basis):
     """Time-major mel [..., T, n_mels] -> linear magnitude [..., T, n_freq]
     (pseudo-inverse basis, floored at 1e-10)."""

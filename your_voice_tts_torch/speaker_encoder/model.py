@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..nn.rnn import run_rnn
 from ..train.checkpoint import jax_layouts, params_from_jax, read_checkpoint
 
 
@@ -48,7 +49,7 @@ class LSTMWithProjection(nn.Module):
 
     def forward(self, xs):
         """[B, T, in] -> [B, T, proj]."""
-        ys, _ = self.lstm(xs)
+        ys, _ = run_rnn(self.lstm, xs)
         return ys if self.recur_on_proj else self.proj(ys)
 
 
