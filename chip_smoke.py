@@ -73,7 +73,26 @@ Phases, each fatal on failure:
    just before and read just after; (a) one train step at the bench shape
    (B=32, 128 symbols, 400 mel frames), dropout off, on the kernels and on
    the plain versions: loss and every gradient leaf compared; (c) the timed
-   train step at that shape (train step ms, mel frames/s, launches).
+   train step at that shape (train step ms, mel frames/s, launches). The
+   fit synthesizes the test sentences after each evaluation
+   (`Trainer.test_run`): kernel 1 and the Griffin-Lim kernel their frames
+   route to launch in the same process as the training scans, no plain
+   version called.
+7c. taco1-train: (1) one Tacotron(1) train step at full width (width 256,
+   memory 5, r = 7, num_freq 513; config #3's batch: B=32, 128 symbols,
+   400 frames padded to 406, a linear target), card against CPU from the
+   same seeded weights, float32, dropout off: every loss part 1e-4
+   relative, all gradients 1e-3 rel L2; (3) the mel and linear statistics
+   of a 64-item synthetic corpus (`bin/compute_statistics`), then
+   Trainer.fit(max_steps=5) with them and test sentences after each
+   evaluation (kernel 8 and the Griffin-Lim kernel `gl_route` picks for
+   the decoded frames, no plain version called), its checkpoint served by
+   Synthesizer (a batch of 8, 250 steps a row: kernels 8 and 4); (2) the
+   timed train step, float32 and mixed precision (CUDA events, median of
+   5), its wall and the device's busy share; (4) one step of a
+   speaker-table and of a d-vector + GST Tacotron(1) at E = 512; (6)
+   Tacotron2 served with the statistics: the magnitudes entering kernel 2
+   against the CPU's from the same normalized mels, 1e-5 of the largest.
 7b. train-cond (the "your voice" path): (a) kernels 5 and 6 against their
    plain versions at the speaker-conditioned memory widths, phases 5-6's
    inputs and tolerances otherwise: E = 768 (256-wide d-vectors) and
@@ -197,10 +216,12 @@ Phases, each fatal on failure:
    answering a burst of 8 and refusing stream=1.
 
 The decode's and the wave route's launches in the kernel line add up
-the main, train-cond, melgan-main, cloning, conditioned, server,
-attention-variants and export paths' counts, the training scans' the train
+the main, train (its test sentences), taco1-train, train-cond,
+melgan-main, cloning, conditioned, server, attention-variants and export
+paths' counts, the training scans' the train
 phase's timed steps and the train-cond fits', the Tacotron(1) decode's and
-gl-iteration's the taco1-main, conditioned and export paths' counts, the
+gl-iteration's the taco1-main, taco1-train, conditioned and export paths'
+counts, the
 gl-full route's the small and export paths'
 (each path's counters set to 0 just before it and read just after); the
 decode's max_abs_err is the largest of the decode phase's and the
@@ -2521,7 +2542,8 @@ def plain_calls():
             setattr(mod, name, fn)
 
 
-def export_counters():
+def serve_counters():
+    """The decodes' and the three Griffin-Lim routes' kernel wrappers."""
     from your_voice_tts_torch.ops.taco1_decode import tacotron1_decode_cuda
     from your_voice_tts_torch.ops.taco2_decode import tacotron2_decode_cuda
 
@@ -2549,7 +2571,7 @@ def hold_artifact(tag: str, exp, program, text, lens, *cond, seed: int = 3,
     import numpy as np
     import torch
 
-    counters = export_counters()
+    counters = serve_counters()
     torch.cuda.synchronize()
     for c in counters:
         c.launches = 0
@@ -3450,15 +3472,29 @@ def phase_train_main(report, tmp: str):
         return applied[-1]
 
     opt.step = step_and_keep_the_first
+    # the test sentences after each evaluation: kernels 1 and the
+    # routed Griffin-Lim kernel in the same process as the training scans
+    tests: list = []
+    test_run = trainer.test_run
+    trainer.test_run = lambda s: tests.append(test_run(s)) or tests[-1]
     torch.cuda.synchronize()
-    for c in counters:
+    for c in counters + serve_counters():
         c.launches = 0
-    t0 = time.perf_counter()
-    trainer.fit(max_steps=5)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        trainer.fit(max_steps=5)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
     fit_launches = {c.__name__: c.launches for c in counters}
-    trainer.train_step, opt.step = train_step, opt_step
+    test_launches = {c.__name__: c.launches for c in serve_counters()}
+    trainer.train_step, opt.step, trainer.test_run = train_step, opt_step, test_run
+    routes = gl_routes(tests, trainer.ap)
+    print(f"[train] test sentences in the fit: {len(tests)} test runs, frames a row "
+          f"{[[r['mel_postnet_spec'].shape[1] for r in res] for res in tests]}, Griffin-Lim "
+          f"routes {routes}; launches {test_launches}; plain versions called {plain}")
+    check(tests and test_launches["tacotron2_decode_cuda"] > 0
+          and all(test_launches[ROUTE_KERNEL[k]] > 0 for k in routes)
+          and not any(plain.values()), "the fit's test sentences did not run on the kernels")
     moved = max(float((p.detach() - q).abs().max()) for p, q in zip(trainer.params, before))
     ckpts = sorted(f for f in os.listdir(out_dir) if f.endswith(".npz"))
     print(f"[train] fit(max_steps=5): {fit_s:.1f} s; per step loss "
@@ -3580,13 +3616,14 @@ def phase_train_main(report, tmp: str):
     check(all(n > 0 for n in launches.values()) and math.isfinite(m["loss"]),
           "timed train step")
     report["train"] = dict(fit_s=fit_s, fit_steps=steps_seen, fit_launches=fit_launches,
+                           test_launches=test_launches, test_routes=routes,
                            loss_kernel=lk, loss_plain=lp, grad_rel_l2=glob,
                            grad_leaf_err=leaf, bn_bias=bn_read,
                            first_update=dict(lr0=lr0, off=off, n_big=n_big, n_el=n_el),
                            kernel_vs_kernel_max_abs=noise,
                            train_step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
                            train_mel_frames_per_s=frames_s, launches=launches)
-    return trainer, launches
+    return trainer, dict(launches, **{k: n for k, n in test_launches.items() if n})
 
 
 # ----------------------------------------- training the "your voice" path
@@ -3960,6 +3997,374 @@ def phase_train_conditioned(report, tmp: str) -> tuple[dict, dict]:
     return errs, launches
 
 
+# ------------------------------------------------------- Tacotron(1) training
+
+TACO1_T_MEL = 406          # config #3's 400 frames padded to whole steps of r = 7
+
+
+def gl_routes(runs, ap) -> dict:
+    """{Griffin-Lim route: frame buckets} that `AudioProcessor.inv_*_batch`
+    gives the rows of test runs' synthesis results (each row's frames,
+    bucketed)."""
+    from your_voice_tts_torch.ops.griffin_lim import gl_route
+
+    out: dict = {}
+    for r in (r for results in runs for r in results):
+        tb = ap._frame_bucket(r["mel_postnet_spec"].shape[1])
+        out.setdefault(gl_route(tb, ap.cfg.fft_size, ap.hop_length), set()).add(tb)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+ROUTE_KERNEL = {"wave": "griffin_lim_wave_cuda", "full": "griffin_lim_full_cuda",
+                "iteration": "gl_iteration_cuda"}
+
+
+def taco1_train_cfg(corpus: str | None = None, stats_path: str | None = None, **training):
+    """taco1_config() (width 256, memory 5, r = 7 of r_init 7, num_freq 513)
+    for training: batch 32, gradual training off; the synthetic corpus and
+    the statistics where given."""
+    cfg = taco1_config()
+    tr = dict(gradual_training=None, batch_size=TRAIN_B, **training)
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training, **tr))
+    if corpus is not None:
+        ds = dataclasses.replace(cfg.data.datasets[0], name="synthetic", path=corpus)
+        cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)))
+    if stats_path is not None:
+        cfg = dataclasses.replace(cfg, audio=dataclasses.replace(cfg.audio,
+                                                                 stats_path=stats_path))
+    return cfg
+
+
+def taco1_batch(seed: int = 0) -> dict:
+    """Config #3's batch for Tacotron(1): 32 rows of 128 random symbols,
+    400 N(0, 1) mel frames padded to 406 (58 steps of r = 7), a N(0, 1)
+    linear target [32, 406, 513], the stop targets of 400 frames."""
+    import numpy as np
+
+    from your_voice_tts_torch.text import symbols
+
+    rng = np.random.default_rng(seed)
+    B, Tt, Tm = TRAIN_B, TRAIN_T_TEXT, TACO1_T_MEL
+    valid = (np.arange(Tm) < TRAIN_T_MEL)[None, :, None]
+    steps = -(-TRAIN_T_MEL // TACO1_R)
+    return {"text": rng.integers(1, len(symbols), (B, Tt)).astype(np.int32),
+            "text_lengths": np.full((B,), Tt, np.int32),
+            "mel": (rng.standard_normal((B, Tm, 80)) * valid).astype(np.float32),
+            "linear": (rng.standard_normal((B, Tm, 513)) * valid).astype(np.float32),
+            "mel_lengths": np.full((B,), TRAIN_T_MEL, np.int32),
+            "stop_targets": np.broadcast_to(np.arange(Tm // TACO1_R) >= steps - 1,
+                                            (B, Tm // TACO1_R)).astype(np.float32)}
+
+
+def taco1_step(trainer, batch: dict) -> tuple[dict, list]:
+    """One teacher-forced step through the Trainer's own `_loss_fn` (its
+    linear target, priority band and precision), dropout off: the loss
+    parts and the gradients of `trainer.params`."""
+    import torch
+
+    total, parts, _ = trainer._loss_fn(trainer._tensors(batch), TACO1_R, None)
+    grads = torch.autograd.grad(total, trainer.params)
+    return {k: float(v.detach()) for k, v in parts.items()}, grads
+
+
+def hold_taco1_step(result: dict, corpus: str) -> None:
+    """(1) One full-width Tacotron(1) train step, card against CPU: a
+    float32 Trainer on each device (the CPU one's weights loaded into the
+    card's), the same batch, dropout off, TF32 off: every loss part within
+    1e-4 relative, all gradients within 1e-3 rel L2."""
+    import torch
+
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    cfg = taco1_train_cfg(corpus, mixed_precision=False)
+    batch = taco1_batch()
+    trainers = {"cpu": Trainer(cfg, device="cpu", verbose=False),
+                "cuda": Trainer(cfg, device="cuda", verbose=False)}
+    trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
+    names = [n for n, p in trainers["cpu"].model.named_parameters() if p.requires_grad]
+    got, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got[dev] = taco1_step(trainers[dev], batch)
+        secs[dev] = time.perf_counter() - t0
+    del trainers
+    (pc, gc), (pk, gk) = got["cpu"], got["cuda"]
+    rel = {k: abs(pk[k] - v) / max(abs(v), 1e-30) for k, v in pc.items()}
+    cat = lambda gs: torch.cat([g.double().flatten().cpu() for g in gs])  # noqa: E731
+    glob = float((cat(gk) - cat(gc)).norm() / cat(gc).norm())
+    # a leaf's rel L2 (a conv bias ahead of batch-statistics BatchNorm has
+    # an exact gradient of 0: its rel L2 compares rounding noise)
+    leaf = {n: float((a.double().cpu() - c.double()).norm() / c.double().norm().clamp_min(1e-30))
+            for n, a, c in zip(names, gk, gc)}
+    worst = max(leaf, key=leaf.get)
+    gmax = max(float(c.abs().max()) for c in gc)
+    print(f"[taco1-train] one step at full width (B={TRAIN_B}, T_text={TRAIN_T_TEXT}, "
+          f"T_mel={TRAIN_T_MEL} padded to {TACO1_T_MEL}, {TACO1_T_MEL // TACO1_R} decoder steps "
+          f"of r = {TACO1_R}, float32, dropout off): loss parts card {pk}; rel to the CPU's "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + f" (tol 1e-4); all gradients "
+          f"rel L2 {glob:.3e} (tol 1e-3), largest leaf rel L2 {leaf[worst]:.3e} ({worst}, "
+          f"its largest gradient {float(gc[names.index(worst)].abs().max()):.2e} against "
+          f"{gmax:.2e} anywhere); CPU step "
+          f"{secs['cpu']:.1f} s, card {secs['cuda']:.2f} s (first call)")
+    check(max(rel.values()) <= 1e-4 and glob <= 1e-3, "Tacotron(1) step: card and CPU disagree")
+    result["step"] = dict(parts_card=pk, parts_cpu=pc, parts_rel=rel, grad_rel_l2=glob,
+                          worst_leaf=worst, worst_leaf_rel_l2=leaf[worst])
+
+
+def time_taco1_steps(trainer, result: dict) -> None:
+    """(2) Trainer.train_step at config #3's batch (dropout on), float32
+    and mixed precision: CUDA events, median of 5 after one warm step; the
+    wall (median of the same 5, host clock); one more step under
+    torch.profiler for the device's busy share (the union of its kernels'
+    intervals)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = taco1_batch(1)
+    out = {}
+    for mixed in (False, True):
+        trainer.cfg = dataclasses.replace(trainer.cfg, training=dataclasses.replace(
+            trainer.cfg.training, mixed_precision=mixed))
+        trainer.train_step(batch, TACO1_R)
+        torch.cuda.synchronize()
+        ev, wall = [], []
+        for _ in range(5):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            s.record()
+            m = trainer.train_step(batch, TACO1_R)        # ends in a host read
+            e.record()
+            e.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            ev.append(s.elapsed_time(e))
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.train_step(batch, TACO1_R)
+                torch.cuda.synchronize()
+                pwall = (time.perf_counter() - t0) * 1e3
+            trace = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(trace)
+            busy, summed, n_k = device_busy(trace)
+        tag = "mixed" if mixed else "f32"
+        out[tag] = dict(step_ms=statistics.median(ev), step_ms_all=ev,
+                        wall_ms=statistics.median(wall), profiled_wall_ms=pwall, busy_ms=busy,
+                        busy_share=busy / pwall, kernels=n_k, loss=m["loss"])
+        print(f"[taco1-train] timed step, {'bf16 mixed precision' if mixed else 'float32'}: "
+              f"{out[tag]['step_ms']:.1f} ms (CUDA events, median of 5; all "
+              f"{', '.join(f'{x:.1f}' for x in ev)}), wall {out[tag]['wall_ms']:.1f} ms; "
+              f"profiled step {pwall:.1f} ms, device busy {busy:.1f} ms (busy share "
+              f"{busy / pwall:.3f}, {n_k} kernels, summed {summed:.1f} ms); "
+              f"{TACO1_T_MEL // TACO1_R} decoder steps; loss {m['loss']:.4f}")
+        check(math.isfinite(m["loss"]), "timed Tacotron(1) step: loss not finite")
+    result["timed"] = out
+
+
+def conditioned_taco1_steps(result: dict, corpus: str) -> None:
+    """(4) A speaker-table and a d-vector + GST Tacotron(1) at full width
+    (E = 512 each), bf16 mixed precision: one step each through a Trainer
+    on the 4-speaker `corpus` (d-vectors drawn from a seed), the loss and
+    the gradient norm finite."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.data.formatters import synthetic
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    result["conditioned"] = {}
+    names = sorted({item[2] for item in synthetic(corpus)})
+    rng = np.random.default_rng(3)
+    dvecs = {n: (v / np.linalg.norm(v)).astype(np.float32)
+             for n, v in zip(names, rng.standard_normal((len(names), SPK_DIM)))}
+    b = taco1_batch(2)
+    b["speaker_ids"] = np.arange(TRAIN_B, dtype=np.int32) % N_SPK
+    for kind in ("table", "dvec+gst"):
+        c = taco1_train_cfg(corpus, mixed_precision=True)
+        sp = dict(use_speaker_embedding=True)
+        if kind == "dvec+gst":
+            c = gst_config(c)
+            sp.update(use_external_speaker_embedding_file=True, speaker_embedding_dim=SPK_DIM)
+        c = dataclasses.replace(c, speakers=dataclasses.replace(c.speakers, **sp))
+        trainer = Trainer(c, device="cuda", verbose=False,
+                          speaker_embeddings=None if kind == "table" else dvecs)
+        kb = dict(b)
+        if kind == "dvec+gst":
+            kb["speaker_embeddings"] = np.stack([dvecs[names[i]] for i in b["speaker_ids"]])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts, grads = taco1_step(trainer, kb)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        gnorm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+        model = trainer.model
+        E = model.decoder.attention_rnn.weight_ih.shape[1] - model.cfg.tacotron_width // 2
+        print(f"[taco1-train] {kind} (E = {E}, {trainer.num_speakers} speakers, bf16 mixed "
+              f"precision): one step {secs:.2f} s (first call), loss {parts['loss']:.4f}, "
+              f"gradient norm {gnorm:.4f}")
+        check(math.isfinite(parts["loss"]) and math.isfinite(gnorm) and E == 512
+              and trainer.num_speakers == N_SPK, f"conditioned Tacotron(1) step {kind}")
+        result["conditioned"][kind] = dict(E=E, loss=parts["loss"], grad_norm=gnorm)
+        del trainer, model
+
+
+def phase_taco1_train(report, tmp: str) -> dict:
+    """Tacotron(1) training: (1) a full-width step, card against CPU; (3)
+    Trainer.fit(max_steps=5) on a 64-item synthetic corpus with the mel and
+    linear statistics computed over it and test sentences after each
+    evaluation (kernel 8 and the Griffin-Lim kernel the frames route to,
+    no plain version), then its checkpoint served by Synthesizer, 250 steps
+    a row; (2) the timed step, float32 and mixed precision; (4) one step of
+    a speaker-table and a d-vector + GST model at full width; (6) serving
+    Tacotron2 with the statistics: the magnitudes entering kernel 2 against
+    the CPU's. Returns the launches of kernels 1, 2, 4 and 8 on these paths."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.audio import AudioProcessor
+    from your_voice_tts_torch.bin.compute_statistics import compute_statistics
+    from your_voice_tts_torch.data.formatters import synthetic
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    result: dict = {}
+    launches = {c.__name__: 0 for c in serve_counters()}
+    # the step checks' Trainers read an 8-clip, 4-speaker corpus (the
+    # batches themselves are taco1_batch's)
+    small = make_synthetic_corpus(os.path.join(tmp, "corpus-step"), n_items=8, sr=22050,
+                                  n_speakers=N_SPK)
+    hold_taco1_step(result, small)
+
+    # (3) statistics over the corpus, then fit with test sentences
+    corpus = make_synthetic_corpus(os.path.join(tmp, "corpus"), n_items=64, sr=22050,
+                                   max_words=15)
+    t0 = time.perf_counter()
+    stats = compute_statistics(taco1_train_cfg(corpus), synthetic(corpus), device="cuda")
+    stats_s = time.perf_counter() - t0
+    stats_path = os.path.join(tmp, "scale_stats.npy")
+    np.save(stats_path, stats, allow_pickle=True)
+    print(f"[taco1-train] statistics over {stats['n_frames']} frames of 64 clips in "
+          f"{stats_s:.2f} s: mel mean {float(stats['mel_mean'].mean()):.2f} dB, std "
+          f"{float(stats['mel_std'].mean()):.2f}; linear mean "
+          f"{float(stats['linear_mean'].mean()):.2f}, std {float(stats['linear_std'].mean()):.2f}")
+    check(all(np.isfinite(stats[k]).all() and stats[k].shape == (n,) for k, n in
+              (("mel_mean", 80), ("mel_std", 80), ("linear_mean", 513), ("linear_std", 513))),
+          "statistics")
+    cfg = taco1_train_cfg(corpus, stats_path, test_delay_epochs=0)
+    run = os.path.join(tmp, "run")
+    trainer = Trainer(cfg, output_path=run, device="cuda", verbose=False)
+    check(None not in trainer.ap.host_stats.values(),
+          "the trainer's audio processor holds no statistics")
+    steps, tests = [], []
+    step, test_run = trainer.train_step, trainer.test_run
+    trainer.train_step = lambda b, r: steps.append(step(b, r)) or steps[-1]
+    trainer.test_run = lambda s: tests.append(test_run(s)) or tests[-1]
+    counters = serve_counters()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        trainer.fit(max_steps=5)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    fit_launches = {c.__name__: c.launches for c in counters}
+    trainer.train_step, trainer.test_run = step, test_run
+    routes = gl_routes(tests, trainer.ap)
+    frames = [[r["mel_postnet_spec"].shape[1] for r in res] for res in tests]
+    ckpts = sorted(f for f in os.listdir(run) if f.endswith(".npz"))
+    print(f"[taco1-train] fit(max_steps=5) with statistics and test sentences: {fit_s:.1f} s; "
+          f"loss {[round(m['loss'], 4) for m in steps]}, postnet (linear) loss "
+          f"{[round(m['postnet_loss'], 4) for m in steps]}, grad_norm "
+          f"{[round(m['grad_norm'], 4) for m in steps]}; {len(tests)} test runs, frames a row "
+          f"{frames}, Griffin-Lim routes {routes}; launches {fit_launches}; plain versions "
+          f"called {plain}; checkpoints {ckpts}")
+    check(len(steps) == 5 and all(math.isfinite(m[k]) for m in steps
+                                  for k in ("loss", "grad_norm")), "Tacotron(1) fit losses")
+    check("checkpoint_5.npz" in ckpts and tests, "Tacotron(1) fit: no checkpoint or test run")
+    check(all(np.isfinite(r["wav"]).all() and len(r["wav"]) > 0 for res in tests for r in res),
+          "test sentences' waveforms")
+    check(fit_launches["tacotron1_decode_cuda"] > 0 and fit_launches["tacotron2_decode_cuda"] == 0
+          and all(fit_launches[ROUTE_KERNEL[k]] > 0 for k in routes)
+          and all(n == 0 for k, n in fit_launches.items()
+                  if k in ROUTE_KERNEL.values() and k not in {ROUTE_KERNEL[r] for r in routes}),
+          f"test_run's kernels: {fit_launches}, routes {routes}")
+    check(not any(plain.values()), f"a plain version ran in the fit: {plain}")
+    for k, n in fit_launches.items():
+        launches[k] += n
+    result["fit"] = dict(fit_s=fit_s, steps=steps, frames=frames, routes=routes,
+                         launches=fit_launches, stats_s=stats_s)
+    # (2) the timed step on the same trainer
+    time_taco1_steps(trainer, result)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the checkpoint served, 250 steps a row
+    synth = Synthesizer(dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, max_decoder_steps=TACO1_STEPS)), os.path.join(run, "checkpoint_5.npz"),
+        device="cuda")
+    no_chance_stops(synth.model)
+    synth.tts_many(SENTENCES[:1])
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        wavs = synth.tts_many(SENTENCES)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+    served = {c.__name__: c.launches for c in counters}
+    print(f"[taco1-train] the trained checkpoint served (statistics, r = {TACO1_R}, "
+          f"{TACO1_STEPS} steps = {TACO1_STEPS * TACO1_R} frames a row): a batch of 8 in "
+          f"{serve_ms:.1f} ms; launches {served}; plain versions called {plain}")
+    check(len(wavs) == 8 and all(np.isfinite(w).all() and len(w) > 0 for w in wavs),
+          "the trained checkpoint's waveforms")
+    check(served["tacotron1_decode_cuda"] > 0 and served["gl_iteration_cuda"] > 0
+          and not any(plain.values()), "the trained checkpoint's kernels")
+    for k, n in served.items():
+        launches[k] += n
+    result["served"] = dict(batch_ms=serve_ms, launches=served)
+    del synth
+
+    conditioned_taco1_steps(result, small)
+
+    # (6) Tacotron2 served with the statistics: the magnitudes entering
+    # kernel 2, card against the CPU's from the same normalized mels
+    scfg = dataclasses.replace(full_width_config(), audio=dataclasses.replace(
+        full_width_config().audio, stats_path=stats_path))
+    synth = Synthesizer(scfg, device="cuda")
+    no_chance_stops(synth.model)
+    synth.tts_many(SENTENCES[:1])
+    seen = []
+    magnitudes = synth.ap.gl_magnitudes
+    synth.ap.gl_magnitudes = lambda kind, spec: seen.append(
+        (kind, spec.cpu(), magnitudes(kind, spec))) or seen[-1][2]
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    with plain_calls() as plain:
+        wavs = synth.tts_many(SENTENCES)
+    stats_launches = {c.__name__: c.launches for c in counters}
+    cpu_ap = AudioProcessor(scfg.audio, "cpu")
+    errs = []
+    for kind, spec, mag in seen:
+        ref = cpu_ap.gl_magnitudes(kind, spec)
+        errs.append(float((mag.cpu() - ref).abs().max() / ref.abs().max()))
+    print(f"[taco1-train] Tacotron2 served with the statistics: {len(seen)} Griffin-Lim calls "
+          f"on {[tuple(s.shape) for _, s, _ in seen]}; magnitudes entering the kernel, card "
+          f"against CPU, max abs over the largest {max(errs):.3e} (tol 1e-5); launches "
+          f"{stats_launches}; plain versions called {plain}")
+    check(max(errs) <= 1e-5, "statistics-denormalized magnitudes: card and CPU disagree")
+    check(stats_launches["tacotron2_decode_cuda"] > 0 and stats_launches["griffin_lim_wave_cuda"]
+          > 0 and not any(plain.values()) and all(np.isfinite(w).all() for w in wavs),
+          "Tacotron2 with statistics")
+    for k, n in stats_launches.items():
+        launches[k] += n
+    result["stats_serving"] = dict(mag_err=max(errs), launches=stats_launches)
+    result["launches"] = launches
+    report["taco1_train"] = result
+    return launches
+
+
 def phase_train_profile(report, trainer, out_dir: str):
     """One train step at the bench shape under torch.profiler."""
     import torch
@@ -4046,7 +4451,13 @@ def main() -> int:
         if args.profile:
             timed("train-profile", phase_train_profile, report, trainer, args.out)
     del trainer
-    launches.update(train_launches)
+    for k, n in train_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    # Tacotron(1) training: kernels 8, 4 or 2 from its test sentences and
+    # its checkpoint served; kernels 1 and 2 with the statistics
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, n in timed("taco1-train", phase_taco1_train, report, tmp).items():
+            launches[k] = launches.get(k, 0) + n
     # phase 7b: kernels 5 and 6 at E = 768 / 1,024, the "your voice" path
     with tempfile.TemporaryDirectory() as tmp:
         wide_errs, voice_launches = timed("train-cond", phase_train_conditioned, report, tmp)

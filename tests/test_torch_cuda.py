@@ -1704,3 +1704,157 @@ def test_cuda_artifact_launches_the_kernels(cuda, tmp_path):
         np.testing.assert_array_equal(ml, ref_ml.cpu().numpy())
         np.testing.assert_allclose(wav, ref_wav.cpu().numpy(), atol=1e-5)
         assert np.isfinite(wav).all() and np.abs(wav).max() > 0
+
+
+# ------------------------------------------- Tacotron(1) training, the importer
+
+def upstream_tacotron2_state_dict(n_chars: int, seed: int = 0) -> dict:
+    """An upstream (mozilla/TTS layer naming) Tacotron2 state dict at the
+    smoke config's widths, seeded random values, the stopnet's bias at -10
+    (no row stops by chance): what bin/import_checkpoint reads from a
+    .pth.tar. Built from shapes alone: the replicas of
+    tests/test_torch_import.py need JAX, which the card machine lacks."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def put(name, *shape, scale=0.2):
+        sd[name] = scale * torch.randn(*shape, generator=g)
+
+    def convbn(prefix, i, o, k):
+        put(f"{prefix}.convolution1d.weight", o, i, k)
+        put(f"{prefix}.convolution1d.bias", o)
+        bn = f"{prefix}.batch_normalization"
+        put(f"{bn}.weight", o), put(f"{bn}.bias", o), put(f"{bn}.running_mean", o)
+        sd[f"{bn}.running_var"] = 0.5 + torch.rand(o, generator=g)
+
+    E, H, A, F, K, P, PD, M, r = 32, 48, 24, 8, 15, 24, 32, 20, 2
+    put("embedding.weight", n_chars, E, scale=0.3)
+    for i in range(3):
+        convbn(f"encoder.convolutions.{i}", E, E, 5)
+    for sfx in ("", "_reverse"):
+        put(f"encoder.lstm.weight_ih_l0{sfx}", 2 * E, E), put(f"encoder.lstm.weight_hh_l0{sfx}",
+                                                             2 * E, E // 2)
+        put(f"encoder.lstm.bias_ih_l0{sfx}", 2 * E), put(f"encoder.lstm.bias_hh_l0{sfx}", 2 * E)
+    put("decoder.prenet.linear_layers.0.linear_layer.weight", P, M)
+    put("decoder.prenet.linear_layers.1.linear_layer.weight", P, P)
+    put("decoder.prenet.linear_layers.0.linear_layer.bias", P)
+    put("decoder.prenet.linear_layers.1.linear_layer.bias", P)
+    for rnn, n_in in (("attention_rnn", P + E), ("decoder_rnn", H + E)):
+        put(f"decoder.{rnn}.weight_ih", 4 * H, n_in), put(f"decoder.{rnn}.weight_hh", 4 * H, H)
+        put(f"decoder.{rnn}.bias_ih", 4 * H), put(f"decoder.{rnn}.bias_hh", 4 * H)
+    a = "decoder.attention"
+    put(f"{a}.query_layer.linear_layer.weight", A, H)
+    put(f"{a}.inputs_layer.linear_layer.weight", A, E)
+    put(f"{a}.v.linear_layer.weight", 1, A), put(f"{a}.v.linear_layer.bias", 1)
+    put(f"{a}.location_layer.location_conv1d.weight", F, 2, K)
+    put(f"{a}.location_layer.location_dense.linear_layer.weight", A, F)
+    put("decoder.linear_projection.linear_layer.weight", M * r, H + E)
+    put("decoder.linear_projection.linear_layer.bias", M * r)
+    put("decoder.stopnet.1.linear_layer.weight", 1, H + M * r)
+    sd["decoder.stopnet.1.linear_layer.bias"] = torch.full((1,), -10.0)
+    chans = [M] + [PD] * 4 + [M]
+    for i in range(5):
+        convbn(f"postnet.convolutions.{i}", chans[i], chans[i + 1], 5)
+    return sd
+
+
+def test_imported_tacotron2_serves_on_the_card(cuda, tmp_path):
+    """An upstream checkpoint at the smoke widths through
+    bin/import_checkpoint, served by Synthesizer on the card: the decode
+    (kernel 1) and the whole-loop Griffin-Lim at the smoke hop (kernel 3)
+    launch; its mel, alignments, stops and lengths against the CPU's plain
+    route of the same import at the decode's tolerances."""
+    import os
+
+    from your_voice_tts_torch.bin import import_checkpoint
+    from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.ops.griffin_lim import griffin_lim_full_cuda
+    from your_voice_tts_torch.text import symbols
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg_path = os.path.join(root, "configs/smoke_synthetic.json")
+    src, out = tmp_path / "ref.pth.tar", tmp_path / "imported.npz"
+    torch.save({"model": upstream_tacotron2_state_dict(len(symbols)), "r": 2, "step": 9}, src)
+    import_checkpoint.main([str(src), cfg_path, str(out)])
+    card, cpu = (Synthesizer(cfg_path, str(out), device=d) for d in (cuda, "cpu"))
+    texts = ["The imported model speaks.", "On the card and on the host."]
+    for c in (tacotron2_decode_cuda, griffin_lim_full_cuda):
+        c.launches = 0
+    wavs = card.tts_many(texts)
+    assert tacotron2_decode_cuda.launches > 0 and griffin_lim_full_cuda.launches > 0
+    assert all(np.isfinite(w).all() and len(w) > 0 for w in wavs)
+    text, lengths = _pad_texts([text_to_seq(t, card.cfg) for t in texts])
+    got, ref = (s.model.inference(text, lengths, seed=3) for s in (card, cpu))
+    assert_decode_holds([got[k].cpu() for k in ("decoder_outputs", "alignments", "stop_probs",
+                                                "mel_lengths")],
+                        [ref[k] for k in ("decoder_outputs", "alignments", "stop_probs",
+                                          "mel_lengths")])
+
+
+def taco1_trainer(device, corpus, **training):
+    """A Tacotron(1) Trainer at the smoke widths (tacotron_width 32) on
+    `corpus`, on `device`; float32 unless `training` says otherwise."""
+    import dataclasses
+    import os
+
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, "configs/smoke_synthetic.json"))
+    ds = dataclasses.replace(cfg.data.datasets[0], path=corpus)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)),
+        model=dataclasses.replace(cfg.model, model="Tacotron", tacotron_width=32, memory_size=5,
+                                  attention_dim=24, max_decoder_steps=40),
+        training=dataclasses.replace(cfg.training, **{"mixed_precision": False, **training}))
+    return Trainer(cfg, verbose=False, device=device)
+
+
+def test_taco1_train_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """One Tacotron(1) train step's loss parts (1e-4 relative) and
+    gradients (1e-3 relative L2 over all leaves), card against CPU, from
+    the same weights and batch, dropout off, TF32 off: chip_smoke.py's
+    taco1-train tolerances at the smoke widths."""
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_items=8, sr=8000)
+    cpu, card = taco1_trainer("cpu", corpus), taco1_trainer(cuda, corpus)
+    card.model.load_state_dict(cpu.model.state_dict())
+    batch = next(cpu.train_data.batches(4, 2, shuffle=False))
+    got = {}
+    for name, tr in (("cpu", cpu), ("card", card)):
+        total, parts, _ = tr._loss_fn(tr._tensors(batch), 2, None)
+        grads = torch.autograd.grad(total, tr.params)
+        got[name] = ({k: float(v.detach()) for k, v in parts.items()},
+                     torch.cat([g.flatten().double().cpu() for g in grads]))
+    (pc, gc), (pk, gk) = got["cpu"], got["card"]
+    for k, v in pc.items():
+        assert abs(pk[k] - v) <= 1e-4 * max(abs(v), 1e-6), (k, pk[k], v)
+    assert float((gk - gc).norm() / gc.norm()) <= 1e-3
+
+
+def test_taco1_test_run_launches_its_kernels(cuda, tmp_path):
+    """Trainer.test_run on the card for Tacotron(1): the decode (kernel 8)
+    and the Griffin-Lim kernel gl_route picks for the decoded frames (at
+    the smoke hop, the whole loop: kernel 3) launch, and the results are
+    finite."""
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.ops.griffin_lim import (gl_iteration_cuda, gl_route,
+                                                      griffin_lim_full_cuda)
+    from your_voice_tts_torch.ops.taco1_decode import tacotron1_decode_cuda
+
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_items=8, sr=8000)
+    trainer = taco1_trainer(cuda, corpus)
+    counters = (tacotron1_decode_cuda, griffin_lim_full_cuda, griffin_lim_wave_cuda,
+                gl_iteration_cuda)
+    for c in counters:
+        c.launches = 0
+    results = trainer.test_run(1)
+    frames = max(r["mel_postnet_spec"].shape[1] for r in results)
+    route = gl_route(-(-frames // 32) * 32, 256, 64)
+    want = {"full": griffin_lim_full_cuda, "wave": griffin_lim_wave_cuda,
+            "iteration": gl_iteration_cuda}[route]
+    assert tacotron1_decode_cuda.launches > 0 and want.launches > 0
+    assert all(np.isfinite(r["wav"]).all() for r in results)

@@ -383,11 +383,12 @@ def test_gst_bf16_inference_matches_jax(monkeypatch):
 
 
 def test_gst_training_is_refused(tmp_path):
-    """GST training is Tacotron2's now (tests/test_torch_train_speakers.py
-    holds it against the JAX package), not yet Tacotron(1)'s: a GST
-    Tacotron2's teacher-forced pass in training mode reads the style of the
-    teacher mels and moves the reference encoder's running statistics; a
-    GST Tacotron(1) config is refused before its data is read."""
+    """GST training is Tacotron2's (tests/test_torch_train_speakers.py
+    holds it against the JAX package) and Tacotron(1)'s
+    (tests/test_torch_taco1_train.py): a GST Tacotron2's teacher-forced
+    pass in training mode reads the style of the teacher mels and moves the
+    reference encoder's running statistics; a GST Tacotron(1) config is no
+    longer refused and fails only where it reads its missing data."""
     from your_voice_tts_torch.config import load_config
     from your_voice_tts_torch.train.trainer import Trainer
 
@@ -415,7 +416,7 @@ def test_gst_training_is_refused(tmp_path):
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)),
                               speakers=dataclasses.replace(cfg.speakers, use_gst=True),
                               model=dataclasses.replace(cfg.model, model="Tacotron"))
-    with pytest.raises(NotImplementedError, match="Tacotron\\(1\\) training arrives"):
+    with pytest.raises(FileNotFoundError):
         Trainer(cfg, verbose=False, device="cpu")
 
 

@@ -402,3 +402,82 @@ def test_an_artifact_serves_without_model_code(tmp_path):
     got = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
     assert got.returncode == 0 and got.stdout.strip().endswith("ok"), got.stderr
+
+
+def test_taco1_training_and_tool_modules_import_with_jax_blocked():
+    """The statistics, import and preprocess CLIs, the importer, the
+    quality metrics, the plots and the loggers, in one process."""
+    test_tacotron_slice_modules_import_with_jax_blocked(", ".join(
+        f"your_voice_tts_torch.{m}" for m in ("bin.compute_statistics", "bin.import_checkpoint",
+                                              "bin.preprocess", "utils.torch_import",
+                                              "utils.quality", "utils.visual", "utils.logging")))
+
+
+def test_statistics_and_taco1_training_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    """bin/compute_statistics, a Tacotron(1) Trainer and bin/train.py on a
+    Tacotron(1) config raise without CUDA and a device (the statistics
+    before they write anything)."""
+    from your_voice_tts_torch.bin import compute_statistics, train
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_items=2, sr=8000)
+    with open(os.path.join(ROOT, "configs/smoke_synthetic.json"), encoding="utf-8") as f:
+        raw = "\n".join(line for line in f if not line.strip().startswith("//"))
+    raw = raw.replace("SET_AT_RUNTIME", corpus).replace(
+        '"model": "Tacotron2"', '"model": "Tacotron", "tacotron_width": 32, "memory_size": 5')
+    cfg_path = tmp_path / "taco1.json"
+    cfg_path.write_text(raw)
+    out = tmp_path / "stats.npy"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compute_statistics.main(["--config_path", str(cfg_path), "--out_path", str(out)])
+    assert not out.exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(load_config(str(cfg_path)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--config_path", str(cfg_path), "--output_path", str(tmp_path / "runs")])
+    compute_statistics.main(["--config_path", str(cfg_path), "--out_path", str(out),
+                             "--device", "cpu"])
+    assert out.exists()
+
+
+def test_import_and_preprocess_are_host_only(monkeypatch, tmp_path):
+    """bin/import_checkpoint and `bin/preprocess --audit` are host work and
+    need no card: they run with CUDA absent and no device given. Warming
+    the caches computes spectrograms, which run on CUDA: without CUDA it
+    raises unless given --device cpu, before it writes anything."""
+    from your_voice_tts_torch.bin import import_checkpoint, preprocess
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.speaker_encoder.model import load_encoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    torch.manual_seed(0)
+    layers = torch.nn.ModuleList()
+    for i in range(2):
+        layer = torch.nn.Module()
+        layer.lstm = torch.nn.LSTM(20 if i == 0 else 16, 24, batch_first=True)
+        layer.linear = torch.nn.Linear(24, 16, bias=False)
+        layers.append(layer)
+    holder = torch.nn.Module()
+    holder.layers = layers
+    src = tmp_path / "enc.pth.tar"
+    torch.save({"model": holder.state_dict(), "step": 3}, src)
+    cfg_path = os.path.join(ROOT, "configs/smoke_synthetic.json")
+    out = tmp_path / "enc.npz"
+    import_checkpoint.main([str(src), cfg_path, str(out), "--kind", "speaker_encoder"])
+    assert load_encoder(str(out), device="cpu").layers[0].lstm.hidden_size == 24
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_items=2, sr=8000)
+    with open(cfg_path, encoding="utf-8") as f:
+        raw = "\n".join(line for line in f if not line.strip().startswith("//"))
+    smoke = tmp_path / "smoke.json"
+    smoke.write_text(raw.replace("SET_AT_RUNTIME", corpus))
+    assert preprocess.main(["--config_path", str(smoke), "--audit"]) == 0
+    cache = tmp_path / "cache"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        preprocess.main(["--config_path", str(smoke), "--cache_dir", str(cache)])
+    assert not cache.exists()
+    assert preprocess.main(["--config_path", str(smoke), "--cache_dir", str(cache),
+                            "--device", "cpu"]) == 0
+    assert any(f.startswith("mel_") for f in os.listdir(cache))

@@ -383,26 +383,30 @@ def test_trainer_restores_its_own_checkpoint(tmp_path):
 
 
 def test_trainer_refuses_tacotron1_before_reading_data(tmp_path):
-    """A Tacotron(1) config raises in the constructor, before the audio
-    processor or the dataset is built: the dataset path does not exist."""
+    """The name is historical: the Trainer once refused Tacotron(1) before
+    reading its data. Tacotron(1) trains now (tests/test_torch_taco1_train.py
+    holds it against the JAX package): a Tacotron(1) config gets past every
+    refusal of the constructor and fails only where it reads its data,
+    whose path does not exist; the refusal and its message are gone."""
     from your_voice_tts_torch.train.trainer import Trainer
 
     cfg = load_config(SMOKE)
     ds = dataclasses.replace(cfg.data.datasets[0], path=str(tmp_path / "missing"))
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)),
                               model=dataclasses.replace(cfg.model, model="Tacotron"))
-    with pytest.raises(NotImplementedError, match="Tacotron\\(1\\) training arrives"):
+    with pytest.raises(FileNotFoundError):
         Trainer(cfg, verbose=False, device="cpu")
+    assert "Tacotron(1) training" not in inspect.getsource(Trainer.__init__)
 
 
 @pytest.mark.parametrize("group,match", [("use_speaker_embedding", "multi-speaker training"),
                                          ("use_gst", "GST training")])
 def test_trainer_refuses_conditioning_before_reading_data(tmp_path, group, match):
-    """Conditioned training is Tacotron2's now, not yet Tacotron(1)'s: a
-    multi-speaker or GST Tacotron(1) config raises in the constructor,
-    before the audio processor or the dataset is built (the dataset path
-    does not exist); the same conditioning on Tacotron2 gets past every
-    refusal and fails only at the missing dataset."""
+    """The name is historical: the Trainer once refused conditioned configs
+    before reading their data. Conditioned training is Tacotron2's and
+    Tacotron(1)'s now: a multi-speaker or GST config of either model gets
+    past every refusal of the constructor and fails only at the missing
+    dataset."""
     from your_voice_tts_torch.train.trainer import Trainer
 
     cfg = load_config(SMOKE)
@@ -412,7 +416,7 @@ def test_trainer_refuses_conditioning_before_reading_data(tmp_path, group, match
     with pytest.raises(FileNotFoundError):
         Trainer(cfg, verbose=False, device="cpu")
     taco1 = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, model="Tacotron"))
-    with pytest.raises(NotImplementedError, match="Tacotron\\(1\\) training arrives"):
+    with pytest.raises(FileNotFoundError):
         Trainer(taco1, verbose=False, device="cpu")
     # the refusal and its message are gone
     assert match not in inspect.getsource(Trainer.__init__)

@@ -1,8 +1,9 @@
 """AudioProcessor (the JAX package's audio.py). Forward half: WAV loading
 (`read_wav`, the port's own RIFF reader in numpy, and scipy's polyphase
 resampler when the rate differs; a thread pool for batches),
-silence trimming and normalized mel spectrograms, one batched call per
-length bucket. Inverse half: normalized mel or linear spectrograms ->
+silence trimming and normalized mel and linear spectrograms, one batched
+call per length bucket, normalized by range or, with `stats_path`, by the
+corpus statistics. Inverse half: normalized mel or linear spectrograms ->
 waveforms through batched Griffin-Lim (`ops/griffin_lim.py
 griffin_lim_batch`, which routes by the padded frame count), plus
 `find_endpoint` and `save_wav`. Numpy in,
@@ -42,13 +43,10 @@ FRAME_BUCKET = 32    # mel frame counts padded to multiples of FRAME_BUCKET
 _PCM, _FLOAT, _EXTENSIBLE = 1, 3, 0xFFFE
 
 
-def read_wav(path: str) -> tuple[np.ndarray, int]:
-    """Decode a RIFF/WAVE file to (mono float32 [n], sample rate), the
-    channel mean of each frame. Takes PCM 8-bit (unsigned, offset 128),
-    16, 24 and 32-bit, IEEE float32 and float64, and WAVE_FORMAT_EXTENSIBLE
-    with either sub-format; skips other chunks (LIST, fact, bext). Scales as
-    the JAX package's native codec: PCM by 2^(bits - 1), floats as stored.
-    A data chunk cut short by the end of the file decodes its whole frames."""
+def _wav_chunks(path: str) -> tuple[tuple[int, int, int, int], bytes]:
+    """A RIFF/WAVE file's (format tag, channels, rate, bits) and its data
+    chunk; WAVE_FORMAT_EXTENSIBLE reads as its sub-format's tag, other
+    chunks (LIST, fact, bext) are skipped."""
     with open(path, "rb") as f:
         blob = f.read()
     if len(blob) < 12 or blob[:4] != b"RIFF" or blob[8:12] != b"WAVE":
@@ -71,7 +69,26 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
         pos = body + size + (size & 1)                # chunks pad to even sizes
     if fmt is None or data is None:
         raise ValueError(f"{path}: missing {'fmt' if fmt is None else 'data'} chunk")
-    tag, channels, rate, bits = fmt
+    return fmt, data
+
+
+def wav_info(path: str) -> dict:
+    """A WAV file's header as `read_wav` parses it: channels, bits a sample,
+    sample_rate and n_frames (the whole frames of its data chunk)."""
+    (_, channels, rate, bits), data = _wav_chunks(path)
+    width = max(1, bits // 8) * max(1, channels)
+    return {"channels": channels, "bits": bits, "sample_rate": rate,
+            "n_frames": len(data) // width}
+
+
+def read_wav(path: str) -> tuple[np.ndarray, int]:
+    """Decode a RIFF/WAVE file to (mono float32 [n], sample rate), the
+    channel mean of each frame. Takes PCM 8-bit (unsigned, offset 128),
+    16, 24 and 32-bit, IEEE float32 and float64, and WAVE_FORMAT_EXTENSIBLE
+    with either sub-format; skips other chunks (LIST, fact, bext). Scales as
+    the JAX package's native codec: PCM by 2^(bits - 1), floats as stored.
+    A data chunk cut short by the end of the file decodes its whole frames."""
+    (tag, channels, rate, bits), data = _wav_chunks(path)
     if channels <= 0 or rate <= 0:
         raise ValueError(f"{path}: {channels} channels at {rate} Hz")
     if not ((tag == _PCM and bits in (8, 16, 24, 32)) or (tag == _FLOAT and bits in (32, 64))):
@@ -101,10 +118,6 @@ class AudioProcessor:
     _INV_BATCH_CAP = 128
 
     def __init__(self, config: AudioConfig, device="cpu", seed: int = 0):
-        if config.stats_path:
-            raise NotImplementedError(
-                "mean/std mel statistics (audio.stats_path) arrive with a "
-                "later slice of the port")
         self.cfg = config
         self.device = torch.device(device)
         self.sample_rate = config.sample_rate
@@ -116,11 +129,35 @@ class AudioProcessor:
         self.window = hann_window(self.win_length, config.fft_size).astype(np.float32)
         self.mel_basis = torch.from_numpy(basis).to(self.device)
         self.window_t = torch.from_numpy(self.window).to(self.device)
+        # corpus statistics (stats_path, a scale_stats.npy as
+        # bin/compute_statistics.py writes it): per-bin (mean, std) of the
+        # dB-minus-ref values, which replace the range normalization; a
+        # "mel" and a "linear" pair (or None), on the host and on the device
+        self.host_stats = {"mel": None, "linear": None}
+        if config.stats_path:
+            stats = np.load(config.stats_path, allow_pickle=True).item()
+            for kind in ("mel", "linear") if "linear_mean" in stats else ("mel",):
+                self.host_stats[kind] = (np.asarray(stats[kind + "_mean"], np.float32),
+                                         np.asarray(stats[kind + "_std"], np.float32))
+        self._device_stats = {
+            kind: None if pair is None else tuple(torch.from_numpy(a).to(self.device)
+                                                  for a in pair)
+            for kind, pair in self.host_stats.items()}
         # both Griffin-Lim layouts' constants (packed for the whole-loop
         # routes, unpacked for the per-iteration route), built once
         self.gl_consts = gl_constants(config.fft_size, self.hop_length, self.window,
                                       torch.bfloat16, self.device)
         self.generator = torch.Generator().manual_seed(seed)
+
+    def stats(self, kind: str, device=None):
+        """The statistics of a "mel" or "linear" spectrogram as float32
+        tensors (mean, std) on `device` (the processor's by default; the
+        tensors made at construction, copied only to another device), or
+        None where the processor has none."""
+        pair = self._device_stats[kind]
+        if pair is None:
+            return None
+        return tuple(a.to(device or self.device) for a in pair)
 
     # --- forward transforms ---------------------------------------------
 
@@ -128,23 +165,39 @@ class AudioProcessor:
         q = self.hop_length * SIG_BUCKET
         return max(q, -(-n // q) * q)
 
-    def _mel(self, y, lengths):
+    def _forward(self, kind: str, y, lengths):
         c = self.cfg
-        return dsp.melspectrogram(
-            y, lengths, mel_basis=self.mel_basis, window=self.window_t, n_fft=c.fft_size,
-            hop=self.hop_length, preemph=c.preemphasis, ref_level_db=c.ref_level_db,
-            min_level_db=c.min_level_db, spec_gain=c.spec_gain, max_norm=c.max_norm,
-            symmetric=c.symmetric_norm, clip=c.clip_norm, signal_norm=c.signal_norm)
+        kw = dict(window=self.window_t, n_fft=c.fft_size, hop=self.hop_length,
+                  preemph=c.preemphasis, ref_level_db=c.ref_level_db,
+                  min_level_db=c.min_level_db, spec_gain=c.spec_gain, max_norm=c.max_norm,
+                  symmetric=c.symmetric_norm, clip=c.clip_norm, signal_norm=c.signal_norm,
+                  stats=self.stats(kind))
+        if kind == "mel":
+            return dsp.melspectrogram(y, lengths, mel_basis=self.mel_basis, **kw)
+        return dsp.spectrogram(y, lengths, **kw)
 
     def melspectrogram(self, y: np.ndarray) -> np.ndarray:
         """wav [T] -> normalized mel [num_mels, n_frames]."""
         return self.melspectrogram_batch([y])[0].T
+
+    def spectrogram(self, y: np.ndarray) -> np.ndarray:
+        """wav [T] -> normalized linear spectrogram [num_freq, n_frames]."""
+        return self.spectrogram_batch([y])[0].T
 
     def melspectrogram_batch(self, wavs: list[np.ndarray]) -> list[np.ndarray]:
         """N wavs -> N time-major mels [n_frames_i, num_mels], n_frames_i =
         len // hop + 1: one batched call per length bucket (lengths round
         up to hop * SIG_BUCKET samples, the batch to a power of two, at
         most 64 rows; phantom rows are dropped)."""
+        return self._forward_batch("mel", wavs)
+
+    def spectrogram_batch(self, wavs: list[np.ndarray]) -> list[np.ndarray]:
+        """N wavs -> N time-major linear spectrograms [n_frames_i,
+        num_freq], batched as `melspectrogram_batch` (Tacotron(1)'s linear
+        targets)."""
+        return self._forward_batch("linear", wavs)
+
+    def _forward_batch(self, kind: str, wavs: list[np.ndarray]) -> list[np.ndarray]:
         by_bucket: dict[int, list[int]] = {}
         for i, y in enumerate(wavs):
             by_bucket.setdefault(self._sig_bucket(len(y)), []).append(i)
@@ -161,9 +214,9 @@ class AudioProcessor:
                     buf[j, : len(wavs[i])] = wavs[i]
                     lens[j] = len(wavs[i])
                 y = torch.from_numpy(buf).to(self.device)
-                mels = self._mel(y, lens).cpu().numpy()
+                specs = self._forward(kind, y, lens).cpu().numpy()
                 for j, i in enumerate(group):
-                    out[i] = mels[j, : lens[j] // self.hop_length + 1].astype(np.float32)
+                    out[i] = specs[j, : lens[j] // self.hop_length + 1].astype(np.float32)
         return out
 
     def load_wav(self, path: str, sr: int | None = None) -> np.ndarray:
@@ -224,11 +277,17 @@ class AudioProcessor:
     def _frame_bucket(self, n: int) -> int:
         return max(FRAME_BUCKET, -(-n // FRAME_BUCKET) * FRAME_BUCKET)
 
-    def _silence_fill(self) -> float:
-        """Normalized-silence value for pad frames: a 0.0 pad would
-        denormalize to average speech energy and leak into real audio
-        through the overlap-add."""
+    def _silence_fill(self, kind: str = "mel"):
+        """Normalized-silence value for pad frames of a "mel" or "linear"
+        spectrogram: a 0.0 pad would denormalize to average speech energy
+        and leak into real audio through the overlap-add. With statistics,
+        a row of the spectrogram's bins ((min_level_db - mean) / std), else
+        one float."""
         c = self.cfg
+        pair = self.host_stats[kind]
+        if c.signal_norm and pair is not None:
+            mean, std = pair
+            return ((c.min_level_db - mean) / np.maximum(std, 1e-8)).astype(np.float32)
         if c.signal_norm:
             return -c.max_norm if c.symmetric_norm else 0.0
         return c.min_level_db
@@ -246,7 +305,8 @@ class AudioProcessor:
                 chunk = idxs[lo:lo + self._INV_BATCH_CAP]
                 bb = 1 << (len(chunk) - 1).bit_length()
                 n_bins = np.asarray(specs[chunk[0]]).shape[0]
-                buf = np.full((bb, tb, n_bins), self._silence_fill(), np.float32)
+                buf = np.empty((bb, tb, n_bins), np.float32)
+                buf[:] = self._silence_fill(kind)
                 for j, i in enumerate(chunk):
                     S = np.asarray(specs[i], np.float32).T
                     buf[j, : S.shape[0]] = S
@@ -268,9 +328,11 @@ class AudioProcessor:
 
     def gl_magnitudes(self, kind: str, spec_norm):
         """[B, T, F] normalized mel or linear spectrogram -> the magnitudes
-        Griffin-Lim inverts, [B, T, n_fft/2 + 1]: denormalize, dB ->
-        amplitude (mel -> linear for a mel), ** power."""
+        Griffin-Lim inverts, [B, T, n_fft/2 + 1]: denormalize (with the
+        statistics where the processor has them), dB -> amplitude (mel ->
+        linear for a mel), ** power."""
         return dsp.gl_magnitudes(spec_norm, self.inv_mel_basis if kind == "mel" else None,
+                                 stats=self.stats(kind, spec_norm.device),
                                  **gl_magnitude_args(self.cfg))
 
     def _inverse(self, kind: str, spec_norm):
@@ -318,9 +380,9 @@ class GriffinLimStage(nn.Module):
     waveforms [B, hop * (T - 1)]. `dsp.gl_magnitudes`, then Griffin-Lim
     through the registered op (`ops/library.py`, which routes by the frame
     count as `griffin_lim_batch` does) from the phase `ops.prng.gl_phase`
-    draws from the seed, every row sharing it, then de-emphasis. The window
-    and the mel pseudo-inverse are buffers, so an exported program carries
-    them."""
+    draws from the seed, every row sharing it, then de-emphasis. The window,
+    the mel pseudo-inverse and the statistics (where the processor has
+    them) are buffers, so an exported program carries them."""
 
     def __init__(self, ap: AudioProcessor, kind: str):
         from .ops import library  # noqa: F401  (registers the op)
@@ -332,13 +394,17 @@ class GriffinLimStage(nn.Module):
         self.register_buffer("window", ap.window_t.clone())
         self.register_buffer("inv_mel_basis", ap.inv_mel_basis.clone() if kind == "mel"
                              else None)
+        stats = ap.stats(kind)
+        self.register_buffer("stats_mean", None if stats is None else stats[0])
+        self.register_buffer("stats_std", None if stats is None else stats[1])
         self.magnitude_args = gl_magnitude_args(c)
         self.n_fft, self.hop = c.fft_size, ap.hop_length
         self.n_iters, self.momentum = c.griffin_lim_iters, c.griffin_lim_momentum
         self.preemphasis = c.preemphasis
 
     def forward(self, spec_norm, seed):
-        S = dsp.gl_magnitudes(spec_norm, self.inv_mel_basis, **self.magnitude_args)
+        stats = None if self.stats_mean is None else (self.stats_mean, self.stats_std)
+        S = dsp.gl_magnitudes(spec_norm, self.inv_mel_basis, stats=stats, **self.magnitude_args)
         phase = prng.gl_phase(S.shape[1], S.shape[2], seed)
         y = torch.ops.yvt.griffin_lim(S, phase, self.window, self.n_fft, self.hop,
                                       self.n_iters, float(self.momentum))

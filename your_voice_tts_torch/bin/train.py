@@ -1,4 +1,5 @@
-"""Training CLI (the JAX package's bin/train.py), one device:
+"""Training CLI (the JAX package's bin/train.py) for a Tacotron2 or a
+Tacotron(1) config, one device:
 
     python -m your_voice_tts_torch.bin.train --config_path configs/x.json \\
         [--restore_path ckpt.npz | --continue_path run_dir] [--max_steps N] \\
@@ -61,7 +62,7 @@ def _d_vectors(cfg):
 
 
 def main(argv: list[str] | None = None) -> None:
-    parser = argparse.ArgumentParser(description="Train Tacotron2 with the PyTorch port")
+    parser = argparse.ArgumentParser(description="Train Tacotron2 or Tacotron(1) with the PyTorch port")
     parser.add_argument("--config_path", required=True)
     parser.add_argument("--restore_path", default=None,
                         help="checkpoint to start from (parameters only, lenient)")

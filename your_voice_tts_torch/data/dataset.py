@@ -9,7 +9,10 @@ EOS/BOS, cleaner), so a change of any of them misses the cache.
 
 Mels are computed once, in batched calls through the AudioProcessor, and
 cached in memory and, with a cache directory, as .npy files keyed by the
-audio config and the wav path. Batches are length-sorted (shuffled within
+audio config and the wav path. A Tacotron(1) config also regresses the
+linear spectrogram: the dataset computes and caches it beside the mel
+(files named lin_..., the mel's mel_...) and batches carry it as "linear"
+[B, T_mel, num_freq], padded like the mels. Batches are length-sorted (shuffled within
 groups of batch_group_size batches), padded to a small set of shapes (text
 to multiples of TEXT_PAD, mel frames to multiples of r * FRAME_PAD), and
 short final batches to the full batch size with phantom rows whose
@@ -78,6 +81,7 @@ class TTSDataset:
         if speakers is None:
             speakers = {n: i for i, n in enumerate(sorted({e["speaker"] for e in self.entries}))}
         self.speakers = speakers
+        self.need_linear = cfg.model.model == "Tacotron"
         self._compute_mels()
         self.entries.sort(key=lambda e: e["mel_len"])
 
@@ -99,20 +103,23 @@ class TTSDataset:
         np.save(fn, out)
         return out
 
-    def _cache_path(self, wav_path: str) -> str | None:
+    def _cache_path(self, wav_path: str, kind: str = "mel") -> str | None:
+        """The cache file of a clip's "mel" or "lin" (linear) spectrogram."""
         if not self.cache_dir:
             return None
         blob = json.dumps(dataclasses.asdict(self.cfg.audio), sort_keys=True, default=str)
         cfg_hash = hashlib.md5(blob.encode()).hexdigest()[:8]
         h = hashlib.md5(wav_path.encode()).hexdigest()[:16]
-        return os.path.join(self.cache_dir, f"mel_{cfg_hash}_{h}.npy")
+        return os.path.join(self.cache_dir, f"{kind}_{cfg_hash}_{h}.npy")
 
     def _compute_mels(self) -> None:
+        kinds = ("mel", "lin") if self.need_linear else ("mel",)
         pending = []
         for i, e in enumerate(self.entries):
-            path = self._cache_path(e["wav"])
-            if path and os.path.exists(path):
-                e["mel"] = np.load(path)
+            paths = [self._cache_path(e["wav"], k) for k in kinds]
+            if all(p and os.path.exists(p) for p in paths):
+                for k, p in zip(("mel", "linear"), paths):
+                    e[k] = np.load(p)
                 e["mel_len"] = e["mel"].shape[0]
             else:
                 pending.append(i)
@@ -121,12 +128,17 @@ class TTSDataset:
         wavs = self.ap.load_wav_batch([self.entries[i]["wav"] for i in pending])
         if self.cfg.audio.do_trim_silence:
             wavs = [self.ap.trim_silence(w) for w in wavs]
-        for i, mel in zip(pending, self.ap.melspectrogram_batch(wavs)):
+        specs = [self.ap.melspectrogram_batch(wavs)]
+        if self.need_linear:
+            specs.append(self.ap.spectrogram_batch(wavs))
+        for j, i in enumerate(pending):
             e = self.entries[i]
-            e["mel"], e["mel_len"] = mel, mel.shape[0]
-            path = self._cache_path(e["wav"])
-            if path:
-                np.save(path, mel)
+            for k, key, sp in zip(kinds, ("mel", "linear"), specs):
+                e[key] = sp[j]
+                path = self._cache_path(e["wav"], k)
+                if path:
+                    np.save(path, sp[j])
+            e["mel_len"] = e["mel"].shape[0]
 
     def __len__(self) -> int:
         return len(self.entries)
@@ -135,8 +147,9 @@ class TTSDataset:
                 drop_last: bool = False):
         """Yield numpy batches: text [B, T_text], text_lengths, mel
         [B, T_mel, n_mels], mel_lengths, stop_targets [B, T_mel / r],
-        speaker_ids, n_real (rows before padding), and with d-vectors
-        speaker_embeddings [B, D] (zero on phantom rows)."""
+        speaker_ids, n_real (rows before padding), for Tacotron(1) linear
+        [B, T_mel, num_freq], and with d-vectors speaker_embeddings [B, D]
+        (zero on phantom rows)."""
         idxs = list(range(len(self.entries)))
         rng = np.random.default_rng(seed)
         bgs = self.cfg.data.batch_group_size * batch_size
@@ -204,6 +217,11 @@ class TTSDataset:
         batch = {"text": text, "text_lengths": text_len, "mel": mel, "mel_lengths": mel_len,
                  "stop_targets": stop_targets, "speaker_ids": spk,
                  "n_real": np.int32(len(entries))}
+        if self.need_linear:
+            linear = np.zeros((B, t_mel, self.cfg.audio.num_freq), np.float32)
+            for i, e in enumerate(entries):
+                linear[i, : e["mel_len"]] = e["linear"]
+            batch["linear"] = linear
         if self.speaker_embeddings is not None:
             dim = len(next(iter(self.speaker_embeddings.values())))
             emb = np.zeros((B, dim), np.float32)

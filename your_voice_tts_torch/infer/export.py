@@ -47,12 +47,12 @@ SEED = "int64 [1]"
 
 def mask_tail(spec, mel_lengths, fill):
     """Frames of each row past its mel_lengths -> `fill` (normalized
-    silence): the decode runs until every row stops, so a row's frames past
-    its own stop depend on its batchmates and would reach its audio through
-    the overlap-add."""
+    silence: a float tensor, one value or one a bin): the decode runs until
+    every row stops, so a row's frames past its own stop depend on its
+    batchmates and would reach its audio through the overlap-add."""
     keep = torch.arange(spec.shape[1], device=spec.device)[None, :, None] < \
         mel_lengths[:, None, None]
-    return torch.where(keep, spec, torch.full_like(spec, fill))
+    return torch.where(keep, spec, fill.to(spec.dtype))
 
 
 class VocoderStage(nn.Module):
@@ -84,12 +84,14 @@ class ServingProgram(nn.Module):
     traced=)`), the tail mask, the waveform stage."""
 
     def __init__(self, model, traced, wave, *, max_steps: int, compute_dtype, decode_dtype,
-                 speaker_mode, has_style: bool, fill: float):
+                 speaker_mode, has_style: bool, fill):
         super().__init__()
         self.model, self.traced, self.wave = model, traced, wave
         self.max_steps, self.compute_dtype, self.decode_dtype = max_steps, compute_dtype, \
             decode_dtype
-        self.speaker_mode, self.has_style, self.fill = speaker_mode, has_style, fill
+        self.speaker_mode, self.has_style = speaker_mode, has_style
+        self.register_buffer("fill", torch.as_tensor(fill, dtype=torch.float32,
+                                                     device=model.device))
 
     def spectrogram(self, text, lengths, *inputs):
         """The spectrogram stage: (the postnet's spectrogram [B, steps * r,
@@ -141,7 +143,8 @@ def make_serving_fn(model, cfg, ap, *, max_decoder_steps=None, vocoder=None, spe
         model, model.serving_weights(compute_dtype, decode_dtype), wave,
         max_steps=max_decoder_steps or cfg.model.max_decoder_steps,
         compute_dtype=compute_dtype, decode_dtype=decode_dtype, speaker_mode=speaker_mode,
-        has_style=style_frames is not None, fill=float(ap._silence_fill())).eval()
+        has_style=style_frames is not None,
+        fill=ap._silence_fill("linear" if is_linear else "mel")).eval()
 
 
 def _export(program: nn.Module, args: tuple, path: str) -> None:

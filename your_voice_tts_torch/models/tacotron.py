@@ -18,8 +18,15 @@ Conditioning (the reference's `_encode`): a GST model adds the style of a
 reference mel to the CBHG outputs, then a speaker vector (a row of the
 model's own table, tacotron_width wide, or an external d-vector) is
 concatenated onto every position, so the decode kernel sees
-E = 2 * (tacotron_width // 2) + spk_dim. Serving only: teacher-forced
-training comes with a later slice of the port.
+E = 2 * (tacotron_width // 2) + spk_dim.
+
+Training (`forward`, the reference's `Tacotron.forward`) is teacher-forced:
+the memory queue of every step is gathered from the target mels at once,
+the prenet runs over all of them, and a Python loop of T_mel / r steps
+runs under autograd over `ops.taco1_decode.decoder_step`, the step function
+of the decode's plain version, on the module's parameters. The reference
+trains Tacotron(1) through a scan of its step, with no kernel, so this is
+plain PyTorch on the card too.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from .. import resolve_device
 from ..nn.core import GAINS, BatchNorm1d, Conv1d, Dense, Embedding, xavier_uniform_
 from ..nn.rnn import GRUCell, run_rnn
 from ..ops.prng import HashDraws
-from ..ops.taco1_decode import prepare_weights, tacotron1_decode
+from ..ops.taco1_decode import _interleave_gru, decoder_step, prepare_weights, tacotron1_decode
 from .attention import init_attn
 from .common import (Prenet, ServingWeights, add_style, cached_decode_weights, compute_copy,
                      concat_speaker, kernel_prenet, sequence_mask)
@@ -140,6 +147,71 @@ class TacotronDecoder(nn.Module):
             [gru(c) for c in self.decoder_rnns],
             (self.proj_mel.weight, self.proj_mel.bias),
             (self.stopnet.weight, self.stopnet.bias), n_mels=self.n_mels, dtype=dtype)
+
+    def step_weights(self) -> tuple[dict, torch.Tensor]:
+        """(`decoder_step`'s weights, the energy bias) from the module's
+        parameters, differentiably: the GRUs' gate rows interleaved as
+        `prepare_weights` lays them, the location filter folded
+        (`location_kernel`), in the parameters' dtype."""
+        a = self.attention
+        W = {}
+        for pre, c in (("a_", self.attention_rnn), ("d1_", self.decoder_rnns[0]),
+                       ("d2_", self.decoder_rnns[1])):
+            for k, t in (("wx", c.weight_ih), ("bx", c.bias_ih), ("wh", c.weight_hh),
+                         ("bh", c.bias_hh)):
+                W[pre + k] = _interleave_gru(t)
+        q = a.query.weight
+        W["q_w"] = q
+        W["u"] = (a.location_kernel() if a.location_attention
+                  else q.new_zeros(2, 1, q.shape[0]))
+        W["v_w"], W["pj_w"], W["pj_b"] = a.v.weight[0], self.project.weight, self.project.bias
+        return W, a.v.bias[0]
+
+    def forward(self, inputs, input_lengths, mels, r: int,
+                generator: torch.Generator | None = None):
+        """Teacher-forced decode (the reference's `TacotronDecoder.forward`).
+        inputs [B, T_in, E] encoder memory; mels [B, T_mel, n_mels] with
+        T_mel % r == 0. Before step t the memory queue holds the target
+        frames [t r - memory, t r), zeros before the first: one
+        index_select over the mels padded by `memory` frames on the left.
+        The prenet (dropout 0.5 from `generator`; none without one) runs
+        over every step's queue at once, then `decoder_step` a step, in the
+        parameters' dtype (the alignment in float32). Returns (frames
+        [B, T_mel, n_mels], alignments [B, T_r, T_in] float32, stop logits
+        [B, T_r]); with separate_stopnet the stopnet's input is detached."""
+        B, T_mel, _ = mels.shape
+        if T_mel % r:
+            raise ValueError(f"mel length {T_mel} is not a multiple of r={r}")
+        T_r, M, dev = T_mel // r, self.memory_size, mels.device
+        mask = sequence_mask(input_lengths, inputs.shape[1])
+        a = self.attention
+        pinp = a.preprocess_inputs(inputs)
+        idx = ((torch.arange(T_r, device=dev) * r)[:, None]
+               + torch.arange(M, device=dev)[None, :]).flatten()
+        queues = F.pad(mels, (0, 0, M, 0)).index_select(1, idx).reshape(B, T_r,
+                                                                        M * self.n_mels)
+        prenet_t = self.prenet(queues, generator).transpose(0, 1)        # [T_r, B, P2]
+        W, v_b = self.step_weights()
+        dt = W["pj_w"].dtype
+        rnd = lambda x: x.to(dt)  # noqa: E731
+        maskadd = torch.where(mask, 0.0, -1e9).to(torch.float32)
+        H, D, E, T = self.attention_rnn.hidden_size, self.project.weight.shape[0], \
+            inputs.shape[2], inputs.shape[1]
+        z = lambda n, t=dt: torch.zeros(B, n, device=dev, dtype=t)  # noqa: E731
+        state = (z(H), z(D), z(D), z(E), z(T, torch.float32), z(T, torch.float32))
+        outs, aligns, stops = [], [], []
+        for t in range(T_r):
+            state, xd = decoder_step(W, v_b, prenet_t[t], state, inputs, pinp, maskadd,
+                                     a.norm, rnd)
+            out = self.proj_mel(xd)
+            stop_in = torch.cat([xd, out], -1)
+            if self.cfg.separate_stopnet:
+                stop_in = stop_in.detach()
+            stops.append(self.stopnet(stop_in)[:, 0])
+            outs.append(out[:, : self.n_mels * r])
+            aligns.append(state[4])
+        frames = torch.stack(outs, 1).reshape(B, T_mel, self.n_mels)
+        return frames, torch.stack(aligns, 1), torch.stack(stops, 1)
 
     @torch.no_grad()
     def inference(self, inputs, input_lengths, max_steps: int, r: int, seed: int = 0,
@@ -264,16 +336,46 @@ class Tacotron(nn.Module):
             self.gst.init_random_(generator)
 
     def _encode(self, text, speaker_ids=None, speaker_embeddings=None, style_mel=None,
-                generator: torch.Generator | None = None, cast=None):
+                generator: torch.Generator | None = None, cast=None, style_len=None):
         """text [B, T] ids -> encoder memory [B, T, E]: embedding, prenet
         (dropout from `generator`), CBHG; then the style of style_mel added
-        (GST) and the speaker vector concatenated (`add_style`,
+        (GST; with style_len [B], each row's read at its last real frame)
+        and the speaker vector concatenated (`add_style`,
         `concat_speaker`). cast(name) gives the module that runs (a
         compute-dtype copy, or the module itself without one)."""
         cast = cast or (lambda name: getattr(self, name))  # noqa: E731
         enc_out = cast("encoder_cbhg")(cast("enc_prenet")(cast("embedding")(text), generator))
-        enc_out = add_style(self, enc_out, style_mel, cast)
+        enc_out = add_style(self, enc_out, style_mel, cast, style_len)
         return concat_speaker(self, enc_out, speaker_ids, speaker_embeddings, cast)
+
+    def forward(self, text, text_lengths, mels, mel_lengths=None, r: int | None = None,
+                generator: torch.Generator | None = None, speaker_ids=None,
+                speaker_embeddings=None) -> dict:
+        """Teacher-forced pass (the reference's `Tacotron.forward`): text
+        [B, T] ids, text_lengths [B], mels [B, T_mel, n_mels] in the working
+        dtype, mel_lengths [B] (masks the PostCBHG's BatchNorm statistics;
+        the encoder CBHG's take every frame, as in the reference). In
+        training mode BatchNorm takes batch statistics and updates its
+        running ones; dropout is drawn from `generator` (none without one).
+        The memory is conditioned as at inference (`_encode`): a GST model
+        takes the teacher mels as its style, a speaker-conditioned model
+        speaker_ids [B] or speaker_embeddings [B, spk_dim]. Returns
+        decoder_outputs (mel [B, T_mel, n_mels]), postnet_outputs (linear
+        [B, T_mel, num_freq]), alignments [B, T_r, T_in] float32,
+        stop_logits [B, T_r], and "state": the BatchNorm running statistics
+        after the pass."""
+        r = r or self.r
+        enc_out = self._encode(text, speaker_ids, speaker_embeddings, style_mel=mels,
+                               generator=generator, style_len=mel_lengths)
+        dec_out, aligns, stops = self.decoder(enc_out, text_lengths, mels, r, generator)
+        mel_mask = None if mel_lengths is None else sequence_mask(mel_lengths, dec_out.shape[1])
+        return {
+            "decoder_outputs": dec_out,
+            "postnet_outputs": self.last_linear(self.post_cbhg(dec_out, mel_mask)),
+            "alignments": aligns,
+            "stop_logits": stops,
+            "state": {k: v.detach().clone() for k, v in self.named_buffers()},
+        }
 
     def serving_weights(self, compute_dtype=None, decode_dtype=torch.bfloat16) -> ServingWeights:
         """The `ServingWeights` a traced `inference` at these dtypes reads

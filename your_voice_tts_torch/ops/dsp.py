@@ -1,6 +1,7 @@
 """DSP (the JAX package's ops/dsp.py). Forward half: pre-emphasis, framing
 with librosa's center=True reflect padding, STFT, dB map, range
-normalization and the normalized mel spectrogram. Inverse half: mel ->
+normalization (or per-bin mean / std scaling with corpus statistics) and
+the normalized mel and linear spectrograms. Inverse half: mel ->
 linear magnitudes, dB maps, istft, a per-utterance Griffin-Lim on
 torch.fft, and the de-emphasis IIR. Spectrograms are time-major
 [..., T, F]. Plain torch ops; the batched Griffin-Lim kernel is in
@@ -52,10 +53,15 @@ def amp_to_db(x, spec_gain: float = 20.0, min_level_db: float = -100.0):
 
 
 def normalize_spec(S, min_level_db: float, max_norm: float, symmetric: bool, clip: bool,
-                   signal_norm: bool = True):
-    """Range normalization of dB-minus-ref values."""
+                   signal_norm: bool = True, stats=None):
+    """Range normalization of dB-minus-ref values, or with `stats` (mean
+    [F], std [F], the corpus statistics of `bin/compute_statistics.py`)
+    per-bin scaling (S - mean) / std."""
     if not signal_norm:
         return S
+    if stats is not None:
+        mean, std = stats
+        return (S - mean) / std.clamp_min(1e-8)
     S_norm = (S - min_level_db) / (-min_level_db)
     if symmetric:
         S_norm = 2.0 * max_norm * S_norm - max_norm
@@ -67,20 +73,34 @@ def normalize_spec(S, min_level_db: float, max_norm: float, symmetric: bool, cli
 def melspectrogram(y, lengths, *, mel_basis, window, n_fft: int, hop: int,
                    preemph: float, ref_level_db: float, min_level_db: float,
                    spec_gain: float, max_norm: float, symmetric: bool, clip: bool,
-                   signal_norm: bool = True):
+                   signal_norm: bool = True, stats=None):
     """Normalized mel spectrograms of signals [B, L_max] (true lengths
     `lengths`), time-major [B, L_max // hop + 1, n_mels]: pre-emphasis ->
     |STFT| -> mel product (float32) -> dB - ref -> normalize."""
     mag = stft(preemphasis(y, preemph), lengths, n_fft, hop, window).abs()
     S = amp_to_db(mag @ mel_basis.T, spec_gain, min_level_db) - ref_level_db
-    return normalize_spec(S, min_level_db, max_norm, symmetric, clip, signal_norm)
+    return normalize_spec(S, min_level_db, max_norm, symmetric, clip, signal_norm, stats)
+
+
+def spectrogram(y, lengths, *, window, n_fft: int, hop: int, preemph: float,
+                ref_level_db: float, min_level_db: float, spec_gain: float, max_norm: float,
+                symmetric: bool, clip: bool, signal_norm: bool = True, stats=None):
+    """Normalized linear spectrograms, time-major [B, L_max // hop + 1,
+    n_fft / 2 + 1]: `melspectrogram` without the mel product."""
+    mag = stft(preemphasis(y, preemph), lengths, n_fft, hop, window).abs()
+    S = amp_to_db(mag, spec_gain, min_level_db) - ref_level_db
+    return normalize_spec(S, min_level_db, max_norm, symmetric, clip, signal_norm, stats)
 
 
 def denormalize_spec(S, min_level_db: float, max_norm: float,
-                     symmetric: bool, clip: bool, signal_norm: bool = True):
-    """Inverse of the range normalization."""
+                     symmetric: bool, clip: bool, signal_norm: bool = True, stats=None):
+    """Inverse of the range normalization, or of the per-bin scaling with
+    `stats` (mean, std): S * std + mean, unclipped."""
     if not signal_norm:
         return S
+    if stats is not None:
+        mean, std = stats
+        return S * std.clamp_min(1e-8) + mean
     if symmetric:
         if clip:
             S = S.clamp(-max_norm, max_norm)
@@ -98,12 +118,14 @@ def db_to_amp(x, spec_gain: float = 20.0):
 
 def gl_magnitudes(spec_norm, inv_basis, *, min_level_db: float, max_norm: float,
                   symmetric: bool, clip: bool, signal_norm: bool, ref_level_db: float,
-                  spec_gain: float, power: float):
+                  spec_gain: float, power: float, stats=None):
     """[B, T, F] normalized spectrogram -> the magnitudes Griffin-Lim
-    inverts, [B, T, n_fft/2 + 1]: denormalize, dB -> amplitude, mel ->
-    linear through the pseudo-inverse basis `inv_basis` [n_freq, n_mels]
-    (None for a linear spectrogram), ** power."""
-    D = denormalize_spec(spec_norm, min_level_db, max_norm, symmetric, clip, signal_norm)
+    inverts, [B, T, n_fft/2 + 1]: denormalize (with the spectrogram's
+    statistics `stats` (mean, std) where it was scaled by them), dB ->
+    amplitude, mel -> linear through the pseudo-inverse basis `inv_basis`
+    [n_freq, n_mels] (None for a linear spectrogram), ** power."""
+    D = denormalize_spec(spec_norm, min_level_db, max_norm, symmetric, clip, signal_norm,
+                         stats)
     S = db_to_amp(D + ref_level_db, spec_gain)
     if inv_basis is not None:
         S = mel_to_linear(S, inv_basis)

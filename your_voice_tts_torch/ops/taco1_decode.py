@@ -128,6 +128,48 @@ def _dims(w: dict, r: int):
     return d
 
 
+def gru_step(W: dict, pre: str, xs, h, rnd):
+    """One GRU update on weights laid out as `prepare_weights` lays them
+    (unit j's r, z and n gate rows at 3j .. 3j + 2; matrix columns past the
+    inputs' width are padding): W[pre + "wx"] over the concatenated inputs
+    `xs`, W[pre + "wh"] over the state h [B, H], their biases; `rnd` casts
+    each product's input to the working dtype."""
+    B = h.shape[0]
+    n = sum(x.shape[1] for x in xs)
+    gx = (rnd(torch.cat(xs, 1)) @ W[pre + "wx"][:, :n].T + W[pre + "bx"]).view(B, -1, 3)
+    gh = (rnd(h) @ W[pre + "wh"][:, :h.shape[1]].T + W[pre + "bh"]).view(B, -1, 3)
+    rg = torch.sigmoid(gx[..., 0] + gh[..., 0])
+    zg = torch.sigmoid(gx[..., 1] + gh[..., 1])
+    ng = torch.tanh(gx[..., 2] + rg * gh[..., 2])
+    return (1.0 - zg) * ng + zg * h
+
+
+def decoder_step(W: dict, v_b, x, state: tuple, enc, pinp, maskadd, norm: str, rnd):
+    """One decoder step after the prenet, the one step function of the plain
+    decode (below) and of the teacher-forced pass (models/tacotron.py
+    `TacotronDecoder.forward`, under autograd): the attention GRU over
+    [prenet output x, last context], the location-sensitive alignment
+    (`alignment_plain`), the context, the projection to the decoder width
+    and the two residual GRUs. W: `prepare_weights`' keys (a_*, q_w, u,
+    v_w, pj_w, pj_b, d1_*, d2_*); v_b the energy bias; state (attention GRU
+    h [B, H], h1, h2 [B, D], context [B, E], alignment, cumulative
+    alignment [B, T]); maskadd [B, T] 0 / -1e9. Returns (the new state, the
+    residual stack's output [B, D]), which the mel projection and the
+    stopnet take."""
+    ah, h1, h2, ctx, att, cum = state
+    H, E = ah.shape[1], enc.shape[2]
+    ah = gru_step(W, "a_", [x, ctx], ah, rnd)
+    align = alignment_plain(ah, att, cum, W["q_w"][:, :H], W["u"], W["v_w"], v_b, pinp,
+                            maskadd, norm, rnd)
+    ctx = (align[:, :, None] * enc).sum(1)
+    xd = rnd(torch.cat([ah, ctx], 1)) @ W["pj_w"][:, :H + E].T + W["pj_b"]
+    h1 = gru_step(W, "d1_", [xd], h1, rnd)
+    xd = xd + h1
+    h2 = gru_step(W, "d2_", [xd], h2, rnd)
+    xd = xd + h2
+    return (ah, h1, h2, ctx, align, cum + align), xd
+
+
 def tacotron1_decode_plain(w: dict, enc_out, pinp, mask, *, r: int, max_steps: int,
                            norm: str = "sigmoid", thresh: float = 0.6,
                            prenet_dropout: bool = True, seed: int = 0, chunk: int = 50):
@@ -143,21 +185,12 @@ def tacotron1_decode_plain(w: dict, enc_out, pinp, mask, *, r: int, max_steps: i
     pinp = pinp.float()
     maskadd = torch.where(mask, 0.0, -1e9).to(F32)
     z = lambda *s: torch.zeros(*s, device=dev)  # noqa: E731
-    ah, h1, h2, ctx = z(B, H), z(B, D), z(B, D), z(B, E)
-    att, cum, queue, done = z(B, T), z(B, T), z(B, NQ), z(B)
+    state = (z(B, H), z(B, D), z(B, D), z(B, E), z(B, T), z(B, T))
+    queue, done = z(B, NQ), z(B)
     n_steps = -(-max_steps // chunk) * chunk
     out = torch.empty(n_steps, B, OW, device=dev)
     aligns = torch.empty(n_steps, B, T, device=dev)
     stops = torch.empty(n_steps, B, device=dev)
-
-    def gru(pre, xs, h):
-        n = sum(x.shape[1] for x in xs)
-        gx = (rnd(torch.cat(xs, 1)) @ W[pre + "wx"][:, :n].T + W[pre + "bx"]).view(B, -1, 3)
-        gh = (rnd(h) @ W[pre + "wh"][:, :h.shape[1]].T + W[pre + "bh"]).view(B, -1, 3)
-        rg = torch.sigmoid(gx[..., 0] + gh[..., 0])
-        zg = torch.sigmoid(gx[..., 1] + gh[..., 1])
-        ng = torch.tanh(gx[..., 2] + rg * gh[..., 2])
-        return (1.0 - zg) * ng + zg * h
 
     def dropout(x, key, salt):
         if not prenet_dropout:
@@ -165,26 +198,17 @@ def tacotron1_decode_plain(w: dict, enc_out, pinp, mask, *, r: int, max_steps: i
         return torch.where(uniform(tuple(x.shape), key, salt, dev) < 0.5, 0.0, x * 2.0)
 
     def step(s):
-        nonlocal ah, h1, h2, ctx, att, cum, queue, done
+        nonlocal state, queue, done
         key = step_key(seed, s)
         x = dropout(torch.relu(rnd(queue) @ W["p1_w"][:, :NQ].T + W["p1_b"]), key, 21)
         x = dropout(torch.relu(rnd(x) @ W["p2_w"][:, :P1].T + W["p2_b"]), key, 22)
-        ah = gru("a_", [x, ctx], ah)
-        align = alignment_plain(ah, att, cum, W["q_w"][:, :H], W["u"], W["v_w"], w["v_b"],
-                                pinp, maskadd, norm, rnd)
-        ctx = (align[:, :, None] * enc).sum(1)
-        xd = rnd(torch.cat([ah, ctx], 1)) @ W["pj_w"][:, :H + E].T + W["pj_b"]
-        h1 = gru("d1_", [xd], h1)
-        xd = xd + h1
-        h2 = gru("d2_", [xd], h2)
-        xd = xd + h2
+        state, xd = decoder_step(W, w["v_b"], x, state, enc, pinp, maskadd, norm, rnd)
         o = rnd(xd) @ W["m_w"][:, :D].T + W["m_b"]
         stop = torch.sigmoid(o[:, OW])
         dec = o[:, :OW] * (1.0 - done)[:, None]
         done = torch.maximum(done, (stop > thresh).to(F32))
         queue = torch.cat([queue, dec[:, :NM * r]], 1)[:, -NQ:]
-        att, cum = align, cum + align
-        out[s], aligns[s], stops[s] = dec, align, stop
+        out[s], aligns[s], stops[s] = dec, state[4], stop
 
     ran = _drive(n_steps, chunk, step, lambda s: bool(done.min() > 0))
     return _finish(out, aligns, stops, ran, max_steps, thresh)

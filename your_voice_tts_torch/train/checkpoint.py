@@ -260,13 +260,18 @@ def _path(name: str) -> list[str | int]:
 
 
 def params_to_jax(model: torch.nn.Module) -> tuple[dict, dict]:
-    """The port's Tacotron2 or Tacotron(1) -> (params, model_state) as flat
-    {keystr: numpy float32} in the JAX package's layouts (the inverse of
+    """The port's Tacotron2, Tacotron(1), WaveRNN, MelGAN or PWGAN generator
+    or speaker encoder -> (params, model_state) as flat {keystr: numpy
+    float32} in the JAX package's layouts (the inverse of
     `params_from_jax`)."""
     from ..models.gst import StyleTokenLayer
     from ..nn.core import BatchNorm1d, Conv1d
     from ..nn.rnn import GRU, LSTMCell
+    from ..speaker_encoder.model import SpeakerEncoder
+    from ..speaker_encoder.model import params_to_jax as encoder_params
 
+    if isinstance(model, SpeakerEncoder):
+        return encoder_params(dict(model.named_parameters())), {}
     layouts = jax_layouts(model)
     params: dict[str, np.ndarray] = {}
     state: dict[str, np.ndarray] = {}
@@ -292,6 +297,10 @@ def params_to_jax(model: torch.nn.Module) -> tuple[dict, dict]:
                 else path
             put("mean", npy(mod.running_mean), state, owner)
             put("var", npy(mod.running_var), state, owner)
+        elif layouts.get(name) == "conv_transpose":
+            put("w", npy(mod.weight).transpose(2, 0, 1)[::-1])
+            if mod.bias is not None:
+                put("b", npy(mod.bias))
         elif layouts.get(name) == "conv2d_bn":
             put("w", npy(mod.conv.weight).transpose(2, 3, 1, 0))
             put("b", npy(mod.conv.bias))
@@ -326,13 +335,16 @@ def params_to_jax(model: torch.nn.Module) -> tuple[dict, dict]:
 
 
 def save_checkpoint(path: str, model: torch.nn.Module, optimizer=None, *, step: int,
-                    epoch: int, r: int, extra: dict | None = None) -> str:
+                    epoch: int, r: int, extra: dict | None = None,
+                    subtree: str | None = None) -> str:
     """Write `model` (and the optimizer's state) as a JAX-package
-    checkpoint .npz."""
+    checkpoint .npz. subtree puts the parameters under one key, as a GAN
+    checkpoint keeps its generator under 'g' (`load_generator`)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     params, state = params_to_jax(model)
-    blobs = {f"params::{k}": v for k, v in params.items()}
-    blobs.update({f"model_state::{k}": v for k, v in state.items()})
+    pre = "" if subtree is None else _keystr([subtree])
+    blobs = {f"params::{pre}{k}": v for k, v in params.items()}
+    blobs.update({f"model_state::{pre}{k}": v for k, v in state.items()})
     if optimizer is not None:
         names = [n for n, p in model.named_parameters() if p.requires_grad]
         opt = optimizer.state_dict()

@@ -1,11 +1,17 @@
-"""Tacotron2 teacher-forced training (the JAX package's train/trainer.py),
-single device.
+"""Teacher-forced training of Tacotron2 and Tacotron(1) (the JAX package's
+train/trainer.py), single device.
 
 `Trainer(cfg, device=...).fit(max_steps=N)`: gradual (step, r, batch size)
 schedule, the bucketed loader, one train step per batch (loss, backward
-through the training kernels, the RAdam stack of train/optim.py), the
-evaluation pass with the alignment score, and periodic and best-model
-checkpoints in the JAX package's .npz layout.
+through the training kernels for Tacotron2 and through autograd's own
+backward of the decoder loop for Tacotron(1), the RAdam stack of
+train/optim.py), the evaluation pass with the alignment score, test
+sentences synthesized after each evaluation (`test_run`), TensorBoard
+events (`utils.logging.TensorboardLogger`, where tensorboardX is
+installed), and periodic and best-model checkpoints in the JAX package's
+.npz layout. Tacotron(1) regresses the linear spectrogram the dataset
+batches beside the mel, with the band below 3 kHz weighted twice
+(`n_priority_freq`).
 
 Mixed precision (training.mixed_precision) follows the JAX package's
 `_loss_fn`: the forward runs on bf16 casts of the float32 master
@@ -24,15 +30,15 @@ speaker_embedding_dim); a GST model (cfg.speakers.use_gst) takes the
 teacher mels as its style. Under mixed precision the d-vectors are cast to
 bf16 with the parameters, as the reference casts them.
 
-Later slices bring Tacotron(1) training (with its conditioning), data
-parallelism, gradient accumulation, the bidirectional decoder, forward
-attention (with its transition agent) and Graves attention, TensorBoard
-logging, test-sentence synthesis and the profiler server; they raise
-NotImplementedError here.
+Later slices bring data parallelism, gradient accumulation, the
+bidirectional decoder, forward attention (with its transition agent) and
+Graves attention and the profiler server; they raise NotImplementedError
+here.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import time
 import warnings
@@ -46,7 +52,8 @@ from ..data import TTSDataset, load_meta_data
 from ..models import setup_model
 from ..models.losses import TacotronLoss
 from ..text import phonemes, symbols
-from ..utils.logging import ConsoleLogger
+from ..utils.io import count_parameters
+from ..utils.logging import ConsoleLogger, TensorboardLogger
 from ..utils.measures import alignment_diagonal_score
 from .checkpoint import (jax_layouts, params_from_jax, read_checkpoint,
                          read_optimizer_state, save_best_model, save_checkpoint)
@@ -71,8 +78,6 @@ class Trainer:
                  device=None, speaker_embeddings: dict | None = None):
         if cfg.training.grad_accum_steps > 1:
             raise NotImplementedError(f"gradient accumulation {_LATER}")
-        if cfg.model.model == "Tacotron":
-            raise NotImplementedError(f"Tacotron(1) training {_LATER}")
         sp = cfg.speakers
         if sp.use_speaker_embedding and sp.use_external_speaker_embedding_file \
                 and speaker_embeddings is None:
@@ -112,6 +117,9 @@ class Trainer:
                                       cfg.model.stopnet, t.stopnet_pos_weight, t.ga_alpha,
                                       t.ga_sigma, t.ga_decay_steps, t.decoder_loss_alpha,
                                       t.postnet_loss_alpha)
+        # Tacotron(1)'s priority band: the linear bins below ~3 kHz
+        self.n_priority_freq = (int(3000 / (cfg.audio.sample_rate / 2) * cfg.audio.num_freq)
+                                if cfg.model.model == "Tacotron" else 0)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = build_optimizer(self.params, t)
         self.lr_fn = self.optimizer.lr_fn
@@ -120,11 +128,11 @@ class Trainer:
         self.output_path = output_path
         if output_path:
             os.makedirs(output_path, exist_ok=True)
+        self.tb = TensorboardLogger(output_path)
         self.console = ConsoleLogger()
         self.best_loss = float("inf")
         if verbose:
-            n = sum(p.numel() for p in self.model.parameters())
-            print(f" > Model has {n:,} parameters")
+            print(f" > Model has {count_parameters(self.model):,} parameters")
             print(f" > Device: {self.device}")
 
     # --- steps -------------------------------------------------------------
@@ -132,9 +140,11 @@ class Trainer:
     def _tensors(self, batch: dict) -> dict:
         """A numpy batch on the device, with what the model conditions on:
         speaker_ids when it has speakers, speaker_embeddings when the
-        batch carries d-vectors."""
+        batch carries d-vectors; and Tacotron(1)'s linear targets."""
         dev = self.device
         keys = ["text", "text_lengths", "mel", "mel_lengths", "stop_targets"]
+        if "linear" in batch:
+            keys.append("linear")
         if self.num_speakers:
             keys.append("speaker_ids")
         if "speaker_embeddings" in batch:
@@ -167,9 +177,14 @@ class Trainer:
         else:
             out = self.model(*args, mel_in, **kwargs)
         out = {k: v.float() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
-        total, parts = self.criterion(out, b["mel"], b["mel_lengths"], b["stop_targets"],
-                                      b["text_lengths"], step=self.step, r=r)
+        total, parts = self._criterion(out, b, r)
         return total, parts, out
+
+    def _criterion(self, out: dict, b: dict, r: int):
+        return self.criterion(out, b["mel"], b["mel_lengths"], b["stop_targets"],
+                              b["text_lengths"], step=self.step, r=r,
+                              linear_target=b.get("linear"),
+                              n_priority_freq=self.n_priority_freq)
 
     def train_step(self, batch: dict, r: int) -> dict:
         """One optimizer step on a numpy batch; returns the float metrics
@@ -188,8 +203,10 @@ class Trainer:
 
     def fit(self, max_steps: int | None = None) -> dict:
         """Train for cfg.training.epochs epochs or `max_steps` steps, with an
-        evaluation pass after each epoch; returns the last epoch's mean
-        metrics. Test-sentence synthesis is not run (a later slice)."""
+        evaluation pass after each epoch, followed from epoch
+        training.test_delay_epochs on by the test sentences (`test_run`);
+        returns the last epoch's mean metrics. Each step's metrics, each
+        epoch's means and each evaluation go to TensorBoard."""
         cfg = self.cfg
         global_step = self.step
         last_metrics: dict = {}
@@ -215,6 +232,7 @@ class Trainer:
                         len(self.train_data) // bs, global_step, global_step,
                         {k: metrics[k] for k in ("loss", "decoder_loss", "postnet_loss",
                                                  "step_time") if k in metrics})
+                self.tb.tb_train_iter_stats(global_step, metrics)
                 if cfg.io.checkpoint and self.output_path and \
                         global_step % cfg.io.save_step == 0:
                     self._save(global_step, epoch, r)
@@ -227,8 +245,14 @@ class Trainer:
                 last_metrics = {k: float(np.mean([m[k] for m in epoch_metrics]))
                                 for k in epoch_metrics[0]}
                 self.console.print_epoch_end(epoch, last_metrics)
+                self.tb.tb_train_epoch_stats(global_step, last_metrics)
+                if cfg.io.tb_model_param_stats:
+                    self.tb.tb_model_weights(global_step, self.model)
             if self.eval_data is not None and cfg.training.run_eval:
                 eval_metrics = self.evaluate(r)
+                self.tb.tb_eval_stats(global_step, eval_metrics)
+                if epoch >= cfg.training.test_delay_epochs:
+                    self.test_run(global_step)
                 if self.output_path:
                     self.best_loss = save_best_model(
                         eval_metrics.get("loss", float("inf")), self.best_loss,
@@ -254,8 +278,7 @@ class Trainer:
             b = self._tensors(batch)
             out = self.model(b["text"], b["text_lengths"], b["mel"],
                              **self._forward_kwargs(b, r))
-            _, parts = self.criterion(out, b["mel"], b["mel_lengths"], b["stop_targets"],
-                                      b["text_lengths"], step=self.step, r=r)
+            _, parts = self._criterion(out, b, r)
             all_metrics.append({k: float(v) for k, v in parts.items()})
             scores.append(alignment_diagonal_score(out["alignments"][:real_b].cpu().numpy()))
             weights.append(real_b)
@@ -265,8 +288,53 @@ class Trainer:
         out["alignment_score"] = float(np.sum(w * np.asarray(scores)))
         return out
 
-    def test_run(self, global_step: int) -> None:
-        raise NotImplementedError(f"test-sentence synthesis during training {_LATER}")
+    DEFAULT_TEST_SENTENCES = [
+        "It took me quite a long time to develop a voice, and now that I "
+        "have it I'm not going to be silent.",
+        "Be a voice, not an echo.",
+    ]
+
+    def test_run(self, global_step: int) -> list[dict]:
+        """Free-running synthesis of the test sentences (io.test_sentences_file,
+        one a line, or the two defaults) through `synthesis_batch` with
+        Griffin-Lim: on the card the decode kernel (1, or 8 for
+        Tacotron(1)) and the Griffin-Lim kernel `gl_route` picks. A
+        speaker-conditioned model speaks as the first speaker of the map
+        (id 0, or that speaker's d-vector); a GST model speaks without a
+        style, as the reference's test run does. Each sentence's alignment
+        and spectrogram figures (where matplotlib is installed) and its
+        audio go to TensorBoard. Returns the synthesis results. Nothing is
+        caught: a kernel that fails here fails training."""
+        from ..infer.synthesis import synthesis_batch
+
+        sentences = self.DEFAULT_TEST_SENTENCES
+        if self.cfg.io.test_sentences_file:
+            with open(self.cfg.io.test_sentences_file, encoding="utf-8") as f:
+                sentences = [line.strip() for line in f if line.strip()]
+        cond = {}
+        if self.num_speakers:
+            first = min(self.train_data.speakers, key=self.train_data.speakers.get)
+            vectors = self.train_data.speaker_embeddings
+            if vectors is not None:
+                cond["d_vectors"] = np.stack([np.asarray(vectors[first], np.float32)]
+                                             * len(sentences))
+            else:
+                cond["speaker_ids"] = [self.train_data.speakers[first]] * len(sentences)
+        results = synthesis_batch(self.model, sentences, self.cfg, self.ap, **cond)
+        if self.tb.writer is not None:
+            if importlib.util.find_spec("matplotlib") is not None:
+                from ..utils.visual import plot_alignment, plot_spectrogram
+
+                figures = {}
+                for i, res in enumerate(results):
+                    figures[f"{i}-alignment"] = plot_alignment(res["alignment"])
+                    figures[f"{i}-spectrogram"] = plot_spectrogram(res["mel_postnet_spec"],
+                                                                   time_major=False)
+                self.tb.tb_eval_figures(global_step, figures)
+            self.tb.tb_eval_audios(global_step, {f"{i}-audio": res["wav"]
+                                                 for i, res in enumerate(results)},
+                                   self.cfg.audio.sample_rate)
+        return results
 
     def start_profiler(self, port: int = 9999) -> None:
         raise NotImplementedError(f"the profiler server {_LATER}")

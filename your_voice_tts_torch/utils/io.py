@@ -1,5 +1,6 @@
 """Experiment folders (the JAX package's utils/io.py): a run's folder
-named after the run, the date and the git commit it was made from."""
+named after the run, the date and the git commit it was made from; and
+`count_parameters`."""
 
 from __future__ import annotations
 
@@ -25,3 +26,8 @@ def create_experiment_folder(root_path: str, run_name: str) -> str:
     out = os.path.join(root_path, f"{run_name}-{date_str}-{get_git_commit()}")
     os.makedirs(out, exist_ok=True)
     return out
+
+
+def count_parameters(model) -> int:
+    """The number of parameter elements of a torch module."""
+    return int(sum(p.numel() for p in model.parameters()))
