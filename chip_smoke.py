@@ -116,6 +116,29 @@ Phases, each fatal on failure:
    the GST's included, at phase 7(a)'s tolerances; then Synthesizer from
    the trained d-vector checkpoint answers a batch of 8 over the 4
    speakers (its decode and Griffin-Lim launches counted).
+7d. train-variants: configs/ljspeech_tacotron2.json at full width (r = 2)
+   with forward attention, the transition agent and the forward mask, and
+   with Graves attention (K = 4), which train on the decoder's step loop
+   (the JAX package's scan route), on a 40-clip synthetic corpus: one
+   Trainer.train_step on 8 rows of config #3's batch, float32, dropout
+   off, a Trainer on the card against one on the CPU from the same
+   weights (each loss part 1e-4 relative, the gradients handed to the
+   update 1e-4 rel L2), kernels 5 and 6 not launched; fit(max_steps=2)
+   with its test sentences on kernel 1's variant branch and the
+   Griffin-Lim kernel their frames route to (counters set to 0 just
+   before, read just after; no plain version, no training kernel); the
+   timed step at config #3's batch (mixed precision; CUDA events, median
+   of 3; peak memory).
+7e. train-bd: the bidirectional decoder, the same card-against-CPU step
+   on kernels 5 and 6 (two forward and two backward scans a step), and
+   its timed step beside the same model's without the backward decoder.
+7f. train-accum: grad_accum_steps 2, the same card-against-CPU step (two
+   micro-batches of 4 rows, one scan each way apiece), then config #3's
+   batch and the same rows four times over (B = 128) at A = 1 and A = 2:
+   step time, peak memory allocated and the step's own share of it.
+7g. mel-oracle: AudioProcessor.melspectrogram on the card against
+   oracle/audio_ref.py (float64 numpy) for the three shipped Tacotron2
+   configs on a seeded speech-like signal, <= 1e-3 max abs.
 
 8. wavernn: the WaveRNN sample-loop kernel at full width (WaveRNNConfig
    defaults: n_mels 80, R = F = 512, 10-bit mu-law; seeded random weights,
@@ -227,7 +250,9 @@ gl-full route's the small and export paths'
 decode's max_abs_err is the largest of the decode phase's and the
 variants' and the GST holds, the Tacotron(1) decode's the largest of its
 phase's and the E = 512 holds, the training scans' the largest of phases
-5-6's and train-cond's. Each phase prints its seconds.
+5-6's and train-cond's. The training scans' launches also add phases
+7e-7f's steps; the decode's and Griffin-Lim's phase 7d's test sentences.
+Each phase prints its seconds.
 Then the kernel line (JSON), the card's
 name and power limit, and the contract line {"ok": true, "device": {...}}. Details also go to
 chip_smoke.json in the output directory (--out, default build/chip_smoke).
@@ -4393,6 +4418,320 @@ def phase_train_profile(report, trainer, out_dir: str):
                                    kernels={e.key: [dev(e), e.count] for e in rows[:40]})
 
 
+# ------------------------------- Tacotron2 training: the rest of it (7d-7g)
+
+A8_MODELS = {"forward_ta_mask": dict(use_forward_attn=True, transition_agent=True,
+                                     forward_attn_mask=True),
+             "graves": dict(attention_type="graves")}
+CPU_ROWS = 8            # rows of the bench batch the card-against-CPU steps take
+A8_TOL = 1e-4           # card against CPU: each loss part (relative), the gradients (rel L2)
+
+
+def a8_cfg(corpus: str, model: dict | None = None, **training):
+    """train_config() (configs/ljspeech_tacotron2.json at full width, r = 2,
+    batch 32, gradual training off) reading `corpus`, with the model fields
+    `model` and the training fields `training` set."""
+    cfg = train_config()
+    ds = dataclasses.replace(cfg.data.datasets[0], name="synthetic", path=corpus)
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)),
+                               model=dataclasses.replace(cfg.model, **(model or {})),
+                               training=dataclasses.replace(cfg.training, **training))
+
+
+def train_counters():
+    """Kernels 5 and 6's wrappers."""
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_bwd_cuda, taco2_train_fwd_cuda
+
+    return taco2_train_fwd_cuda, taco2_train_bwd_cuda
+
+
+def scans(launches: dict, T_r: int) -> tuple[float, float]:
+    """(forward scans, backward scans) in kernel 5's and 6's launches: a
+    forward scan launches 2 T_r + 1 times, a backward scan 4 T_r."""
+    return (launches["taco2_train_fwd_cuda"] / (2 * T_r + 1),
+            launches["taco2_train_bwd_cuda"] / (4 * T_r))
+
+
+def card_vs_cpu_step(tag: str, cfg, batch: dict) -> dict:
+    """One Trainer.train_step (its micro-batches where grad_accum_steps > 1)
+    on a float32 Trainer on each device, the CPU one's weights loaded into
+    the card's, the same batch, dropout off (no generator), TF32 off: the
+    loss parts and gradient norm it returns, each within A8_TOL relative,
+    and the gradients it hands to the optimizer's one update, within A8_TOL
+    rel L2 over all leaves. Returns the readings and the card step's
+    launches of kernels 5 and 6."""
+    import torch
+
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training,
+                                                                mixed_precision=False))
+    trainers = {"cpu": Trainer(cfg, device="cpu", verbose=False),
+                "cuda": Trainer(cfg, device="cuda", verbose=False)}
+    trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
+    got, secs, launches = {}, {}, {}
+    for dev, t in trainers.items():
+        t.generator = None
+        seen: dict = {}
+        step = t.optimizer.step
+
+        def keep(grads, _step=step, _seen=seen):
+            _seen["grads"] = [g.detach().double().cpu() for g in grads]
+            return _step(grads)
+
+        t.optimizer.step = keep
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            for c in train_counters():
+                c.launches = 0
+        t0 = time.perf_counter()
+        metrics = t.train_step(batch, 2)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {c.__name__: c.launches for c in train_counters()}
+        secs[dev] = time.perf_counter() - t0
+        got[dev] = metrics, seen["grads"]
+    names = [n for n, p in trainers["cpu"].model.named_parameters() if p.requires_grad]
+    del trainers
+    (mc, gc), (mk, gk) = got["cpu"], got["cuda"]
+    rel = {k: abs(mk[k] - v) / max(abs(v), 1e-30) for k, v in mc.items()}
+    cat = lambda gs: torch.cat([g.flatten() for g in gs])  # noqa: E731
+    glob = float((cat(gk) - cat(gc)).norm() / cat(gc).norm())
+    leaf = {n: float((a - c).norm() / c.norm().clamp_min(1e-30)) for n, a, c in zip(names, gk, gc)}
+    worst = max(leaf, key=leaf.get)
+    T_r = batch["mel"].shape[1] // 2
+    print(f"[{tag}] one step at full width (B={batch['mel'].shape[0]}, T_text="
+          f"{batch['text'].shape[1]}, T_mel={batch['mel'].shape[1]}, {T_r} decoder steps, "
+          f"float32, dropout off), card against CPU: loss parts card "
+          f"{ {k: round(v, 6) for k, v in mk.items()} }; rel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + f" (tol {A8_TOL}); all "
+          f"gradients rel L2 {glob:.3e} (tol {A8_TOL}), largest leaf rel L2 {leaf[worst]:.3e} "
+          f"({worst}); kernel 5 / 6 scans on the card {scans(launches, T_r)} (launches "
+          f"{launches}); CPU step {secs['cpu']:.1f} s, card {secs['cuda']:.2f} s (first call)")
+    check(max(rel.values()) <= A8_TOL and glob <= A8_TOL, f"{tag}: card and CPU steps disagree")
+    return dict(parts_card=mk, parts_cpu=mc, parts_rel=rel, grad_rel_l2=glob, worst_leaf=worst,
+                worst_leaf_rel_l2=leaf[worst], launches=launches, scans=scans(launches, T_r),
+                cpu_s=secs["cpu"], card_s=secs["cuda"])
+
+
+def timed_steps(tag: str, trainer, batch: dict, reps: int = 3) -> dict:
+    """Trainer.train_step on `batch` (the Trainer's precision, dropout on):
+    one warm step, then `reps` steps timed by CUDA events (median) and the
+    host clock, the peak memory allocated over them
+    (torch.cuda.max_memory_allocated after a reset) and that peak less
+    what was allocated before them (parameters, optimizer state: the
+    step's own memory), kernel 5's and 6's scans a step (`launches`
+    counts the timed steps'); then one more step under torch.profiler: the
+    device's busy ms (the union of its kernels' intervals), its kernels."""
+    import gc
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.train_step(batch, 2)
+    gc.collect()                    # Trainers of earlier readings, not yet collected
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    for c in train_counters():
+        c.launches = 0
+    ev, wall = [], []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        m = trainer.train_step(batch, 2)            # ends in a host read of the metrics
+        e.record()
+        e.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        ev.append(s.elapsed_time(e))
+    launches = {c.__name__: c.launches for c in train_counters()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(batch, 2)
+            torch.cuda.synchronize()
+            pwall = (time.perf_counter() - t0) * 1e3
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        busy, _, n_k = device_busy(trace)
+    per_step = {k: n / reps for k, n in launches.items()}
+    out = dict(step_ms=statistics.median(ev), step_ms_all=ev, wall_ms=statistics.median(wall),
+               peak_gib=peak, step_gib=peak - base, launches=launches,
+               scans=scans(per_step, batch["mel"].shape[1] // 2), loss=m["loss"],
+               profiled_wall_ms=pwall, busy_ms=busy, busy_share=busy / pwall, kernels=n_k)
+    print(f"[{tag}] timed step (B={batch['mel'].shape[0]}, T_mel={batch['mel'].shape[1]}, "
+          f"{'bf16 mixed precision' if trainer.cfg.training.mixed_precision else 'float32'}, "
+          f"dropout on): {out['step_ms']:.1f} ms (CUDA events, median of {reps}; all "
+          f"{', '.join(f'{x:.1f}' for x in ev)}), wall {out['wall_ms']:.1f} ms; peak memory "
+          f"allocated {peak:.3f} GiB, {peak - base:.3f} of it the step's own; kernel 5 / 6 "
+          f"scans a step {out['scans']}; profiled step {pwall:.1f} ms, device busy "
+          f"{busy:.1f} ms (busy share {busy / pwall:.3f}, {n_k} kernels); loss {m['loss']:.4f}")
+    check(math.isfinite(m["loss"]), f"{tag}: timed step loss not finite")
+    return out
+
+
+def phase_train_variants(report, corpus: str) -> dict:
+    """7d. Tacotron2 on the attention variants (forward attention with the
+    agent and the forward mask; Graves, K = 4) at full width, each on the
+    step loop (the JAX package's scan route): (a) one step card against
+    CPU on CPU_ROWS rows of the bench batch, kernels 5 and 6 not launched;
+    (b) Trainer.fit(max_steps=2) with the test sentences after its
+    evaluation: kernel 1 (the variant's branch) and the Griffin-Lim kernel
+    the frames route to launched, no plain version, no training kernel;
+    (c) the timed step on the bench batch (mixed precision). Returns the
+    decode's and Griffin-Lim's launches."""
+    import torch
+
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    bench = bench_batch()
+    small = {k: v[:CPU_ROWS] for k, v in bench.items()}
+    launches = {c.__name__: 0 for c in serve_counters()}
+    out: dict = {}
+    for name, flags in A8_MODELS.items():
+        tag = f"train-variants {name}"
+        step = card_vs_cpu_step(tag, a8_cfg(corpus, flags), small)
+        check(not any(step["launches"].values()), f"{tag}: a training kernel launched")
+        trainer = Trainer(a8_cfg(corpus, flags), device="cuda", verbose=False)
+        check(not trainer.model.decoder.fast_grad_supported(), f"{tag}: not on the step loop")
+        tests: list = []
+        test_run = trainer.test_run
+        trainer.test_run = lambda s, _run=test_run: tests.append(_run(s)) or tests[-1]
+        torch.cuda.synchronize()
+        for c in train_counters() + serve_counters():
+            c.launches = 0
+        with plain_calls() as plain:
+            t0 = time.perf_counter()
+            metrics = trainer.fit(max_steps=2)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        fit_train = {c.__name__: c.launches for c in train_counters()}
+        fit_serve = {c.__name__: c.launches for c in serve_counters()}
+        trainer.test_run = test_run
+        routes = gl_routes(tests, trainer.ap)
+        print(f"[{tag}] fit(max_steps=2): {fit_s:.1f} s, loss {metrics.get('loss')}; test "
+              f"sentences {len(tests)} runs, frames a row "
+              f"{[[r['mel_postnet_spec'].shape[1] for r in res] for res in tests]}, Griffin-Lim "
+              f"routes {routes}; launches {fit_serve}, training kernels {fit_train}; plain "
+              f"versions called {plain}")
+        check(tests and fit_serve["tacotron2_decode_cuda"] > 0
+              and all(fit_serve[ROUTE_KERNEL[k]] > 0 for k in routes)
+              and not any(plain.values()) and not any(fit_train.values())
+              and math.isfinite(metrics["loss"]), f"{tag}: the fit or its test sentences")
+        for k, n in fit_serve.items():
+            launches[k] += n
+        timed = timed_steps(tag, trainer, bench)
+        check(not any(timed["launches"].values()), f"{tag}: a training kernel launched")
+        out[name] = dict(step=step, fit_s=fit_s, fit_launches=fit_serve, test_routes=routes,
+                         timed=timed)
+        del trainer
+    report["train_variants"] = out
+    return launches
+
+
+def phase_train_bd(report, corpus: str) -> dict:
+    """7e. The bidirectional decoder at full width on kernels 5 and 6: (a)
+    one step card against CPU (CPU_ROWS rows), two forward and two backward
+    scans; (b) the timed step on the bench batch (mixed precision) beside
+    the same model's without the backward decoder. Returns kernels 5 and
+    6's launches."""
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    bench = bench_batch()
+    step = card_vs_cpu_step("train-bd", a8_cfg(corpus, {"bidirectional_decoder": True}),
+                            {k: v[:CPU_ROWS] for k, v in bench.items()})
+    check(step["scans"] == (2.0, 2.0), "train-bd: not two scans each way a step")
+    timed = {}
+    for bd in (True, False):
+        trainer = Trainer(a8_cfg(corpus, {"bidirectional_decoder": bd}), device="cuda",
+                          verbose=False)
+        timed[bd] = timed_steps(f"train-bd {'with' if bd else 'without'} the backward decoder",
+                                trainer, bench)
+        del trainer
+    check(timed[True]["scans"] == (2.0, 2.0) and timed[False]["scans"] == (1.0, 1.0),
+          "train-bd: scans a timed step")
+    print(f"[train-bd] step {timed[True]['step_ms']:.1f} ms with the backward decoder, "
+          f"{timed[False]['step_ms']:.1f} ms without (x{timed[True]['step_ms'] / timed[False]['step_ms']:.2f})")
+    report["train_bd"] = dict(step=step, timed_bd=timed[True], timed_plain=timed[False])
+    return {k: step["launches"][k] + timed[True]["launches"][k] + timed[False]["launches"][k]
+            for k in step["launches"]}
+
+
+def phase_train_accum(report, corpus: str) -> dict:
+    """7f. Gradient accumulation at full width: (a) an A = 2 step card
+    against CPU (CPU_ROWS rows, two micro-batches of 4), one forward and
+    one backward scan a micro-batch; (b) config #3's batch (B = 32, mixed
+    precision) at A = 1 and A = 2, and the same rows four times over
+    (B = 128, where the step's own memory outweighs the parameters and
+    optimizer state): step time and peak memory allocated. Returns kernels
+    5 and 6's launches."""
+    import numpy as np
+
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    bench = bench_batch()
+    step = card_vs_cpu_step("train-accum", a8_cfg(corpus, grad_accum_steps=2),
+                            {k: v[:CPU_ROWS] for k, v in bench.items()})
+    check(step["scans"] == (2.0, 2.0), "train-accum: not one scan each way a micro-batch")
+    launches = dict(step["launches"])
+    timed: dict = {}
+    for B, batch in ((TRAIN_B, bench), (4 * TRAIN_B, {k: np.concatenate([v] * 4)
+                                                      for k, v in bench.items()})):
+        for A in (1, 2):
+            trainer = Trainer(a8_cfg(corpus, grad_accum_steps=A, batch_size=B), device="cuda",
+                              verbose=False)
+            t = timed[f"B={B} A={A}"] = timed_steps(f"train-accum B = {B}, A = {A}", trainer,
+                                                    batch)
+            del trainer
+            check(t["scans"] == (float(A), float(A)), f"train-accum: scans a step at A = {A}")
+            for k, n in t["launches"].items():
+                launches[k] += n
+        one, two = timed[f"B={B} A=1"], timed[f"B={B} A=2"]
+        print(f"[train-accum] B = {B}: A = 1 {one['step_ms']:.1f} ms, peak {one['peak_gib']:.3f} "
+              f"GiB ({one['step_gib']:.3f} the step's own); A = 2 {two['step_ms']:.1f} ms "
+              f"(x{two['step_ms'] / one['step_ms']:.2f}), peak {two['peak_gib']:.3f} GiB "
+              f"({two['step_gib']:.3f}; x{two['step_gib'] / one['step_gib']:.2f})")
+    report["train_accum"] = dict(step=step, timed=timed)
+    return launches
+
+
+def phase_mel_oracle(report) -> None:
+    """7g. The mel parity gate (BASELINE.json: <= 1e-3 max abs) on the card:
+    AudioProcessor.melspectrogram on CUDA against oracle/audio_ref.py's
+    float64 numpy AudioProcessorRef, for configs/ljspeech_tacotron2.json,
+    ljspeech_tacotron2_b384.json and smoke_synthetic.json, on a seeded
+    speech-like signal (`style_wav`) at each config's sample rate."""
+    import numpy as np
+
+    from oracle.audio_ref import AudioProcessorRef
+    from your_voice_tts_torch.audio import AudioProcessor
+    from your_voice_tts_torch.config import load_config
+
+    out = {}
+    for name in ("ljspeech_tacotron2.json", "ljspeech_tacotron2_b384.json",
+                 "smoke_synthetic.json"):
+        c = load_config(os.path.join(ROOT, "configs", name)).audio
+        hop, win = c.resolved_hop_win()
+        ref_ap = AudioProcessorRef(
+            sample_rate=c.sample_rate, num_mels=c.num_mels, fft_size=c.fft_size,
+            hop_length=hop, win_length=win, preemphasis=c.preemphasis,
+            ref_level_db=c.ref_level_db, min_level_db=c.min_level_db, power=c.power,
+            signal_norm=c.signal_norm, symmetric_norm=c.symmetric_norm, max_norm=c.max_norm,
+            clip_norm=c.clip_norm, mel_fmin=c.mel_fmin, mel_fmax=c.mel_fmax,
+            spec_gain=c.spec_gain)
+        y = style_wav(c.sample_rate, seed=11)
+        got = AudioProcessor(c, "cuda").melspectrogram(y)
+        ref = ref_ap.melspectrogram(y.astype(np.float64))
+        check(got.shape == ref.shape, f"mel-oracle {name}: shape {got.shape} vs {ref.shape}")
+        out[name] = float(np.max(np.abs(got - ref)))
+        print(f"[mel-oracle] {name}: mel {got.shape} on the card against the oracle, max abs "
+              f"{out[name]:.3e} (gate 1e-3)")
+        check(out[name] <= 1e-3, f"mel-oracle {name}: over the gate")
+    report["mel_oracle"] = out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4466,6 +4805,21 @@ def main() -> int:
             kern["max_abs_err"] = max(kern["max_abs_err"], wide_errs[kern["name"]])
     for k in ("taco2_train_fwd_cuda", "taco2_train_bwd_cuda"):
         launches[k] += voice_launches[k]
+    # phases 7d-7g: the attention variants on the step loop (their test
+    # sentences on kernels 1 and 2), the bidirectional decoder and
+    # accumulation on kernels 5 and 6, the mel oracle gate
+    with tempfile.TemporaryDirectory() as tmp:
+        from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+
+        corpus = make_synthetic_corpus(os.path.join(tmp, "corpus"), n_items=40, sr=22050,
+                                       max_words=15)
+        a8_launches = [timed("train-variants", phase_train_variants, report, corpus),
+                       timed("train-bd", phase_train_bd, report, corpus),
+                       timed("train-accum", phase_train_accum, report, corpus)]
+    for seen in a8_launches:
+        for k, n in seen.items():
+            launches[k] = launches.get(k, 0) + n
+    timed("mel-oracle", phase_mel_oracle, report)
     kernels.append(timed("wavernn", phase_wavernn, report))
     voc_launches, synth = timed("vocoder", phase_vocoder_path, report)
     launches["wavernn_generate_cuda"] = voc_launches["wavernn_generate_cuda"]

@@ -221,22 +221,44 @@ def test_inference_truncated_forward_attention_matches_pallas():
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-3)
 
 
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """An 8-item sr=8000 synthetic corpus for the Trainers below."""
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+
+    return make_synthetic_corpus(str(tmp_path_factory.mktemp("variants")), n_items=8, sr=8000)
+
+
 @pytest.mark.parametrize("flags,match", [
     (dict(use_forward_attn=True), "use_forward_attn"),
     (dict(use_forward_attn=True, transition_agent=True), "use_forward_attn"),
     (dict(transition_agent=True), "transition_agent"),
     (dict(attention_type="graves"), "Graves"),
 ])
-def test_trainer_refuses_variants_before_reading_data(flags, match):
-    """The Trainer refuses what trains with a later slice before it reads
-    any data: the config's dataset path does not exist."""
+def test_trainer_refuses_variants_before_reading_data(corpus, flags, match):
+    """The name is historical: the Trainer once refused these configs (the
+    option `match` names) before reading data. They train now, on the JAX
+    package's scan route (tests/test_torch_train_variants.py holds them
+    against it): the Trainer builds on each config and its corpus, its
+    decoder takes the step loop, and one train step with dropout gives
+    finite losses and moves the weights; the refusal and its message are
+    gone."""
+    import inspect
+
     from your_voice_tts_torch.config import load_config
     from your_voice_tts_torch.train.trainer import Trainer
 
     cfg = load_config("configs/smoke_synthetic.json")
-    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **flags))
-    with pytest.raises(NotImplementedError, match=f"{match}.*arrives with a later slice"):
-        Trainer(cfg, device="cpu", verbose=False)
+    ds = dataclasses.replace(cfg.data.datasets[0], path=corpus)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **flags),
+                              data=dataclasses.replace(cfg.data, datasets=(ds,)))
+    trainer = Trainer(cfg, device="cpu", verbose=False)
+    assert not trainer.model.decoder.fast_grad_supported(), match
+    before = [p.detach().clone() for p in trainer.params]
+    metrics = trainer.train_step(next(trainer.train_data.batches(4, 2)), 2)
+    assert all(np.isfinite(v) for v in metrics.values()), (match, metrics)
+    assert any(not torch.equal(a, b) for a, b in zip(before, trainer.params)), match
+    assert "later slice" not in inspect.getsource(Trainer.__init__)
 
 
 @pytest.mark.parametrize("flags,match", [
@@ -247,12 +269,27 @@ def test_trainer_refuses_variants_before_reading_data(flags, match):
     (dict(attention_type="graves"), "Graves"),
 ])
 def test_teacher_forced_pass_refuses_variants(flags, match):
-    """The teacher-forced pass (what training runs) refuses what it cannot
-    compute yet, whoever calls it: it runs location attention only."""
-    model = Tacotron2(CHARS, ModelConfig(**SMALL, **flags), n_mels=N_MELS, device="cpu")
-    text, lengths = torch.ones(2, 8, dtype=torch.long), torch.tensor([8, 6])
-    with pytest.raises(NotImplementedError, match=f"{match}.*arrives with a later slice"):
-        model(text, lengths, torch.zeros(2, 12, N_MELS))
+    """The name is historical: the teacher-forced pass once refused these
+    configs. It now runs them as the JAX package does, through the step
+    loop (`Decoder._scan`, the JAX `lax.scan` over `_step`; the agent alone,
+    without forward attention, too, as the JAX package routes it): frames,
+    alignments and stop logits against the JAX `Decoder.forward` within
+    1e-5 (tests/test_decoder_grad.py's tolerance between the JAX routes),
+    dropout off, on seeded memory with rows of their own lengths."""
+    jm, v, pm = models(flags, seed=2)
+    assert not pm.decoder.fast_grad_supported() and not jm.decoder.fast_grad_supported(), match
+    rng = np.random.default_rng(4)
+    enc = rng.standard_normal((B, T_TEXT, 32)).astype(np.float32)
+    lengths = np.array([T_TEXT, T_TEXT - 3, T_TEXT - 5, 4])
+    mels = rng.standard_normal((B, 16, N_MELS)).astype(np.float32)
+    ref = jax.jit(lambda p, e, m: jm.decoder.forward(
+        p, v["state"]["decoder"], e, jnp.asarray(lengths), m, None, True, r=2)[:3])(
+        v["params"]["decoder"], jnp.asarray(enc), jnp.asarray(mels))
+    got = pm.train().decoder(torch.from_numpy(enc), torch.from_numpy(lengths),
+                             torch.from_numpy(mels), 2)
+    for a, b, name in zip(got, ref, ("frames", "alignments", "stops")):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=1e-5, rtol=0,
+                                   err_msg=f"{match}: {name}")
 
 
 def test_windowing_trains_as_plain_location_attention():

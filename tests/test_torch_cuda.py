@@ -1858,3 +1858,58 @@ def test_taco1_test_run_launches_its_kernels(cuda, tmp_path):
             "iteration": gl_iteration_cuda}[route]
     assert tacotron1_decode_cuda.launches > 0 and want.launches > 0
     assert all(np.isfinite(r["wav"]).all() for r in results)
+
+
+@pytest.mark.parametrize("kind, scans", [("bidirectional", 2), ("accumulated", 2),
+                                         ("forward_ta_mask", 0), ("graves", 0)])
+def test_train_step_routes_on_the_card(cuda, tmp_path, kind, scans):
+    """One `Trainer.train_step` at smoke widths, float32, dropout off, on the
+    card against the CPU from the same weights: a bidirectional-decoder
+    model and an A = 2 step on kernels 5 and 6 (two scans each way a step),
+    forward attention with the agent and the mask and Graves on the step
+    loop (none); every loss part within 1e-5 relative and the gradients
+    handed to the update within 1e-4 rel L2 (float32 sums in another
+    order)."""
+    import dataclasses
+
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_bwd_cuda, taco2_train_fwd_cuda
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    cfg = load_config("configs/smoke_synthetic.json")
+    model = {"bidirectional": dict(bidirectional_decoder=True),
+             "forward_ta_mask": dict(use_forward_attn=True, transition_agent=True,
+                                     forward_attn_mask=True),
+             "graves": dict(attention_type="graves")}.get(kind, {})
+    ds = dataclasses.replace(cfg.data.datasets[0],
+                             path=make_synthetic_corpus(str(tmp_path), n_items=8, sr=8000))
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)),
+        model=dataclasses.replace(cfg.model, **model),
+        training=dataclasses.replace(cfg.training, mixed_precision=False,
+                                     grad_accum_steps=2 if kind == "accumulated" else 1))
+    g = np.random.default_rng(0)
+    ml = np.array([40, 33, 28, 21])
+    batch = {"text": g.integers(1, 60, (4, 17)).astype(np.int32),
+             "text_lengths": np.array([17, 15, 12, 9], np.int32),
+             "mel": (g.standard_normal((4, 40, 20)) * (np.arange(40) < ml[:, None])[..., None]
+                     ).astype(np.float32),
+             "mel_lengths": ml.astype(np.int32),
+             "stop_targets": (np.arange(20) >= ((ml + 1) // 2 - 1)[:, None]).astype(np.float32)}
+    got = {}
+    trainers = {d: Trainer(cfg, device=d, verbose=False) for d in ("cpu", "cuda")}
+    trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
+    for dev, t in trainers.items():
+        t.generator, seen, step = None, {}, t.optimizer.step
+        t.optimizer.step = lambda grads, _s=step, _seen=seen: (
+            _seen.__setitem__("g", torch.cat([x.double().flatten().cpu() for x in grads]))
+            or _s(grads))
+        taco2_train_fwd_cuda.launches = taco2_train_bwd_cuda.launches = 0
+        got[dev] = t.train_step(batch, 2), seen["g"]
+    assert (taco2_train_fwd_cuda.launches, taco2_train_bwd_cuda.launches) == (
+        scans * (2 * 20 + 1), scans * 4 * 20)
+    (mc, gc), (mk, gk) = got["cpu"], got["cuda"]
+    for k, v in mc.items():
+        assert abs(mk[k] - v) <= 1e-5 * abs(v) + 1e-8, (k, mk[k], v)
+    assert float((gk - gc).norm() / gc.norm()) <= 1e-4

@@ -481,3 +481,35 @@ def test_import_and_preprocess_are_host_only(monkeypatch, tmp_path):
     assert preprocess.main(["--config_path", str(smoke), "--cache_dir", str(cache),
                             "--device", "cpu"]) == 0
     assert any(f.startswith("mel_") for f in os.listdir(cache))
+
+
+def test_decoder_training_routes_do_not_fall_back(monkeypatch):
+    """Off the CPU the teacher-forced pass runs the training kernels or the
+    step loop, never a plain version of a kernel: on meta tensors a
+    bidirectional model's backward decoder (location attention) hands its
+    scan to the forward kernel's wrapper, which raises; a forward-attention
+    decoder runs its step loop and calls neither kernel nor plain version."""
+    import dataclasses
+
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.models import decoder_grad
+    from your_voice_tts_torch.models.tacotron2 import Tacotron2
+    from your_voice_tts_torch.ops import taco2_train
+
+    def never(*a, **k):
+        raise AssertionError("a plain version ran in the kernel's place")
+
+    for name in ("taco2_train_fwd_plain", "taco2_train_bwd_plain"):
+        monkeypatch.setattr(taco2_train, name, never)
+    m = load_config(os.path.join(ROOT, "configs/smoke_synthetic.json")).model
+    meta = lambda *s, **k: torch.zeros(*s, device="meta", **k)  # noqa: E731
+    enc, lengths, mels = meta(2, 6, 32), meta(2, dtype=torch.long), meta(2, 8, 20)
+    bd = Tacotron2(40, dataclasses.replace(m, bidirectional_decoder=True), n_mels=20,
+                   device="cpu").to("meta").train()
+    with pytest.raises(ValueError, match="taco2_train_fwd_cuda takes CUDA tensors"):
+        bd.decoder_backward(enc, lengths, mels.flip(1), 2)
+    fwd = Tacotron2(40, dataclasses.replace(m, use_forward_attn=True, transition_agent=True),
+                    n_mels=20, device="cpu").to("meta").train()
+    monkeypatch.setattr(decoder_grad, "taco2_train_fwd", never)
+    frames, aligns, stops = fwd.decoder(enc, lengths, mels, 2)
+    assert frames.shape == (2, 8, 20) and aligns.shape == (2, 4, 6)

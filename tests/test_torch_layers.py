@@ -95,8 +95,10 @@ def test_location_sensitive_attention(pair, norm):
                                 mask=jnp.asarray(mask))
         with torch.no_grad():
             enc_t = torch.from_numpy(enc)
-            ctx, al = pa(torch.from_numpy(q), enc_t, pa.preprocess_inputs(enc_t),
-                         torch.from_numpy(att), torch.from_numpy(cum), torch.from_numpy(mask))
+            state = pa.init_state(B, T, "cpu")._replace(attention=torch.from_numpy(att),
+                                                         attention_cum=torch.from_numpy(cum))
+            _, ctx, al = pa(torch.from_numpy(q), enc_t, pa.preprocess_inputs(enc_t), state,
+                            torch.from_numpy(mask))
     finally:
         ja.norm, pa.norm = "sigmoid", "sigmoid"
     np.testing.assert_allclose(al.numpy(), np.asarray(ref_al), atol=TOL)

@@ -8,18 +8,24 @@ train/checkpoint.params_from_jax maps them by its generic Dense rule.
 
 The decode runs every variant on kernel 1 (ops/taco2_decode.py), which
 reads the weights the modules hold; the step math lives there, in the
-plain version. Training takes location-sensitive attention only:
-windowing acts at inference only, and forward attention, the transition
-agent and Graves train with a later slice of the port (train/trainer.py
-refuses them)."""
+plain version. Each module's `forward` is one teacher-forced step of the
+JAX package's `__call__` with inference=False (windowing off) over an
+`AttentionState`: the route models/tacotron2.py `Decoder._scan` trains
+forward attention, the transition agent and Graves through, under
+autograd. Plain location-sensitive attention trains on the training
+kernels instead (models/decoder_grad.py).
+"""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..nn.core import Conv1d, Dense
+from ..ops.taco2_decode import forward_plain, softplus
 
 # the attention variants the decode serves beside plain location-sensitive
 # attention, as the ModelConfig switches each flips
@@ -33,6 +39,44 @@ VARIANTS = {
     "softmax_window": dict(attention_norm="softmax", windowing=True),
     "graves": dict(attention_type="graves"),                      # K = attention_heads
 }
+
+
+class AttentionState(NamedTuple):
+    """What a teacher-forced step carries to the next (the JAX package's
+    `AttentionState`), float32 but for win_idx."""
+    attention: torch.Tensor        # [B, T] the previous alignment
+    attention_cum: torch.Tensor    # [B, T] the cumulative alignment (location features)
+    alpha: torch.Tensor            # [B, T] forward attention's recursion state
+    win_idx: torch.Tensor          # [B] int64 the window centre (windowing acts at inference)
+    mu: torch.Tensor               # [B, K] Graves's means ([B, 1] unused otherwise)
+
+
+def _state(B: int, T: int, K: int, device, alpha0: bool = False) -> AttentionState:
+    z = torch.zeros(B, T, device=device)
+    alpha = z.clone()
+    if alpha0:
+        alpha[:, 0] = 1.0
+    return AttentionState(z, z, alpha, torch.zeros(B, dtype=torch.long, device=device),
+                          torch.zeros(B, K, device=device))
+
+
+def normalize(e, mask, norm: str):
+    """Energies [B, T] -> alignment in float32 whatever their dtype (the
+    JAX package's `_normalize`): pads (mask False) excluded, then softmax,
+    or sigmoid over its sum."""
+    e = e.float()
+    if mask is not None:
+        e = e.masked_fill(~mask, float("-inf"))
+    if norm == "softmax":
+        return torch.softmax(e, dim=-1)
+    s = torch.sigmoid(e)
+    return s / s.sum(dim=-1, keepdim=True).clamp_min(1e-8)
+
+
+def _context(align, inputs):
+    """sum_t align[b, t] inputs[b, t] in float32 (JAX promotes a bf16
+    memory to the alignment's float32)."""
+    return torch.einsum("bt,bte->be", align, inputs.to(align.dtype))
 
 
 def energies(query, processed_inputs, attention, attention_cum, q_w, conv_w,
@@ -98,23 +142,35 @@ class LocationSensitiveAttention(nn.Module):
         return (self.query.weight, self.loc_conv.weight if loc else None,
                 self.loc_dense.weight if loc else None, self.v.weight, self.v.bias)
 
-    def forward(self, query, inputs, processed_inputs, attention, attention_cum,
-                mask=None):
-        """One step without the options (the teacher-forced route's
-        attention). query [B, Q]; inputs [B, T, E]; processed_inputs
-        [B, T, A]; attention / attention_cum [B, T]; mask [B, T] True where
-        valid. Returns (context [B, E], alignment [B, T])."""
-        e = energies(query, processed_inputs, attention, attention_cum,
+    def init_state(self, B: int, T: int, device) -> AttentionState:
+        """Zeros, with forward attention's alpha at [1, 0, 0, ...]."""
+        return _state(B, T, 1, device, alpha0=True)
+
+    def forward(self, query, inputs, processed_inputs, state: AttentionState, mask=None,
+                context_prev=None):
+        """One teacher-forced step (the JAX package's `__call__` with
+        inference=False, so windowing stays off). query [B, Q] in the
+        working dtype; inputs [B, T, E]; processed_inputs [B, T, A];
+        mask [B, T] True where valid; context_prev [B, E], the previous
+        step's context, which the transition agent reads. The alignment is
+        normalised in float32; forward attention then runs its recursion
+        on it (the decode's `forward_plain`, with nothing rounded). Returns
+        (new state, context [B, E] float32, alignment [B, T] float32)."""
+        e = energies(query, processed_inputs, state.attention, state.attention_cum,
                      *self.energy_weights())
-        if mask is not None:
-            e = e.masked_fill(~mask, float("-inf"))
-        if self.norm == "softmax":
-            align = torch.softmax(e, dim=-1)
-        else:
-            s = torch.sigmoid(e)
-            align = s / s.sum(dim=-1, keepdim=True).clamp_min(1e-8)
-        context = torch.einsum("bt,bte->be", align, inputs)
-        return context, align
+        align = normalize(e, mask, self.norm)
+        if self.forward_attn:
+            u = 0.5
+            if self.trans_agent:
+                u = torch.sigmoid(self.ta(torch.cat([context_prev, query], -1)))   # [B, 1]
+            maskadd = torch.zeros_like(align) if mask is None else \
+                torch.where(mask, 0.0, -1e9)
+            align = forward_plain(align, state.alpha, u, maskadd, self.forward_attn_mask,
+                                  lambda x: x)
+        new_state = AttentionState(align, state.attention_cum + align,
+                                   align if self.forward_attn else state.alpha,
+                                   align.argmax(-1), state.mu)
+        return new_state, _context(align, inputs), align
 
 
 class GravesAttention(nn.Module):
@@ -125,6 +181,7 @@ class GravesAttention(nn.Module):
     normalised. It has no key projection and no location features."""
 
     norm = "sigmoid"    # what the decode is told; Graves has its own norm
+    COEF = 0.3989422917366028   # 1 / sqrt(2 pi)
 
     def __init__(self, query_dim: int, K: int = 4):
         super().__init__()
@@ -141,6 +198,30 @@ class GravesAttention(nn.Module):
 
     def preprocess_inputs(self, inputs):
         return None
+
+    def init_state(self, B: int, T: int, device) -> AttentionState:
+        return _state(B, T, self.K, device)
+
+    def forward(self, query, inputs, processed_inputs, state: AttentionState, mask=None,
+                context_prev=None):
+        """One teacher-forced step (the JAX package's `__call__`): the
+        mixture from the means advanced by softplus(k), masked and
+        normalised, over float32 positions. Arguments and returns as
+        `LocationSensitiveAttention.forward`; processed_inputs and
+        context_prev are not read."""
+        g, b, k = self.l2(torch.tanh(self.l1(query))).chunk(3, dim=-1)
+        sig = softplus(b) + 1e-5
+        mu = state.mu + softplus(k)
+        g = torch.softmax(g, dim=-1) + 1e-5
+        j = torch.arange(inputs.shape[1], device=query.device)
+        phi = g[..., None] * torch.exp(-0.5 * ((mu[..., None] - j) / sig[..., None]) ** 2)
+        align = self.COEF * phi.sum(1)
+        if mask is not None:
+            align = torch.where(mask, align, 0.0)
+        align = align / align.sum(-1, keepdim=True).clamp_min(1e-8)
+        new_state = AttentionState(align, state.attention_cum + align, state.alpha,
+                                   state.win_idx, mu)
+        return new_state, _context(align, inputs), align
 
 
 def init_attn(cfg, query_dim: int, embedding_dim: int):

@@ -7,17 +7,23 @@ or Graves GMM attention (models/attention.py).
 
 `Tacotron2.forward` is the teacher-forced training pass: BatchNorm takes
 batch statistics in training mode (the encoder's masked by the text
-lengths, the postnet's by the mel lengths), dropout is drawn from the
-torch.Generator passed in, and the decoder recurrence runs on the training
-kernels through the custom backward of models/decoder_grad.py, with the
-projection and stopnet applied over the whole sequence outside it.
+lengths, the postnet's by the mel lengths) and dropout is drawn from the
+torch.Generator passed in. The decoder recurrence takes one of the JAX
+package's two routes, by its own predicate (`Decoder.fast_grad_supported`):
+plain location-sensitive attention runs on the training kernels through
+the custom backward of models/decoder_grad.py; forward attention, the
+transition agent and Graves run as a step loop under autograd
+(`Decoder._scan`), as the reference's `lax.scan` over its `_step`. Either
+way the projection and stopnet apply over the whole sequence outside it.
+With `bidirectional_decoder` a second decoder, `decoder_backward`, reads
+the time-reversed mels in training (the DDC terms of models/losses.py);
+eval and inference never run it.
 
 The decode loop follows the reference's kernel route (`Decoder.
 inference_pallas`): it runs on the decode kernel (ops/taco2_decode.py), with
 prenet dropout from the hash PRNG seeded by `seed`, and a row that has
 stopped keeps advancing its state with zeroed frames until the chunk's end.
-Every attention variant decodes there (`Decoder.attn_kernel_flags`);
-training takes location-sensitive attention only.
+Every attention variant decodes there (`Decoder.attn_kernel_flags`).
 
 Conditioning (the reference's `_condition`): a GST model adds the style
 of a reference mel (models/gst.py) to every position of the encoder
@@ -25,8 +31,7 @@ outputs, keeping their width; then a speaker vector, a row of the model's
 own table or an external d-vector, is concatenated onto every position,
 so the decoder (and its decode kernel, or the training kernels) sees
 E = encoder_dim + spk_dim. Training conditions the same way, with the
-teacher mels as the style. The bidirectional decoder comes with a later
-slice of the port.
+teacher mels as the style.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from .. import resolve_device
 from ..nn.core import GAINS, Conv1d, Dense, Embedding, xavier_uniform_
 from ..nn.rnn import LSTMCell, bilstm, bilstm_unpacked
 from ..ops.taco2_decode import prepare_weights, tacotron2_decode
-from .attention import GravesAttention, init_attn
+from .attention import GravesAttention, LocationSensitiveAttention, init_attn
 from .decoder_grad import DecoderCore, dropout_masks
 from .common import (ConvBNBlock, Prenet, ServingWeights, add_style, cached_decode_weights,
                      compute_copy, concat_speaker, kernel_prenet, sequence_mask)
@@ -138,6 +143,21 @@ class Decoder(nn.Module):
                     forward_attn=a.forward_attn, trans_agent=a.trans_agent,
                     forward_attn_mask=a.forward_attn_mask)
 
+    # fast_grad: train through the training kernels (DecoderCore) where the
+    # attention allows it; tests clear it on an instance to hold the two
+    # routes against each other
+    fast_grad = True
+
+    def fast_grad_supported(self) -> bool:
+        """The JAX package's predicate for its custom-VJP core (kernels 5 and
+        6): location-sensitive attention without forward attention or the
+        transition agent, sigmoid or softmax norm. Anything else trains
+        through the step loop (`_scan`)."""
+        a = self.attention
+        return (self.fast_grad and isinstance(a, LocationSensitiveAttention)
+                and not a.forward_attn and not a.trans_agent
+                and a.norm in ("sigmoid", "softmax"))
+
     def forward(self, inputs, input_lengths, mels, r: int,
                 generator: torch.Generator | None = None):
         """Teacher-forced decode. inputs [B, T_in, E] encoder memory; mels
@@ -145,18 +165,12 @@ class Decoder(nn.Module):
         is the go frame (s = 0) or the last frame of r-group s - 1. Dropout
         (prenet 0.5, LSTM outputs 0.1) is drawn from `generator` in training
         mode. Returns (frames [B, T_mel, n_mels], alignments [B, T_r, T_in]
-        float32, stop logits [B, T_r]). Location-sensitive attention only:
-        windowing acts at inference only; Graves, forward attention and the
-        transition agent raise."""
+        float32, stop logits [B, T_r]). Where `fast_grad_supported`, the
+        recurrence runs on the training kernels; otherwise (forward
+        attention, the transition agent, Graves) as the step loop `_scan`
+        under autograd, as the JAX package's `lax.scan` over `_step`.
+        Windowing acts at inference only."""
         a = self.attention
-        if isinstance(a, GravesAttention):
-            raise NotImplementedError(
-                "the teacher-forced pass with Graves attention arrives with a later slice of "
-                "the port")
-        for flag in ("forward_attn", "trans_agent"):
-            if getattr(a, flag):
-                raise NotImplementedError(f"the teacher-forced pass with {flag} arrives with a "
-                                          "later slice of the port")
         B, T_mel, _ = mels.shape
         if T_mel % r:
             raise ValueError(f"mel length {T_mel} is not a multiple of r={r}")
@@ -171,10 +185,13 @@ class Decoder(nn.Module):
                                      self.decoder_rnn.hidden, prenet_t.dtype, generator,
                                      prenet_t.device, self.P_DROPOUT)
         ar, dr = self.attention_rnn, self.decoder_rnn
-        dech_t, ctx_t, aligns = DecoderCore.apply(
-            prenet_t, inputs, pinp, mask.float(), m_a, m_d, a.norm,
-            ar.weight_ih, ar.weight_hh, ar.bias, *a.energy_weights(),
-            dr.weight_ih, dr.weight_hh, dr.bias)
+        if self.fast_grad_supported():
+            dech_t, ctx_t, aligns = DecoderCore.apply(
+                prenet_t, inputs, pinp, mask.float(), m_a, m_d, a.norm,
+                ar.weight_ih, ar.weight_hh, ar.bias, *a.energy_weights(),
+                dr.weight_ih, dr.weight_hh, dr.bias)
+        else:
+            dech_t, ctx_t, aligns = self._scan(prenet_t, inputs, pinp, mask, m_a, m_d)
         dec_out = self.projection(torch.cat([dech_t, ctx_t], -1))      # [T_r, B, OW]
         stop_in = torch.cat([dech_t, dec_out], -1)
         if self.cfg.separate_stopnet:
@@ -182,6 +199,37 @@ class Decoder(nn.Module):
         stops = self.stopnet(stop_in)[..., 0]
         frames = dec_out.transpose(0, 1)[..., : self.n_mels * r].reshape(B, T_mel, self.n_mels)
         return frames, aligns.transpose(0, 1), stops.transpose(0, 1)
+
+    def _scan(self, prenet_t, inputs, pinp, mask, m_a, m_d):
+        """The JAX package's `_step` for each decoder step in turn, under
+        autograd: the attention LSTM, dropout on its output (m_a [T_r, B, H1]
+        multipliers, or none), the attention (`forward`, state carried), the
+        context cast back to the working dtype, the decoder LSTM and its
+        dropout (m_d). The projection and stopnet, which do not feed the
+        recurrence, run over all steps in `forward`. Returns (decoder
+        hidden [T_r, B, H2], contexts [T_r, B, E], alignments [T_r, B, T_in]
+        float32), as `DecoderCore`. The contexts weigh a float32 copy of
+        the memory, made once (JAX promotes a bf16 memory at each step's
+        context; the same values, one saved tensor)."""
+        T_r, B, _ = prenet_t.shape
+        dt = prenet_t.dtype
+        a, ar, dr = self.attention, self.attention_rnn, self.decoder_rnn
+        hc_a = (prenet_t.new_zeros(B, ar.hidden),) * 2
+        hc_d = (prenet_t.new_zeros(B, dr.hidden),) * 2
+        ctx = prenet_t.new_zeros(B, inputs.shape[-1])
+        state = a.init_state(B, inputs.shape[1], inputs.device)
+        inputs = inputs.float()
+        dech, ctxs, aligns = [], [], []
+        for t in range(T_r):
+            hc_a = ar(torch.cat([prenet_t[t], ctx], -1), hc_a)
+            query = hc_a[0] if m_a is None else hc_a[0] * m_a[t]
+            state, ctx, align = a(query, inputs, pinp, state, mask, ctx)
+            ctx = ctx.to(dt)
+            hc_d = dr(torch.cat([query, ctx], -1), hc_d)
+            dech.append(hc_d[0] if m_d is None else hc_d[0] * m_d[t])
+            ctxs.append(ctx)
+            aligns.append(align)
+        return torch.stack(dech), torch.stack(ctxs), torch.stack(aligns)
 
     @torch.no_grad()
     def inference(self, inputs, input_lengths, max_steps: int, r: int,
@@ -255,9 +303,6 @@ class Tacotron2(nn.Module):
         Global Style Tokens (gst_cfg: a GSTConfig) projected to
         encoder_dim."""
         super().__init__()
-        if cfg.bidirectional_decoder:
-            raise NotImplementedError(
-                "the bidirectional decoder arrives with a later slice of the port")
         self.cfg = cfg
         self.n_mels = n_mels
         self.r = cfg.r
@@ -269,6 +314,11 @@ class Tacotron2(nn.Module):
         self.embedding = Embedding(num_chars, cfg.embedding_dim)
         self.encoder = Encoder(cfg.encoder_dim)
         self.decoder = Decoder(cfg.encoder_dim + self.spk_dim, n_mels, self.r_init, cfg)
+        if cfg.bidirectional_decoder:
+            # a second decoder of the same widths on the time-reversed mels,
+            # in training only (the reference's bidirectional_decoder)
+            self.decoder_backward = Decoder(cfg.encoder_dim + self.spk_dim, n_mels,
+                                            self.r_init, cfg)
         self.postnet = Postnet(n_mels, cfg.postnet_dim)
         if num_speakers > 0 and not self.use_external_speaker_embedding:
             self.speaker_embedding = Embedding(num_speakers, self.spk_dim)
@@ -332,20 +382,30 @@ class Tacotron2(nn.Module):
         memory is E = encoder_dim + spk_dim wide. Returns decoder_outputs /
         postnet_outputs [B, T_mel, n_mels], alignments [B, T_r, T_in]
         float32, stop_logits [B, T_r], and "state": the BatchNorm running
-        statistics after the pass."""
+        statistics after the pass. A bidirectional-decoder model in training
+        mode also runs `decoder_backward` on the padded mels flipped along
+        time (as the reference flips them: a short row's reversed sequence
+        starts with its padding) and returns its frames flipped back,
+        decoder_backward_outputs [B, T_mel, n_mels], and its
+        alignments_backward [B, T_r, T_in]; eval mode never runs it."""
         r = r or self.r
         enc_out = self.encoder(self.embedding(text), text_lengths, generator)
         enc_out = self._condition(enc_out, speaker_ids, speaker_embeddings, style_mel=mels,
                                   style_len=mel_lengths)
         dec_out, aligns, stops = self.decoder(enc_out, text_lengths, mels, r, generator)
         mel_mask = None if mel_lengths is None else sequence_mask(mel_lengths, dec_out.shape[1])
-        return {
+        out = {
             "decoder_outputs": dec_out,
             "postnet_outputs": dec_out + self.postnet(dec_out, mel_mask, generator),
             "alignments": aligns,
             "stop_logits": stops,
-            "state": {k: v.detach().clone() for k, v in self.named_buffers()},
         }
+        if self.cfg.bidirectional_decoder and self.training:
+            dec_b, out["alignments_backward"], _ = self.decoder_backward(
+                enc_out, text_lengths, mels.flip(1), r, generator)
+            out["decoder_backward_outputs"] = dec_b.flip(1)
+        out["state"] = {k: v.detach().clone() for k, v in self.named_buffers()}
+        return out
 
     def _condition(self, enc_out, speaker_ids=None, speaker_embeddings=None, cast=None,
                    style_mel=None, style_len=None):

@@ -3,8 +3,9 @@ train/trainer.py), single device.
 
 `Trainer(cfg, device=...).fit(max_steps=N)`: gradual (step, r, batch size)
 schedule, the bucketed loader, one train step per batch (loss, backward
-through the training kernels for Tacotron2 and through autograd's own
-backward of the decoder loop for Tacotron(1), the RAdam stack of
+through the training kernels or the decoder's step loop for Tacotron2, see
+below, and through autograd's own backward of the decoder loop for
+Tacotron(1), the RAdam stack of
 train/optim.py), the evaluation pass with the alignment score, test
 sentences synthesized after each evaluation (`test_run`), TensorBoard
 events (`utils.logging.TensorboardLogger`, where tensorboardX is
@@ -30,10 +31,17 @@ speaker_embedding_dim); a GST model (cfg.speakers.use_gst) takes the
 teacher mels as its style. Under mixed precision the d-vectors are cast to
 bf16 with the parameters, as the reference casts them.
 
-Later slices bring data parallelism, gradient accumulation, the
-bidirectional decoder, forward attention (with its transition agent) and
-Graves attention and the profiler server; they raise NotImplementedError
-here.
+Tacotron2's decoder trains on the training kernels (5 and 6) with plain
+location-sensitive attention and as a step loop under autograd with
+forward attention, the transition agent or Graves, the JAX package's two
+routes (models/tacotron2.py `Decoder.fast_grad_supported`); a
+bidirectional-decoder model runs its backward decoder on the same route
+as the forward one, and the loss adds its terms. grad_accum_steps > 1
+splits each step's batch into micro-batches and applies one averaged
+update (`train_step`).
+
+Later slices bring data parallelism and the profiler server; the profiler
+raises NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -71,27 +79,39 @@ def gradual_schedule(step: int, schedule, default_r: int, default_bs: int) -> tu
     return r, bs
 
 
+def check_accumulation(cfg, A: int) -> None:
+    """The JAX package's checks of grad_accum_steps A over every batch size
+    the loader can emit (its messages): batch_size, each gradual_training
+    row's, and under tokens_per_batch the batch quantum, whose multiples
+    token buckets emit. The batch each step is given is checked again in
+    `train_step`."""
+    t = cfg.training
+    if t.batch_size % A != 0:
+        raise ValueError(f"batch_size {t.batch_size} must be divisible by grad_accum_steps {A}")
+    for row in t.gradual_training or ():
+        if int(row[2]) % A != 0:
+            raise ValueError(f"gradual_training row {row}: batch size {row[2]} must be "
+                             f"divisible by grad_accum_steps {A}")
+    if cfg.data.tokens_per_batch:
+        q = TTSDataset._B_QUANTUM
+        if q % A != 0:
+            raise ValueError(f"data.tokens_per_batch emits batches in multiples of {q}; "
+                             f"grad_accum_steps {A} must divide {q}")
+
+
 class Trainer:
     """End-to-end training loop: Trainer(cfg, device=...).fit()."""
 
     def __init__(self, cfg, output_path: str | None = None, verbose: bool = True,
                  device=None, speaker_embeddings: dict | None = None):
-        if cfg.training.grad_accum_steps > 1:
-            raise NotImplementedError(f"gradient accumulation {_LATER}")
         sp = cfg.speakers
         if sp.use_speaker_embedding and sp.use_external_speaker_embedding_file \
                 and speaker_embeddings is None:
             raise ValueError("this config conditions on external d-vectors: pass "
                              "Trainer(speaker_embeddings={speaker: vector})")
-        # the JAX package trains these through its scan, not the training
-        # kernels; windowing acts at inference only and trains as plain
-        # location-sensitive attention
-        m = cfg.model
-        if m.attention_type == "graves":
-            raise NotImplementedError(f"training Graves attention {_LATER}")
-        for flag in ("use_forward_attn", "transition_agent"):
-            if getattr(m, flag):
-                raise NotImplementedError(f"training with {flag} {_LATER}")
+        self.accum = max(1, int(cfg.training.grad_accum_steps))
+        if self.accum > 1:
+            check_accumulation(cfg, self.accum)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.verbose = verbose
@@ -188,15 +208,45 @@ class Trainer:
 
     def train_step(self, batch: dict, r: int) -> dict:
         """One optimizer step on a numpy batch; returns the float metrics
-        (losses and the gradient norm before clipping)."""
-        total, parts, _ = self._loss_fn(self._tensors(batch), r, self.generator)
-        grads = torch.autograd.grad(total, self.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
-        grad_norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        (losses and the gradient norm before clipping). With
+        grad_accum_steps A > 1 (the JAX package's `train_step_accum`) the
+        padded batch splits into A contiguous micro-batches of B / A rows,
+        which keep its padded lengths (every tensor `_tensors` gives is
+        batched; the batch's scalars, which the reference broadcasts to each
+        micro-batch, are not read). Each micro-batch runs its forward and
+        backward in turn, dropout drawn from the generator in order and the
+        BatchNorm running statistics carried from one to the next; the
+        gradients are summed in float32 and divided by A, the loss parts
+        averaged, and one update applied, whose gradient norm is the
+        averaged gradients'."""
+        b = self._tensors(batch)
+        A = self.accum
+        B = b["text"].shape[0]
+        if B % A != 0:
+            raise ValueError(
+                f"grad_accum_steps={A} does not divide the actual batch dim {B} (token batching "
+                f"and gradual_training rows can change B from cfg.training.batch_size "
+                f"{self.cfg.training.batch_size}); pick A dividing every batch size the loader "
+                f"can emit")
+        n = B // A
+        grads, parts = None, []
+        for i in range(A):
+            micro = {k: v[i * n:(i + 1) * n] for k, v in b.items()}
+            total, p, out = self._loss_fn(micro, r, self.generator)
+            g = torch.autograd.grad(total, self.params, allow_unused=True)
+            g = [torch.zeros_like(w, dtype=torch.float32) if x is None else x.float()
+                 for w, x in zip(self.params, g)]
+            grads = g if grads is None else torch._foreach_add(grads, g)
+            parts.append({k: v.detach().float() for k, v in p.items()})
+            del total, p, out, g          # this micro-batch's graph, before the next
+        if A > 1:
+            grads = torch._foreach_div(grads, A)
+        grad_norm = torch.sqrt(sum((g ** 2).sum() for g in grads))
         self.optimizer.step(grads)
         self.step += 1
-        keys = list(parts)
-        vals = torch.stack([parts[k].detach().float() for k in keys] + [grad_norm]).tolist()
+        keys = list(parts[0])
+        vals = torch.stack([torch.stack([p[k] for p in parts]).mean() for k in keys]
+                           + [grad_norm]).tolist()
         return dict(zip(keys + ["grad_norm"], vals))
 
     # --- loops -------------------------------------------------------------
