@@ -136,6 +136,28 @@ Phases, each fatal on failure:
    micro-batches of 4 rows, one scan each way apiece), then config #3's
    batch and the same rows four times over (B = 128) at A = 1 and A = 2:
    step time, peak memory allocated and the step's own share of it.
+7h. taco1-variants: Tacotron(1) at full width (width 256, memory 5,
+   r = 7) with Graves (K = 4) and with forward attention, the agent, the
+   mask and windowing, which decode and train on the step loop (the JAX
+   package's scan route): the step loop forced onto the location config
+   against kernel 8's plain version on the card (B=8, 250 steps, float32,
+   dropout on, 1e-4); per variant the batch of 8 and 5 batch-1 requests
+   through tts_many (kernel 8 never launched, kernel 4 one call a request,
+   no plain version), one step card against CPU on 8 rows of config #3's
+   batch (1e-4 / 1e-4) and the timed mixed step on the whole batch.
+7i. vocoder-train: MelGAN, PWGAN and WaveRNN (mu-law, MoL, Gaussian) at
+   VocoderConfig's full widths on the synthetic corpus (22,050 Hz, 80
+   mels, hop 256), the discriminator from step 1 (a cut in depth): one
+   step on 2 rows in float32 card against CPU (WaveRNN's gradients 1e-4
+   rel L2; a GAN's against the CPU's float64 step, each device's
+   discriminator step from the CPU's updated generator, and printed beside
+   it, not gated, from the device's own; see `voc_card_vs_cpu`); the timed
+   steps at B = 32 x 8,192 samples (a GAN's
+   generator-only and G + D steps, WaveRNN's mixed step; CUDA events, peak
+   memory); each trained checkpoint served through VocoderSynthesizer,
+   WaveRNN's on kernel 7 held against its plain version.
+7j. profiler: Trainer.capture_trace of one Tacotron2 step on kernels 5
+   and 6: the trace file holds their kernels.
 7g. mel-oracle: AudioProcessor.melspectrogram on the card against
    oracle/audio_ref.py (float64 numpy) for the three shipped Tacotron2
    configs on a seeded speech-like signal, <= 1e-3 max abs.
@@ -252,6 +274,11 @@ variants' and the GST holds, the Tacotron(1) decode's the largest of its
 phase's and the E = 512 holds, the training scans' the largest of phases
 5-6's and train-cond's. The training scans' launches also add phases
 7e-7f's steps; the decode's and Griffin-Lim's phase 7d's test sentences.
+The WaveRNN kernel's count is the vocoder path's alone. Phases 7h-7j's
+launches (gl-iteration's in 7h's serving, the WaveRNN kernel's in 7i's
+served checkpoints, the training scans' in 7j's traced step) stay out of
+the kernel line: they are printed and reported per phase
+(chip_smoke.json "phase_launches").
 Each phase prints its seconds.
 Then the kernel line (JSON), the card's
 name and power limit, and the contract line {"ok": true, "device": {...}}. Details also go to
@@ -2700,16 +2727,16 @@ def phase_export(report) -> dict:
         a8, a1 = args(8), args(1)
         with torch.no_grad():
             times = {
-                "artifact_b8_ms": cuda_ms(lambda: exp._fns[(8, EXPORT_T)](*a8), 5),
-                "artifact_b1_ms": cuda_ms(lambda: exp._fns[(1, EXPORT_T)](*a1), 5),
-                "unexported_b8_ms": cuda_ms(lambda: program(*a8), 5),
-                "artifact_tts_many_b8_ms": cuda_ms(lambda: exp.tts_many(SENTENCES), 5),
-                "live_tts_many_b8_ms": cuda_ms(lambda: synth.tts_many(SENTENCES), 5),
+                "artifact_b8_ms": cuda_ms(lambda: exp._fns[(8, EXPORT_T)](*a8), 3),
+                "artifact_b1_ms": cuda_ms(lambda: exp._fns[(1, EXPORT_T)](*a1), 3),
+                "unexported_b8_ms": cuda_ms(lambda: program(*a8), 3),
+                "artifact_tts_many_b8_ms": cuda_ms(lambda: exp.tts_many(SENTENCES), 3),
+                "live_tts_many_b8_ms": cuda_ms(lambda: synth.tts_many(SENTENCES), 3),
             }
         print(f"[export] full width: export of (8, {EXPORT_T}) and (1, {EXPORT_T}) "
               f"{export_s:.2f} s, load {load_s:.2f} s, files "
               f"{', '.join(f'{k} {v / 2 ** 20:.1f} MiB' for k, v in sizes.items())}")
-        print(f"[export] full width, CUDA events, median of 5: artifact program B=8 "
+        print(f"[export] full width, CUDA events, median of 3: artifact program B=8 "
               f"{times['artifact_b8_ms']:.2f} ms, B=1 {times['artifact_b1_ms']:.2f} ms; "
               f"unexported program B=8 {times['unexported_b8_ms']:.2f} ms; tts_many of the 8 "
               f"sentences: artifact {times['artifact_tts_many_b8_ms']:.2f} ms, live "
@@ -4514,7 +4541,7 @@ def card_vs_cpu_step(tag: str, cfg, batch: dict) -> dict:
                 cpu_s=secs["cpu"], card_s=secs["cuda"])
 
 
-def timed_steps(tag: str, trainer, batch: dict, reps: int = 3) -> dict:
+def timed_steps(tag: str, trainer, batch: dict, reps: int = 3, r: int = 2) -> dict:
     """Trainer.train_step on `batch` (the Trainer's precision, dropout on):
     one warm step, then `reps` steps timed by CUDA events (median) and the
     host clock, the peak memory allocated over them
@@ -4528,7 +4555,7 @@ def timed_steps(tag: str, trainer, batch: dict, reps: int = 3) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    trainer.train_step(batch, 2)
+    trainer.train_step(batch, r)
     gc.collect()                    # Trainers of earlier readings, not yet collected
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated() / 2 ** 30
@@ -4540,7 +4567,7 @@ def timed_steps(tag: str, trainer, batch: dict, reps: int = 3) -> dict:
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         s.record()
-        m = trainer.train_step(batch, 2)            # ends in a host read of the metrics
+        m = trainer.train_step(batch, r)            # ends in a host read of the metrics
         e.record()
         e.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
@@ -4550,7 +4577,7 @@ def timed_steps(tag: str, trainer, batch: dict, reps: int = 3) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            trainer.train_step(batch, 2)
+            trainer.train_step(batch, r)
             torch.cuda.synchronize()
             pwall = (time.perf_counter() - t0) * 1e3
         trace = os.path.join(tmp, "trace.json")
@@ -4559,7 +4586,7 @@ def timed_steps(tag: str, trainer, batch: dict, reps: int = 3) -> dict:
     per_step = {k: n / reps for k, n in launches.items()}
     out = dict(step_ms=statistics.median(ev), step_ms_all=ev, wall_ms=statistics.median(wall),
                peak_gib=peak, step_gib=peak - base, launches=launches,
-               scans=scans(per_step, batch["mel"].shape[1] // 2), loss=m["loss"],
+               scans=scans(per_step, batch["mel"].shape[1] // r), loss=m["loss"],
                profiled_wall_ms=pwall, busy_ms=busy, busy_share=busy / pwall, kernels=n_k)
     print(f"[{tag}] timed step (B={batch['mel'].shape[0]}, T_mel={batch['mel'].shape[1]}, "
           f"{'bf16 mixed precision' if trainer.cfg.training.mixed_precision else 'float32'}, "
@@ -4732,6 +4759,478 @@ def phase_mel_oracle(report) -> None:
     report["mel_oracle"] = out
 
 
+# ------------------------- Tacotron(1) variants, vocoder training, the profiler
+
+T1_VARIANTS = {"graves": dict(attention_type="graves", attention_heads=4),
+               "forward_ta_mask_window": dict(use_forward_attn=True, transition_agent=True,
+                                              forward_attn_mask=True, windowing=True)}
+
+
+def taco1_variant_cfg(flags: dict, corpus: str | None = None, **training):
+    """taco1_train_cfg() (width 256, memory 5, r = 7, batch 32) with the
+    model fields `flags` set."""
+    cfg = taco1_train_cfg(corpus, **training)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **flags))
+
+
+def hold_step_loop_route(report) -> dict:
+    """The step loop's own check on the card: the taco1-decode phase's
+    location-sensitive model (seeded random weights, the 8 sentences, 250
+    steps of r = 7, prenet dropout on, seed 7), its decoder forced onto the
+    step loop, against kernel 8's plain version on the same card inputs
+    with float32 weights: frames, alignments and stop probabilities max
+    abs (tol 1e-4), lengths equal."""
+    import torch
+
+    from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.models.common import sequence_mask
+    from your_voice_tts_torch.ops.taco1_decode import tacotron1_decode_plain
+    from your_voice_tts_torch.text import symbols
+
+    cfg = taco1_config()
+    model = no_chance_stops(setup_model(len(symbols), cfg, device="cuda"))
+    text, lengths = _pad_texts([text_to_seq(t, cfg) for t in SENTENCES])
+    text, lengths = torch.as_tensor(text).cuda(), torch.as_tensor(lengths).cuda()
+    dec = model.decoder
+    with torch.no_grad():
+        enc = model._encode(text)
+        pinp = dec.attention.preprocess_inputs(enc)
+        B, T = text.shape
+        t0 = time.perf_counter()
+        out, al, st, ln = tacotron1_decode_plain(
+            dec.decode_weights(torch.float32), enc, pinp, sequence_mask(lengths, T), r=TACO1_R,
+            max_steps=TACO1_STEPS, norm=dec.attention.norm, thresh=cfg.model.stop_threshold,
+            prenet_dropout=True, seed=7)
+        plain_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dec._decode_loop(enc, lengths, TACO1_STEPS, TACO1_R, seed=7)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    ref = (out[..., :cfg.audio.num_mels * TACO1_R], al, st)
+    errs = [float((a - b).abs().max()) for a, b in zip(got[:3], ref)]
+    same_len = bool(torch.equal(got[3], ln))
+    print(f"[taco1-variants] the step loop forced onto the location config against kernel "
+          f"8's plain version on the card (B={B}, T={T}, {TACO1_STEPS} steps of r = {TACO1_R}, "
+          f"float32, dropout on, seed 7): max abs frames {errs[0]:.3e}, alignments "
+          f"{errs[1]:.3e}, stop probabilities {errs[2]:.3e} (tol 1e-4), lengths equal "
+          f"{same_len}; step loop {loop_s:.2f} s, plain version {plain_s:.2f} s")
+    check(max(errs) <= 1e-4 and same_len, "step loop and kernel 8's plain version disagree")
+    return dict(max_abs=errs, loop_s=loop_s, plain_s=plain_s)
+
+
+def serve_taco1_variant(tag: str, cfg) -> dict:
+    """A Tacotron(1) Synthesizer on the step loop (seeded random weights,
+    no row stops by chance): one set-up call, then the batch of 8 and 5
+    batch-1 requests through tts_many with every serving counter set to 0
+    just before and read just after, and every plain version counted."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+
+    synth = Synthesizer(cfg, device="cuda")
+    no_chance_stops(synth.model)
+    check(not synth.model.decoder.kernel_supported(), f"{tag}: not on the step loop")
+    synth.tts_many(SENTENCES[:1])
+    torch.cuda.synchronize()
+    for c in serve_counters():
+        c.launches = 0
+    with plain_calls() as plain:
+        batch, t_batch, lat, ones = serve_requests(synth)
+    seen = {c.__name__: c.launches for c in serve_counters()}
+    frames = TACO1_STEPS * TACO1_R * len(SENTENCES)
+    decoded_s = frames * synth.ap.hop_length / synth.ap.sample_rate
+    p50 = statistics.median(lat)
+    calls, iters = 1 + len(lat), synth.cfg.audio.griffin_lim_iters
+    print(f"[{tag}] batch of 8 ({TACO1_STEPS * TACO1_R} frames a row): {t_batch * 1e3:.1f} ms, "
+          f"{frames / t_batch:.0f} mel frames/s, real-time factor {decoded_s / t_batch:.1f}x "
+          f"over the {decoded_s:.2f} s decoded; batch-1 p50 {p50 * 1e3:.1f} ms (all: "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms); launches {seen}; plain versions "
+          f"called {plain}")
+    check(all(w.ndim == 1 and len(w) > 0 and bool(np.isfinite(w).all()) for w in batch + ones)
+          and seen["tacotron1_decode_cuda"] == 0 and seen["tacotron2_decode_cuda"] == 0
+          and seen["gl_iteration_cuda"] == calls * 3 * iters and not any(plain.values()),
+          f"{tag}: the step loop's serving path")
+    out = dict(batch_ms=t_batch * 1e3, mel_frames_per_s=frames / t_batch,
+               rtf_x_realtime=decoded_s / t_batch, p50_batch1_ms=p50 * 1e3,
+               batch1_ms=[x * 1e3 for x in lat], launches=seen)
+    del synth
+    return out
+
+
+def taco1_card_vs_cpu(tag: str, cfg, batch: dict) -> dict:
+    """One teacher-forced step (the Trainer's `_loss_fn`, dropout off) of a
+    float32 Tacotron(1) Trainer on each device, the CPU one's weights in
+    the card's, TF32 off: each loss part within A8_TOL relative, all
+    gradients within A8_TOL rel L2."""
+    import torch
+
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(cfg.training,
+                                                                mixed_precision=False))
+    trainers = {"cpu": Trainer(cfg, device="cpu", verbose=False),
+                "cuda": Trainer(cfg, device="cuda", verbose=False)}
+    trainers["cuda"].model.load_state_dict(trainers["cpu"].model.state_dict())
+    check(not trainers["cuda"].model.decoder.kernel_supported(), f"{tag}: not on the step loop")
+    got, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got[dev] = taco1_step(trainers[dev], batch)
+        secs[dev] = time.perf_counter() - t0
+    del trainers
+    (pc, gc), (pk, gk) = got["cpu"], got["cuda"]
+    rel = {k: abs(pk[k] - v) / max(abs(v), 1e-30) for k, v in pc.items()}
+    cat = lambda gs: torch.cat([g.double().flatten().cpu() for g in gs])  # noqa: E731
+    glob = float((cat(gk) - cat(gc)).norm() / cat(gc).norm())
+    print(f"[{tag}] one step at full width (B={batch['mel'].shape[0]}, T_text="
+          f"{batch['text'].shape[1]}, T_mel={batch['mel'].shape[1]}, "
+          f"{batch['mel'].shape[1] // TACO1_R} steps of r = {TACO1_R}, float32, dropout off), "
+          f"card against CPU: loss parts rel " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (tol {A8_TOL}); all gradients rel L2 {glob:.3e} (tol {A8_TOL}); CPU "
+          f"{secs['cpu']:.1f} s, card {secs['cuda']:.2f} s (first call)")
+    check(max(rel.values()) <= A8_TOL and glob <= A8_TOL, f"{tag}: card and CPU disagree")
+    return dict(parts_card=pk, parts_rel=rel, grad_rel_l2=glob, cpu_s=secs["cpu"],
+                card_s=secs["cuda"])
+
+
+def phase_taco1_variants(report, corpus: str) -> dict:
+    """7h. Tacotron(1) at full width (width 256, memory 5, r = 7) with
+    Graves (K = 4) and with forward_ta_mask + windowing, on the step loop:
+    (a) the route's own check (`hold_step_loop_route`); for each variant
+    (b) the batch of 8 and 5 batch-1 requests through tts_many, kernel 8
+    never launched, kernel 4 a call; (c) one step card against CPU on
+    CPU_ROWS rows of config #3's batch; (d) the timed mixed-precision step
+    on the whole batch (B = 32, 128 symbols, 406 frames). Returns the
+    serving launches."""
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    out = {"route": hold_step_loop_route(report)}
+    launches = {c.__name__: 0 for c in serve_counters()}
+    bench = taco1_batch()
+    for name, flags in T1_VARIANTS.items():
+        tag = f"taco1-variants {name}"
+        served = serve_taco1_variant(tag, dataclasses.replace(
+            taco1_config(), model=dataclasses.replace(taco1_config().model, **flags)))
+        for k, n in served["launches"].items():
+            launches[k] += n
+        step = taco1_card_vs_cpu(tag, taco1_variant_cfg(flags, corpus),
+                                 {k: v[:CPU_ROWS] for k, v in bench.items()})
+        trainer = Trainer(taco1_variant_cfg(flags, corpus, mixed_precision=True),
+                          device="cuda", verbose=False)
+        timed = timed_steps(tag, trainer, bench, r=TACO1_R)
+        check(not any(timed["launches"].values()), f"{tag}: a training kernel launched")
+        del trainer
+        out[name] = dict(serve=served, step=step, timed=timed)
+    report["taco1_variants"] = out
+    return launches
+
+
+VOC_MODELS = ("melgan", "pwgan", "wavernn", "wavernn-mol", "wavernn-gauss")
+VOC_B, VOC_SEQ = 32, 8192
+
+
+def voc_cfg(name: str, **training):
+    """VocoderConfig's defaults, the reference's full widths at 22,050 Hz,
+    80 mels, hop 256 (MelGAN base 512, factors 8 8 2 2, 3 scales, disc 16;
+    PWGAN 30 layers in 3 stacks, 64 / 128 / 64, factors 4 4 4 4; WaveRNN
+    512 / 512, factors 4 8 8, 10-bit mu-law or its MoL / Gaussian head) for
+    `name` ("wavernn-mol": mode mol), B = 32 x 8,192 samples, the
+    discriminator from step 1 (a cut in depth: the reference's 200,000)."""
+    from your_voice_tts_torch.vocoder.config import VocoderConfig
+
+    model, _, mode = name.partition("-")
+    cfg = VocoderConfig(model=model)
+    cfg = dataclasses.replace(cfg, training=dataclasses.replace(
+        cfg.training, **{"batch_size": VOC_B, "seq_len": VOC_SEQ,
+                         "steps_to_start_discriminator": 1, **training}))
+    if mode:
+        cfg = dataclasses.replace(cfg, wavernn=dataclasses.replace(cfg.wavernn, mode=mode))
+    return cfg
+
+
+def voc_trainer(cfg, items, device):
+    from your_voice_tts_torch.vocoder.train_gan import GANTrainer
+    from your_voice_tts_torch.vocoder.train_wavernn import WaveRNNTrainer
+
+    return (WaveRNNTrainer if cfg.model == "wavernn" else GANTrainer)(
+        cfg, items, verbose=False, device=device)
+
+
+def voc_nets(trainer) -> list:
+    return [trainer.model] if hasattr(trainer, "model") else [trainer.generator,
+                                                              trainer.discriminator]
+
+
+def voc_step_grads(trainer, mel, audio, noise, g_state=None) -> tuple[dict, list, dict]:
+    """One train_step (the discriminator's too) recording the gradients
+    each optimizer is handed: (metrics, [gradients], the generator's
+    weights as the discriminator step starts). A GAN's discriminator step
+    regenerates its fake with the updated generator; given `g_state` (the
+    CPU step's), the generator takes those weights as that step starts,
+    so that every device's discriminator step sees the same generator (the
+    generator's first Adam update amplifies its gradients' last bits where
+    they are near Adam's eps)."""
+    import torch
+
+    seen: list = []
+    opts = [trainer.optimizer] if hasattr(trainer, "model") else [trainer.g_opt, trainer.d_opt]
+    saved = [o.step for o in opts]
+    for o, step in zip(opts, saved):
+        o.step = lambda g, _s=step: seen.extend(x.detach().double().cpu() for x in g) or _s(g)
+    at_d: dict = {}
+    if hasattr(trainer, "model"):
+        metrics = {"loss": trainer.train_step(mel, audio)}
+    else:
+        d_loss = trainer.d_loss
+
+        def same_generator(*a, **k):
+            gen = trainer.generator
+            at_d.update({n: t.detach().cpu().clone() for n, t in gen.state_dict().items()})
+            if g_state is not None:
+                with torch.no_grad():
+                    for n, t in gen.state_dict().items():
+                        t.copy_(g_state[n])
+            return d_loss(*a, **k)
+
+        trainer.d_loss = same_generator
+        metrics = trainer.train_step(mel, audio, noise=noise)
+        del trainer.d_loss
+    for o, step in zip(opts, saved):
+        o.step = step
+    return metrics, seen, at_d
+
+
+def voc_card_vs_cpu(name: str, items) -> dict:
+    """One step of `name`'s trainer on 2 rows in float32 (WaveRNN's of 2,048
+    samples, the GANs' of 8,192), card against CPU
+    from the same weights on the same batch (PWGAN's noise injected, one
+    draw a side), TF32 off: each metric within A8_TOL relative; the
+    gradients within A8_TOL rel L2 for WaveRNN. A GAN's step reaches its
+    STFT loss, whose L1 of log-magnitudes is ill-conditioned in float32
+    (1/|X| at spectral nulls): its gradients are held against the CPU's
+    float64 step (the networks and the losses in float64), the card's no
+    farther from it than max(A8_TOL, 2 x the CPU float32 step's distance);
+    each device's discriminator step starts from the CPU step's updated
+    generator (`voc_step_grads`). Beside it, not gated, a second card
+    trainer's discriminator step from its own updated generator is read
+    against the CPU's from its own."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    # WaveRNN's two 512-wide GRUs take ~15 s a step on the CPU over 8,192
+    # samples: its comparison runs on 2,048 (a cut in depth, not in width)
+    seq = VOC_SEQ // 4 if name.startswith("wavernn") else VOC_SEQ
+    cfg = voc_cfg(name, batch_size=2, seq_len=seq, mixed_precision=False,
+                  steps_to_start_discriminator=0)
+    cpu, card = voc_trainer(cfg, items, "cpu"), voc_trainer(cfg, items, "cuda")
+    own = voc_trainer(cfg, items, "cuda") if cfg.model != "wavernn" else None
+    for a, b in zip(voc_nets(cpu), voc_nets(card)):
+        b.load_state_dict(a.state_dict())
+    for a, b in zip(voc_nets(cpu), voc_nets(own) if own else []):
+        b.load_state_dict(a.state_dict())
+    mel, audio = cpu.dataset.sample_batch(2, np.random.default_rng(0))
+    g = np.random.default_rng(1)
+    noise = tuple(torch.from_numpy(g.standard_normal(audio.shape).astype(np.float32))
+                  for _ in range(2))
+    runs = {}
+    f64 = None
+    if cfg.model != "wavernn":
+        f64 = copy.deepcopy(cpu)
+        for n in voc_nets(f64):
+            n.double()
+        f64.dtype = torch.float64
+    t0 = time.perf_counter()
+    runs["cpu"] = voc_step_grads(cpu, mel, audio, noise)
+    cpu_s = time.perf_counter() - t0
+    g_state = runs["cpu"][2] or None
+    t0 = time.perf_counter()
+    runs["cuda"] = voc_step_grads(card, mel, audio, tuple(x.cuda() for x in noise), g_state)
+    card_s = time.perf_counter() - t0
+    if f64 is not None:
+        runs["f64"] = voc_step_grads(f64, mel, audio, tuple(x.double() for x in noise), g_state)
+    (mc, gc, _), (mk, gk, _) = runs["cpu"], runs["cuda"]
+    rel = {k: abs(mk[k] - v) / max(abs(v), 1e-30) for k, v in mc.items()}
+    cat = lambda gs: torch.cat([x.flatten() for x in gs])  # noqa: E731
+    dist = lambda a, b: float((cat(a) - cat(b)).norm() / cat(b).norm())  # noqa: E731
+    glob = dist(gk, gc)
+    msg = (f"[vocoder-train] {name}: one step on 2 x {seq} samples, float32, card against "
+           f"CPU: metrics rel " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+           + f" (tol {A8_TOL}); gradients rel L2 {glob:.3e}")
+    out = dict(metrics_rel=rel, grad_rel_l2=glob, cpu_s=cpu_s, card_s=card_s)
+    if f64 is None:
+        print(msg + f" (tol {A8_TOL}); CPU {cpu_s:.1f} s, card {card_s:.2f} s")
+        check(max(rel.values()) <= A8_TOL and glob <= A8_TOL, f"{name}: card and CPU disagree")
+        return out
+    g64 = runs["f64"][1]
+    card64, cpu64 = dist(gk, g64), dist(gc, g64)
+    gate = max(A8_TOL, 2 * cpu64)
+    # not gated: the card's discriminator step from the card's own updated
+    # generator, against the CPU's from its own, what the shared generator
+    # keeps out of the gated reading (the generator's first Adam update
+    # moves a weight by lr * sign(g) where g is near Adam's eps)
+    mo, go_, _ = voc_step_grads(own, mel, audio, tuple(x.cuda() for x in noise))
+    n_g = len(cpu.g_params)
+    own_d = dict(disc_loss_rel=abs(mo["disc_loss"] - mc["disc_loss"]) / abs(mc["disc_loss"]),
+                 d_grad_rel_l2=dist(go_[n_g:], gc[n_g:]),
+                 g_grad_rel_l2=dist(go_[:n_g], gc[:n_g]))
+    print(msg + f"; against the CPU's float64 step: card {card64:.3e}, CPU float32 "
+          f"{cpu64:.3e} (tol max({A8_TOL}, 2 x the CPU's) = {gate:.3e}); CPU {cpu_s:.1f} s, "
+          f"card {card_s:.2f} s; not gated, each device's discriminator step from its own "
+          f"updated generator: disc_loss rel {own_d['disc_loss_rel']:.3e}, the discriminator's "
+          f"gradients rel L2 {own_d['d_grad_rel_l2']:.3e} (the generator's "
+          f"{own_d['g_grad_rel_l2']:.3e})")
+    check(max(rel.values()) <= A8_TOL and card64 <= gate, f"{name}: card and CPU disagree")
+    out.update(card_vs_f64=card64, cpu_vs_f64=cpu64, own_generator=own_d)
+    return out
+
+
+def time_voc_steps(name: str, items) -> tuple[dict, object]:
+    """`name`'s trainer at B = 32 x 8,192 samples on the card (GANs float32,
+    their default; WaveRNN bf16 mixed precision, its default): CUDA events
+    a step, the median of 3 after one warm step; a GAN's generator-only
+    steps (before the discriminator's start, here 4) and G + D steps
+    apart; the peak memory allocated over the timed steps. Returns the
+    readings and the trainer."""
+    import numpy as np
+    import torch
+
+    wavernn = name.startswith("wavernn")
+    cfg = voc_cfg(name, **({} if wavernn else {"steps_to_start_discriminator": 4}))
+    trainer = voc_trainer(cfg, items, "cuda")
+    mel, audio = trainer.dataset.sample_batch(VOC_B, np.random.default_rng(3))
+
+    def step():
+        return (trainer.train_step(mel, audio) if wavernn
+                else trainer.train_step(mel, audio, seed=trainer.step))
+
+    out = {}
+    for phase in (("step",) if wavernn else ("g_only", "g_d")):
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = []
+        for _ in range(3):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            m = step()                              # ends in a host read of the metrics
+            e.record()
+            e.synchronize()
+            ev.append(s.elapsed_time(e))
+        m = m if isinstance(m, dict) else {"loss": m}
+        out[phase] = dict(step_ms=statistics.median(ev), step_ms_all=ev,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, metrics=m)
+        check(all(math.isfinite(v) for v in m.values()), f"{name} {phase}: a loss not finite")
+        check(("disc_loss" in m) == (phase == "g_d"), f"{name} {phase}: the wrong steps ran")
+    print(f"[vocoder-train] {name} at B={VOC_B} x {VOC_SEQ} samples "
+          f"({'bf16 mixed precision' if wavernn else 'float32'}): " + "; ".join(
+              f"{k} {v['step_ms']:.1f} ms a step (CUDA events, median of 3; all "
+              f"{', '.join(f'{x:.1f}' for x in v['step_ms_all'])}), peak {v['peak_gib']:.3f} GiB"
+              for k, v in out.items()) + f"; last metrics {m}")
+    return out, trainer
+
+
+def serve_trained_vocoder(name: str, trainer, tmp: str) -> dict:
+    """The trainer's checkpoint through VocoderSynthesizer on the card: a
+    120-frame mel -> waveform, finite, 120 x 256 samples; WaveRNN's
+    mu-law model launches kernel 7, which is held against its plain
+    version on a short mel (the first 512 steps of a 20-frame mel's fold)
+    as the wavernn phase holds it. Returns kernel 7's launches."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.ops.wavernn_gen import generation_weights, wavernn_generate_cuda
+    from your_voice_tts_torch.vocoder.synthesizer import VocoderSynthesizer
+
+    path = trainer.save(os.path.join(tmp, f"{name}.npz"))
+    synth = VocoderSynthesizer(trainer.cfg, path, device="cuda")
+    mel = np.random.default_rng(5).normal(size=(80, 120)).astype(np.float32)
+    wavernn_generate_cuda.launches = 0
+    t0 = time.perf_counter()
+    wav = synth.mel_to_wav(mel)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = wavernn_generate_cuda.launches
+    print(f"[vocoder-train] {name}: its checkpoint through VocoderSynthesizer, a 120-frame mel "
+          f"-> {len(wav)} samples in {secs * 1e3:.1f} ms (first call); kernel 7 launches {n}")
+    check(wav.shape == (120 * 256,) and bool(np.isfinite(wav).all()), f"{name}: served wav")
+    check((n > 0) == name.startswith("wavernn"), f"{name}: kernel 7 launches")
+    if name == "wavernn":
+        model = synth.model
+        w = generation_weights(model)
+        cond, aux = wavernn_inputs(model, 20, 6)
+        hold_wavernn("trained mu-law checkpoint", w, cond[:, :512].contiguous(),
+                     aux[:, :512].contiguous(), model.bits, model.packed_weights(w))
+    return {"wavernn_generate_cuda": n}
+
+
+def phase_vocoder_train(report, corpus: str) -> dict:
+    """7i. Vocoder training at full width (`voc_cfg`) on the synthetic
+    22,050 Hz corpus: for MelGAN, PWGAN and WaveRNN (mu-law, MoL,
+    Gaussian) (a) one step card against CPU (`voc_card_vs_cpu`); (b) the
+    timed steps (`time_voc_steps`); (c) the trained checkpoint served
+    (`serve_trained_vocoder`). Returns kernel 7's launches."""
+    from your_voice_tts_torch.data.formatters import ljspeech
+
+    items = ljspeech(corpus)
+    out, launches = {}, {"wavernn_generate_cuda": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in VOC_MODELS:
+            step = voc_card_vs_cpu(name, items)
+            timed, trainer = time_voc_steps(name, items)
+            served = serve_trained_vocoder(name, trainer, tmp)
+            launches["wavernn_generate_cuda"] += served["wavernn_generate_cuda"]
+            out[name] = dict(step=step, timed=timed, served_launches=served)
+            del trainer
+    report["vocoder_train"] = out
+    return launches
+
+
+def phase_profiler(report, corpus: str) -> dict:
+    """7j. Trainer.capture_trace around one Tacotron2 train step on the
+    kernels (config #3's batch, mixed precision, after a warm step): the
+    trace file it writes, its size, and its kernel events of the training
+    scans (kernel 5: lstm and attn_fwd; kernel 6: cell_bwd, matT and
+    attn_bwd), each present; the step's launches of kernels 5 and 6 by
+    their wrappers' counts. Returns those launches."""
+    import torch
+
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    trainer = Trainer(a8_cfg(corpus), device="cuda", verbose=False)
+    bench = bench_batch()
+    trainer.train_step(bench, 2)
+    torch.cuda.synchronize()
+    for c in train_counters():
+        c.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        m = trainer.capture_trace(tmp, trainer.train_step, bench, 2)
+        secs = time.perf_counter() - t0
+        (name,) = os.listdir(tmp)
+        size = os.path.getsize(os.path.join(tmp, name))
+        with open(os.path.join(tmp, name)) as f:
+            events = json.load(f)["traceEvents"]
+    launches = {c.__name__: c.launches for c in train_counters()}
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    own = {k: sum(k in n for n in kernels) for k in ("lstm_mma_kernel", "attn_fwd_kernel",
+                                                     "cell_bwd_kernel", "matT",
+                                                     "attn_bwd_kernel")}
+    print(f"[profiler] capture_trace of one train step: {secs:.2f} s, {name} {size / 2 ** 20:.1f} "
+          f"MiB, {len(events)} events, {len(kernels)} kernel events; the training scans' "
+          f"kernels in it {own}; launches by the wrappers {launches}; loss {m['loss']:.4f}")
+    check(all(own.values()) and all(launches.values()) and math.isfinite(m["loss"]),
+          "capture_trace: the trace lacks the training kernels")
+    report["profiler"] = dict(seconds=secs, bytes=size, events=len(events),
+                              kernel_events=len(kernels), own=own, launches=launches)
+    del trainer
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4816,9 +5315,21 @@ def main() -> int:
         a8_launches = [timed("train-variants", phase_train_variants, report, corpus),
                        timed("train-bd", phase_train_bd, report, corpus),
                        timed("train-accum", phase_train_accum, report, corpus)]
+        # phases 7h-7j: Tacotron(1) with Graves and the location options on
+        # the step loop (kernel 4 from its serving), vocoder training (kernel
+        # 7 from the trained WaveRNN served), capture_trace (kernels 5, 6).
+        # Each phase's launches stand in the report under its own name and
+        # stay out of the kernel line, whose counts keep the paths they had.
+        report["phase_launches"] = {
+            name: timed(name, fn, report, corpus)
+            for name, fn in (("taco1-variants", phase_taco1_variants),
+                             ("vocoder-train", phase_vocoder_train),
+                             ("profiler", phase_profiler))}
     for seen in a8_launches:
         for k, n in seen.items():
             launches[k] = launches.get(k, 0) + n
+    print(f"[launches] phases 7h-7j, apart from the kernel line: "
+          f"{json.dumps(report['phase_launches'])}")
     timed("mel-oracle", phase_mel_oracle, report)
     kernels.append(timed("wavernn", phase_wavernn, report))
     voc_launches, synth = timed("vocoder", phase_vocoder_path, report)

@@ -1913,3 +1913,156 @@ def test_train_step_routes_on_the_card(cuda, tmp_path, kind, scans):
     for k, v in mc.items():
         assert abs(mk[k] - v) <= 1e-5 * abs(v) + 1e-8, (k, mk[k], v)
     assert float((gk - gc).norm() / gc.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize("variant", ["graves", "forward_ta_mask"])
+def test_taco1_variant_serves_and_trains_on_the_card(cuda, variant):
+    """A Tacotron(1) with Graves or forward attention (agent, mask) at smoke
+    widths, float32, dropout off: `inference` on the card (the step loop)
+    against the CPU, frames and alignments 1e-4, lengths equal, with kernel
+    8 never launched; one teacher-forced pass + loss's gradients card
+    against CPU, 1e-3 rel L2 (the taco1 train step's card gate)."""
+    import dataclasses
+
+    from your_voice_tts_torch.models.tacotron import Tacotron
+    from your_voice_tts_torch.ops.taco1_decode import tacotron1_decode_cuda
+
+    flags = {"graves": dict(attention_type="graves"),
+             "forward_ta_mask": dict(use_forward_attn=True, transition_agent=True,
+                                     forward_attn_mask=True)}[variant]
+    cfg = dataclasses.replace(ModelConfig(model="Tacotron", r=2, memory_size=5,
+                                          tacotron_width=32, attention_dim=24,
+                                          prenet_dropout=False), **flags)
+    models = {d: Tacotron(40, cfg, n_mels=20, num_freq=33, device=d, seed=3)
+              for d in ("cpu", cuda)}
+    g = np.random.default_rng(1)
+    text = torch.from_numpy(g.integers(1, 40, (3, 12)))
+    lens = torch.tensor([12, 9, 6])
+    tacotron1_decode_cuda.launches = 0
+    out = {d: m.inference(text, lens, max_decoder_steps=40) for d, m in models.items()}
+    assert tacotron1_decode_cuda.launches == 0
+    for k in ("decoder_outputs", "alignments"):
+        np.testing.assert_allclose(out[cuda][k].cpu().numpy(), out["cpu"][k].numpy(),
+                                   atol=1e-4, rtol=0, err_msg=k)
+    assert torch.equal(out[cuda]["mel_lengths"].cpu(), out["cpu"]["mel_lengths"])
+    mels = torch.from_numpy(g.standard_normal((3, 24, 20)).astype(np.float32))
+    grads = {}
+    for d, m in models.items():
+        m.train()
+        o = m(text.to(d), lens.to(d), mels.to(d), mel_lengths=torch.tensor([24, 20, 14]).to(d))
+        loss = sum((o[k].float() ** 2).mean() for k in ("decoder_outputs", "postnet_outputs",
+                                                       "stop_logits"))
+        grads[d] = torch.cat([x.flatten().double().cpu()
+                              for x in torch.autograd.grad(loss, list(m.parameters()))])
+    assert float((grads[cuda] - grads["cpu"]).norm() / grads["cpu"].norm()) <= 1e-3
+
+
+def vocoder_step(trainer, mel, audio, noise, g_state=None):
+    """One train_step recording the gradients each optimizer is handed;
+    a GAN's discriminator step starts from `g_state` (the generator's
+    weights) where given. Returns (metrics, gradients, the generator's
+    weights as the discriminator step started)."""
+    seen, at_d = [], {}
+    opts = [trainer.optimizer] if hasattr(trainer, "model") else [trainer.g_opt, trainer.d_opt]
+    for o in opts:
+        o.step = lambda g, _s=o.step: seen.extend(x.detach().double().cpu() for x in g) or _s(g)
+    if hasattr(trainer, "model"):
+        return {"loss": trainer.train_step(mel, audio)}, seen, at_d
+    d_loss = trainer.d_loss
+
+    def same_generator(*a, **k):
+        at_d.update({n: t.detach().cpu().clone()
+                     for n, t in trainer.generator.state_dict().items()})
+        if g_state is not None:
+            with torch.no_grad():
+                for n, t in trainer.generator.state_dict().items():
+                    t.copy_(g_state[n])
+        return d_loss(*a, **k)
+
+    trainer.d_loss = same_generator
+    return trainer.train_step(mel, audio, noise=noise), seen, at_d
+
+
+@pytest.mark.parametrize("model", ["melgan", "pwgan", "wavernn"])
+def test_vocoder_trainer_step_on_the_card_matches_the_cpu(cuda, tmp_path, model):
+    """One vocoder trainer step at smoke widths, float32, from the same
+    weights on the same batch (PWGAN's noise injected), the GAN ones past
+    the discriminator's start, each device's discriminator step from the
+    CPU step's updated generator: every metric 1e-4 relative; WaveRNN's
+    gradients 1e-4 rel L2, a GAN's (through the STFT loss, ill-conditioned
+    in float32) no farther from the CPU's float64 step's than max(1e-4, 2 x
+    the CPU float32 step's distance), as chip_smoke.py's vocoder-train
+    holds them."""
+    import copy
+    import dataclasses
+
+    from your_voice_tts_torch.data.formatters import ljspeech
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.vocoder.config import load_vocoder_config
+    from your_voice_tts_torch.vocoder.train_gan import GANTrainer
+    from your_voice_tts_torch.vocoder.train_wavernn import WaveRNNTrainer
+
+    items = ljspeech(make_synthetic_corpus(str(tmp_path), n_items=3, sr=8000))
+    cfg = load_vocoder_config("configs/melgan_smoke.json")
+    cfg = dataclasses.replace(cfg, model=model, training=dataclasses.replace(
+        cfg.training, seq_len=512, mixed_precision=False, steps_to_start_discriminator=0))
+    if model == "pwgan":
+        cfg = dataclasses.replace(cfg, pwgan=dataclasses.replace(
+            cfg.pwgan, upsample_factors=(4, 4, 4), num_layers=6, stacks=2))
+    if model == "wavernn":
+        cfg = dataclasses.replace(cfg, wavernn=dataclasses.replace(
+            cfg.wavernn, upsample_factors=(4, 4, 4), rnn_dims=64, fc_dims=64))
+    cls = WaveRNNTrainer if model == "wavernn" else GANTrainer
+    cpu, card = (cls(cfg, items, verbose=False, device=d) for d in ("cpu", cuda))
+    nets = (lambda t: [t.model]) if model == "wavernn" else (
+        lambda t: [t.generator, t.discriminator])
+    for a, b in zip(nets(cpu), nets(card)):
+        b.load_state_dict(a.state_dict())
+    f64 = None
+    if model != "wavernn":
+        f64 = copy.deepcopy(cpu)
+        for n in nets(f64):
+            n.double()
+        f64.dtype = torch.float64
+    mel, audio = cpu.dataset.sample_batch(2, np.random.default_rng(0))
+    noise = [torch.from_numpy(np.random.default_rng(s).standard_normal(audio.shape)
+                              .astype(np.float32)) for s in (1, 2)]
+    mc, gc, g_state = vocoder_step(cpu, mel, audio, tuple(noise))
+    mk, gk, _ = vocoder_step(card, mel, audio, tuple(x.to(cuda) for x in noise), g_state or None)
+    for k, v in mc.items():
+        assert abs(mk[k] - v) <= 1e-4 * abs(v) + 1e-8, (k, mk[k], v)
+    cat = lambda gs: torch.cat([x.flatten() for x in gs])  # noqa: E731
+    dist = lambda a, b: float((cat(a) - cat(b)).norm() / cat(b).norm())  # noqa: E731
+    if f64 is None:
+        assert dist(gk, gc) <= 1e-4
+    else:
+        _, g64, _ = vocoder_step(f64, mel, audio, tuple(x.double() for x in noise), g_state)
+        assert dist(gk, g64) <= max(1e-4, 2 * dist(gc, g64)), (dist(gk, g64), dist(gc, g64))
+
+
+def test_capture_trace_holds_the_kernel_launches(cuda, tmp_path):
+    """Trainer.capture_trace around one Tacotron2 train step on the card
+    (smoke config, kernels 5 and 6): the trace file holds the launches of
+    the forward scan's attention kernel and the backward scan's attention
+    and cell kernels (csrc/taco2_train.cu)."""
+    import dataclasses
+    import json
+    import os
+
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    cfg = load_config("configs/smoke_synthetic.json")
+    ds = dataclasses.replace(cfg.data.datasets[0],
+                             path=make_synthetic_corpus(str(tmp_path / "c"), n_items=4, sr=8000))
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, datasets=(ds,)))
+    trainer = Trainer(cfg, device=cuda, verbose=False)
+    batch = next(trainer.train_data.batches(2, 2))
+    out = trainer.capture_trace(str(tmp_path / "trace"), trainer.train_step, batch, 2)
+    assert np.isfinite(out["loss"])
+    (name,) = os.listdir(tmp_path / "trace")
+    with open(tmp_path / "trace" / name, encoding="utf-8") as f:
+        kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    for own in ("attn_fwd_kernel", "attn_bwd_kernel", "cell_bwd_kernel"):
+        assert any(own in k for k in kernels), (own, sorted(set(kernels))[:30])

@@ -175,8 +175,11 @@ def test_sequence_mask_matches_jax():
 def test_unsupported_attention_raises():
     """Every attention variant of the JAX package builds (their decode is
     held in tests/test_torch_attention_variants.py); an unknown attention
-    type raises, and so do the variants in Tacotron(1), whose decode kernel
-    has none."""
+    type raises. The name is historical: the variants in Tacotron(1), whose
+    decode kernel has none, raised until they took the step loop; now each
+    builds and routes off the kernel, as the JAX package's
+    `taco1_supported` sends them to its scan (held in
+    tests/test_torch_taco1_variants.py)."""
     from your_voice_tts_torch.models.tacotron import Tacotron
 
     with pytest.raises(ValueError, match="unknown attention type"):
@@ -186,7 +189,12 @@ def test_unsupported_attention_raises():
                dict(use_forward_attn=True), dict(transition_agent=True)):
         cfg = dataclasses.replace(ModelConfig(**SMALL), **kw)
         Tacotron2(CHARS, cfg, n_mels=N_MELS, device="cpu")
-        with pytest.raises(NotImplementedError, match="Tacotron\\(1\\)"):
-            Tacotron(CHARS, dataclasses.replace(cfg, model="Tacotron", tacotron_width=32,
-                                                memory_size=5), n_mels=N_MELS, num_freq=33,
-                     device="cpu")
+        taco1 = Tacotron(CHARS, dataclasses.replace(cfg, model="Tacotron", tacotron_width=32,
+                                                    memory_size=5), n_mels=N_MELS, num_freq=33,
+                         device="cpu")
+        assert not taco1.decoder.kernel_supported(), kw
+    with pytest.raises(ValueError, match="unknown attention type"):
+        Tacotron(CHARS, dataclasses.replace(ModelConfig(**SMALL), model="Tacotron",
+                                            tacotron_width=32, memory_size=5,
+                                            attention_type="dca"),
+                 n_mels=N_MELS, num_freq=33, device="cpu")

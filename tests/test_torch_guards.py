@@ -513,3 +513,73 @@ def test_decoder_training_routes_do_not_fall_back(monkeypatch):
     monkeypatch.setattr(decoder_grad, "taco2_train_fwd", never)
     frames, aligns, stops = fwd.decoder(enc, lengths, mels, 2)
     assert frames.shape == (2, 8, 20) and aligns.shape == (2, 4, 6)
+
+
+def test_taco1_decode_routes_do_not_fall_back(monkeypatch):
+    """Tacotron(1)'s decoder on meta tensors, as it runs off the CPU: a
+    location config hands its decode to kernel 8's dispatch (which sends a
+    non-CPU tensor to the kernel) and trains through `decoder_step`, never
+    the step loop; a Graves config decodes and trains on the step loop and
+    never calls kernel 8, its dispatch or its plain version."""
+    from your_voice_tts_torch.config import ModelConfig
+    from your_voice_tts_torch.models import tacotron as taco
+    from your_voice_tts_torch.ops import taco1_decode
+
+    class Kernel8(Exception):
+        pass
+
+    def never(*a, **k):
+        raise AssertionError("the other route ran")
+
+    def kernel8(w, enc, *a, **k):
+        assert enc.device.type == "meta"
+        raise Kernel8
+
+    monkeypatch.setattr(taco1_decode, "tacotron1_decode_plain", never)
+    cfg = ModelConfig(model="Tacotron", r=2, memory_size=5, tacotron_width=32,
+                      attention_dim=24)
+    meta = lambda *s, **k: torch.zeros(*s, device="meta", **k)  # noqa: E731
+    enc, lengths, mels = meta(2, 6, 32), meta(2, dtype=torch.long), meta(2, 8, 20)
+    loc = taco.Tacotron(40, cfg, n_mels=20, num_freq=33, device="cpu").to("meta")
+    assert loc.decoder.kernel_supported()
+    monkeypatch.setattr(taco, "tacotron1_decode", kernel8)
+    monkeypatch.setattr(taco.TacotronDecoder, "decode_weights", lambda self, dtype: {})
+    monkeypatch.setattr(taco.TacotronDecoder, "_decode_loop", never)
+    monkeypatch.setattr(taco.TacotronDecoder, "_loop", never)
+    with pytest.raises(Kernel8):
+        loc.decoder.inference(enc, lengths, 4, 2)
+    frames, aligns, stops = loc.train().decoder(enc, lengths, mels, 2)
+    assert frames.shape == (2, 8, 20) and aligns.shape == (2, 4, 6)
+    monkeypatch.undo()
+    monkeypatch.setattr(taco1_decode, "tacotron1_decode_plain", never)
+    graves = taco.Tacotron(40, dataclasses.replace(cfg, attention_type="graves"), n_mels=20,
+                           num_freq=33, device="cpu").to("meta")
+    assert not graves.decoder.kernel_supported()
+    monkeypatch.setattr(taco, "tacotron1_decode", never)
+    monkeypatch.setattr(taco, "decoder_step", never)
+    frames, aligns, stops, lens = graves.decoder.inference(enc, lengths, 4, 2)
+    assert frames.shape == (2, 8, 20) and aligns.shape == (2, 4, 6) and lens.shape == (2,)
+    frames, aligns, stops = graves.train().decoder(enc, lengths, mels, 2)
+    assert frames.shape == (2, 8, 20) and stops.shape == (2, 4)
+
+
+def test_vocoder_training_refuses_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    """GANTrainer, WaveRNNTrainer and bin/train_vocoder.py raise without
+    CUDA and a device, the CLI before it makes its run folder."""
+    from your_voice_tts_torch.bin import train_vocoder
+    from your_voice_tts_torch.vocoder.config import load_vocoder_config
+    from your_voice_tts_torch.vocoder.train_gan import GANTrainer
+    from your_voice_tts_torch.vocoder.train_wavernn import WaveRNNTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_vocoder_config(os.path.join(ROOT, "configs/melgan_smoke.json"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GANTrainer(cfg, [])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        WaveRNNTrainer(dataclasses.replace(cfg, model="wavernn"), [])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_vocoder.main(["--config_path", os.path.join(ROOT, "configs/melgan_smoke.json"),
+                            "--data_path", str(tmp_path), "--output_path",
+                            str(tmp_path / "runs")])
+    assert not (tmp_path / "runs").exists()
+    assert GANTrainer(cfg, [], device="cpu").generator.conv_in.weight.device.type == "cpu"

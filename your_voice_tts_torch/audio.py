@@ -326,6 +326,27 @@ class AudioProcessor:
         head) -> N waveforms: the mel path without the pseudo-inverse."""
         return self._inverse_batch("linear", specs)
 
+    def inv_melspectrogram(self, mel: np.ndarray) -> np.ndarray:
+        """One normalized mel [num_mels, T] -> its waveform
+        (`inv_melspectrogram_batch` of one)."""
+        return self.inv_melspectrogram_batch([mel])[0]
+
+    def inv_spectrogram(self, spec: np.ndarray) -> np.ndarray:
+        """One normalized linear spectrogram [num_freq, T] -> its waveform."""
+        return self.inv_spectrogram_batch([spec])[0]
+
+    def out_linear_to_mel(self, linear_spec: np.ndarray) -> np.ndarray:
+        """A model's normalized linear output [num_freq, T] -> the
+        normalized mel [num_mels, T] (range normalization, as the reference
+        computes it for Tacotron(1)'s evaluation): denormalize, dB -> amplitude,
+        the mel product, amplitude -> dB, normalize."""
+        c = self.cfg
+        norm = (c.min_level_db, c.max_norm, c.symmetric_norm, c.clip_norm, c.signal_norm)
+        S = dsp.denormalize_spec(torch.as_tensor(np.asarray(linear_spec, np.float32).T), *norm)
+        mel = dsp.db_to_amp(S + c.ref_level_db, c.spec_gain) @ self.mel_basis.cpu().T
+        S = dsp.amp_to_db(mel, c.spec_gain, c.min_level_db) - c.ref_level_db
+        return dsp.normalize_spec(S, *norm).numpy().T
+
     def gl_magnitudes(self, kind: str, spec_norm):
         """[B, T, F] normalized mel or linear spectrogram -> the magnitudes
         Griffin-Lim inverts, [B, T, n_fft/2 + 1]: denormalize (with the

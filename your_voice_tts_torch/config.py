@@ -332,6 +332,13 @@ def load_config(path: str) -> Config:
     return config_from_dict(json.loads(_strip_json_comments(text)))
 
 
+def save_config(cfg: Config, path: str) -> None:
+    """`cfg` as indented JSON (its dataclasses as dicts, anything else as
+    str), the JAX package's `save_config`."""
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+
+
 def check_config(cfg: Config) -> None:
     """Reject settings the model or the audio front end cannot run (the
     JAX package's `check_config`, parity with the reference's

@@ -125,11 +125,16 @@ def make_serving_fn(model, cfg, ap, *, max_decoder_steps=None, vocoder=None, spe
     [B, D]). style_frames: a GST model's style-mel input [B, style_frames,
     n_mels]. The config's `inference_compute_dtype` applies; Tacotron(1)'s
     linear head inverts without the mel pseudo-inverse; neural vocoders
-    take a mel model."""
+    take a mel model. A Tacotron(1) that decodes on the step loop (Graves,
+    the location attention's options) raises NotImplementedError."""
     from ..audio import GriffinLimStage
 
     if speaker_mode not in (None, "id", "dvector"):
         raise ValueError(f"unknown speaker_mode {speaker_mode!r}")
+    if not getattr(model.decoder, "kernel_supported", lambda: True)():
+        from ..models.tacotron import STEP_LOOP_EXPORT
+
+        raise NotImplementedError(STEP_LOOP_EXPORT)
     is_linear = getattr(model, "output_type", "mel") == "linear"
     compute_dtype = (torch.bfloat16 if cfg.model.inference_compute_dtype == "bfloat16"
                      else None)

@@ -6,13 +6,15 @@ attention. Module and parameter names are the JAX package's (`query`,
 `inputs`, `v`, `loc_conv`, `loc_dense`, `ta`, `l1`, `l2`), so that
 train/checkpoint.params_from_jax maps them by its generic Dense rule.
 
-The decode runs every variant on kernel 1 (ops/taco2_decode.py), which
-reads the weights the modules hold; the step math lives there, in the
-plain version. Each module's `forward` is one teacher-forced step of the
-JAX package's `__call__` with inference=False (windowing off) over an
-`AttentionState`: the route models/tacotron2.py `Decoder._scan` trains
+Tacotron2's decode runs every variant on kernel 1 (ops/taco2_decode.py),
+which reads the weights the modules hold; the step math lives there, in
+the plain version. Each module's `forward` is one step of the JAX
+package's `__call__` over an `AttentionState`, windowing only with
+inference=True: the route models/tacotron2.py `Decoder._scan` trains
 forward attention, the transition agent and Graves through, under
-autograd. Plain location-sensitive attention trains on the training
+autograd, and the route models/tacotron.py's step loop serves and trains
+Tacotron(1) with Graves or the location options through (kernel 8 has
+neither). Plain location-sensitive attention trains on the training
 kernels instead (models/decoder_grad.py).
 """
 
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.core import Conv1d, Dense
-from ..ops.taco2_decode import forward_plain, softplus
+from ..ops.taco2_decode import forward_plain, softplus, window_energies
 
 # the attention variants the decode serves beside plain location-sensitive
 # attention, as the ModelConfig switches each flips
@@ -147,17 +149,23 @@ class LocationSensitiveAttention(nn.Module):
         return _state(B, T, 1, device, alpha0=True)
 
     def forward(self, query, inputs, processed_inputs, state: AttentionState, mask=None,
-                context_prev=None):
-        """One teacher-forced step (the JAX package's `__call__` with
-        inference=False, so windowing stays off). query [B, Q] in the
+                context_prev=None, inference: bool = False):
+        """One step (the JAX package's `__call__`). query [B, Q] in the
         working dtype; inputs [B, T, E]; processed_inputs [B, T, A];
         mask [B, T] True where valid; context_prev [B, E], the previous
-        step's context, which the transition agent reads. The alignment is
-        normalised in float32; forward attention then runs its recursion
-        on it (the decode's `forward_plain`, with nothing rounded). Returns
-        (new state, context [B, E] float32, alignment [B, T] float32)."""
+        step's context, which the transition agent reads. With windowing
+        and inference=True the energies outside [win_idx - win_back,
+        win_idx + win_front] are dropped (`window_energies`, the plain
+        decodes' own); teacher forcing passes inference=False, as the
+        reference does. The alignment is normalised in float32; forward
+        attention then runs its recursion on it (the decode's
+        `forward_plain`, with nothing rounded). Returns (new state, context
+        [B, E] float32, alignment [B, T] float32)."""
         e = energies(query, processed_inputs, state.attention, state.attention_cum,
                      *self.energy_weights())
+        if self.windowing and inference:
+            c = state.win_idx[:, None]
+            e = window_energies(e, c - self.win_back, c + self.win_front)
         align = normalize(e, mask, self.norm)
         if self.forward_attn:
             u = 0.5
@@ -203,12 +211,12 @@ class GravesAttention(nn.Module):
         return _state(B, T, self.K, device)
 
     def forward(self, query, inputs, processed_inputs, state: AttentionState, mask=None,
-                context_prev=None):
-        """One teacher-forced step (the JAX package's `__call__`): the
+                context_prev=None, inference: bool = False):
+        """One step (the JAX package's `__call__`, the same at inference): the
         mixture from the means advanced by softplus(k), masked and
         normalised, over float32 positions. Arguments and returns as
-        `LocationSensitiveAttention.forward`; processed_inputs and
-        context_prev are not read."""
+        `LocationSensitiveAttention.forward`; processed_inputs,
+        context_prev and inference are not read."""
         g, b, k = self.l2(torch.tanh(self.l1(query))).chunk(3, dim=-1)
         sig = softplus(b) + 1e-5
         mu = state.mu + softplus(k)

@@ -6,10 +6,19 @@ token -> PostCBHG -> a LINEAR spectrogram head, which Griffin-Lim inverts
 directly.
 
 The decode loop follows the reference's kernel route
-(`TacotronDecoder.inference_pallas`): it runs on the decode kernel
-(ops/taco1_decode.py), with the decoder prenet's dropout from the hash PRNG
-seeded by `seed`, and a row that has stopped keeps advancing its state with
-zeroed frames until the chunk's end. The encoder prenet's dropout stays on
+(`TacotronDecoder.inference_pallas`) where the reference takes it
+(`taco1_supported`: location-sensitive attention with none of its options):
+it runs on the decode kernel (ops/taco1_decode.py), with the decoder
+prenet's dropout from the hash PRNG seeded by `seed`, and a row that has
+stopped keeps advancing its state with zeroed frames until the chunk's end.
+Graves attention, windowing, forward attention, the transition agent and
+location features off take the reference's scan route instead: a step loop
+(`TacotronDecoder._step`, one Python iteration a decoder step, the
+attention modules of models/attention.py with their `AttentionState`),
+computing in the memory's dtype as the reference's scan does, its prenet
+dropout drawn from the same hash PRNG as kernel 8's (the scan's threefry
+key cannot be reproduced), so that on a location config it gives kernel
+8's plain output. The encoder prenet's dropout stays on
 at inference too, as in the reference; the reference draws it from a
 threefry key, which torch cannot reproduce, so the port draws it from a
 torch.Generator seeded by `seed` on the model's device, fresh per call.
@@ -24,9 +33,10 @@ Training (`forward`, the reference's `Tacotron.forward`) is teacher-forced:
 the memory queue of every step is gathered from the target mels at once,
 the prenet runs over all of them, and a Python loop of T_mel / r steps
 runs under autograd over `ops.taco1_decode.decoder_step`, the step function
-of the decode's plain version, on the module's parameters. The reference
-trains Tacotron(1) through a scan of its step, with no kernel, so this is
-plain PyTorch on the card too.
+of the decode's plain version, on the module's parameters (the step loop's
+`_step` for the configs above). The reference trains Tacotron(1) through a
+scan of its step, with no kernel, so this is plain PyTorch on the card
+too.
 """
 
 from __future__ import annotations
@@ -40,9 +50,10 @@ from torch import nn
 from .. import resolve_device
 from ..nn.core import GAINS, BatchNorm1d, Conv1d, Dense, Embedding, xavier_uniform_
 from ..nn.rnn import GRUCell, run_rnn
-from ..ops.prng import HashDraws
+from ..ops.prng import HashDraws, step_key, uniform
 from ..ops.taco1_decode import _interleave_gru, decoder_step, prepare_weights, tacotron1_decode
-from .attention import init_attn
+from ..ops.taco2_decode import _drive, _finish
+from .attention import GravesAttention, init_attn
 from .common import (Prenet, ServingWeights, add_style, cached_decode_weights, compute_copy,
                      concat_speaker, kernel_prenet, sequence_mask)
 from .gst import GST
@@ -104,6 +115,25 @@ class CBHG(nn.Module):
         return run_rnn(self.gru, h)[0]
 
 
+def taco1_supported(cfg) -> bool:
+    """The JAX package's `taco1_supported` (ops/pallas/taco1_decode.py): the
+    decode kernel serves the default attention, location-sensitive with
+    location features and sigmoid or softmax norm, on either prenet type;
+    Graves, windowing, forward attention, the transition agent and location
+    features off take the step loop. The reference's third condition, r
+    within the memory size, is left out: the port serves r past the memory
+    on the kernel too, following the scan's queue rule (ops/taco1_decode.py)."""
+    return (cfg.prenet_type in ("original", "bn") and cfg.attention_type == "original"
+            and cfg.attention_norm in ("sigmoid", "softmax") and cfg.location_attn
+            and not cfg.windowing and not cfg.use_forward_attn and not cfg.transition_agent)
+
+
+STEP_LOOP_EXPORT = ("Tacotron(1) with Graves attention, windowing, forward attention, the "
+                    "transition agent or location features off decodes on the step loop, "
+                    "which the serving export does not carry yet: export a config the decode "
+                    "kernel serves (taco1_supported)")
+
+
 class TacotronDecoder(nn.Module):
     """GRU decoder with a memory queue. r_init sizes the mel projection and
     the stopnet; the active r takes a prefix slice, and each step's r frames
@@ -117,19 +147,18 @@ class TacotronDecoder(nn.Module):
         self.prenet = Prenet(n_mels * self.memory_size, cfg.prenet_type, cfg.prenet_dropout,
                              (w, w // 2))
         self.attention_rnn = GRUCell(w // 2 + in_dim, w)
-        if cfg.attention_type == "graves" or any(
-                getattr(cfg, f) for f in ("windowing", "use_forward_attn", "transition_agent",
-                                          "forward_attn_mask")):
-            # the JAX package decodes these through its scan, not a kernel
-            raise NotImplementedError("Tacotron(1) with Graves attention or the location "
-                                      "attention's options arrives with a later slice of "
-                                      "the port")
         self.attention = init_attn(cfg, w, in_dim)
         self.project = Dense(w + in_dim, w)
         self.decoder_rnns = nn.ModuleList([GRUCell(w, w), GRUCell(w, w)])
         self.proj_mel = Dense(w, n_mels * r_init)
         self.stopnet = Dense(w + n_mels * r_init, 1)
         self._prepared: dict = {}
+
+    def kernel_supported(self) -> bool:
+        """Whether this decoder takes the kernel route (kernel 8 at
+        inference, `decoder_step` under autograd in training) or the step
+        loop: `taco1_supported`."""
+        return taco1_supported(self.cfg)
 
     def decode_weights(self, dtype) -> dict:
         """The decode kernel's weight layout in `dtype`, cached
@@ -175,8 +204,9 @@ class TacotronDecoder(nn.Module):
         frames [t r - memory, t r), zeros before the first: one
         index_select over the mels padded by `memory` frames on the left.
         The prenet (dropout 0.5 from `generator`; none without one) runs
-        over every step's queue at once, then `decoder_step` a step, in the
-        parameters' dtype (the alignment in float32). Returns (frames
+        over every step's queue at once, then `decoder_step` a step (the
+        step loop's `_step` off the kernel route, `kernel_supported`), in
+        the parameters' dtype (the alignment in float32). Returns (frames
         [B, T_mel, n_mels], alignments [B, T_r, T_in] float32, stop logits
         [B, T_r]); with separate_stopnet the stopnet's input is detached."""
         B, T_mel, _ = mels.shape
@@ -191,6 +221,10 @@ class TacotronDecoder(nn.Module):
         queues = F.pad(mels, (0, 0, M, 0)).index_select(1, idx).reshape(B, T_r,
                                                                         M * self.n_mels)
         prenet_t = self.prenet(queues, generator).transpose(0, 1)        # [T_r, B, P2]
+        if not self.kernel_supported():
+            outs, aligns, stops = self._loop(prenet_t, inputs, pinp, mask)
+            frames = outs[..., : self.n_mels * r].transpose(0, 1).reshape(B, T_mel, self.n_mels)
+            return frames, aligns.transpose(0, 1), stops.transpose(0, 1)
         W, v_b = self.step_weights()
         dt = W["pj_w"].dtype
         rnd = lambda x: x.to(dt)  # noqa: E731
@@ -213,6 +247,113 @@ class TacotronDecoder(nn.Module):
         frames = torch.stack(outs, 1).reshape(B, T_mel, self.n_mels)
         return frames, torch.stack(aligns, 1), torch.stack(stops, 1)
 
+    # ------------------------------------------------------- the step loop
+
+    def _carry(self, B: int, T: int, E: int, dtype, device):
+        """The step loop's zero state: attention GRU h, the two decoder GRUs'
+        h, the attention's `AttentionState` (float32), the context."""
+        z = lambda n: torch.zeros(B, n, dtype=dtype, device=device)  # noqa: E731
+        D = self.project.out_features
+        return (z(self.attention_rnn.hidden_size), (z(D), z(D)),
+                self.attention.init_state(B, T, device), z(E))
+
+    def _step(self, x, carry, inputs, pinp, mask, inference: bool = False):
+        """One decoder step after the prenet, the JAX package's `_step`: the
+        attention GRU over [x, context], the attention (any of
+        models/attention.py, its state carried, the previous context
+        handed to the transition agent), the context cast back to the
+        working dtype, the projection, the two residual GRUs, the mel
+        projection and the stopnet (its input detached with
+        separate_stopnet). inputs [B, T, E] float32 (JAX promotes a bf16
+        memory to the alignment's float32 at the context). Returns (the
+        new carry, the projection's output [B, n_mels * r_init],
+        the alignment [B, T] float32, the stop logit [B])."""
+        ah, hs, state, ctx = carry
+        ah = self.attention_rnn(torch.cat([x, ctx], -1), ah)
+        state, ctx, align = self.attention(ah, inputs, pinp, state, mask, ctx, inference)
+        ctx = ctx.to(ah.dtype)
+        x = self.project(torch.cat([ah, ctx], -1))
+        new = []
+        for cell, h in zip(self.decoder_rnns, hs):
+            h = cell(x, h)
+            x = x + h
+            new.append(h)
+        out = self.proj_mel(x)
+        stop_in = torch.cat([x, out], -1)
+        if self.cfg.separate_stopnet:
+            stop_in = stop_in.detach()
+        return (ah, tuple(new), state, ctx), out, align, self.stopnet(stop_in)[:, 0]
+
+    def _loop(self, prenet_t, inputs, pinp, mask):
+        """The teacher-forced step loop under autograd (the reference's
+        `lax.scan` over `_step`): prenet_t [T_r, B, P] -> (outputs
+        [T_r, B, n_mels * r_init], alignments [T_r, B, T] float32, stop
+        logits [T_r, B]), in prenet_t's dtype."""
+        T_r, B, _ = prenet_t.shape
+        carry = self._carry(B, inputs.shape[1], inputs.shape[2], prenet_t.dtype,
+                            prenet_t.device)
+        enc = inputs.float()
+        outs, aligns, stops = [], [], []
+        for t in range(T_r):
+            carry, out, align, stop = self._step(prenet_t[t], carry, enc, pinp, mask)
+            outs.append(out)
+            aligns.append(align)
+            stops.append(stop)
+        return torch.stack(outs), torch.stack(aligns), torch.stack(stops)
+
+    def _prenet_step(self, queue, seed: int, step: int, dropout: bool):
+        """The prenet over a step's queue [B, memory * n_mels]; with dropout,
+        each layer's output is dropped where the hash PRNG's uniform draw
+        (key `step_key(seed, step)`, salts 21 and 22, element row * width +
+        col) falls below 0.5 and doubled elsewhere: kernel 8's draws."""
+        if not dropout:
+            return self.prenet(queue)
+        key = step_key(seed, step)
+        x = queue
+        for i, lin in enumerate(self.prenet.linears):
+            x = torch.relu(lin(x))
+            x = torch.where(uniform(tuple(x.shape), key, 21 + i, x.device) < 0.5, 0.0, x * 2.0)
+        return x
+
+    def _decode_loop(self, inputs, input_lengths, max_steps: int, r: int, seed: int,
+                     chunk: int = 50):
+        """Free-running decode on the step loop, the JAX package's
+        `TacotronDecoder.inference` scan, in the memory's dtype (call it on
+        a compute-dtype copy of the decoder for a bf16 memory): the queue
+        rolls by each step's first n_mels * r outputs, zeroed for a row
+        already done; a row is done after the step whose stop probability
+        passes stop_threshold; the alignment windows at inference. Every
+        `chunk` steps the loop reads whether every row is done and stops if
+        so (the steps it skips would decode zero frames; their alignments
+        and stop probabilities stay zero, as kernel 8's). Returns the
+        kernel route's time-major outputs: (frames [max_steps, B,
+        n_mels * r], alignments [max_steps, B, T] float32, stop
+        probabilities [max_steps, B], lengths [B] in r-groups)."""
+        B, T, E = inputs.shape
+        dt, dev, NR = inputs.dtype, inputs.device, self.n_mels * r
+        NQ = self.memory_size * self.n_mels
+        mask = sequence_mask(input_lengths, T)
+        pinp = self.attention.preprocess_inputs(inputs)
+        _, dropout = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
+        enc = inputs.float()
+        out = torch.zeros(max_steps, B, NR, dtype=dt, device=dev)
+        aligns = torch.zeros(max_steps, B, T, device=dev)
+        stops = torch.zeros(max_steps, B, dtype=dt, device=dev)
+        st = dict(carry=self._carry(B, T, E, dt, dev), queue=inputs.new_zeros(B, NQ),
+                  done=torch.zeros(B, dtype=torch.bool, device=dev))
+
+        def step(s):
+            x = self._prenet_step(st["queue"], seed, s, dropout)
+            st["carry"], o, align, logit = self._step(x, st["carry"], enc, pinp, mask, True)
+            stop = torch.sigmoid(logit)
+            o = o[:, :NR] * (~st["done"]).to(dt)[:, None]
+            st["done"] = st["done"] | (stop > self.cfg.stop_threshold)
+            st["queue"] = torch.cat([st["queue"], o], 1)[:, -NQ:]
+            out[s], aligns[s], stops[s] = o, align, stop
+
+        ran = _drive(max_steps, chunk, step, lambda s: bool(st["done"].all()))
+        return _finish(out, aligns, stops, ran, max_steps, self.cfg.stop_threshold)
+
     @torch.no_grad()
     def inference(self, inputs, input_lengths, max_steps: int, r: int, seed: int = 0,
                   dtype=torch.bfloat16, compute_dtype=None, traced=None):
@@ -221,8 +362,18 @@ class TacotronDecoder(nn.Module):
         [B, max_steps], lengths [B] in mel frames). With a compute_dtype
         the memory's key projection W_k m runs in it (the decode itself
         keeps its f32 state and `dtype` matrix inputs). traced: as
-        `Decoder.inference`'s (models/tacotron2.py)."""
+        `Decoder.inference`'s (models/tacotron2.py). Off the kernel route
+        (`kernel_supported`) the step loop decodes in the memory's dtype
+        and the parameters' (dtype and compute_dtype are not read), which
+        no traced program carries."""
         B = inputs.shape[0]
+        if not self.kernel_supported():
+            if traced is not None:
+                raise NotImplementedError(STEP_LOOP_EXPORT)
+            out, aligns, stops, lengths = self._decode_loop(inputs, input_lengths, max_steps,
+                                                            r, seed)
+            return (out.transpose(0, 1).reshape(B, max_steps * r, self.n_mels),
+                    aligns.transpose(0, 1), stops.transpose(0, 1), lengths * r)
         mask = sequence_mask(input_lengths, inputs.shape[1])
         if compute_dtype is None:
             pinp = self.attention.preprocess_inputs(inputs)
@@ -304,7 +455,8 @@ class Tacotron(nn.Module):
         """Seeded random weights with the JAX package's init families:
         xavier-uniform Linear/Conv weights (gains: relu for the conv bank,
         the inner projections and the highways' H; tanh for the attention's
-        query, inputs and location dense; linear elsewhere), zero biases but
+        query, inputs and location dense, relu for Graves's l1; linear
+        elsewhere; Graves's l2 biases as `GravesAttention.init_bias`), zero biases but
         the highways' T at -1, N(0, 0.3) embeddings, U(-1/sqrt(H), 1/sqrt(H))
         GRUs (biases too)."""
         gain = {}
@@ -316,8 +468,11 @@ class Tacotron(nn.Module):
             for hw in cbhg.highways:
                 gain[id(hw.H)] = GAINS["relu"]
         a = self.decoder.attention
-        for lin in (a.query, a.inputs) + ((a.loc_dense,) if a.location_attention else ()):
-            gain[id(lin)] = GAINS["tanh"]
+        if isinstance(a, GravesAttention):
+            gain[id(a.l1)] = GAINS["relu"]
+        else:
+            for lin in (a.query, a.inputs) + ((a.loc_dense,) if a.location_attention else ()):
+                gain[id(lin)] = GAINS["tanh"]
         for mod in self.modules():
             if isinstance(mod, (Dense, Conv1d)):
                 xavier_uniform_(mod.weight, gain.get(id(mod), 1.0), generator)
@@ -332,6 +487,8 @@ class Tacotron(nn.Module):
         for cbhg in (self.encoder_cbhg, self.post_cbhg):
             for hw in cbhg.highways:
                 hw.T.bias.fill_(-1.0)
+        if isinstance(a, GravesAttention):
+            a.init_bias()
         if self.use_gst:
             self.gst.init_random_(generator)
 
@@ -421,7 +578,10 @@ class Tacotron(nn.Module):
                 gen = (HashDraws(seed) if traced is not None
                        else torch.Generator(device=dev).manual_seed(seed))
             enc_out = self._encode(text, speaker_ids, speaker_embeddings, style_mel, gen, cast)
-            dec_out, aligns, stops, lengths = self.decoder.inference(
+            dec = self.decoder
+            if dt is not None and not dec.kernel_supported():
+                dec = compute_copy(self, "decoder", dt)     # the scan computes in dt
+            dec_out, aligns, stops, lengths = dec.inference(
                 enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype,
                 compute_dtype=dt, traced=traced)
             if dt is not None:

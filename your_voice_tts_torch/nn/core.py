@@ -21,22 +21,29 @@ GAINS = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0}
 
 
 class Conv1d(nn.Module):
-    """Channel-last 1D convolution [B, T, C_in] -> [B, T', C_out], stride 1,
-    padded as the JAX package's Conv1d: "same" keeps T (dilation d pads
+    """Channel-last 1D convolution [B, T, C_in] -> [B, T', C_out], padded as
+    the JAX package's Conv1d: "same" keeps T at stride 1 (dilation d pads
     d * (k - 1) in all, the odd one on the right), "valid" pads nothing, an
     int pads both sides by it. pad_mode "reflect" mirrors the input instead
-    of zero-filling it (the MelGAN family's choice). init_gain names the
-    nonlinearity whose gain the owning model's xavier init uses."""
+    of zero-filling it (the MelGAN family's choice). stride and groups as
+    the JAX Conv1d's (`feature_group_count`): its weight [k, in / groups,
+    out] is torch's [out, in / groups, k], which the checkpoint bridge maps
+    as any Conv1d's. init_gain names the nonlinearity whose gain the owning
+    model's xavier init uses."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel_size: int,
                  use_bias: bool = True, padding: str | int = "same", dilation: int = 1,
-                 pad_mode: str = "zeros", init_gain: str = "linear"):
+                 pad_mode: str = "zeros", init_gain: str = "linear", stride: int = 1,
+                 groups: int = 1):
         super().__init__()
         if pad_mode not in ("zeros", "reflect"):
             raise ValueError(f"pad_mode must be zeros or reflect, got {pad_mode!r}")
-        self.weight = nn.Parameter(torch.zeros(out_dim, in_dim, kernel_size))
+        if in_dim % groups or out_dim % groups:
+            raise ValueError(f"groups {groups} must divide in {in_dim} and out {out_dim}")
+        self.weight = nn.Parameter(torch.zeros(out_dim, in_dim // groups, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
         self.dilation, self.pad_mode, self.gain = dilation, pad_mode, GAINS[init_gain]
+        self.stride, self.groups = stride, groups
         if padding == "same":
             total = dilation * (kernel_size - 1)
             self.pad = (total // 2, total - total // 2)
@@ -48,7 +55,8 @@ class Conv1d(nn.Module):
     def forward(self, x):
         mode = "reflect" if self.pad_mode == "reflect" and self.pad != (0, 0) else "constant"
         x = F.pad(x.transpose(1, 2), self.pad, mode=mode)
-        return F.conv1d(x, self.weight, self.bias, dilation=self.dilation).transpose(1, 2)
+        return F.conv1d(x, self.weight, self.bias, stride=self.stride, dilation=self.dilation,
+                        groups=self.groups).transpose(1, 2)
 
 
 class ConvTranspose1d(nn.Module):
@@ -57,7 +65,12 @@ class ConvTranspose1d(nn.Module):
     padding stride // 2 + stride % 2 and output_padding stride % 2, for even
     and odd strides. The weight is torch's [in, out, k]; the JAX package's
     is [k, in, out] with the kernel axis flipped (`jax_layout` tells
-    train/checkpoint.params_from_jax so)."""
+    train/checkpoint.params_from_jax so). A bf16 convolution of CPU tensors
+    sums in float32 and rounds once, as cuDNN's bf16 convolution
+    accumulates: oneDNN's bf16 transposed convolution on the CPU returns a
+    wrong input gradient at some shapes (16 -> 8 channels over 32 steps at
+    stride 4, a narrow MelGAN's second upsampler), which mixed-precision
+    GAN training reaches."""
 
     jax_layout = "conv_transpose"
 
@@ -70,8 +83,13 @@ class ConvTranspose1d(nn.Module):
 
     def forward(self, x):
         u = self.stride
-        return F.conv_transpose1d(x.transpose(1, 2), self.weight, self.bias, stride=u,
-                                  padding=u // 2 + u % 2, output_padding=u % 2).transpose(1, 2)
+        w, b = self.weight, self.bias
+        cpu_bf16 = x.device.type == "cpu" and x.dtype == torch.bfloat16
+        if cpu_bf16:
+            x, w, b = x.float(), w.float(), None if b is None else b.float()
+        y = F.conv_transpose1d(x.transpose(1, 2), w, b, stride=u, padding=u // 2 + u % 2,
+                               output_padding=u % 2).transpose(1, 2)
+        return y.to(torch.bfloat16) if cpu_bf16 else y
 
 
 class BatchNorm1d(nn.Module):

@@ -269,12 +269,21 @@ def alignment_plain(h, att, cum, q_w, u, v_w, v_b: float, pinp, maskadd, norm: s
     e = (torch.tanh(pq[:, None, :] + loc + pinp) * v_w).sum(-1) + v_b
     e = e + maskadd
     if window is not None:
-        t = torch.arange(e.shape[1], device=e.device)
-        e = torch.where((t >= window[0]) & (t <= window[1]), e, -1e9)
+        e = window_energies(e, *window)
     if norm == "softmax":
         return torch.softmax(e, -1)
     sg = torch.sigmoid(e)
     return sg / sg.sum(-1, keepdim=True).clamp_min(1e-8)
+
+
+def window_energies(e, lo, hi):
+    """Windowing at inference: energies [B, T] outside [lo, hi] ([B, 1]
+    each, the window around the previous alignment's first maximum) set to
+    -1e9, which the sigmoid or softmax norm maps to 0. The plain decodes
+    and the attention's step (models/attention.py) both window through
+    it."""
+    t = torch.arange(e.shape[1], device=e.device)
+    return torch.where((t >= lo) & (t <= hi), e, -1e9)
 
 
 def forward_plain(align, alpha, u, maskadd, mask_ahead: bool, rnd):

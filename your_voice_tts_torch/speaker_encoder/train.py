@@ -1,12 +1,9 @@
 """Speaker-encoder trainer (the JAX package's speaker_encoder/train.py):
 GE2E over random N x M batches, one device.
 
-The update is optax's chain(clip_by_global_norm(grad_clip), adam(lr))
-written out, over the encoder's parameters and the loss's (w, b) together:
-the gradients are scaled by grad_clip / ||g|| where their global norm
-reaches grad_clip, then Adam (b1 0.9, b2 0.999, eps 1e-8, bias corrections
-in float32 as optax computes them) moves each parameter by
--lr * m_hat / (sqrt(v_hat) + eps).
+The update is optax's chain(clip_by_global_norm(grad_clip), adam(lr)),
+train/optim.py `ClipAdam` (b1 0.9, b2 0.999, eps 1e-8), over the
+encoder's parameters and the loss's (w, b) together.
 
 Checkpoints are the JAX package's .npz: the encoder under ``params``, the
 loss's (w, b) as model state ``['ge2e']``, and the Adam state under
@@ -28,6 +25,7 @@ import torch
 from .. import resolve_device
 from ..train.checkpoint import (_insert, jax_layouts, params_from_jax, parse_keypath,
                                 read_checkpoint)
+from ..train.optim import ClipAdam
 from .losses import ge2e_loss, init_ge2e_params
 from .model import params_to_jax
 
@@ -36,8 +34,6 @@ _OPT = "[1][0]"          # the Adam state's place in optax.chain(clip, adam)'s s
 
 
 class SpeakerEncoderTrainer:
-    B1, B2, EPS = 0.9, 0.999, 1e-8
-
     def __init__(self, model, dataset, lr: float = 1e-4, grad_clip: float = 3.0,
                  num_speakers_per_batch: int = 4, num_utters_per_speaker: int = 4,
                  output_path: str | None = None, verbose: bool = True, device=None):
@@ -48,16 +44,14 @@ class SpeakerEncoderTrainer:
         self.model = model.to(self.device)
         self.dataset = dataset
         self.N, self.M = num_speakers_per_batch, num_utters_per_speaker
-        self.lr, self.grad_clip = lr, grad_clip
         self.loss_params = init_ge2e_params(self.device)
         self.names = [n for n, p in model.named_parameters() if p.requires_grad]
         for p in self.loss_params.values():
             p.requires_grad_(True)
         self.params = [dict(model.named_parameters())[n] for n in self.names] + \
             [self.loss_params["w"], self.loss_params["b"]]
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.step = 0
+        self.adam = ClipAdam(self.params, lr, grad_clip)
+        self.mu, self.nu = self.adam.mu, self.adam.nu
         self.output_path = output_path
         self.verbose = verbose
 
@@ -73,23 +67,13 @@ class SpeakerEncoderTrainer:
         self.model.train()
         mels = torch.as_tensor(mels, dtype=torch.float32, device=self.device)
         loss = self.loss(mels)
-        grads = torch.autograd.grad(loss, self.params)
-        self._update(grads)
+        self.adam.step(torch.autograd.grad(loss, self.params))
         return loss.item()
 
-    @torch.no_grad()
-    def _update(self, grads) -> None:
-        g = [x.float() for x in grads]
-        norm = torch.sqrt(sum((x * x).sum() for x in g))
-        g = [torch.where(norm < self.grad_clip, x, x / norm * self.grad_clip) for x in g]
-        n = self.step + 1
-        bc1 = float(F32(1.0) - F32(self.B1) ** F32(n))
-        bc2 = float(F32(1.0) - F32(self.B2) ** F32(n))
-        for p, x, m, v in zip(self.params, g, self.mu, self.nu):
-            m.copy_((1 - self.B1) * x + self.B1 * m)
-            v.copy_((1 - self.B2) * x * x + self.B2 * v)
-            p.add_(-self.lr * ((m / bc1) / (torch.sqrt(v / bc2) + self.EPS)))
-        self.step = n
+    @property
+    def step(self) -> int:
+        """Updates applied (the Adam state's count)."""
+        return self.adam.count
 
     def fit(self, max_steps: int, print_step: int = 50) -> dict:
         """max_steps updates on batches drawn from np.random.default_rng(0),
@@ -160,5 +144,5 @@ class SpeakerEncoderTrainer:
             for m, name in zip(moments, self.names + ["w", "b"]):
                 m.copy_(sd[name] if name in sd else torch.as_tensor(
                     np.asarray(tree["loss"][name], F32)))
-        self.step = int(opt[f"{_OPT}.count"])
+        self.adam.count = int(opt[f"{_OPT}.count"])
         return meta

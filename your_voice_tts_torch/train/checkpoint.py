@@ -46,10 +46,19 @@ vocoder checkpoint, which also holds the discriminator.
 is the map above, forwards), so the JAX package's `restore_partial` loads
 it; the port's optimizer state goes into a section of its own,
 ``port_optimizer::<name>::<parameter>``, which the JAX package skips.
+
+`save_trainer_checkpoint` / `restore_trainer_checkpoint` write and read
+the vocoder trainers' checkpoints in the JAX trainers' own layout, so that
+each package's trainer restores the other's strictly: the parameters of
+each model (under a subtree key, as a GAN keeps ``['g']`` and ``['d']``)
+and its `optim.ClipAdam` state as optax's chain(clip, adam) state,
+``opt_state::<subtree>[1][0].count`` / ``.mu<keypath>`` / ``.nu<keypath>``
+with the moments in the parameters' JAX layouts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import os
@@ -382,3 +391,82 @@ def save_best_model(current_loss: float, best_loss: float, out_path: str,
         save_checkpoint(os.path.join(out_path, "best_model.npz"), **ckpt_kwargs)
         return current_loss
     return best_loss
+
+
+ADAM = "[1][0]"          # the Adam state's place in optax.chain(clip_by_global_norm, adam)'s
+
+
+@contextlib.contextmanager
+def _swapped(model: torch.nn.Module, tensors: list):
+    """`model`'s trainable parameters read `tensors` (in named_parameters
+    order) inside the block: `params_to_jax` then lays out tensors shaped
+    like the parameters, Adam's moments."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    saved = [p.data for p in params]
+    try:
+        for p, t in zip(params, tensors):
+            p.data = t
+        yield
+    finally:
+        for p, d in zip(params, saved):
+            p.data = d
+
+
+def save_trainer_checkpoint(path: str, parts: dict, *, step: int, extra: dict) -> str:
+    """A vocoder trainer's checkpoint in the JAX trainers' layout: parts
+    {subtree key, or None for the whole tree: (model, its ClipAdam)};
+    epoch 0 and r 1 in the meta, as the JAX trainers write them."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    blobs = {}
+    for key, (model, adam) in parts.items():
+        pre = "" if key is None else _keystr([key])
+        params, state = params_to_jax(model)
+        blobs.update({f"params::{pre}{k}": v for k, v in params.items()})
+        blobs.update({f"model_state::{pre}{k}": v for k, v in state.items()})
+        blobs[f"opt_state::{pre}{ADAM}.count"] = np.asarray(adam.count, np.int32)
+        for kind in ("mu", "nu"):
+            with _swapped(model, getattr(adam, kind)):
+                moments, _ = params_to_jax(model)
+            blobs.update({f"opt_state::{pre}{ADAM}.{kind}{k}": v for k, v in moments.items()})
+    meta = {"step": int(step), "epoch": 0, "r": 1, "date": datetime.datetime.now().isoformat(),
+            **extra}
+    blobs["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **blobs)
+    return path
+
+
+@torch.no_grad()
+def restore_trainer_checkpoint(path: str, parts: dict) -> dict:
+    """Load a checkpoint `save_trainer_checkpoint` or a JAX vocoder trainer
+    wrote into parts {subtree key or None: (model, ClipAdam)}, strictly:
+    every parameter and both moments of each, and Adam's count. Returns
+    the meta."""
+    with np.load(path, allow_pickle=False) as z:
+        blobs = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(blobs.pop("__meta__")).decode())
+    params, _, _ = read_checkpoint(path)
+    for key, (model, adam) in parts.items():
+        pre = "" if key is None else _keystr([key])
+        layouts = jax_layouts(model)
+        if key is not None and key not in params:
+            raise KeyError(f"{path} holds no parameter subtree {pre}")
+        model.load_state_dict(params_from_jax(params if key is None else params[key], {},
+                                              layouts), strict=True)
+        count = f"opt_state::{pre}{ADAM}.count"
+        if count not in blobs:
+            raise KeyError(f"{path} holds no Adam state at {count}")
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        for kind in ("mu", "nu"):
+            prefix = f"opt_state::{pre}{ADAM}.{kind}"
+            tree: dict = {}
+            for k, v in blobs.items():
+                if k.startswith(prefix):
+                    _insert(tree, parse_keypath(k[len(prefix):]), v)
+            sd = params_from_jax(tree, {}, layouts)
+            if set(sd) != set(names):
+                raise KeyError(f"{path}: the Adam {kind} under {pre or 'the root'} does not "
+                               f"match the parameters ({sorted(set(names) ^ set(sd))[:4]})")
+            for m, n in zip(getattr(adam, kind), names):
+                m.copy_(sd[n])
+        adam.count = int(blobs[count])
+    return meta

@@ -109,6 +109,42 @@ class RAdamStack:
         self.total_notfinite = int(state["total_notfinite"])
 
 
+class ClipAdam:
+    """optax's chain(clip_by_global_norm(clip), adam(lr, b1, b2, eps)) over
+    a fixed list of parameters, in place: the gradients scaled by
+    clip / ||g|| where their global norm reaches clip, then Adam's moments
+    (mu = b1 mu + (1 - b1) g, nu = b2 nu + (1 - b2) g^2, float32) and the
+    update -lr * mu_hat / (sqrt(nu_hat) + eps) with the bias corrections
+    in float32, as optax computes them. `mu`, `nu` and `count` are the
+    chain's Adam state (its `[1][0]` in a JAX checkpoint). The GE2E
+    trainer (b1 0.9, b2 0.999) and the vocoder trainers (WaveRNN's the
+    same, the GAN sides' 0.5 / 0.9) take this one update."""
+
+    def __init__(self, params, lr: float, clip: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.params = list(params)
+        self.lr, self.clip, self.b1, self.b2, self.eps = lr, clip, b1, b2, eps
+        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads) -> None:
+        """One update from `grads`, one per parameter."""
+        g = [x.float() for x in grads]
+        norm = torch.sqrt(sum((x * x).sum() for x in g))
+        g = [torch.where(norm < self.clip, x, x / norm * self.clip) for x in g]
+        n = self.count + 1
+        b1, b2 = self.b1, self.b2
+        bc1 = float(F32(1.0) - F32(b1) ** F32(n))
+        bc2 = float(F32(1.0) - F32(b2) ** F32(n))
+        for p, x, m, v in zip(self.params, g, self.mu, self.nu):
+            m.copy_((1 - b1) * x + b1 * m)
+            v.copy_((1 - b2) * x * x + b2 * v)
+            p.add_(-self.lr * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps)))
+        self.count = n
+
+
 def build_optimizer(params, cfg) -> RAdamStack:
     """The JAX package's `build_optimizer` chain over `params` for a
     TrainingConfig."""

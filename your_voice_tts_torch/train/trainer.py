@@ -40,8 +40,9 @@ as the forward one, and the loss adds its terms. grad_accum_steps > 1
 splits each step's batch into micro-batches and applies one averaged
 update (`train_step`).
 
-Later slices bring data parallelism and the profiler server; the profiler
-raises NotImplementedError here.
+`capture_trace` writes a torch.profiler trace of one call; the JAX
+package's profiler server has no torch counterpart, so `start_profiler`
+raises NotImplementedError. A later slice brings data parallelism.
 """
 
 from __future__ import annotations
@@ -66,8 +67,6 @@ from ..utils.measures import alignment_diagonal_score
 from .checkpoint import (jax_layouts, params_from_jax, read_checkpoint,
                          read_optimizer_state, save_best_model, save_checkpoint)
 from .optim import build_optimizer
-
-_LATER = "arrives with a later slice of the port"
 
 
 def gradual_schedule(step: int, schedule, default_r: int, default_bs: int) -> tuple[int, int]:
@@ -387,7 +386,30 @@ class Trainer:
         return results
 
     def start_profiler(self, port: int = 9999) -> None:
-        raise NotImplementedError(f"the profiler server {_LATER}")
+        """The JAX package's profiler server (`jax.profiler.start_server`),
+        which torch has no counterpart of: it raises, pointing at
+        `capture_trace`."""
+        raise NotImplementedError("torch has no profiler server to connect to; trace a step "
+                                  "with Trainer.capture_trace(log_dir, fn, *args)")
+
+    def capture_trace(self, log_dir: str, fn, *args):
+        """One-shot trace of fn(*args) (e.g. a train step) with
+        torch.profiler: CPU activity, and CUDA activity when the model is on
+        the card, whose work is synchronized before the trace closes. The
+        Chrome trace goes to log_dir/trace_<time>_<pid>.json. Returns
+        fn(*args)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        os.makedirs(log_dir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            out = fn(*args)
+            if cuda:
+                torch.cuda.synchronize(self.device)
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{time.strftime('%Y%m%d-%H%M%S')}_{os.getpid()}.json"))
+        return out
 
     # --- persistence -------------------------------------------------------
 

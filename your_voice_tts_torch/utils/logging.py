@@ -4,12 +4,18 @@ lines `fit` and `evaluate` print (`ConsoleLogger`) and TensorBoard events
 
 from __future__ import annotations
 
+import datetime
+
 
 class ConsoleLogger:
     BOLD, BLUE, GREEN, END = "\033[1m", "\033[94m", "\033[92m", "\033[0m"
 
     def print_epoch_start(self, epoch: int, max_epoch: int) -> None:
         print(f"\n{self.BOLD} > EPOCH: {epoch}/{max_epoch}{self.END}", flush=True)
+
+    def print_train_start(self) -> None:
+        print(f"\n{self.BOLD} > TRAINING ({datetime.datetime.now().strftime('%H:%M:%S')})"
+              f"{self.END}", flush=True)
 
     def print_train_step(self, batch_steps: int, step: int, global_step: int,
                          loss_dict: dict) -> None:

@@ -6,7 +6,8 @@ skip-sum head. Same serving shape as MelGAN: mel [B, T, n_mels] -> audio
 [B, T * hop]. The JAX package has no Pallas kernel here (cuDNN convolutions
 on the card). torch cannot reproduce the JAX package's `jax.random.normal`
 noise, so `forward` takes the noise injected, or draws it from an explicit
-torch.Generator. The discriminator comes with the GAN training slice.
+torch.Generator. `ParallelWaveganDiscriminator` is what vocoder/train_gan.py
+trains it against.
 """
 
 from __future__ import annotations
@@ -107,3 +108,28 @@ class ParallelWaveganGenerator(nn.Module):
             skips = skips + s
         h = F.relu(skips * self.skip_scale)
         return self.out2(F.relu(self.out1(h)))[..., 0]
+
+
+class ParallelWaveganDiscriminator(nn.Module):
+    """num_layers - 1 dilated convs (dilation max(1, i), "same" padding,
+    leaky ReLU 0.2 after each), then a conv to a per-sample score. Seeded
+    random weights until a checkpoint is loaded; on `device`, CUDA unless
+    given."""
+
+    def __init__(self, num_layers: int = 10, channels: int = 64, kernel_size: int = 3,
+                 device=None, seed: int = 1):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            Conv1d(1 if i == 0 else channels, channels, kernel_size, dilation=max(1, i),
+                   init_gain="relu") for i in range(num_layers - 1))
+        self.out = Conv1d(channels if num_layers > 1 else 1, 1, kernel_size)
+        init_convs_(self, torch.Generator().manual_seed(seed))
+        self.to(resolve_device(device))
+
+    def forward(self, x):
+        """x [B, T] -> (score [B, T, 1], [each conv's output])."""
+        feats, h = [], x[..., None]
+        for conv in self.convs:
+            h = F.leaky_relu(conv(h), 0.2)
+            feats.append(h)
+        return self.out(h), feats

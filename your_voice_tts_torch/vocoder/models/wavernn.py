@@ -1,5 +1,5 @@
 """WaveRNN vocoder with batched sequence folding (the JAX package's
-vocoder/models/wavernn.py), generation side.
+vocoder/models/wavernn.py): generation and teacher-forced training.
 
 A MelResNet + stretch-upsample conditioning network, then a sample-rate
 core of two GRUs and three FCs predicting, per sample, a 2**bits-way mu-law
@@ -10,7 +10,9 @@ one utterance into overlapping segments that ride the batch axis
 CPU), and crossfades the overlaps back (`xfade_and_unfold`). Activations
 are channel-last [B, T, C] like the JAX package's; weights are in the
 port's layouts (train/checkpoint.params_from_jax maps a JAX checkpoint
-onto them). Teacher-forced training comes with a later slice.
+onto them). Training (`forward`, `loss`) runs each GRU over the whole
+sequence as one call (cuDNN on the card), in float32 under mixed precision
+as the reference's scan does.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch import nn
 from ...nn.core import GAINS, Conv1d, Dense, xavier_uniform_
 from ...nn.rnn import GRUCell
 from ...ops.wavernn_gen import generation_weights, pack_weights, wavernn_generate
+from .distribs import discretized_mix_logistic_loss, gaussian_loss
 
 # --- mu-law ------------------------------------------------------------------
 
@@ -156,6 +159,70 @@ class WaveRNN(nn.Module):
                 k = conv.weight.shape[-1]
                 conv.weight.copy_(torch.eye(conv.weight.shape[0])[:, :, None].expand(-1, -1, k) / k)
 
+    def forward(self, x, mels):
+        """Teacher-forced pass: x [B, L] the input samples (x_{t-1}) in
+        [-1, 1], mels [B, T_mel, n_mels] with (T_mel - 2 pad) hop == L ->
+        logits [B, L, n_classes]. The upsampled conditioning, I over
+        [x | mel | a1], rnn1, the residual, rnn2 over [x + o1 | a2], the
+        residual, fc1 over [. | a3], fc2 over [. | a4], fc3. The reference
+        scans `_core_step` one sample at a time; every input of either GRU
+        is known before it runs here, so each is one whole-sequence GRU
+        call over the same weights (torch's (r, z, n) gates, b_hn inside
+        the reset, as the JAX GRUCell), the same function with its sums in
+        another order.
+
+        Dtypes follow the reference's scan: the GRU states start in float32,
+        so on bf16 parameters (mixed precision) the conditioning network and
+        I run in bf16, while both recurrences, the residual stream and
+        fc1-fc3 run in float32 on the bf16 weights cast up (the reference
+        rounds rnn1's input projection to bf16 before it meets the float32
+        state; the port keeps it in float32)."""
+        cond, aux = self.upsample(mels)
+        d = self.aux_dims
+        a1, a2, a3, a4 = (aux[..., i * d:(i + 1) * d] for i in range(4))
+        h = self.I(torch.cat([x[..., None].to(cond.dtype), cond, a1], -1))
+        h = _up(h) + self._gru(self.rnn1, h)
+        h = h + self._gru(self.rnn2, torch.cat([h, _up(a2)], -1))
+        h = torch.relu(_linear(self.fc1, torch.cat([h, _up(a3)], -1)))
+        h = torch.relu(_linear(self.fc2, torch.cat([h, _up(a4)], -1)))
+        return _linear(self.fc3, h)
+
+    @staticmethod
+    def _gru(cell, x):
+        """A GRUCell's weights run over x [B, L, in] as one batch-first GRU
+        from a zero state -> outputs [B, L, H], in float32 at least (x and
+        the weights cast up, `_up`)."""
+        x = _up(x)
+        h0 = x.new_zeros(1, x.shape[0], cell.hidden_size)
+        weights = [w.to(x.dtype) for w in (cell.weight_ih, cell.weight_hh, cell.bias_ih,
+                                           cell.bias_hh)]
+        return torch.gru(x, h0, weights, True, 1, 0.0, cell.training, False, True)[0]
+
+    def loss(self, mels, audio, compute_dtype=None, params: dict | None = None):
+        """Teacher-forced negative log-likelihood of audio [B, L] in
+        [-1, 1]: mu-law, the cross-entropy of each sample's class given the
+        previous one's (label_to_float of the targets shifted by one, the
+        first input class 0); MoL and Gaussian, their likelihoods given the
+        audio shifted by one (zero first). compute_dtype casts the input
+        samples (the caller casts the mels, and hands the parameters' casts
+        as `params`, which the forward runs on: mixed-precision training);
+        the NLL is float32 always."""
+        if self.mode == "mulaw":
+            targets = encode_mulaw(audio, self.bits).long()
+            x_in = label_to_float(F.pad(targets[:, :-1], (1, 0)), self.bits)
+        else:
+            x_in = F.pad(audio[:, :-1], (1, 0))
+        if compute_dtype is not None:
+            x_in = x_in.to(compute_dtype)
+        y_hat = (self(x_in, mels) if params is None
+                 else torch.func.functional_call(self, params, (x_in, mels))).float()
+        if self.mode == "mulaw":
+            logp = torch.log_softmax(y_hat, -1)
+            return -logp.gather(-1, targets[..., None]).mean()
+        if self.mode == "mol":
+            return discretized_mix_logistic_loss(y_hat, audio.float())
+        return gaussian_loss(y_hat, audio.float())
+
     @torch.no_grad()
     def generate(self, mel, seed: int, batched: bool = True, target: int = 5_500,
                  overlap: int = 550):
@@ -189,6 +256,17 @@ class WaveRNN(nn.Module):
         if self._packed is None or self._packed[0] != key:
             self._packed = (key, pack_weights(w or generation_weights(self)))
         return self._packed[1]
+
+
+def _up(t):
+    """t in float32 at least: a bf16 tensor cast up, float32 and float64 as
+    they are."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _linear(lin, x):
+    """A Dense layer on x in x's dtype, its weights cast to it."""
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
 
 # --- folding -----------------------------------------------------------------
