@@ -158,6 +158,21 @@ Phases, each fatal on failure:
    WaveRNN's on kernel 7 held against its plain version.
 7j. profiler: Trainer.capture_trace of one Tacotron2 step on kernels 5
    and 6: the trace file holds their kernels.
+7k. parallel: ParallelTTS (configs/ljspeech_tacotron2.json with model
+   ParallelTTS, r = 1, a 500-frame cap: 80 mels, 512 wide, six decoder
+   blocks, duration predictor 256; seeded random weights, the duration
+   head's bias at log 3): Synthesizer.tts_many (the batch of 8, 5 batch-1
+   requests) through kernel 2 alone, no plain version called; card
+   against CPU on the same weights and on the trained asset at its own
+   config (durations and lengths equal, a differing duration only within
+   1e-5 of a .5 tie; mels 1e-4 rel L2); one asset request past 1,024
+   frames (kernel 4); bin/extract_durations with the trained Tacotron2
+   teacher on the card (kernel 5, no plain version) and the CPU, the same
+   rows, and the full-width teacher-forced pass's alignments card against
+   CPU; bin/train_parallel, 3 steps at B = 32, one step's gradients card
+   against CPU (1e-4 rel L2), the timed step and its busy share; the
+   export at (8, 160) and the asset's at (2, 32), each bit for bit against
+   its unexported program (kernels 2 and 3).
 7g. mel-oracle: AudioProcessor.melspectrogram on the card against
    oracle/audio_ref.py (float64 numpy) for the three shipped Tacotron2
    configs on a seeded speech-like signal, <= 1e-3 max abs.
@@ -274,7 +289,9 @@ variants' and the GST holds, the Tacotron(1) decode's the largest of its
 phase's and the E = 512 holds, the training scans' the largest of phases
 5-6's and train-cond's. The training scans' launches also add phases
 7e-7f's steps; the decode's and Griffin-Lim's phase 7d's test sentences.
-The WaveRNN kernel's count is the vocoder path's alone. Phases 7h-7j's
+Phase 7k's launches of kernels 2-5 (serving, the asset's long
+request, the durations, the exports) join the kernel line too. The
+WaveRNN kernel's count is the vocoder path's alone. Phases 7h-7j's
 launches (gl-iteration's in 7h's serving, the WaveRNN kernel's in 7i's
 served checkpoints, the training scans' in 7j's traced step) stay out of
 the kernel line: they are printed and reported per phase
@@ -5230,6 +5247,494 @@ def phase_profiler(report, corpus: str) -> dict:
     del trainer
     return launches
 
+# ------------------------------------------------------------------ ParallelTTS
+
+PAR_FRAMES = 500          # the full-width frame cap: max_decoder_steps 500 x r 1
+PAR_DUR = 3.0             # random weights: exp(duration bias) = 3, ~2 frames a symbol
+PAR_TIE = 1e-5            # a duration may differ only across a .5 tie this close
+PAR_ROWS = 4              # rows of the card-against-CPU training step
+
+
+def parallel_config(cfg=None, **model):
+    """configs/ljspeech_tacotron2.json (or `cfg`) with model ParallelTTS and
+    r = 1, 500 frames at most a row unless `model` says otherwise: 80 mels,
+    embedding / encoder / postnet 512, six decoder blocks, the duration
+    predictor 256."""
+    from your_voice_tts_torch.config import load_config
+
+    cfg = cfg or load_config(os.path.join(ROOT, "configs/ljspeech_tacotron2.json"))
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, **dict(dict(model="ParallelTTS", r=1, max_decoder_steps=PAR_FRAMES),
+                          **model)))
+
+
+def asset_parallel_config():
+    """The trained asset's config (bench.py builds it so): the smoke config
+    with model ParallelTTS, max_decoder_steps 512, r 1."""
+    from your_voice_tts_torch.config import load_config
+
+    return parallel_config(load_config(os.path.join(ROOT, "configs/smoke_synthetic.json")),
+                           max_decoder_steps=512)
+
+
+def pre_round(model, text, lengths):
+    """(exp(log-duration) - 1) of each symbol, the value inference rounds."""
+    import torch
+
+    from your_voice_tts_torch.models.common import sequence_mask
+
+    t = torch.as_tensor(text, dtype=torch.long, device=model.device)
+    n = torch.as_tensor(lengths, dtype=torch.long, device=model.device)
+    with torch.no_grad():
+        enc = model._encode(t, n, None, None, None)
+        return (torch.exp(model.duration(enc, sequence_mask(n, t.shape[1]))) - 1.0).cpu()
+
+
+def hold_parallel_inference(tag: str, card, cpu, texts, cfg) -> dict:
+    """ParallelTTS.inference of `texts` on the card against the same
+    weights on the CPU (float32, TF32 off): durations and mel_lengths
+    equal, or a differing duration within PAR_TIE of its .5 tie (its
+    distance printed; rows with one are left out of the mel hold); the
+    postnet mels of the other rows within A8_TOL rel L2."""
+    import torch
+
+    from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
+
+    text, lengths = _pad_texts([text_to_seq(t, cfg) for t in texts])
+    got, ref = card.inference(text, lengths), cpu.inference(text, lengths)
+    d_card, d_cpu = got["durations"].cpu(), ref["durations"]
+    diff = (d_card != d_cpu).nonzero().tolist()
+    ties = []
+    if diff:
+        pre = pre_round(cpu, text, lengths)
+        ties = [abs(float(pre[b, t]) % 1.0 - 0.5) for b, t in diff]
+    same = [b for b in range(len(texts)) if not any(r == b for r, _ in diff)]
+    a, b = got["postnet_outputs"].cpu()[same], ref["postnet_outputs"][same]
+    rel = float((a - b).norm() / b.norm())
+    frames = ref["mel_lengths"].tolist()
+    print(f"[parallel] {tag}: {len(texts)} rows, {sum(frames)} frames ({frames}); card against "
+          f"CPU: durations differ at {len(diff)} symbols (distance from the .5 tie "
+          f"{[f'{x:.2e}' for x in ties]}, tol {PAR_TIE}), mel_lengths equal "
+          f"{bool(torch.equal(got['mel_lengths'].cpu(), ref['mel_lengths']))}; postnet mels of "
+          f"{len(same)} rows rel L2 {rel:.3e} (tol {A8_TOL}), max abs "
+          f"{float((a - b).abs().max()):.3e}")
+    check(all(x < PAR_TIE for x in ties), f"{tag}: a duration differs away from a tie")
+    check(bool(torch.equal(got["mel_lengths"].cpu(), ref["mel_lengths"])) or bool(diff),
+          f"{tag}: mel_lengths differ")
+    check(rel <= A8_TOL and bool(torch.isfinite(got["postnet_outputs"]).all()),
+          f"{tag}: card and CPU mels disagree")
+    return dict(rows=len(texts), frames=frames, duration_diffs=len(diff), tie_distances=ties,
+                mel_rel_l2=rel)
+
+
+def parallel_pair(cfg, seed: int = 0):
+    """(card model, CPU model) with the same seeded random weights, the
+    duration head's bias at log(PAR_DUR)."""
+    import torch
+
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.text import symbols
+
+    cpu = setup_model(len(symbols), cfg, device="cpu", seed=seed)
+    with torch.no_grad():
+        cpu.duration.proj.bias.fill_(math.log(PAR_DUR))
+    card = setup_model(len(symbols), cfg, device="cuda", seed=seed)
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def parallel_serving(report) -> dict:
+    """(1) Synthesizer.tts_many at full width: the batch of 8 sentences and
+    5 batch-1 requests through Griffin-Lim, the counters set to 0 just
+    before and read just after, no plain version called: kernel 2 only;
+    the mels card against CPU; (2) the trained asset at its own config,
+    card against CPU, then one request at a 2,048-frame cap that passes
+    1,024 frames: kernel 4."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+
+    cfg = parallel_config()
+    card, cpu = parallel_pair(cfg)
+    synth = Synthesizer(cfg, device="cuda")
+    synth.model.load_state_dict(card.state_dict())
+    synth.tts_many(SENTENCES[:1])                  # one-time set-up, not measured
+    torch.cuda.synchronize()
+    counters = serve_counters()
+    for c in counters:
+        c.launches = 0
+    with plain_calls() as plain:
+        batch, t_batch, lat, ones = serve_requests(synth)
+        torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+    text, lengths = _pad_texts([text_to_seq(t, cfg) for t in SENTENCES])
+    frames = int(card.inference(text, lengths)["mel_lengths"].sum())
+    sr = synth.ap.sample_rate
+    audio_s = sum(len(w) for w in batch) / sr
+    p50 = statistics.median(lat)
+    print(f"[parallel] serving at full width: batch of 8 {t_batch * 1e3:.1f} ms, "
+          f"{frames / t_batch:.0f} mel frames/s ({frames} frames), {audio_s:.2f} s of audio, "
+          f"real-time factor {audio_s / t_batch:.1f}x realtime; batch-1 p50 {p50 * 1e3:.1f} ms "
+          f"(all: {', '.join(f'{x * 1e3:.1f}' for x in lat)} ms); launches {launches}; plain "
+          f"calls {sum(plain.values())}")
+    check(all(w.ndim == 1 and len(w) > 0 and bool(np.isfinite(w).all()) for w in batch + ones),
+          "parallel serving waveforms")
+    check(launches["griffin_lim_wave_cuda"] > 0 and not any(
+        n for k, n in launches.items() if k != "griffin_lim_wave_cuda"),
+          f"parallel serving: kernel 2 alone should launch: {launches}")
+    check(not any(plain.values()), f"parallel serving: a plain version ran: {plain}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            synth.tts_many(SENTENCES)
+            torch.cuda.synchronize()
+            pwall = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+        busy, _, n_k = device_busy(os.path.join(tmp, "trace.json"))
+    rows = device_rows(prof)
+    print(f"[parallel] profiled batch of 8 (its second call): wall {pwall:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle share {1 - busy / pwall:.3f}, {n_k} kernels); longest: "
+          + "; ".join(f"{dev(e):.2f} ms x{e.count} {e.key[:60]}" for e in rows[:6]))
+    out = dict(profile=dict(wall_ms=pwall, busy_ms=busy, kernels=n_k,
+                            top={e.key: [dev(e), e.count] for e in rows[:12]}))
+    out["serve"] = dict(batch_ms=t_batch * 1e3, mel_frames=frames,
+                        mel_frames_per_s=frames / t_batch, rtf_x_realtime=audio_s / t_batch,
+                        p50_batch1_ms=p50 * 1e3, batch1_ms=[x * 1e3 for x in lat],
+                        launches=launches)
+    out["hold"] = hold_parallel_inference("full width, random weights", card, cpu, SENTENCES,
+                                          cfg)
+    del synth, card, cpu
+
+    acfg = asset_parallel_config()
+    asset = os.path.join(ROOT, "assets/bench_trained_parallel.npz")
+    card = Synthesizer(acfg, asset, device="cuda").model
+    cpu = Synthesizer(acfg, asset, device="cpu").model
+    out["asset"] = hold_parallel_inference("trained asset", card, cpu, SENTENCES, acfg)
+    long_cfg = parallel_config(acfg, max_decoder_steps=2048)
+    synth = Synthesizer(long_cfg, asset, device="cuda")
+    long_text = " ".join(s.replace(".", ",") for s in SENTENCES)
+    synth.tts_many(["Hi."])
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    with plain_calls() as plain:
+        wav = synth.tts_many([long_text])[0]
+        torch.cuda.synchronize()
+    long_launches = {c.__name__: c.launches for c in counters}
+    t, n = _pad_texts([text_to_seq(long_text, long_cfg)])
+    n_frames = int(synth.model.inference(t, n)["mel_lengths"][0])
+    print(f"[parallel] trained asset, one request of {len(long_text)} characters at a 2,048-frame "
+          f"cap: {n_frames} frames, {len(wav)} samples; launches {long_launches}; plain calls "
+          f"{sum(plain.values())}")
+    check(n_frames > 1024 and long_launches["gl_iteration_cuda"] > 0 and not any(plain.values())
+          and bool(np.isfinite(wav).all()), "parallel: a row past 1,024 frames on kernel 4")
+    out["long"] = dict(frames=n_frames, launches=long_launches)
+    for k, n in long_launches.items():
+        launches[k] += n
+    out["launches"] = launches
+    return out
+
+
+def parallel_durations(report) -> dict:
+    """(3) bin/extract_durations with the trained Tacotron2 teacher
+    (assets/bench_trained_smoke.npz) over an 8-clip synthetic corpus at
+    its 8 kHz, on the card (kernel 5 counted, no plain version of it
+    called) and on the CPU: the same rows. Then the teacher-forced pass of
+    a full-width Tacotron2 with random weights on 4 rows of config #3's
+    batch (200 decoder steps), card against CPU: the alignments within
+    A8_TOL rel L2 (random weights give near-flat rows whose argmax is a
+    tie, so durations are held on the trained teacher only)."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.bin import extract_durations
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.ops import taco2_train
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_fwd_cuda
+    from your_voice_tts_torch.text import symbols
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = make_synthetic_corpus(os.path.join(tmp, "corpus"), n_items=8, sr=8000)
+        args = ["--config", os.path.join(ROOT, "configs/smoke_synthetic.json"), "--checkpoint",
+                os.path.join(ROOT, "assets/bench_trained_smoke.npz"), "--data_path", corpus,
+                "--batch_size", "8"]
+        torch.cuda.synchronize()
+        taco2_train_fwd_cuda.launches = 0
+        plain_fwd = taco2_train.taco2_train_fwd_plain
+        seen = []
+        taco2_train.taco2_train_fwd_plain = lambda *a, **k: (seen.append(1), plain_fwd(*a, **k))[1]
+        try:
+            t0 = time.perf_counter()
+            card = extract_durations.main(args + ["--output", os.path.join(tmp, "card.npz"),
+                                                  "--device", "cuda"])
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            n_card = taco2_train_fwd_cuda.launches
+            card_plain = len(seen)
+            t0 = time.perf_counter()
+            cpu = extract_durations.main(args + ["--output", os.path.join(tmp, "cpu.npz"),
+                                                 "--device", "cpu"])
+            cpu_s = time.perf_counter() - t0
+        finally:
+            taco2_train.taco2_train_fwd_plain = plain_fwd
+    same = sorted(card) == sorted(cpu) and all(np.array_equal(card[k], cpu[k]) for k in card)
+    print(f"[parallel] extract_durations, trained teacher, 8 clips: card {card_s:.2f} s "
+          f"(kernel 5 launches {n_card}, plain calls {card_plain}), CPU {cpu_s:.1f} s; "
+          f"{len(card)} rows, {sum(int(v.sum()) for v in card.values())} frames, equal "
+          f"{same}")
+    check(n_card > 0 and card_plain == 0, "extract_durations: kernel 5 did not carry the pass")
+    check(same, "extract_durations: card and CPU durations differ")
+    out["trained"] = dict(card_s=card_s, cpu_s=cpu_s, launches=n_card, rows=len(card))
+
+    cfg = train_config()
+    cpu_m = setup_model(len(symbols), cfg, device="cpu", seed=5)
+    card_m = setup_model(len(symbols), cfg, device="cuda", seed=5)
+    card_m.load_state_dict(cpu_m.state_dict())
+    b = {k: v[:4, :200] if k == "mel" else v[:4] for k, v in bench_batch(6).items()}
+    b["mel_lengths"][:] = 200
+    aligns = {}
+    for dev, m in (("cpu", cpu_m), ("cuda", card_m)):
+        t = {k: torch.as_tensor(b[k]).to(dev) for k in ("text", "text_lengths", "mel",
+                                                          "mel_lengths")}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            taco2_train_fwd_cuda.launches = 0
+        with torch.no_grad():
+            aligns[dev] = m(t["text"].long(), t["text_lengths"], t["mel"], t["mel_lengths"],
+                            r=2)["alignments"].float().cpu()
+    n_wide = taco2_train_fwd_cuda.launches
+    rel = float((aligns["cuda"] - aligns["cpu"]).norm() / aligns["cpu"].norm())
+    err = float((aligns["cuda"] - aligns["cpu"]).abs().max())
+    print(f"[parallel] teacher-forced pass at full width (random weights, B=4, 128 symbols, "
+          f"200 frames, r 2): alignments card against CPU rel L2 {rel:.3e} (tol {A8_TOL}), "
+          f"max abs {err:.3e}; kernel 5 launches {n_wide}")
+    check(rel <= A8_TOL and n_wide > 0, "full-width teacher pass: card and CPU disagree")
+    out["full_width"] = dict(align_rel_l2=rel, align_max_abs=err, launches=n_wide)
+    out["launches"] = {"taco2_train_fwd_cuda": n_card + n_wide}
+    return out
+
+
+def kink_inputs(model, b: dict):
+    """The values at the kinks of one training-mode pass's loss, flattened
+    (float64, CPU): the input of every ReLU (the ConvLN blocks' LayerNorm
+    outputs, the encoder blocks' BatchNorm outputs) and the L1 losses'
+    residuals. A float32 pass that puts one of them on the other side of
+    zero from the exact pass changes the gradient by a step, not by a
+    rounding: one element in 10^5-10^6 moves the rel L2 by ~1e-3."""
+    import torch
+
+    from your_voice_tts_torch.nn.core import LayerNorm
+
+    acts = []
+    hooks = [m.register_forward_hook(lambda mod, i, o: acts.append(o.detach().double().cpu()
+                                                                   .flatten()))
+             for n, m in model.named_modules()
+             if isinstance(m, LayerNorm) or (n.startswith("encoder.blocks") and n.endswith(".bn"))]
+    model.train()
+    try:
+        with torch.no_grad():
+            out = model(b["text"], b["text_lengths"], b["durations"], max_frames=b["mel"].shape[1])
+    finally:
+        for h in hooks:
+            h.remove()
+    acts += [(out[k] - b["mel"]).double().cpu().flatten()
+             for k in ("decoder_outputs", "postnet_outputs")]
+    return torch.cat(acts)
+
+
+def parallel_training(report, corpus: str) -> dict:
+    """(4) bin/train_parallel at full width on the 40-clip 22,050 Hz
+    corpus, batch 32, 3 steps: finite losses and a checkpoint; one step
+    (`step_grads`, dropout off) on PAR_ROWS rows of a config #3 batch with
+    uniform durations, card against CPU: in float64 the gradients within
+    A8_TOL rel L2; in float32 the loss parts within A8_TOL relative and the
+    gradients against the CPU's float64 step within max(A8_TOL, 2 x the CPU
+    float32 step's distance), unless the card's float32 pass puts a ReLU
+    input or an L1 residual across its kink (`kink_inputs`; their count
+    printed): the gradient is discontinuous there, and one such element
+    moves the rel L2 by ~1e-3 on either device;
+    the timed step at config #3's batch (B = 32, 128 symbols, 400 frames:
+    step_grads + the optimizer; CUDA events, median of 3) and a profiled
+    step's device busy share."""
+    import copy
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from your_voice_tts_torch.bin import train_parallel
+    from your_voice_tts_torch.bin.train_parallel import step_grads
+    from your_voice_tts_torch.models.parallel_tts import ParallelTTSLoss, uniform_durations
+    from your_voice_tts_torch.train.optim import ClipAdam
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        parts = train_parallel.main([
+            "--config_path", os.path.join(ROOT, "configs/ljspeech_tacotron2.json"),
+            "--data_path", corpus, "--batch_size", "32", "--max_steps", "3",
+            "--output_path", tmp, "--device", "cuda"])
+        secs = time.perf_counter() - t0
+        saved = os.listdir(tmp)
+    print(f"[parallel] bin/train_parallel at full width, batch 32, 3 steps: {secs:.1f} s "
+          f"(data set-up included); last losses { {k: round(v, 4) for k, v in parts.items()} }; "
+          f"wrote {saved}")
+    check(all(math.isfinite(v) for v in parts.values()) and saved == ["checkpoint_3.npz"],
+          "train_parallel: losses or checkpoint")
+    out["cli"] = dict(seconds=secs, parts=parts)
+
+    cfg = parallel_config()
+    card, cpu = parallel_pair(cfg, seed=2)
+    bench = bench_batch(7)
+    bench["durations"] = uniform_durations(bench["text_lengths"], bench["mel_lengths"],
+                                           bench["text"].shape[1]).numpy()
+
+    def tensors(rows, dev):
+        b = {k: torch.as_tensor(bench[k][:rows]).to(dev) for k in
+             ("text", "text_lengths", "mel", "mel_lengths", "durations")}
+        b["text"] = b["text"].long()
+        return b
+
+    crit = ParallelTTSLoss()
+    batches = {d: tensors(PAR_ROWS, d) for d in ("cpu", "cuda")}
+    batches.update({f"{d}64": dict(b, mel=b["mel"].double()) for d, b in batches.items()})
+    models = {"cpu": cpu, "cuda": card, "cpu64": copy.deepcopy(cpu).double(),
+              "cuda64": copy.deepcopy(card).double()}
+    steps = {k: step_grads(m, crit, batches[k]) for k, m in models.items()}
+    cat = lambda gs: torch.cat([g.detach().double().cpu().flatten() for g in gs])  # noqa: E731
+    dist = lambda a, b: float((cat(steps[a][1]) - cat(steps[b][1])).norm()  # noqa: E731
+                              / cat(steps[b][1]).norm())
+    f64, glob, card64, cpu32 = (dist("cuda64", "cpu64"), dist("cuda", "cpu"),
+                                dist("cuda", "cpu64"), dist("cpu", "cpu64"))
+    flips = int(((kink_inputs(card, batches["cuda"]) > 0)
+                 != (kink_inputs(models["cpu64"], batches["cpu64"]) > 0)).sum())
+    gate = max(A8_TOL, 2 * cpu32)
+    rel = {k: abs(float(steps["cuda"][0][k]) - float(v)) / abs(float(v))
+           for k, v in steps["cpu"][0].items()}
+    print(f"[parallel] one step at full width on {PAR_ROWS} rows (128 symbols, 400 frames, "
+          f"dropout off), card against CPU: float64 gradients rel L2 {f64:.3e} (tol {A8_TOL}); "
+          f"float32 loss parts rel " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (tol {A8_TOL}), gradients rel L2 {glob:.3e}, against the CPU's float64 step: "
+          f"card {card64:.3e}, CPU {cpu32:.3e} (tol max({A8_TOL}, 2 x the CPU's) = {gate:.3e} "
+          f"where the card's float32 pass crosses no kink); ReLU inputs and L1 residuals on "
+          f"the other side of their kink from the CPU's float64 pass: {flips}")
+    check(f64 <= A8_TOL and max(rel.values()) <= A8_TOL and (flips > 0 or card64 <= gate),
+          "parallel step: card and CPU disagree")
+    out["card_vs_cpu"] = dict(parts_rel=rel, f64_grad_rel_l2=f64, grad_rel_l2=glob,
+                              card_vs_f64=card64, cpu_vs_f64=cpu32, kink_flips=flips)
+    del cpu, models, steps
+
+    params = [p for p in card.parameters() if p.requires_grad]
+    adam = ClipAdam(params, 1e-3, 1.0, if_finite=True)
+    g = torch.Generator(device="cuda").manual_seed(42)
+    b = tensors(TRAIN_B, "cuda")
+
+    def step():
+        parts, grads = step_grads(card, crit, b, g)
+        adam.step(grads)
+        return float(parts["loss"])
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = []
+    for _ in range(3):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        loss = step()                              # ends in a host read of the loss
+        e.record()
+        e.synchronize()
+        ev.append(s.elapsed_time(e))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            pwall = (time.perf_counter() - t0) * 1e3
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        busy, _, n_k = device_busy(trace)
+    ms = statistics.median(ev)
+    print(f"[parallel] timed step (B={TRAIN_B}, 128 symbols, 400 frames, float32, dropout on, "
+          f"ClipAdam if_finite): {ms:.1f} ms (CUDA events, median of 3; all "
+          f"{', '.join(f'{x:.1f}' for x in ev)}), {TRAIN_B * 400 / ms * 1e3:.0f} mel frames/s; "
+          f"peak memory allocated {peak:.3f} GiB; profiled step {pwall:.1f} ms, device busy "
+          f"{busy:.1f} ms (busy share {busy / pwall:.3f}, {n_k} kernels); loss {loss:.4f}; "
+          f"non-finite steps {int(adam.total_notfinite)}")
+    check(math.isfinite(loss) and int(adam.count) == 5, "parallel timed steps")
+    out["timed"] = dict(step_ms=ms, step_ms_all=ev, peak_gib=peak, profiled_wall_ms=pwall,
+                        busy_ms=busy, busy_share=busy / pwall, kernels=n_k)
+    return out
+
+
+def parallel_export(report) -> dict:
+    """(5) The serving export of a full-width ParallelTTS (the serving
+    weights) at (8, EXPORT_T) on the card, loaded without the model code,
+    held against its unexported program bit for bit on the 8 sentences:
+    kernel 2 through yvt::griffin_lim, no plain version; then the trained
+    asset's artifact at the smoke shape (2, 32), kernel 3."""
+    from your_voice_tts_torch.audio import AudioProcessor
+    from your_voice_tts_torch.infer.export import (ExportedSynthesizer, export_serving,
+                                                   make_serving_fn)
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+
+    out = {}
+    launches = {c.__name__: 0 for c in serve_counters()}
+    cfg = parallel_config()
+    card, _ = parallel_pair(cfg)
+    acfg = asset_parallel_config()
+    asset = Synthesizer(acfg, os.path.join(ROOT, "assets/bench_trained_parallel.npz"),
+                        device="cuda").model
+    cases = (("full width", card, cfg, 8, EXPORT_T, SENTENCES, "griffin_lim_wave_cuda"),
+             ("trained asset", asset, acfg, 2, 32, ["Hi there.", "Go home now."],
+              "griffin_lim_full_cuda"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, model, c, B, T, texts, kernel in cases:
+            ap = AudioProcessor(c.audio, "cuda")
+            d = os.path.join(tmp, tag.replace(" ", "_"))
+            t0 = time.perf_counter()
+            export_serving(model, c, ap, d, batch_sizes=(B,), text_buckets=(T,))
+            export_s = time.perf_counter() - t0
+            exp = ExportedSynthesizer(d)
+            program = make_serving_fn(model, c, ap)
+            text, lens = text_batch(exp, texts, T)
+            held = hold_artifact(f"parallel {tag}", exp, program, text, lens,
+                                 kernels={kernel: True})
+            check(held["wav_err"] == 0.0, f"parallel {tag}: artifact not bit for bit")
+            for k, n in held["launches"].items():
+                launches[k] += n
+            print(f"[parallel] {tag} export at ({B}, {T}): {export_s:.1f} s")
+            out[tag] = dict(export_s=export_s, **held)
+    out["launches"] = launches
+    return out
+
+
+def phase_parallel(report, corpus: str) -> dict:
+    """7k. parallel: ParallelTTS (configs/ljspeech_tacotron2.json with model
+    ParallelTTS, r = 1, a 500-frame cap: 80 mels, 512 wide, six decoder
+    blocks, duration predictor 256; seeded random weights, the duration
+    head's bias at log 3): serving (kernel 2; the trained asset, card
+    against CPU; a row past 1,024 frames, kernel 4), teacher durations
+    (kernel 5), training (card against CPU, the timed step) and the export
+    (kernels 2 and 3), each step's counters set to 0 just before and read
+    just after. Returns the launches of kernels 2-5."""
+    out = {"serving": parallel_serving(report), "durations": parallel_durations(report),
+           "training": parallel_training(report, corpus), "export": parallel_export(report)}
+    launches: dict = {}
+    for part in ("serving", "durations", "export"):
+        for k, n in out[part].pop("launches").items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"[parallel] launches of this phase: {launches}")
+    out["launches"] = launches
+    report["parallel"] = out
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5325,6 +5830,9 @@ def main() -> int:
             for name, fn in (("taco1-variants", phase_taco1_variants),
                              ("vocoder-train", phase_vocoder_train),
                              ("profiler", phase_profiler))}
+        # phase 7k: ParallelTTS served, its durations extracted, trained and
+        # exported: kernels 2-5, added to the kernel line
+        a8_launches.append(timed("parallel", phase_parallel, report, corpus))
     for seen in a8_launches:
         for k, n in seen.items():
             launches[k] = launches.get(k, 0) + n

@@ -2066,3 +2066,112 @@ def test_capture_trace_holds_the_kernel_launches(cuda, tmp_path):
         kernels = [e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
     for own in ("attn_fwd_kernel", "attn_bwd_kernel", "cell_bwd_kernel"):
         assert any(own in k for k in kernels), (own, sorted(set(kernels))[:30])
+
+
+def parallel_asset_config():
+    """The trained ParallelTTS asset's config: the smoke config with model
+    ParallelTTS, max_decoder_steps 512, r 1."""
+    import dataclasses
+
+    from your_voice_tts_torch.config import load_config
+
+    cfg = load_config("configs/smoke_synthetic.json")
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, model="ParallelTTS", max_decoder_steps=512, r=1))
+
+
+def test_parallel_tts_serves_on_the_card(cuda):
+    """The trained ParallelTTS asset on the card against the CPU (float32,
+    TF32 off): durations, lengths and alignments equal, mels within 1e-5;
+    `tts_many` on the card launches the Griffin-Lim kernel its frames
+    route to (the smoke hop: the whole loop, kernel 3) and no plain
+    version."""
+    from your_voice_tts_torch.infer.synthesis import _pad_texts, text_to_seq
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.ops import griffin_lim
+    from your_voice_tts_torch.ops.griffin_lim import gl_iteration_cuda, griffin_lim_full_cuda
+
+    cfg, ckpt = parallel_asset_config(), "assets/bench_trained_parallel.npz"
+    card, cpu = Synthesizer(cfg, ckpt, device=cuda), Synthesizer(cfg, ckpt, device="cpu")
+    texts = ["Hi there.", "The quick brown fox jumps over the lazy dog."]
+    text, lengths = _pad_texts([text_to_seq(t, cfg) for t in texts])
+    got, ref = card.model.inference(text, lengths), cpu.model.inference(text, lengths)
+    for k in ("durations", "mel_lengths", "alignments"):
+        assert torch.equal(got[k].cpu(), ref[k]), k
+    assert float((got["postnet_outputs"].cpu() - ref["postnet_outputs"]).abs().max()) <= 1e-5
+    counters = (griffin_lim_full_cuda, griffin_lim_wave_cuda, gl_iteration_cuda)
+    for c in counters:
+        c.launches = 0
+    plain = griffin_lim.griffin_lim_full_plain
+    griffin_lim.griffin_lim_full_plain = None          # a call would raise
+    try:
+        wavs = card.tts_many(texts)
+    finally:
+        griffin_lim.griffin_lim_full_plain = plain
+    assert griffin_lim_full_cuda.launches > 0
+    assert not griffin_lim_wave_cuda.launches and not gl_iteration_cuda.launches
+    assert all(np.isfinite(w).all() and len(w) > 0 for w in wavs)
+
+
+def test_extract_durations_runs_kernel_5_on_the_card(cuda, tmp_path):
+    """bin/extract_durations with the trained Tacotron2 teacher over a
+    small synthetic corpus: on the card the teacher-forced pass launches
+    the training forward kernel (kernel 5), and the rows equal the CPU's."""
+    from your_voice_tts_torch.bin import extract_durations
+    from your_voice_tts_torch.data.synthetic import make_synthetic_corpus
+    from your_voice_tts_torch.ops.taco2_train import taco2_train_fwd_cuda
+
+    corpus = make_synthetic_corpus(str(tmp_path / "corpus"), n_items=6, sr=8000)
+    args = ["--config", "configs/smoke_synthetic.json", "--checkpoint",
+            "assets/bench_trained_smoke.npz", "--data_path", corpus, "--batch_size", "4"]
+    taco2_train_fwd_cuda.launches = 0
+    card = extract_durations.main(args + ["--output", str(tmp_path / "card.npz"),
+                                          "--device", "cuda"])
+    assert taco2_train_fwd_cuda.launches > 0
+    cpu = extract_durations.main(args + ["--output", str(tmp_path / "cpu.npz"),
+                                         "--device", "cpu"])
+    assert sorted(card) == sorted(cpu)
+    for k, v in cpu.items():
+        np.testing.assert_array_equal(card[k], v)
+
+
+def test_parallel_train_step_on_the_card_matches_the_cpu(cuda):
+    """One ParallelTTS training step (`bin/train_parallel.step_grads`,
+    dropout off) of a GST + energy model with the conv encoder, card
+    against CPU from the same weights and batch, in float64: the loss parts
+    and the gradients within 1e-6 (float32's ReLU inputs and L1 residuals
+    can fall on either side of their kink, chip_smoke.py `kink_inputs`)."""
+    import copy
+    import dataclasses
+
+    from your_voice_tts_torch.bin.train_parallel import step_grads
+    from your_voice_tts_torch.config import GSTConfig
+    from your_voice_tts_torch.models import setup_model
+    from your_voice_tts_torch.models.parallel_tts import ParallelTTSLoss, uniform_durations
+    from your_voice_tts_torch.text import symbols
+
+    cfg = parallel_asset_config()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, parallel_encoder="conv",
+                                       parallel_energy_predictor=True),
+        speakers=dataclasses.replace(cfg.speakers, use_gst=True, gst=GSTConfig(
+            gst_embedding_dim=32, gst_num_heads=2, gst_style_tokens=4)))
+    cpu = setup_model(len(symbols), cfg, device="cpu").double()
+    card = copy.deepcopy(cpu).to(cuda)
+    g = torch.Generator().manual_seed(0)
+    tl, ml = torch.tensor([12, 9, 5]), torch.tensor([40, 27, 13])
+    b = {"text": torch.randint(1, len(symbols), (3, 12), generator=g) * (
+             torch.arange(12)[None] < tl[:, None]),
+         "text_lengths": tl, "mel_lengths": ml,
+         "mel": torch.randn(3, 40, 20, generator=g, dtype=torch.float64),
+         "durations": uniform_durations(tl, ml, 12)}
+    got = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        parts, grads = step_grads(model, ParallelTTSLoss(), {k: v.to(dev) for k, v in b.items()})
+        got[name] = ({k: float(v.detach()) for k, v in parts.items()},
+                     torch.cat([x.flatten().cpu() for x in grads]))
+    (pc, gc), (pk, gk) = got["cpu"], got["card"]
+    assert "loss_energy" in pc
+    for k, v in pc.items():
+        assert abs(pk[k] - v) <= 1e-6 * abs(v), k
+    assert float((gk - gc).norm() / gc.norm()) <= 1e-6

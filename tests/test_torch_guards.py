@@ -583,3 +583,39 @@ def test_vocoder_training_refuses_to_fall_back_to_cpu(monkeypatch, tmp_path):
                             str(tmp_path / "runs")])
     assert not (tmp_path / "runs").exists()
     assert GANTrainer(cfg, [], device="cpu").generator.conv_in.weight.device.type == "cpu"
+
+
+def test_parallel_tts_modules_import_with_jax_blocked():
+    """The ParallelTTS model and its two CLIs, in one process."""
+    test_tacotron_slice_modules_import_with_jax_blocked(", ".join(
+        f"your_voice_tts_torch.{m}" for m in ("models.parallel_tts", "bin.extract_durations",
+                                              "bin.train_parallel")))
+
+
+def test_parallel_tts_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    """setup_model("ParallelTTS"), a ParallelTTS Synthesizer,
+    bin/extract_durations and bin/train_parallel raise without CUDA and a
+    device, the CLIs before they write anything."""
+    from your_voice_tts_torch.bin import extract_durations, train_parallel
+    from your_voice_tts_torch.config import load_config
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.models import setup_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    smoke = os.path.join(ROOT, "configs/smoke_synthetic.json")
+    cfg = load_config(smoke)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, model="ParallelTTS"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        setup_model(30, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Synthesizer(cfg)
+    out = tmp_path / "durations.npz"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        extract_durations.main(["--config", smoke, "--checkpoint",
+                                os.path.join(ROOT, "assets/bench_trained_smoke.npz"),
+                                "--data_path", str(tmp_path), "--output", str(out)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_parallel.main(["--config_path", smoke, "--data_path", str(tmp_path),
+                             "--output_path", str(tmp_path / "runs")])
+    assert not out.exists() and not (tmp_path / "runs").exists()
+    assert setup_model(30, cfg, device="cpu").device.type == "cpu"

@@ -3,8 +3,9 @@ synthesis program as torch.export artifacts.
 
 One `ExportedProgram` per (batch, text bucket) shape, saved with
 `torch.export.save` as `serve_b{B}_t{T}.pt2`, holds the whole serving
-computation: embedding -> encoder -> decode -> postnet -> tail mask ->
-Griffin-Lim (or a MelGAN / PWGAN generator) -> de-emphasis, with the
+computation: embedding -> encoder -> decode (a ParallelTTS: durations ->
+length regulator -> conv decoder) -> postnet -> tail mask -> Griffin-Lim
+(or a MelGAN / PWGAN generator) -> de-emphasis, with the
 weights as the program's own parameters and buffers. The decode and
 Griffin-Lim kernels are ops of its graph (`ops/library.py`): an artifact
 exported on `cuda` launches the hand-written kernels and serves on `cuda`
@@ -126,14 +127,17 @@ def make_serving_fn(model, cfg, ap, *, max_decoder_steps=None, vocoder=None, spe
     n_mels]. The config's `inference_compute_dtype` applies; Tacotron(1)'s
     linear head inverts without the mel pseudo-inverse; neural vocoders
     take a mel model. A Tacotron(1) that decodes on the step loop (Graves,
-    the location attention's options) raises NotImplementedError."""
+    the location attention's options) raises NotImplementedError. A
+    ParallelTTS runs its float32 inference with its frame cap
+    (`max_frames`, or max_decoder_steps frames), durations and all on the
+    device, every shape static."""
     from ..audio import GriffinLimStage
 
     if speaker_mode not in (None, "id", "dvector"):
         raise ValueError(f"unknown speaker_mode {speaker_mode!r}")
-    if not getattr(model.decoder, "kernel_supported", lambda: True)():
-        from ..models.tacotron import STEP_LOOP_EXPORT
+    from ..models.tacotron import STEP_LOOP_EXPORT, Tacotron
 
+    if isinstance(model, Tacotron) and not model.decoder.kernel_supported():
         raise NotImplementedError(STEP_LOOP_EXPORT)
     is_linear = getattr(model, "output_type", "mel") == "linear"
     compute_dtype = (torch.bfloat16 if cfg.model.inference_compute_dtype == "bfloat16"
@@ -146,7 +150,7 @@ def make_serving_fn(model, cfg, ap, *, max_decoder_steps=None, vocoder=None, spe
         wave = GriffinLimStage(ap, "linear" if is_linear else "mel")
     return ServingProgram(
         model, model.serving_weights(compute_dtype, decode_dtype), wave,
-        max_steps=max_decoder_steps or cfg.model.max_decoder_steps,
+        max_steps=max_decoder_steps or getattr(model, "max_frames", cfg.model.max_decoder_steps),
         compute_dtype=compute_dtype, decode_dtype=decode_dtype, speaker_mode=speaker_mode,
         has_style=style_frames is not None,
         fill=ap._silence_fill("linear" if is_linear else "mel")).eval()

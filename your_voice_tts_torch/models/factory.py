@@ -1,6 +1,6 @@
-"""Model factory (the JAX package's models/factory.py): Tacotron2 and
-Tacotron(1), each conditioned on speakers and on Global Style Tokens where
-asked."""
+"""Model factory (the JAX package's models/factory.py): Tacotron2,
+Tacotron(1) and ParallelTTS, each conditioned on speakers and on Global
+Style Tokens where asked."""
 
 from __future__ import annotations
 
@@ -14,10 +14,19 @@ def setup_model(num_chars: int, cfg: Config, device=None, seed: int = 0,
     gradual-training schedule, so the projection and stopnet keep their
     shape across it. num_speakers > 0 conditions the model on speakers:
     d-vectors of width speaker_embedding_dim, or with 0 its own table.
-    cfg.speakers.use_gst adds Global Style Tokens (cfg.speakers.gst)."""
+    cfg.speakers.use_gst adds Global Style Tokens (cfg.speakers.gst). A
+    ParallelTTS takes the reference's arguments: num_speakers > 1 without
+    a speaker_embedding_dim gives it a speaker table, and it keeps r = 1."""
+    if cfg.model.model == "ParallelTTS":
+        from .parallel_tts import ParallelTTS
+
+        return ParallelTTS(num_chars, cfg.model, n_mels=cfg.audio.num_mels,
+                           num_speakers=num_speakers,
+                           speaker_embedding_dim=speaker_embedding_dim,
+                           use_gst=cfg.speakers.use_gst, gst_cfg=cfg.speakers.gst,
+                           device=device, seed=seed)
     if cfg.model.model not in ("Tacotron2", "Tacotron"):
-        raise NotImplementedError(
-            f"model {cfg.model.model!r} arrives with a later slice of the port")
+        raise ValueError(f"unknown model {cfg.model.model!r}")
     r_init = cfg.model.r
     if cfg.training.gradual_training:
         r_init = max(r_init, max(row[1] for row in cfg.training.gradual_training))

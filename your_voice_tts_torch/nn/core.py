@@ -3,7 +3,7 @@
 Activations are [B, ..., C]. Weights use PyTorch's own layouts (Linear
 [out, in], Conv1d [out, in, k]); train/checkpoint.params_from_jax converts the
 JAX package's layouts into them. Dense and Embedding are torch's own
-nn.Linear and nn.Embedding.
+nn.Linear and nn.Embedding, and LayerNorm is torch's nn.LayerNorm.
 """
 
 from __future__ import annotations
@@ -90,6 +90,18 @@ class ConvTranspose1d(nn.Module):
         y = F.conv_transpose1d(x.transpose(1, 2), w, b, stride=u, padding=u // 2 + u % 2,
                                output_padding=u % 2).transpose(1, 2)
         return y.to(torch.bfloat16) if cpu_bf16 else y
+
+
+class LayerNorm(nn.LayerNorm):
+    """Per-position LayerNorm over the channel (last) axis, the JAX
+    package's: (x - mean) * rsqrt(var + eps) * scale + bias with the biased
+    variance, eps 1e-5, no running statistics (train and eval are the same
+    math). torch's nn.LayerNorm computes exactly this; its ``weight`` and
+    ``bias`` are the JAX ``scale`` and ``bias`` leaves
+    (train/checkpoint.params_from_jax maps them)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__(dim, eps=eps)
 
 
 class BatchNorm1d(nn.Module):

@@ -8,8 +8,8 @@ plus a ``__meta__`` JSON blob (``r``, ``step``, ...).
 
 `read_checkpoint` rebuilds the nested dict/list trees from those key paths;
 `params_from_jax` turns the trees into the ``state_dict`` of the port's
-Tacotron2, Tacotron(1) or WaveRNN (whose checkpoints hold no model state),
-running the
+Tacotron2, Tacotron(1), ParallelTTS or WaveRNN (whose checkpoints hold no
+model state), running the
 layout map of the JAX package's utils/torch_import.py in reverse:
 
 - Dense ``w`` [in, out] -> ``weight`` [out, in];
@@ -22,7 +22,8 @@ layout map of the JAX package's utils/torch_import.py in reverse:
   Tacotron(1) decoder's); a CBHG's ``gru_fwd`` / ``gru_bwd`` pair -> its
   bidirectional nn.GRU ``gru`` (``..._l0`` and ``..._l0_reverse``);
 - BatchNorm ``scale``/``bias`` + state ``mean``/``var`` -> ``weight``/``bias``
-  + ``running_mean``/``running_var``;
+  + ``running_mean``/``running_var``; LayerNorm ``scale``/``bias`` ->
+  ``weight``/``bias`` (ParallelTTS's, no state);
 - modules whose port class names a ``jax_layout`` (`jax_layouts`), which
   the generic rules above would misread:
   - ``"conv_transpose"``, a ConvTranspose1d: ``w`` [k, in, out] with the
@@ -48,12 +49,14 @@ it; the port's optimizer state goes into a section of its own,
 ``port_optimizer::<name>::<parameter>``, which the JAX package skips.
 
 `save_trainer_checkpoint` / `restore_trainer_checkpoint` write and read
-the vocoder trainers' checkpoints in the JAX trainers' own layout, so that
-each package's trainer restores the other's strictly: the parameters of
-each model (under a subtree key, as a GAN keeps ``['g']`` and ``['d']``)
-and its `optim.ClipAdam` state as optax's chain(clip, adam) state,
-``opt_state::<subtree>[1][0].count`` / ``.mu<keypath>`` / ``.nu<keypath>``
-with the moments in the parameters' JAX layouts.
+the vocoder and ParallelTTS trainers' checkpoints in the JAX trainers' own
+layout, so that each package's trainer restores the other's strictly: the
+parameters of each model (under a subtree key, as a GAN keeps ``['g']``
+and ``['d']``), its model state, and its `optim.ClipAdam` state as optax's
+chain(clip, adam) state, ``opt_state::<subtree>[1][0].count`` /
+``.mu<keypath>`` / ``.nu<keypath>`` with the moments in the parameters'
+JAX layouts (under apply_if_finite ``.inner_state[1][0]...`` and the
+wrapper's counters).
 """
 
 from __future__ import annotations
@@ -274,7 +277,7 @@ def params_to_jax(model: torch.nn.Module) -> tuple[dict, dict]:
     float32} in the JAX package's layouts (the inverse of
     `params_from_jax`)."""
     from ..models.gst import StyleTokenLayer
-    from ..nn.core import BatchNorm1d, Conv1d
+    from ..nn.core import BatchNorm1d, Conv1d, LayerNorm
     from ..nn.rnn import GRU, LSTMCell
     from ..speaker_encoder.model import SpeakerEncoder
     from ..speaker_encoder.model import params_to_jax as encoder_params
@@ -306,6 +309,9 @@ def params_to_jax(model: torch.nn.Module) -> tuple[dict, dict]:
                 else path
             put("mean", npy(mod.running_mean), state, owner)
             put("var", npy(mod.running_var), state, owner)
+        elif isinstance(mod, LayerNorm):
+            put("scale", npy(mod.weight))
+            put("bias", npy(mod.bias))
         elif layouts.get(name) == "conv_transpose":
             put("w", npy(mod.weight).transpose(2, 0, 1)[::-1])
             if mod.bias is not None:
@@ -393,9 +399,6 @@ def save_best_model(current_loss: float, best_loss: float, out_path: str,
     return best_loss
 
 
-ADAM = "[1][0]"          # the Adam state's place in optax.chain(clip_by_global_norm, adam)'s
-
-
 @contextlib.contextmanager
 def _swapped(model: torch.nn.Module, tensors: list):
     """`model`'s trainable parameters read `tensors` (in named_parameters
@@ -412,10 +415,18 @@ def _swapped(model: torch.nn.Module, tensors: list):
             p.data = d
 
 
-def save_trainer_checkpoint(path: str, parts: dict, *, step: int, extra: dict) -> str:
-    """A vocoder trainer's checkpoint in the JAX trainers' layout: parts
-    {subtree key, or None for the whole tree: (model, its ClipAdam)};
-    epoch 0 and r 1 in the meta, as the JAX trainers write them."""
+_FINITE = {"notfinite_count": np.int32, "last_finite": np.bool_, "total_notfinite": np.int32}
+
+
+def save_trainer_checkpoint(path: str, parts: dict, *, step: int, extra: dict,
+                            epoch: int = 0) -> str:
+    """A trainer's checkpoint in the JAX trainers' layout: parts {subtree
+    key, or None for the whole tree: (model, its ClipAdam)}; r 1 in the
+    meta, as the JAX vocoder and ParallelTTS trainers write it. The Adam
+    state goes to the ClipAdam's `jax_path` (``[1][0]``, or
+    ``.inner_state[1][0]`` under apply_if_finite, whose counters
+    ``.notfinite_count`` / ``.last_finite`` / ``.total_notfinite`` go
+    beside it)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     blobs = {}
     for key, (model, adam) in parts.items():
@@ -423,13 +434,18 @@ def save_trainer_checkpoint(path: str, parts: dict, *, step: int, extra: dict) -
         params, state = params_to_jax(model)
         blobs.update({f"params::{pre}{k}": v for k, v in params.items()})
         blobs.update({f"model_state::{pre}{k}": v for k, v in state.items()})
-        blobs[f"opt_state::{pre}{ADAM}.count"] = np.asarray(adam.count, np.int32)
+        at = f"opt_state::{pre}{adam.jax_path}"
+        blobs[f"{at}.count"] = np.asarray(int(adam.count), np.int32)
+        if adam.if_finite:
+            for name, dt in _FINITE.items():
+                blobs[f"opt_state::{pre}.{name}"] = np.asarray(
+                    getattr(adam, name).item(), dt)
         for kind in ("mu", "nu"):
             with _swapped(model, getattr(adam, kind)):
                 moments, _ = params_to_jax(model)
-            blobs.update({f"opt_state::{pre}{ADAM}.{kind}{k}": v for k, v in moments.items()})
-    meta = {"step": int(step), "epoch": 0, "r": 1, "date": datetime.datetime.now().isoformat(),
-            **extra}
+            blobs.update({f"{at}.{kind}{k}": v for k, v in moments.items()})
+    meta = {"step": int(step), "epoch": int(epoch), "r": 1,
+            "date": datetime.datetime.now().isoformat(), **extra}
     blobs["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
     np.savez(path, **blobs)
     return path
@@ -437,36 +453,47 @@ def save_trainer_checkpoint(path: str, parts: dict, *, step: int, extra: dict) -
 
 @torch.no_grad()
 def restore_trainer_checkpoint(path: str, parts: dict) -> dict:
-    """Load a checkpoint `save_trainer_checkpoint` or a JAX vocoder trainer
-    wrote into parts {subtree key or None: (model, ClipAdam)}, strictly:
-    every parameter and both moments of each, and Adam's count. Returns
-    the meta."""
+    """Load a checkpoint `save_trainer_checkpoint` or a JAX vocoder or
+    ParallelTTS trainer wrote into parts {subtree key or None: (model,
+    ClipAdam)}, strictly: every parameter, the model state, both moments of
+    each trained parameter, Adam's count and, under apply_if_finite, its
+    counters. Returns the meta."""
     with np.load(path, allow_pickle=False) as z:
         blobs = {k: z[k] for k in z.files}
     meta = json.loads(bytes(blobs.pop("__meta__")).decode())
-    params, _, _ = read_checkpoint(path)
+    params, state, _ = read_checkpoint(path)
     for key, (model, adam) in parts.items():
         pre = "" if key is None else _keystr([key])
         layouts = jax_layouts(model)
         if key is not None and key not in params:
             raise KeyError(f"{path} holds no parameter subtree {pre}")
-        model.load_state_dict(params_from_jax(params if key is None else params[key], {},
+        model.load_state_dict(params_from_jax(params if key is None else params[key],
+                                              state if key is None else state.get(key, {}),
                                               layouts), strict=True)
-        count = f"opt_state::{pre}{ADAM}.count"
-        if count not in blobs:
-            raise KeyError(f"{path} holds no Adam state at {count}")
+        at = f"opt_state::{pre}{adam.jax_path}"
+        if f"{at}.count" not in blobs:
+            raise KeyError(f"{path} holds no Adam state at {at}.count")
         names = [n for n, p in model.named_parameters() if p.requires_grad]
+        frozen = {n for n, p in model.named_parameters() if not p.requires_grad}
         for kind in ("mu", "nu"):
-            prefix = f"opt_state::{pre}{ADAM}.{kind}"
+            prefix = f"{at}.{kind}"
             tree: dict = {}
             for k, v in blobs.items():
                 if k.startswith(prefix):
                     _insert(tree, parse_keypath(k[len(prefix):]), v)
-            sd = params_from_jax(tree, {}, layouts)
+            sd = {k: v for k, v in params_from_jax(tree, {}, layouts).items() if k not in frozen}
             if set(sd) != set(names):
                 raise KeyError(f"{path}: the Adam {kind} under {pre or 'the root'} does not "
                                f"match the parameters ({sorted(set(names) ^ set(sd))[:4]})")
             for m, n in zip(getattr(adam, kind), names):
                 m.copy_(sd[n])
-        adam.count = int(blobs[count])
+        if not adam.if_finite:
+            adam.count = int(blobs[f"{at}.count"])
+            continue
+        for name in ("count",) + tuple(_FINITE):
+            k = f"{at}.count" if name == "count" else f"opt_state::{pre}.{name}"
+            if k not in blobs:
+                raise KeyError(f"{path} holds no apply_if_finite state at {k}")
+            old = getattr(adam, name)
+            setattr(adam, name, torch.as_tensor(blobs[k], dtype=old.dtype, device=old.device))
     return meta

@@ -118,22 +118,47 @@ class ClipAdam:
     in float32, as optax computes them. `mu`, `nu` and `count` are the
     chain's Adam state (its `[1][0]` in a JAX checkpoint). The GE2E
     trainer (b1 0.9, b2 0.999) and the vocoder trainers (WaveRNN's the
-    same, the GAN sides' 0.5 / 0.9) take this one update."""
+    same, the GAN sides' 0.5 / 0.9) take this one update.
+
+    if_finite wraps it in optax's apply_if_finite(..., MAX_ERRORS), as the
+    ParallelTTS trainer's optimizer: a step whose gradients hold a NaN or
+    an inf leaves the parameters and the Adam state as they were (unless
+    it is the (MAX_ERRORS + 1)-th such step in a row) and counts itself in
+    `notfinite_count` (in a row) and `total_notfinite`; `last_finite` is
+    whether the last step's gradients were finite. The check and the
+    counters stay on the parameters' device, so a step reads nothing back
+    to the host: `count` and the counters are then 0-d int32 tensors
+    (`last_finite` bool), and the Adam state sits at `.inner_state[1][0]`
+    in a JAX checkpoint (`jax_path`)."""
+
+    MAX_ERRORS = 10_000        # apply_if_finite's max_consecutive_errors
 
     def __init__(self, params, lr: float, clip: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8):
+                 eps: float = 1e-8, if_finite: bool = False):
         self.params = list(params)
         self.lr, self.clip, self.b1, self.b2, self.eps = lr, clip, b1, b2, eps
         self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.if_finite = if_finite
+        self.jax_path = ".inner_state[1][0]" if if_finite else "[1][0]"
         self.count = 0
+        if if_finite:
+            dev = self.params[0].device
+            zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
+            self.count, self.notfinite_count, self.total_notfinite = zero(), zero(), zero()
+            self.last_finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def _clipped(self, grads) -> list:
+        g = [x.float() for x in grads]
+        norm = torch.sqrt(sum((x * x).sum() for x in g))
+        return [torch.where(norm < self.clip, x, x / norm * self.clip) for x in g]
 
     @torch.no_grad()
     def step(self, grads) -> None:
         """One update from `grads`, one per parameter."""
-        g = [x.float() for x in grads]
-        norm = torch.sqrt(sum((x * x).sum() for x in g))
-        g = [torch.where(norm < self.clip, x, x / norm * self.clip) for x in g]
+        if self.if_finite:
+            return self._step_if_finite(grads)
+        g = self._clipped(grads)
         n = self.count + 1
         b1, b2 = self.b1, self.b2
         bc1 = float(F32(1.0) - F32(b1) ** F32(n))
@@ -143,6 +168,26 @@ class ClipAdam:
             v.copy_((1 - b2) * x * x + b2 * v)
             p.add_(-self.lr * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps)))
         self.count = n
+
+    def _step_if_finite(self, grads) -> None:
+        finite = torch.stack([torch.isfinite(x).all() for x in grads]).all()
+        self.notfinite_count = torch.where(finite, 0, self.notfinite_count + 1).int()
+        self.total_notfinite = self.total_notfinite + (~finite).int()
+        self.last_finite = finite
+        apply = finite | (self.notfinite_count > self.MAX_ERRORS)
+        g = self._clipped(grads)
+        b1, b2 = self.b1, self.b2
+        n = (self.count + 1).float()
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=n.device)  # noqa: E731
+        bc1, bc2 = 1.0 - f32(b1) ** n, 1.0 - f32(b2) ** n
+        for p, x, m, v in zip(self.params, g, self.mu, self.nu):
+            m_new = (1 - b1) * x + b1 * m
+            v_new = (1 - b2) * x * x + b2 * v
+            u = -self.lr * ((m_new / bc1) / (torch.sqrt(v_new / bc2) + self.eps))
+            m.copy_(torch.where(apply, m_new, m))
+            v.copy_(torch.where(apply, v_new, v))
+            p.add_(torch.where(apply, u, 0.0))
+        self.count = self.count + apply.int()
 
 
 def build_optimizer(params, cfg) -> RAdamStack:
