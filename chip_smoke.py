@@ -173,6 +173,23 @@ Phases, each fatal on failure:
    against CPU (1e-4 rel L2), the timed step and its busy share; the
    export at (8, 160) and the asset's at (2, 32), each bit for bit against
    its unexported program (kernels 2 and 3).
+7l. data-parallel (parallel/mesh.py, bin/distribute.py): (1) `python -m
+   your_voice_tts_torch.bin.distribute` in its own process, one NCCL
+   rank at world size 1, 2 steps of the full-width Tacotron2 config on the
+   shared corpus, its checkpoint against a plain Trainer's 2 steps on the
+   same batches (bit for bit or DP_TOL), kernels 5 and 6 launched; (2) two
+   gloo ranks sharing the card (CUDA tensors), one full-width
+   mixed-precision step of config #3's shape with unequal lengths (16
+   rows a rank, rank 0's long) against one process's step on the 32 rows
+   (the parameters' move and the gradients DP_GRAD_TOL, gradient norm
+   DP_NORM_TOL), both ranks' parameters identical, each rank's kernel 5
+   and 6 launches, and two planted faults (averaged local losses, local
+   BatchNorm statistics) must miss DP_GRAD_TOL; (3) synthesis_batch on
+   a mesh of cuda:0 twice, 5 texts padded to 6: dropout off bit
+   for bit against the unsharded call, dropout on each shard against its
+   texts alone, kernel 1 once a shard, the wall beside the unsharded
+   call's. NCCL across two or more devices waits for a machine with more
+   than one card.
 7g. mel-oracle: AudioProcessor.melspectrogram on the card against
    oracle/audio_ref.py (float64 numpy) for the three shipped Tacotron2
    configs on a seeded speech-like signal, <= 1e-3 max abs.
@@ -270,9 +287,10 @@ Phases, each fatal on failure:
    Tacotron2 + Griffin-Lim at (8, 160) and (1, 160) (kernels 1, 2), the
    cloning artifact at E = 768 with the smoke speaker encoder's artifact,
    the smoke MelGAN and Griffin-Lim artifacts (kernel 3), Tacotron(1) at
-   r = 7 (kernels 8, 4); each held against its unexported program (lengths
-   exact, wav <= 1e-5) with its launches counted and no plain version
-   called; export, artifact and live times; bin/server.py --export_dir
+   r = 7 (kernels 8, 4) and with Graves on the step loop (its registered
+   op, then kernel 4; bit for bit); each held against its unexported
+   program (lengths exact, wav <= 1e-5) with its launches counted and no
+   plain version called; export, artifact and live times; bin/server.py --export_dir
    answering a burst of 8 and refusing stream=1.
 
 The decode's and the wave route's launches in the kernel line add up
@@ -290,7 +308,9 @@ phase's and the E = 512 holds, the training scans' the largest of phases
 5-6's and train-cond's. The training scans' launches also add phases
 7e-7f's steps; the decode's and Griffin-Lim's phase 7d's test sentences.
 Phase 7k's launches of kernels 2-5 (serving, the asset's long
-request, the durations, the exports) join the kernel line too. The
+request, the durations, the exports) join the kernel line too, and so do
+phase 7l's of kernels 5 and 6 (the NCCL rank's and both gloo ranks',
+counted in their own processes) and of kernels 1 and 2 (sharded serving). The
 WaveRNN kernel's count is the vocoder path's alone. Phases 7h-7j's
 launches (gl-iteration's in 7h's serving, the WaveRNN kernel's in 7i's
 served checkpoints, the training scans' in 7j's traced step) stay out of
@@ -2670,6 +2690,52 @@ def hold_artifact(tag: str, exp, program, text, lens, *cond, seed: int = 3,
     return dict(wav_err=err, mel_lengths=ml.tolist(), launches=launches)
 
 
+def export_step_loop(tmp: str, smi: str) -> dict:
+    """The export phase's (4b): Tacotron(1) at r = 7 with Graves (K = 4),
+    which decodes on the step loop, exported at (8, EXPORT_T): the graph
+    holds the registered op `yvt::taco1_step_decode` and no kernel 8 op;
+    the loaded artifact against its unexported program bit for bit (dropout
+    on, seed 3), kernel 4 launched, no decode kernel and no plain version;
+    its export seconds, and a program call beside the live step loop's
+    tts_many of the 8 sentences (CUDA events, median of 2)."""
+    import torch
+
+    from your_voice_tts_torch.infer.export import (ExportedSynthesizer, export_serving,
+                                                   make_serving_fn)
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+
+    gcfg = taco1_config()
+    gcfg = dataclasses.replace(gcfg, model=dataclasses.replace(
+        gcfg.model, **T1_VARIANTS["graves"]))
+    gsynth = Synthesizer(gcfg, device="cuda")
+    no_chance_stops(gsynth.model)
+    check(not gsynth.model.decoder.kernel_supported(), "the Graves model's step loop")
+    d4b = os.path.join(tmp, "taco1_graves")
+    t0 = time.perf_counter()
+    export_serving(gsynth.model, gsynth.cfg, gsynth.ap, d4b, batch_sizes=(8,),
+                   text_buckets=(EXPORT_T,))
+    g_export_s = time.perf_counter() - t0
+    graph = str(torch.export.load(os.path.join(d4b, f"serve_b8_t{EXPORT_T}.pt2")).graph)
+    check("yvt.taco1_step_decode" in graph and "yvt.taco1_decode." not in graph,
+          "the step-loop artifact's decode op")
+    gexp = ExportedSynthesizer(d4b)
+    gprog = make_serving_fn(gsynth.model, gsynth.cfg, gsynth.ap)
+    text, lens = text_batch(gexp, SENTENCES)
+    held = hold_artifact("taco1 Graves (step loop) B=8", gexp, gprog, text, lens, kernels={
+        "tacotron1_decode_cuda": False, "gl_iteration_cuda": True,
+        "tacotron2_decode_cuda": False, "griffin_lim_wave_cuda": False})
+    check(held["wav_err"] == 0.0, "the step-loop artifact bit for bit")
+    with torch.no_grad():
+        args = [torch.from_numpy(a).cuda() for a in (text, lens)] + [
+            torch.tensor([3], device="cuda")]
+        g_ms = cuda_ms(lambda: gexp._fns[(8, EXPORT_T)](*args), 2)
+        live_ms = cuda_ms(lambda: gsynth.tts_many(SENTENCES), 2)
+    print(f"[export] Tacotron(1) Graves on the step loop: export {g_export_s:.2f} s, "
+          f"artifact program B=8 {g_ms:.1f} ms, the live step loop's tts_many of the 8 "
+          f"sentences {live_ms:.1f} ms (CUDA events, median of 2; {smi})")
+    return dict(held, export_s=g_export_s, artifact_b8_ms=g_ms, live_tts_many_b8_ms=live_ms)
+
+
 def phase_export(report) -> dict:
     """The serving export on the card: torch.export artifacts of the
     serving program, loaded without the model code, carrying the
@@ -2684,7 +2750,11 @@ def phase_export(report) -> dict:
     5); (2) the cloning artifact with 256-wide d-vectors (E = 768) over 4
     speakers, and the smoke speaker encoder's artifact against the live
     encoder (1e-5); (3) the smoke MelGAN artifact (no Griffin-Lim kernel);
-    (4) Tacotron(1) at r = 7, 250 steps: kernels 8 and 4; (5) the smoke
+    (4) Tacotron(1) at r = 7, 250 steps: kernels 8 and 4, and (4b) the same
+    with Graves, which decodes on the step loop (the registered op
+    `yvt::taco1_step_decode`, no kernel) and then kernel 4, bit for bit
+    against its unexported program, its export seconds and a program call
+    beside the live step loop's tts_many; (5) the smoke
     config's artifact: kernel 3; (6) bin/server.py --export_dir on the
     full-width artifacts in its own process: a burst of 8 concurrent
     /api/tts requests, WAV bytes, stream=1 answering 400. Returns the
@@ -2846,6 +2916,10 @@ def phase_export(report) -> dict:
               f"{t1_ms:.2f} ms ({smi})")
         out["taco1"] = dict(held, export_s=t1_export_s, artifact_b8_ms=t1_ms)
         del tprog, tsynth
+
+        # (4b) Tacotron(1) with Graves, which decodes on the step loop
+        out["taco1_step_loop"] = export_step_loop(tmp, smi)
+        add(out["taco1_step_loop"])
 
         # (6) bin/server.py --export_dir on the full-width artifacts
         with socket.socket() as s:
@@ -5736,6 +5810,383 @@ def phase_parallel(report, corpus: str) -> dict:
     return launches
 
 
+# ------------------------------------------------ 7l. data parallelism
+
+DP_STEPS = 2          # the NCCL run's steps
+DP_TOL = 1e-4         # A8_TOL's gate: rel L2 of the parameters after a data-parallel step
+DP_GRAD_TOL = 0.05    # the two ranks' mixed gradients, and the parameters' move, against
+                      # one process's (rel L2)
+DP_LR = 1e-2          # the two-rank step's constant rate: at the config's noam rate (lr(0) =
+                      # 2.5e-8) one step moves the parameters by less than a float32 spacing
+DP_FAULTS = ("local_batchnorm", "ddp_default")   # planted in the two ranks; each must miss
+                                                 # DP_GRAD_TOL
+DP_NORM_TOL = 5e-3    # and their gradient norm (relative)
+DP_TEXTS = 5          # sharded serving: texts on a mesh of 2, padded to 6
+
+
+def kept_grads(trainer) -> dict:
+    """Make `trainer`'s optimizer keep the gradients it is handed (float64
+    on the host) under "grads" of the dict returned."""
+    seen, step = {}, trainer.optimizer.step
+
+    def keep(grads):
+        seen["grads"] = [g.detach().double().cpu() for g in grads]
+        return step(grads)
+
+    trainer.optimizer.step = keep
+    return seen
+
+
+def rel_l2_of(a: list, b: list) -> float:
+    import torch
+
+    a = torch.cat([x.double().cpu().reshape(-1) for x in a])
+    b = torch.cat([x.double().cpu().reshape(-1) for x in b])
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def dp_nccl_world1(report, corpus: str) -> dict:
+    """(1) `python -m your_voice_tts_torch.bin.distribute` in its own
+    process on the card (run as __main__ by runpy, so that the process can
+    print its launch counters after): one NCCL rank, world size 1, 2 steps
+    of the full-width Tacotron2 config (a8_cfg: batch 32, r = 2, no
+    evaluation) on the shared corpus; its checkpoint against a plain
+    Trainer's fit(max_steps=2) in this process on the same batches and
+    dropout (the generator seeded 42 + rank 0): bit for bit or within
+    DP_TOL rel L2. The rank's kernels 5 and 6 must launch."""
+    import numpy as np
+
+    from your_voice_tts_torch.config import save_config
+    from your_voice_tts_torch.train.checkpoint import read_checkpoint
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    cfg = a8_cfg(corpus, run_eval=False)
+    tmp = tempfile.mkdtemp(prefix="yvt_dp_")
+    try:
+        cfg_path = os.path.join(tmp, "train.json")
+        save_config(cfg, cfg_path)
+        argv = ["--config_path", cfg_path, "--max_steps", str(DP_STEPS), "--output_path",
+                os.path.join(tmp, "runs")]
+        code = (
+            "import json, runpy, sys\n"
+            "from your_voice_tts_torch.ops.taco2_train import taco2_train_bwd_cuda as b, "
+            "taco2_train_fwd_cuda as f\n"
+            "f.launches = b.launches = 0\n"
+            "sys.argv = ['distribute'] + json.loads(sys.argv[1])\n"
+            "runpy.run_module('your_voice_tts_torch.bin.distribute', run_name='__main__')\n"
+            "print('LAUNCHES ' + json.dumps({f.__name__: f.launches, b.__name__: b.launches}))\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code, json.dumps(argv)], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=ROOT))
+        run_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"bin/distribute at world size 1 failed:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        up = " > process 0/1 up, 1 local / 1 global devices (nccl)"
+        check(up in proc.stdout, "the NCCL rank did not say it was up")
+        launches = json.loads(proc.stdout.split("LAUNCHES ")[-1].splitlines()[0])
+        (run,) = os.listdir(os.path.join(tmp, "runs"))
+        got_path = os.path.join(tmp, "runs", run, f"checkpoint_{DP_STEPS}.npz")
+        _, _, meta = read_checkpoint(got_path)
+        plain = Trainer(cfg, output_path=os.path.join(tmp, "plain"), device="cuda",
+                        verbose=False)
+        t0 = time.perf_counter()
+        plain.fit(max_steps=DP_STEPS)
+        plain_s = time.perf_counter() - t0
+        del plain
+
+        def leaves(path, prefix):
+            with np.load(path) as z:
+                return np.concatenate([z[k].astype(np.float64).ravel()
+                                       for k in sorted(z.files) if k.startswith(prefix)])
+
+        ref_path = os.path.join(tmp, "plain", f"checkpoint_{DP_STEPS}.npz")
+        a, b = leaves(got_path, "params::"), leaves(ref_path, "params::")
+        sa, sb = leaves(got_path, "model_state::"), leaves(ref_path, "model_state::")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    err = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    same = bool(np.array_equal(a, b))
+    s_err = float(np.linalg.norm(sa - sb) / np.linalg.norm(sb))
+    print(f"[data-parallel] (1) bin/distribute, one NCCL rank: {DP_STEPS} steps of the "
+          f"full-width Tacotron2 config in {run_s:.1f} s of its process (a plain fit "
+          f"{plain_s:.1f} s here); its checkpoint against the plain Trainer's: parameters "
+          f"{'bit for bit' if same else f'rel L2 {err:.3e}'} (tol {DP_TOL}), BatchNorm state rel "
+          f"L2 {s_err:.3e}; kernel 5 / 6 launches {launches} ({report['nvidia_smi']})")
+    check(int(meta["step"]) == DP_STEPS, "the NCCL run's checkpoint step")
+    check(err <= DP_TOL and s_err <= DP_TOL, "the NCCL run against the plain Trainer")
+    check(all(n > 0 for n in launches.values()), "kernels 5 and 6 in the NCCL run")
+    return dict(seconds=run_s, plain_fit_s=plain_s, bit_equal=same, params_rel_l2=err,
+                state_rel_l2=s_err, launches=launches)
+
+
+def uneven_batch(seed: int = 0) -> dict:
+    """bench_batch's shape (B = 32) with rows of unequal length, zero past
+    their ends: rows 0-15 (rank 0's half) long, 16-31 (rank 1's) short,
+    so that every count a loss or BatchNorm divides by differs between
+    the halves (row 0 full length, so that the padded shape is the
+    batch's); stop targets 1 from each row's last decoder step on (r = 2)."""
+    import numpy as np
+
+    b = bench_batch(seed)
+    rng = np.random.default_rng(seed + 1)
+    B, Tt, Tm = TRAIN_B, TRAIN_T_TEXT, TRAIN_T_MEL
+    h = B // 2
+    tl = np.concatenate([rng.integers(Tt * 3 // 4, Tt + 1, h), rng.integers(Tt // 4, Tt // 2, h)])
+    ml = np.concatenate([rng.integers(Tm * 3 // 4, Tm + 1, h), rng.integers(Tm // 4, Tm // 2, h)])
+    tl[0], ml[0] = Tt, Tm
+    b["text"] = np.where(np.arange(Tt)[None] < tl[:, None], b["text"], 0).astype(np.int32)
+    b["mel"] = (b["mel"] * (np.arange(Tm)[None, :, None] < ml[:, None, None])).astype(np.float32)
+    b["text_lengths"], b["mel_lengths"] = tl.astype(np.int32), ml.astype(np.int32)
+    b["stop_targets"] = (np.arange(Tm // 2)[None] >= ((ml + 1) // 2 - 1)[:, None]).astype(
+        np.float32)
+    return b
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """A data-parallel fault the two-rank hold must see: "local_batchnorm",
+    BatchNorm's statistics over the rank's rows only; "ddp_default", what
+    DistributedDataParallel does by default: each rank's losses and
+    BatchNorm over its own rows, the gradients averaged over the ranks."""
+    from your_voice_tts_torch.nn import core
+    from your_voice_tts_torch.parallel import mesh
+
+    saved = {(core, "global_sum"): core.global_sum, (mesh, "global_batch"): mesh.global_batch,
+             (mesh, "sum_grads"): mesh.sum_grads}
+    if fault == "local_batchnorm":
+        core.global_sum = lambda x: x
+    else:
+        sum_grads = mesh.sum_grads
+        mesh.global_batch = contextlib.nullcontext
+        mesh.sum_grads = lambda grads: [g / mesh.world_size() for g in sum_grads(grads)]
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def _dp_gloo_rank(rank: int, init: str, cfg, state_path: str, batch: dict, out_dir: str):
+    """One gloo rank of the two on cuda:0: its half of `batch` through one
+    Trainer.train_step (dropout off), its counters set to 0 just before
+    and read just after; then, from the same weights, one step under each
+    planted fault (DP_FAULTS), whose gradients are kept."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init, world_size=2, rank=rank)
+    try:
+        trainer = Trainer(cfg, device="cuda", verbose=False)
+        trainer.generator = None
+        state = torch.load(state_path)
+        trainer.model.load_state_dict(state)
+        seen = kept_grads(trainer)
+        n = len(batch["text"]) // 2
+        local = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        for c in train_counters():
+            c.launches = 0
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(local, 2)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = {c.__name__: c.launches for c in train_counters()}
+        params, grads = [p.detach().cpu() for p in trainer.params], seen["grads"]
+        faults = {}
+        for fault in DP_FAULTS:
+            trainer.model.load_state_dict(state)
+            with planted(fault):
+                trainer.train_step(local, 2)
+            faults[fault] = seen["grads"]
+        torch.save({"metrics": metrics, "launches": launches, "step_ms": step_ms,
+                    "grads": grads, "params": params, "faults": faults},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_gloo_two_ranks(report, corpus: str) -> dict:
+    """(2) two gloo ranks sharing the card (CUDA tensors, one process a
+    rank): one full-width mixed-precision step of uneven_batch (B = 32: 16
+    rows a rank, rank 0's long, rank 1's short), dropout off, at the
+    constant rate DP_LR, from one set of weights, against one process's
+    step on the whole batch: the parameters' move (p1 - p0) and the
+    gradients within DP_GRAD_TOL rel L2 (a bf16 backward rounds each
+    rank's partial sums, tests/test_torch_distribute.py), the gradient
+    norm within DP_NORM_TOL; both ranks hold identical parameters; each
+    rank's kernel 5 and 6 launches. Each planted fault (DP_FAULTS) is
+    read the same way, and its gradients must miss DP_GRAD_TOL: the gate
+    sees averaged local losses and local BatchNorm statistics."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from your_voice_tts_torch.train.trainer import Trainer
+
+    cfg = a8_cfg(corpus, mixed_precision=True, run_eval=False, noam_schedule=False, lr=DP_LR)
+    batch = uneven_batch()
+    tmp = tempfile.mkdtemp(prefix="yvt_gloo_")
+    try:
+        one = Trainer(cfg, device="cuda", verbose=False)
+        one.generator = None
+        state_path = os.path.join(tmp, "state.pt")
+        torch.save(one.model.state_dict(), state_path)
+        t0 = time.perf_counter()
+        mp.start_processes(_dp_gloo_rank, args=(f"file://{tmp}/store", cfg, state_path, batch,
+                                                tmp), nprocs=2, start_method="spawn")
+        ranks_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    p0 = [p.detach().cpu() for p in one.params]
+    seen = kept_grads(one)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = one.train_step(batch, 2)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    ref_move = [p.detach().cpu() - q for p, q in zip(one.params, p0)]
+    del one
+    same = all(torch.equal(a, b) for a, b in zip(ranks[0]["params"], ranks[1]["params"]))
+    m_err = rel_l2_of([p - q for p, q in zip(ranks[0]["params"], p0)], ref_move)
+    g_err = rel_l2_of(ranks[0]["grads"], seen["grads"])
+    n_err = abs(ranks[0]["metrics"]["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    l_err = abs(ranks[0]["metrics"]["loss"] - ref["loss"]) / ref["loss"]
+    fault_errs = {f: rel_l2_of(ranks[0]["faults"][f], seen["grads"]) for f in DP_FAULTS}
+    print(f"[data-parallel] (2) two gloo ranks on cuda:0, one mixed step of B = 32 (16 a "
+          f"rank, unequal lengths) at rate {DP_LR} against one process's: the parameters' move "
+          f"rel L2 {m_err:.3e} and gradients {g_err:.3e} (tol {DP_GRAD_TOL}), gradient norm "
+          f"{n_err:.3e} (tol {DP_NORM_TOL}), loss {l_err:.3e}; planted faults, gradients rel L2 "
+          f"{ {f: f'{e:.3e}' for f, e in fault_errs.items()} }; ranks identical: {same}; kernel "
+          f"5 / 6 launches rank 0 {ranks[0]['launches']}, rank 1 {ranks[1]['launches']}; rank "
+          f"steps {ranks[0]['step_ms']:.1f} / {ranks[1]['step_ms']:.1f} ms wall, one process "
+          f"{one_ms:.1f} ms, the spawn and both ranks {ranks_s:.1f} s ({report['nvidia_smi']})")
+    check(same, "the two ranks' parameters differ")
+    check(m_err <= DP_GRAD_TOL and g_err <= DP_GRAD_TOL and n_err <= DP_NORM_TOL,
+          "two gloo ranks against one process")
+    check(all(e > DP_GRAD_TOL for e in fault_errs.values()),
+          "the two-rank gate does not see a planted fault")
+    for r in ranks:
+        check(all(n > 0 for n in r["launches"].values()), "kernels 5 and 6 on a gloo rank")
+    launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k] for k in ranks[0]["launches"]}
+    return dict(move_rel_l2=m_err, grads_rel_l2=g_err, grad_norm_rel=n_err, loss_rel=l_err,
+                fault_grads_rel_l2=fault_errs, ranks_identical=same,
+                rank_launches=[r["launches"] for r in ranks],
+                rank_step_ms=[r["step_ms"] for r in ranks], one_process_ms=one_ms,
+                spawn_and_ranks_s=ranks_s, launches=launches)
+
+
+def dp_sharded_serving(report) -> dict:
+    """(3) synthesis_batch(mesh=) on a mesh of cuda:0 twice (one replica,
+    its two shards one after another), the
+    full-width Tacotron2 (no row stops by chance), DP_TEXTS texts padded to
+    6 by repeating row 0: with prenet dropout off against the unsharded
+    call, bit for bit on every postnet spectrogram, its length, and the
+    waveform; with dropout on, each shard against that shard's texts run
+    alone (the second shard's third row is row 0 again); kernel 1 and the
+    wave route's launches counted in the sharded call, the wall time
+    beside the unsharded call's (median of 3). Every call draws its
+    Griffin-Lim phase from the processor's generator seeded alike."""
+    import numpy as np
+    import torch
+
+    from your_voice_tts_torch.infer.synthesis import synthesis_batch
+    from your_voice_tts_torch.infer.synthesizer import Synthesizer
+    from your_voice_tts_torch.parallel import make_mesh
+
+    texts = SENTENCES[:DP_TEXTS]
+    out: dict = {}
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    for dropout in (False, True):
+        cfg = full_width_config()
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                 prenet_dropout=dropout))
+        synth = Synthesizer(cfg, device="cuda")
+        model = no_chance_stops(synth.model)
+        def run(ts, m=None, synth=synth, model=model):
+            synth.ap.generator.manual_seed(1)        # one Griffin-Lim phase for every call
+            return synthesis_batch(model, ts, synth.cfg, synth.ap, mesh=m)
+
+        run(texts[:1])
+        torch.cuda.synchronize()
+        counters = serve_counters()
+        for c in counters:
+            c.launches = 0
+        sharded = run(texts, mesh)
+        torch.cuda.synchronize()
+        launches = {c.__name__: c.launches for c in counters}
+        if not dropout:
+            ref = run(texts)
+            same = [bool(np.array_equal(a["mel_postnet_spec"], b["mel_postnet_spec"])
+                         and np.array_equal(a["wav"], b["wav"])) for a, b in zip(sharded, ref)]
+            errs = [float(np.abs(a["mel_postnet_spec"] - b["mel_postnet_spec"]).max())
+                    for a, b in zip(sharded, ref)]
+            times = {}
+            for tag, m in (("sharded", mesh), ("unsharded", None)):
+                wall = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(texts, m)
+                    torch.cuda.synchronize()
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                times[tag] = statistics.median(wall)
+            print(f"[data-parallel] (3) sharded serving, a mesh of cuda:0 twice, {DP_TEXTS} texts "
+                  f"padded to 6, dropout off, against the unsharded call: spectrograms and "
+                  f"waveforms bit for bit {same} (max abs {max(errs):.3e}); launches of the "
+                  f"sharded call {launches}; wall, median of 3: sharded "
+                  f"{times['sharded']:.1f} ms, unsharded {times['unsharded']:.1f} ms "
+                  f"({report['nvidia_smi']})")
+            check(all(same), "sharded serving against the unsharded call")
+            out["dropout_off"] = dict(bit_equal=same, max_abs=max(errs), launches=launches,
+                                      wall_ms=times)
+        else:
+            alone = run(texts[:3]) + run([texts[3], texts[4], texts[0]])[:2]
+            same = [bool(np.array_equal(a["mel_postnet_spec"], b["mel_postnet_spec"]))
+                    for a, b in zip(sharded, alone)]
+            print(f"[data-parallel] (3) dropout on: each shard against its texts run alone, "
+                  f"bit for bit {same}; launches {launches}")
+            check(all(same), "a shard against its texts alone")
+            out["dropout_on"] = dict(bit_equal=same, launches=launches)
+        check(launches["tacotron2_decode_cuda"] == 2 and launches["griffin_lim_wave_cuda"] > 0,
+              "kernel 1 once a shard, the wave route after the gather")
+        del synth, model
+    launches: dict = {}
+    for part in out.values():
+        for k, n in part["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    return out
+
+
+def phase_data_parallel(report, corpus: str) -> dict:
+    """7l. data-parallel: (1) the NCCL path at world size 1 through
+    bin/distribute.py (kernels 5 and 6); (2) two gloo ranks sharing the
+    card against one process (kernels 5 and 6 on each rank); (3) sharded
+    serving on a mesh of cuda:0 twice (kernel 1 a shard, the wave route
+    after the gather). NCCL across two or more devices needs a machine
+    with more than one card. Returns the launches, which join the kernel
+    line."""
+    out = {"nccl": dp_nccl_world1(report, corpus), "gloo": dp_gloo_two_ranks(report, corpus),
+           "serving": dp_sharded_serving(report)}
+    launches: dict = {}
+    for part in ("nccl", "gloo", "serving"):
+        for k, n in out[part]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"[data-parallel] launches of this phase: {launches}")
+    out["launches"] = launches
+    report["data_parallel"] = out
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -5833,6 +6284,9 @@ def main() -> int:
         # phase 7k: ParallelTTS served, its durations extracted, trained and
         # exported: kernels 2-5, added to the kernel line
         a8_launches.append(timed("parallel", phase_parallel, report, corpus))
+        # phase 7l: data parallelism (NCCL at world size 1, two gloo ranks,
+        # sharded serving): kernels 5, 6, 1 and 2, added to the kernel line
+        a8_launches.append(timed("data-parallel", phase_data_parallel, report, corpus))
     for seen in a8_launches:
         for k, n in seen.items():
             launches[k] = launches.get(k, 0) + n

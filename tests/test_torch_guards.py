@@ -619,3 +619,51 @@ def test_parallel_tts_entry_points_refuse_to_fall_back_to_cpu(monkeypatch, tmp_p
                              "--output_path", str(tmp_path / "runs")])
     assert not out.exists() and not (tmp_path / "runs").exists()
     assert setup_model(30, cfg, device="cpu").device.type == "cpu"
+
+
+def test_data_parallel_modules_import_with_jax_blocked():
+    """The mesh, the launcher and the step-loop export's op, in one
+    process."""
+    test_tacotron_slice_modules_import_with_jax_blocked(", ".join(
+        f"your_voice_tts_torch.{m}" for m in ("parallel", "parallel.mesh", "bin.distribute",
+                                              "ops.library")))
+
+
+def test_distribute_and_the_mesh_refuse_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    """Without CUDA and without --device cpu, bin/distribute.py raises before
+    it starts a rank or writes anything, and make_mesh() (the sharded
+    serving route's default mesh of the local CUDA devices) raises; a mesh
+    of named CPU devices serves."""
+    from your_voice_tts_torch.bin import distribute
+    from your_voice_tts_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        distribute.main(["--config_path", os.path.join(ROOT, "configs/smoke_synthetic.json"),
+                         "--max_steps", "1", "--output_path", str(tmp_path / "runs")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh()
+    assert not (tmp_path / "runs").exists()
+    assert make_mesh(devices=["cpu"]).devices == (torch.device("cpu"),)
+
+
+def test_a_failed_rendezvous_raises_and_trains_nothing(tmp_path):
+    """Host 0 of a two-host gloo job whose other host never comes: the
+    launcher raises after its rendezvous timeout, exits non-zero, and
+    neither says it is up nor trains a step nor writes a run folder."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "your_voice_tts_torch.bin.distribute", "--config_path",
+         os.path.join(ROOT, "configs/smoke_synthetic.json"), "--coordinator_address",
+         f"localhost:{port}", "--num_processes", "2", "--process_id", "0", "--device", "cpu",
+         "--max_steps", "1", "--output_path", str(tmp_path / "runs"), "--rendezvous_timeout",
+         "3"], capture_output=True, text=True, cwd=ROOT, timeout=120,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode != 0
+    assert "up," not in out.stdout and "GLOBAL_STEP" not in out.stdout
+    assert "Traceback" in out.stderr
+    assert not (tmp_path / "runs").exists()

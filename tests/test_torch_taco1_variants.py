@@ -26,7 +26,7 @@ trains these configs through its scan; the port through its step loop
   version, dropout on, the same seed, 1e-5;
 - the route each config takes against the JAX `taco1_supported`;
 - `Synthesizer.tts_many`, `bin/train.py` and `bin/synthesize.py` on a
-  Graves config, and the export's refusal.
+  Graves config, and its serving export.
 
 Weights come from the JAX `init` through the checkpoint bridge; inputs are
 made with numpy from a seed.
@@ -365,7 +365,8 @@ def test_graves_trains_and_serves_through_the_clis(tmp_path, capsys):
     """A Graves Tacotron(1): `bin/train.py --device cpu` trains 2 steps on a
     generated corpus; its checkpoint serves through `Synthesizer.tts_many`
     (the step loop, then Griffin-Lim) and `bin/synthesize.py --device
-    cpu`; the serving export refuses it, naming the step loop."""
+    cpu`; the serving export carries its step loop as the registered op
+    `yvt::taco1_step_decode`, and the program serves it."""
     from your_voice_tts_torch.audio import AudioProcessor
     from your_voice_tts_torch.bin import synthesize, train
     from your_voice_tts_torch.infer.export import make_serving_fn
@@ -384,5 +385,9 @@ def test_graves_trains_and_serves_through_the_clis(tmp_path, capsys):
     synthesize.main(["Hi there.", cfg_path, ckpt, str(tmp_path / "out"), "--device", "cpu"])
     assert os.listdir(tmp_path / "out") == ["out_000.wav"]
     cfg = load_config(cfg_path)
-    with pytest.raises(NotImplementedError, match="step loop"):
-        make_serving_fn(synth.model, cfg, AudioProcessor(cfg.audio))
+    program = make_serving_fn(synth.model, cfg, AudioProcessor(cfg.audio, "cpu"))
+    assert program.traced.kind == "taco1_step"
+    with torch.no_grad():
+        wav, lengths = program(torch.ones(2, 8, dtype=torch.int64), torch.tensor([8, 5]),
+                               torch.tensor([0]))
+    assert wav.shape[0] == 2 and np.isfinite(wav.numpy()).all() and (lengths > 0).all()

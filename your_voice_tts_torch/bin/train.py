@@ -15,6 +15,11 @@ them from speakers.external_speaker_embedding_file, a speakers.json as
 bin/compute_embeddings writes it (each speaker's clips averaged); the JAX
 package's CLI passes none, and its trainer then fails at the first step.
 Without --device the run needs CUDA.
+
+Under an initialized process group (bin/distribute.py hands off here with
+one, or torchrun's environment, which the CLI reads) the Trainer trains
+data-parallel; rank 0 alone makes the run folder, copies the config and
+generates a synthetic corpus, and every rank reads them after a barrier.
 """
 
 from __future__ import annotations
@@ -77,11 +82,13 @@ def main(argv: list[str] | None = None) -> None:
 
     from .. import resolve_device
     from ..config import check_config, load_config
+    from ..parallel import mesh
     from ..train.trainer import Trainer
     from ..utils.io import create_experiment_folder
 
     cfg = load_config(args.config_path)
     check_config(cfg)
+    mesh.init_from_env(args.device)
     device = resolve_device(args.device)
     if args.continue_path:
         out_path = args.continue_path
@@ -90,11 +97,16 @@ def main(argv: list[str] | None = None) -> None:
                        key=lambda f: int(f.split("_")[1].split(".")[0]))
         restore = os.path.join(out_path, ckpts[-1]) if ckpts else None
     else:
-        out_path = create_experiment_folder(args.output_path or cfg.io.output_path,
-                                            cfg.io.run_name)
+        out_path = None
+        if mesh.is_rank0():
+            out_path = create_experiment_folder(args.output_path or cfg.io.output_path,
+                                                cfg.io.run_name)
+            shutil.copy(args.config_path, os.path.join(out_path, "config.json"))
+        out_path = mesh.broadcast_object(out_path)
         restore = args.restore_path
-        shutil.copy(args.config_path, os.path.join(out_path, "config.json"))
-    cfg = _synthetic_corpus(cfg, out_path)
+    made = _synthetic_corpus(cfg, out_path) if mesh.is_rank0() else None
+    mesh.barrier()
+    cfg = made or _synthetic_corpus(cfg, out_path)
 
     trainer = Trainer(cfg, output_path=out_path, device=device,
                       speaker_embeddings=_d_vectors(cfg))
@@ -102,6 +114,8 @@ def main(argv: list[str] | None = None) -> None:
         meta = trainer.restore(restore, lenient=args.restore_path is not None)
         print(f" > Restored from {restore} (step {meta['step']})")
     trainer.fit(max_steps=args.max_steps)
+    if trainer.tb.writer is not None:
+        trainer.tb.writer.close()
 
 
 if __name__ == "__main__":

@@ -28,9 +28,18 @@ train_parallel's --restore_path takes them, and this one takes its; with
 --use_config_optimizer the optimizer state goes to the port's own section
 (as bin/train.py writes it).
 
-It trains on one device. The reference's data-parallel mesh
-(parallel/mesh.py: `shard_batch`, `pad_batch_to_devices`) is not ported
-here. Without --device it runs on CUDA.
+Under an initialized process group (bin/distribute.py, or torchrun, whose
+environment the CLI reads) it trains data-parallel, as the reference
+shards each batch over its mesh: every rank walks the same groups, pads
+each group's batch to a multiple of the world size with phantom rows
+(`pad_batch_to_devices`: zero durations, so zero frames, fully masked)
+and takes its contiguous slice of the rows; the forward runs under
+`global_batch()` (the losses' counts and the postnet's BatchNorm over the
+global batch), the gradients and the loss parts are summed over the
+ranks, rank 0's weights are broadcast at the start and after a restore,
+each rank draws dropout from a generator seeded 42 + rank, and rank 0
+alone writes checkpoints. Alone it trains on one device. Without --device
+it runs on CUDA.
 """
 
 from __future__ import annotations
@@ -65,14 +74,32 @@ def step_loss(model, criterion, b: dict, generator=None):
     return criterion(out, b["mel"], b["durations"], b["text_lengths"])
 
 
+def local_rows(batch: dict, world: int, rank: int) -> dict:
+    """This rank's rows of a numpy batch: the batch padded to a multiple of
+    the world size with phantom rows (`pad_batch_to_devices`: zero
+    durations, so zero frames), then cut into world contiguous slices, as
+    the reference's mesh shards it."""
+    from ..parallel import pad_batch_to_devices
+
+    batch = pad_batch_to_devices(batch, world)
+    n = len(batch["text"]) // world
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+
+
 def step_grads(model, criterion, b: dict, generator=None):
     """(parts, gradients of the trained parameters, zeros where unused) of
-    one training-mode pass."""
+    one training-mode pass; under a process group `b` is this rank's slice
+    of the global batch, and the parts and gradients are summed over the
+    ranks."""
+    from ..parallel import mesh
+
     model.train()
     params = [p for p in model.parameters() if p.requires_grad]
-    total, parts = step_loss(model, criterion, b, generator)
-    grads = torch.autograd.grad(total, params, allow_unused=True)
-    return parts, [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    with mesh.global_batch():
+        total, parts = step_loss(model, criterion, b, generator)
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return mesh.sum_metrics(parts), mesh.sum_grads(grads)
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -108,13 +135,16 @@ def main(argv: list[str] | None = None) -> dict:
     from ..data.formatters import load_meta_data
     from ..models import setup_model
     from ..models.parallel_tts import ParallelTTSLoss, repair_row_durations, uniform_durations
+    from ..parallel import mesh
     from ..text import symbols
     from ..train.checkpoint import (load_checkpoint, read_optimizer_state,
                                     restore_trainer_checkpoint, save_checkpoint,
                                     save_trainer_checkpoint)
     from ..train.optim import ClipAdam, build_optimizer
 
+    mesh.init_from_env(args.device)
     device = resolve_device(args.device)
+    world, rank = mesh.world_size(), mesh.rank()
     cfg = load_config(args.config_path)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, model="ParallelTTS"))
     if args.batch_size:
@@ -164,10 +194,13 @@ def main(argv: list[str] | None = None) -> dict:
         else:
             meta = restore_trainer_checkpoint(args.restore_path, {None: (model, optimizer)})
         step0 = int(meta.get("step", 0))
+    mesh.broadcast_module(model)
     criterion = ParallelTTSLoss()
-    generator = torch.Generator(device=device).manual_seed(42)
+    generator = torch.Generator(device=device).manual_seed(42 + rank)
 
     def save(step: int, epoch: int) -> None:
+        if rank != 0:
+            return
         path = os.path.join(args.output_path, f"checkpoint_{step}.npz")
         extra = {"model": "ParallelTTS"}
         if args.use_config_optimizer:
@@ -206,7 +239,8 @@ def main(argv: list[str] | None = None) -> dict:
             group = groups[gi]
             batch = dataset._collate(group, len(group), 1)
             batch["durations"] = batch_durations(batch, group)
-            b = {k: torch.as_tensor(batch[k]).to(device) for k in BATCH_KEYS if k in batch}
+            batch = local_rows({k: v for k, v in batch.items() if k in BATCH_KEYS}, world, rank)
+            b = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
             b["text"] = b["text"].long()
             parts, grads = step_grads(model, criterion, b, generator)
             optimizer.step(grads)

@@ -8,7 +8,10 @@ Trains the GE2E encoder (80 -> 3 x 768 / 256 by default, the input width
 from the config's num_mels) on N speakers x M utterances a batch and writes
 <output_path>/speaker-encoder-<date>-<commit>/final.npz, a JAX-layout
 checkpoint that both packages' `load_encoder` and bin/compute_embeddings
-read. Without --device it needs CUDA.
+read. Under an initialized process group (torchrun's environment, which
+the CLI reads) the trainer trains data-parallel (speaker_encoder/train.py),
+and rank 0 alone makes the run folder and writes the checkpoints. Without
+--device it needs CUDA.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ def main(argv: list[str] | None = None) -> None:
 
     from .. import resolve_device
     from ..audio import AudioProcessor
+    from ..parallel import mesh
     from ..config import load_config
     from ..data.formatters import get_formatter
     from ..speaker_encoder.dataset import SpeakerEncoderDataset
@@ -41,13 +45,15 @@ def main(argv: list[str] | None = None) -> None:
     from ..speaker_encoder.train import SpeakerEncoderTrainer
     from ..utils.io import create_experiment_folder
 
+    mesh.init_from_env(args.device)
     device = resolve_device(args.device)
     cfg = load_config(args.config)
     ap = AudioProcessor(cfg.audio, device)
     items = get_formatter(args.formatter)(args.data_path, args.meta_file)
     dataset = SpeakerEncoderDataset(items, ap, num_frames=args.num_frames)
     model = SpeakerEncoder(input_dim=cfg.audio.num_mels, device=device)
-    out = create_experiment_folder(args.output_path, "speaker-encoder")
+    out = mesh.broadcast_object(create_experiment_folder(args.output_path, "speaker-encoder")
+                                if mesh.is_rank0() else None)
     trainer = SpeakerEncoderTrainer(model, dataset, lr=args.lr,
                                     num_speakers_per_batch=args.num_speakers_per_batch,
                                     num_utters_per_speaker=args.num_utters_per_speaker,
@@ -55,8 +61,9 @@ def main(argv: list[str] | None = None) -> None:
     if args.restore_path:
         trainer.restore(args.restore_path)
     trainer.fit(args.max_steps)
-    trainer.save(f"{out}/final.npz")
-    print(f" > speaker encoder saved to {out}/final.npz")
+    if mesh.is_rank0():
+        trainer.save(f"{out}/final.npz")
+        print(f" > speaker encoder saved to {out}/final.npz")
 
 
 if __name__ == "__main__":

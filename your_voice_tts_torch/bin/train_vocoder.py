@@ -9,7 +9,10 @@ Trains the vocoder the config names on an LJSpeech-layout corpus
 `VocoderSynthesizer` and trainers read. "melgan" and "pwgan" train on
 `GANTrainer`, "wavernn" on `WaveRNNTrainer`; any other model raises
 ValueError. (The JAX CLI sends every model but "melgan" to its WaveRNN
-trainer, so a "pwgan" config trains a WaveRNN there.) Without --device it
+trainer, so a "pwgan" config trains a WaveRNN there.) Under an
+initialized process group (torchrun's environment, which the CLI reads)
+the trainers train data-parallel (vocoder/train_gan.py), and rank 0 alone
+makes the run folder and writes the checkpoints. Without --device it
 needs CUDA.
 """
 
@@ -44,20 +47,25 @@ def main(argv: list[str] | None = None) -> None:
 
     from .. import resolve_device
     from ..data.formatters import ljspeech
+    from ..parallel import mesh
     from ..utils.io import create_experiment_folder
     from ..vocoder.config import load_vocoder_config
 
     cfg = load_vocoder_config(args.config_path)
     cls = trainer_class(cfg.model)
+    mesh.init_from_env(args.device)
     device = resolve_device(args.device)
     items = ljspeech(args.data_path, args.meta_file)
-    out = create_experiment_folder(args.output_path, f"vocoder-{cfg.model}")
+    out = mesh.broadcast_object(create_experiment_folder(args.output_path,
+                                                         f"vocoder-{cfg.model}")
+                                if mesh.is_rank0() else None)
     trainer = cls(cfg, items, output_path=out, device=device)
     if args.restore_path:
         trainer.restore(args.restore_path)
     trainer.fit(args.max_steps or cfg.training.epochs * max(1, len(items)))
-    trainer.save(f"{out}/final.npz")
-    print(f" > vocoder saved to {out}/final.npz")
+    if mesh.is_rank0():
+        trainer.save(f"{out}/final.npz")
+        print(f" > vocoder saved to {out}/final.npz")
 
 
 if __name__ == "__main__":

@@ -11,8 +11,12 @@ Griffin-Lim kernels are ops of its graph (`ops/library.py`): an artifact
 exported on `cuda` launches the hand-written kernels and serves on `cuda`
 only; one exported on `cpu` runs their plain versions. Serving needs torch,
 the op registrations, the text frontend and numpy; no model code, no
-checkpoint (`ExportedSynthesizer`). `bin/export_serving.py` writes the
-artifacts.
+checkpoint (`ExportedSynthesizer`). The one exception is a Tacotron(1)
+that decodes on the step loop (Graves, the location attention's options),
+which has no kernel: its decode is the op `yvt::taco1_step_decode`, which
+rebuilds the decoder module from the weights the artifact carries and so
+imports models/tacotron.py when it runs. `bin/export_serving.py` writes
+the artifacts.
 
 The JAX export's `platforms`, `use_pallas` and PRNG key become the model's
 device and an int64 seed tensor [1]: it keys the decode's prenet dropout,
@@ -127,18 +131,14 @@ def make_serving_fn(model, cfg, ap, *, max_decoder_steps=None, vocoder=None, spe
     n_mels]. The config's `inference_compute_dtype` applies; Tacotron(1)'s
     linear head inverts without the mel pseudo-inverse; neural vocoders
     take a mel model. A Tacotron(1) that decodes on the step loop (Graves,
-    the location attention's options) raises NotImplementedError. A
-    ParallelTTS runs its float32 inference with its frame cap
+    the location attention's options) carries it as the registered op
+    `yvt::taco1_step_decode`. A ParallelTTS runs its float32 inference with its frame cap
     (`max_frames`, or max_decoder_steps frames), durations and all on the
     device, every shape static."""
     from ..audio import GriffinLimStage
 
     if speaker_mode not in (None, "id", "dvector"):
         raise ValueError(f"unknown speaker_mode {speaker_mode!r}")
-    from ..models.tacotron import STEP_LOOP_EXPORT, Tacotron
-
-    if isinstance(model, Tacotron) and not model.decoder.kernel_supported():
-        raise NotImplementedError(STEP_LOOP_EXPORT)
     is_linear = getattr(model, "output_type", "mel") == "linear"
     compute_dtype = (torch.bfloat16 if cfg.model.inference_compute_dtype == "bfloat16"
                      else None)

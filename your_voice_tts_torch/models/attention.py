@@ -232,6 +232,16 @@ class GravesAttention(nn.Module):
         return new_state, _context(align, inputs), align
 
 
+def key_projection(linear, inputs):
+    """W_k m for a decode at inference, one row at a time: every row's
+    product has the same shape, whatever the batch, so that a row's keys do
+    not depend on its batchmates (cuBLAS picks its kernel, and with it the
+    order of a float32 product's sums, by the whole product's shape: one
+    process's batch of 5 and a mesh's shards of 3 would give a row other
+    bits). inputs [B, T, E] -> [B, T, A]."""
+    return torch.cat([linear(inputs[i:i + 1]) for i in range(inputs.shape[0])])
+
+
 def init_attn(cfg, query_dim: int, embedding_dim: int):
     """Attention for a ModelConfig (the JAX package's `init_attn`); an
     unknown attention type raises ValueError."""

@@ -178,12 +178,13 @@ class ServingWeights(nn.Module):
     compute-dtype copies (`compute_copy`) of `names` (dotted paths from the
     model, e.g. "encoder" or "decoder.attention.inputs"; absent ones are
     skipped) and the decode's weights (`decoder.decode_weights`, with the
-    kernel's packed layout on a CUDA model) as buffers. Passed to the
-    model's `inference` as `traced`, it routes the decode through the
-    registered op (`ops/library.py`) of `kind` ("taco2" or "taco1")."""
+    kernel's packed layout on a CUDA model, or the given `weights` dict) as
+    buffers. Passed to the model's `inference` as `traced`, it routes the
+    decode through the registered op (`ops/library.py`) of `kind`
+    ("taco2", "taco1", or "taco1_step" for Tacotron(1)'s step loop)."""
 
     def __init__(self, model: nn.Module, kind: str, names, compute_dtype, decode_dtype,
-                 pack=None):
+                 pack=None, weights: dict | None = None):
         from ..ops.library import flatten_weights
 
         super().__init__()
@@ -197,9 +198,11 @@ class ServingWeights(nn.Module):
                     mod = getattr(mod, part, None)
                 if mod is not None and hasattr(mod, attr):
                     self.copies[name.replace(".", "__")] = compute_copy(mod, attr, compute_dtype)
-        w = model.decoder.decode_weights(decode_dtype)
-        if pack is not None and model.device.type == "cuda":
-            pack(w)
+        w = weights
+        if w is None:
+            w = model.decoder.decode_weights(decode_dtype)
+            if pack is not None and model.device.type == "cuda":
+                pack(w)
         self.spec, tensors = flatten_weights(w)
         self.n_weights = len(tensors)
         for i, t in enumerate(tensors):
@@ -212,5 +215,13 @@ class ServingWeights(nn.Module):
         """The registered decode on these weights (`ops.library.decode`)."""
         from ..ops.library import decode
 
-        weights = [getattr(self, f"w{i}") for i in range(self.n_weights)]
-        return decode(self.kind, self.spec, weights, enc_out, pinp, mask, seed, **kw)
+        return decode(self.kind, self.spec, self._weights(), enc_out, pinp, mask, seed, **kw)
+
+    def step_decode(self, enc_out, lengths, seed, *, r: int, max_steps: int):
+        """Tacotron(1)'s step loop as the registered op on these weights
+        (`torch.ops.yvt.taco1_step_decode`)."""
+        return torch.ops.yvt.taco1_step_decode(self._weights(), enc_out, lengths, seed,
+                                               self.spec, r, max_steps)
+
+    def _weights(self) -> list:
+        return [getattr(self, f"w{i}") for i in range(self.n_weights)]

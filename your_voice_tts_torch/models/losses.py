@@ -1,21 +1,30 @@
 """Training losses (the JAX package's models/losses.py): masked L1 / MSE
 with optional per-sample length normalization, masked stop-token BCE with
 logits and pos_weight, guided-attention loss, and the composite
-TacotronLoss with the guided-attention weight decayed by step."""
+TacotronLoss with the guided-attention weight decayed by step.
+
+Inside a data-parallel train step (`parallel.mesh.global_batch`) every
+divisor is the global batch's: the counts are summed over the ranks
+(`global_count`, clamped at 1 after the sum, since a rank of phantom rows
+counts 0) and each rank's loss is its share of the global one."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import active, global_count, global_mean
 from .common import sequence_mask
 
 
 def _masked(err, mask, target, seq_len_norm: bool):
     if seq_len_norm:
         norm_w = mask / mask.sum(dim=1, keepdim=True).clamp_min(1.0)
-        return (err * norm_w / (target.shape[0] * target.shape[2])).sum()
-    return err.sum() / (mask.sum() * target.shape[2]).clamp_min(1.0)
+        n = target.shape[0] * target.shape[2]
+        if active():
+            n = global_count(torch.tensor(float(n), device=err.device))
+        return (err * norm_w / n).sum()
+    return err.sum() / global_count(mask.sum() * target.shape[2]).clamp_min(1.0)
 
 
 def masked_l1(x, target, lengths, seq_len_norm: bool = False):
@@ -36,7 +45,7 @@ def masked_bce_logits(logits, targets, lengths, pos_weight: float = 1.0):
     mask = sequence_mask(lengths, targets.shape[1]).to(logits.dtype)
     loss = -(pos_weight * targets * F.logsigmoid(logits)
              + (1.0 - targets) * F.logsigmoid(-logits))
-    return (loss * mask).sum() / mask.sum().clamp_min(1.0)
+    return (loss * mask).sum() / global_count(mask.sum()).clamp_min(1.0)
 
 
 def guided_attention_loss(alignments, input_lengths, decoder_lengths, sigma: float = 0.4):
@@ -49,7 +58,7 @@ def guided_attention_loss(alignments, input_lengths, decoder_lengths, sigma: flo
     W = 1.0 - torch.exp(-((n - t) ** 2) / (2.0 * sigma ** 2))
     mask = (sequence_mask(input_lengths, T_in)[:, None, :]
             & sequence_mask(decoder_lengths, T_dec)[:, :, None]).to(alignments.dtype)
-    return (alignments * W * mask).sum() / mask.sum().clamp_min(1.0)
+    return (alignments * W * mask).sum() / global_count(mask.sum()).clamp_min(1.0)
 
 
 class TacotronLoss:
@@ -73,7 +82,7 @@ class TacotronLoss:
         if self.loss_masking:
             fn = masked_mse if self.use_mse else masked_l1
             return fn(x, target, lengths, self.seq_len_norm)
-        return ((x - target) ** 2).mean() if self.use_mse else (x - target).abs().mean()
+        return global_mean((x - target) ** 2 if self.use_mse else (x - target).abs())
 
     def __call__(self, outputs: dict, mel_target, mel_lengths, stop_targets, input_lengths,
                  step=None, r: int = 1, linear_target=None, n_priority_freq: int = 0):

@@ -49,6 +49,7 @@ from torch import nn
 
 from .. import resolve_device
 from ..nn.core import GAINS, Conv1d, Dense, Embedding, LayerNorm, dropout, xavier_uniform_
+from ..parallel.mesh import global_count
 from .common import ConvBNBlock, sequence_mask
 from .gst import GST
 from .tacotron2 import Encoder, Postnet
@@ -361,7 +362,9 @@ def frame_energy(mel, frame_mask):
 class ParallelTTSLoss:
     """Masked L1 (decoder + postnet) + duration_alpha x the masked MSE on
     log(1 + duration); an energy model adds energy_alpha x the masked MSE
-    of its energy track against `frame_energy` of the target."""
+    of its energy track against `frame_energy` of the target. Inside a
+    data-parallel train step each count is the global batch's
+    (`parallel.mesh.global_count`), as models/losses.py's."""
 
     def __init__(self, duration_alpha: float = 0.1, energy_alpha: float = 0.1):
         self.duration_alpha, self.energy_alpha = duration_alpha, energy_alpha
@@ -369,20 +372,20 @@ class ParallelTTSLoss:
     def __call__(self, outputs, mel_target, durations, text_lengths):
         fm = outputs["frame_mask"].float()
         m = fm[..., None]
-        denom = torch.clamp(m.sum() * mel_target.shape[-1], min=1.0)
+        denom = torch.clamp(global_count(m.sum() * mel_target.shape[-1]), min=1.0)
         tgt = mel_target[:, : outputs["decoder_outputs"].shape[1]]
         l_dec = ((outputs["decoder_outputs"] - tgt) * m).abs().sum() / denom
         l_post = ((outputs["postnet_outputs"] - tgt) * m).abs().sum() / denom
         tok = sequence_mask(text_lengths, durations.shape[1]).float()
         logd_t = torch.log1p(durations.float())
         l_dur = (((outputs["log_durations"] - logd_t) ** 2) * tok).sum() \
-            / torch.clamp(tok.sum(), min=1.0)
+            / torch.clamp(global_count(tok.sum()), min=1.0)
         total = l_dec + l_post + self.duration_alpha * l_dur
         parts = {"loss_decoder": l_dec, "loss_postnet": l_post, "loss_duration": l_dur}
         if "energy_pred" in outputs:
             e_t = frame_energy(tgt, outputs["frame_mask"])
             l_en = (((outputs["energy_pred"] - e_t) ** 2) * fm).sum() \
-                / torch.clamp(fm.sum(), min=1.0)
+                / torch.clamp(global_count(fm.sum()), min=1.0)
             total = total + self.energy_alpha * l_en
             parts["loss_energy"] = l_en
         parts["loss"] = total

@@ -41,6 +41,7 @@ too.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -53,7 +54,7 @@ from ..nn.rnn import GRUCell, run_rnn
 from ..ops.prng import HashDraws, step_key, uniform
 from ..ops.taco1_decode import _interleave_gru, decoder_step, prepare_weights, tacotron1_decode
 from ..ops.taco2_decode import _drive, _finish
-from .attention import GravesAttention, init_attn
+from .attention import GravesAttention, init_attn, key_projection
 from .common import (Prenet, ServingWeights, add_style, cached_decode_weights, compute_copy,
                      concat_speaker, kernel_prenet, sequence_mask)
 from .gst import GST
@@ -128,10 +129,21 @@ def taco1_supported(cfg) -> bool:
             and not cfg.windowing and not cfg.use_forward_attn and not cfg.transition_agent)
 
 
-STEP_LOOP_EXPORT = ("Tacotron(1) with Graves attention, windowing, forward attention, the "
-                    "transition agent or location features off decodes on the step loop, "
-                    "which the serving export does not carry yet: export a config the decode "
-                    "kernel serves (taco1_supported)")
+def step_decoder(spec: str, weights) -> "TacotronDecoder":
+    """The decoder `step_loop_weights` describes, rebuilt without copying:
+    made on the meta device from its constructor's arguments, then given
+    the tensors themselves (`load_state_dict(assign=True)`), in eval
+    mode. What `yvt::taco1_step_decode` runs `_decode_loop` on."""
+    from ..config import ModelConfig
+    from ..ops.library import unflatten_weights
+
+    w = unflatten_weights(spec, weights)
+    args = w.pop("decoder")
+    cfg = ModelConfig(**args.pop("cfg"))
+    with torch.device("meta"):
+        dec = TacotronDecoder(cfg=cfg, **args)
+    dec.load_state_dict(w, strict=True, assign=True)
+    return dec.eval()
 
 
 class TacotronDecoder(nn.Module):
@@ -153,6 +165,8 @@ class TacotronDecoder(nn.Module):
         self.proj_mel = Dense(w, n_mels * r_init)
         self.stopnet = Dense(w + n_mels * r_init, 1)
         self._prepared: dict = {}
+        self.shape_args = dict(in_dim=in_dim, n_mels=n_mels, r_init=r_init,
+                               memory_size=memory_size)
 
     def kernel_supported(self) -> bool:
         """Whether this decoder takes the kernel route (kernel 8 at
@@ -176,6 +190,18 @@ class TacotronDecoder(nn.Module):
             [gru(c) for c in self.decoder_rnns],
             (self.proj_mel.weight, self.proj_mel.bias),
             (self.stopnet.weight, self.stopnet.bias), n_mels=self.n_mels, dtype=dtype)
+
+    def step_loop_weights(self, dtype=None) -> dict:
+        """What the step loop's registered op (`yvt::taco1_step_decode`)
+        rebuilds this decoder from: a copy of every parameter and buffer
+        (cast to `dtype`, the compute dtype the live route's
+        `compute_copy` decodes in, where given) and, under "decoder", the
+        constructor's arguments with the model config as a dict."""
+        w = {k: t.detach().to(dtype if dtype is not None and t.is_floating_point() else t.dtype,
+                              copy=True)
+             for k, t in self.state_dict().items()}
+        w["decoder"] = dict(self.shape_args, cfg=dataclasses.asdict(self.cfg))
+        return w
 
     def step_weights(self) -> tuple[dict, torch.Tensor]:
         """(`decoder_step`'s weights, the energy bias) from the module's
@@ -364,23 +390,26 @@ class TacotronDecoder(nn.Module):
         keeps its f32 state and `dtype` matrix inputs). traced: as
         `Decoder.inference`'s (models/tacotron2.py). Off the kernel route
         (`kernel_supported`) the step loop decodes in the memory's dtype
-        and the parameters' (dtype and compute_dtype are not read), which
-        no traced program carries."""
+        and the parameters' (dtype and compute_dtype are not read); a
+        traced program runs it as the registered op `yvt::taco1_step_decode`
+        on the weights `step_loop_weights` copied, in the memory's dtype."""
         B = inputs.shape[0]
         if not self.kernel_supported():
             if traced is not None:
-                raise NotImplementedError(STEP_LOOP_EXPORT)
-            out, aligns, stops, lengths = self._decode_loop(inputs, input_lengths, max_steps,
-                                                            r, seed)
+                out, aligns, stops, lengths = traced.step_decode(inputs, input_lengths, seed,
+                                                                 r=r, max_steps=max_steps)
+            else:
+                out, aligns, stops, lengths = self._decode_loop(inputs, input_lengths,
+                                                                max_steps, r, seed)
             return (out.transpose(0, 1).reshape(B, max_steps * r, self.n_mels),
                     aligns.transpose(0, 1), stops.transpose(0, 1), lengths * r)
         mask = sequence_mask(input_lengths, inputs.shape[1])
         if compute_dtype is None:
-            pinp = self.attention.preprocess_inputs(inputs)
+            pinp = key_projection(self.attention.inputs, inputs)
         else:
             key_proj = (compute_copy(self.attention, "inputs", compute_dtype) if traced is None
                         else traced.cast("decoder.attention.inputs"))
-            pinp = key_proj(inputs.to(compute_dtype)).float()
+            pinp = key_projection(key_proj, inputs.to(compute_dtype)).float()
             inputs = inputs.float()
         _, dropout = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
         kw = dict(r=r, max_steps=max_steps, norm=self.attention.norm,
@@ -535,10 +564,16 @@ class Tacotron(nn.Module):
         }
 
     def serving_weights(self, compute_dtype=None, decode_dtype=torch.bfloat16) -> ServingWeights:
-        """The `ServingWeights` a traced `inference` at these dtypes reads
-        (the kernel's resident layout for this card's block count)."""
+        """The `ServingWeights` a traced `inference` at these dtypes reads:
+        on the kernel route kernel 8's weights (the resident layout for
+        this card's block count), on the step loop the decoder's own
+        (`TacotronDecoder.step_loop_weights`, in the compute dtype)."""
         from ..ops.taco1_decode import _blocks, pack_weights
 
+        if not self.decoder.kernel_supported():
+            return ServingWeights(self, "taco1_step", self.COMPUTE_COPIES, compute_dtype,
+                                  decode_dtype,
+                                  weights=self.decoder.step_loop_weights(compute_dtype))
         return ServingWeights(self, "taco1", self.COMPUTE_COPIES, compute_dtype, decode_dtype,
                               lambda w: pack_weights(w, _blocks(self.device)))
 
@@ -579,7 +614,7 @@ class Tacotron(nn.Module):
                        else torch.Generator(device=dev).manual_seed(seed))
             enc_out = self._encode(text, speaker_ids, speaker_embeddings, style_mel, gen, cast)
             dec = self.decoder
-            if dt is not None and not dec.kernel_supported():
+            if dt is not None and not dec.kernel_supported() and traced is None:
                 dec = compute_copy(self, "decoder", dt)     # the scan computes in dt
             dec_out, aligns, stops, lengths = dec.inference(
                 enc_out, text_lengths, max_steps, r, seed=seed, dtype=decode_dtype,

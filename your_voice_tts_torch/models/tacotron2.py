@@ -45,7 +45,7 @@ from .. import resolve_device
 from ..nn.core import GAINS, Conv1d, Dense, Embedding, xavier_uniform_
 from ..nn.rnn import LSTMCell, bilstm, bilstm_unpacked
 from ..ops.taco2_decode import prepare_weights, tacotron2_decode
-from .attention import GravesAttention, LocationSensitiveAttention, init_attn
+from .attention import GravesAttention, LocationSensitiveAttention, init_attn, key_projection
 from .decoder_grad import DecoderCore, dropout_masks
 from .common import (ConvBNBlock, Prenet, ServingWeights, add_style, cached_decode_weights,
                      compute_copy, concat_speaker, kernel_prenet, sequence_mask)
@@ -262,12 +262,14 @@ class Decoder(nn.Module):
                 traced=None, **stream):
         B = inputs.shape[0]
         mask = sequence_mask(input_lengths, inputs.shape[1])
-        if compute_dtype is None or isinstance(self.attention, GravesAttention):
-            pinp = self.attention.preprocess_inputs(inputs)     # None for Graves
+        if isinstance(self.attention, GravesAttention):
+            pinp = None                                         # no key projection
+        elif compute_dtype is None:
+            pinp = key_projection(self.attention.inputs, inputs)
         else:
             key_proj = (compute_copy(self.attention, "inputs", compute_dtype) if traced is None
                         else traced.cast("decoder.attention.inputs"))
-            pinp = key_proj(inputs.to(compute_dtype)).float()
+            pinp = key_projection(key_proj, inputs.to(compute_dtype)).float()
         inputs = inputs.float()
         _, dropout = kernel_prenet(self.prenet, self.cfg.prenet_dropout)
         kw = dict(r=r, max_steps=max_steps, norm=self.attention.norm,

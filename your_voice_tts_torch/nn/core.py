@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import active, global_sum
+
 Dense = nn.Linear
 Embedding = nn.Embedding
 
@@ -113,7 +115,13 @@ class BatchNorm1d(nn.Module):
     running statistics then move by `momentum` towards them. The running
     variance takes the BIASED batch variance (divided by the count), as the
     JAX package does; torch.nn.BatchNorm1d would take the unbiased one. In
-    eval mode the running statistics normalize."""
+    eval mode the running statistics normalize.
+
+    Inside a data-parallel train step (`parallel.mesh.global_batch`) the
+    statistics are the global batch's, as XLA's SPMD takes them: the masked
+    sums and the count, then the centred squares, are summed over the ranks
+    by a differentiable all-reduce, so that the backward carries the
+    cross-rank terms; the same two passes, the same biased variance."""
 
     def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -129,7 +137,9 @@ class BatchNorm1d(nn.Module):
         else:
             xs = x.float()
             axes = tuple(range(x.dim() - 1))
-            if mask is None:
+            if active():
+                mean, var = _global_moments(xs, axes, mask)
+            elif mask is None:
                 mean = xs.mean(axes)
                 var = xs.var(axes, unbiased=False)
             else:
@@ -143,6 +153,23 @@ class BatchNorm1d(nn.Module):
                 self.running_var.copy_((1 - mo) * self.running_var + mo * var)
         mean, var = mean.to(x.dtype), var.to(x.dtype)
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+def _global_moments(xs, axes, mask):
+    """(mean, biased variance) of xs [..., C] float32 over `axes` and the
+    ranks, where `mask` [...] (or everywhere): one all-reduce of the sums
+    and the count, one of the centred squares."""
+    if mask is None:
+        s, cnt = xs.sum(axes), xs.new_tensor([xs[..., 0].numel()])
+    else:
+        m = mask[..., None].float()
+        s, cnt = (xs * m).sum(axes), m.sum().reshape(1)
+    s = global_sum(torch.cat([s, cnt]))
+    cnt = s[-1].detach().clamp_min(1.0)
+    mean = s[:-1] / cnt
+    sq = (xs - mean) ** 2
+    var = global_sum(sq.sum(axes) if mask is None else (sq * m).sum(axes)) / cnt
+    return mean, var
 
 
 def init_convs_(model: nn.Module, generator: torch.Generator) -> None:

@@ -10,6 +10,7 @@ sources, so an edited source rebuilds and an unchanged one is reused.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -87,6 +88,19 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_target(name))
         _loaded[name] = lib
     return lib
+
+
+@contextlib.contextmanager
+def on_device(dev):
+    """`dev` made the current CUDA device for a launch, yielding the handle
+    of its current stream. A launcher here runs on the current device (and
+    reads its SM count there); called from a thread or a caller whose
+    current device is another card, it would launch there with pointers
+    into `dev`'s memory."""
+    import torch
+
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -431,9 +431,10 @@ def _fgla_cuda(mag, init_phase, consts: dict, n_iters: int, momentum: float, rou
               unpack=_Rows(**plan["unpack"]), mom=float(momentum), P=P.data_ptr(), pP=pP.data_ptr(), frN=frN.data_ptr(),
               pN=pN.data_ptr(), xw=xw.data_ptr(), g=g.data_ptr(), mag=m.data_ptr(),
               MwT=c["MwT"].data_ptr(), Mf=c["Mf"].data_ptr(), nyq=c["nyq"].data_ptr(),
-              altw=c["altw"].data_ptr(), wsic=c["wsic"].data_ptr(), out=out.data_ptr(),
-              stream=torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(lib.gl_fgla(ctypes.addressof(f)), "gl_fgla")
+              altw=c["altw"].data_ptr(), wsic=c["wsic"].data_ptr(), out=out.data_ptr())
+    with cuda_build.on_device(dev) as stream:
+        f.stream = stream
+        cuda_build.check(lib.gl_fgla(ctypes.addressof(f)), "gl_fgla")
     if route == "full":
         return out.reshape(mag.shape), f.launches
     corr = _edge_correction(T, n_fft, hop, consts["window"].tobytes(), dev)
@@ -569,9 +570,10 @@ def _gli_cuda(Fr, Fi, mag, consts: dict, n_iters: int, what: str, serial: bool =
              g=g.data_ptr(), mag=m.data_ptr(), synT=c["synT"].data_ptr(),
              anaT=c["anaT"].data_ptr(), nyq_syn=c["nyq_syn"].data_ptr(),
              nyq_ana=c["nyq_ana"].data_ptr(), win=c["win"].data_ptr(), wsi=c["wsi"].data_ptr(),
-             Fr=out_r.data_ptr(), Fi=out_i.data_ptr(),
-             stream=torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(lib.gl_plain(ctypes.addressof(f)), "gl_plain")
+             Fr=out_r.data_ptr(), Fi=out_i.data_ptr())
+    with cuda_build.on_device(dev) as stream:
+        f.stream = stream
+        cuda_build.check(lib.gl_plain(ctypes.addressof(f)), "gl_plain")
     if n_iters == 0:
         return (Fr.to(F32).contiguous(), Fi.to(F32).contiguous()), f.launches
     return (out_r.reshape(B, T, Kf), out_i.reshape(B, T, Kf)), f.launches

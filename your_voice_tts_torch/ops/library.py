@@ -4,6 +4,9 @@ its graph and a loaded artifact launches them:
 
 - `yvt::taco2_decode` over `ops/taco2_decode.py tacotron2_decode` (kernel 1);
 - `yvt::taco1_decode` over `ops/taco1_decode.py tacotron1_decode` (kernel 8);
+- `yvt::taco1_step_decode` over Tacotron(1)'s step loop
+  (`models/tacotron.py TacotronDecoder._decode_loop`), which has no kernel:
+  the decode of the configs kernel 8 does not serve;
 - `yvt::griffin_lim` over `ops/griffin_lim.py griffin_lim_batch` (kernels
   2-4, by the route of the frame count).
 
@@ -130,6 +133,36 @@ def taco1_decode(weights: list[torch.Tensor], enc_out: torch.Tensor, pinp: torch
 @taco1_decode.register_fake
 def _(weights, enc_out, pinp, mask, seed, spec, r, max_steps, *_):
     return _decode_fake(weights, enc_out, spec)(max_steps)
+
+
+@torch.library.custom_op(f"{NS}::taco1_step_decode", mutates_args=())
+def taco1_step_decode(weights: list[torch.Tensor], enc_out: torch.Tensor,
+                      lengths: torch.Tensor, seed: torch.Tensor, spec: str, r: int,
+                      max_steps: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tacotron(1)'s step loop (`TacotronDecoder._decode_loop`, the decode
+    of Graves, windowing, forward attention, the agent and location
+    features off, which kernel 8 does not serve) on the decoder that
+    `spec` and `weights` describe (`models.tacotron.step_decoder`), eager
+    on enc_out's device: frames [max_steps, B, n_mels * r] and stop
+    probabilities [max_steps, B] in enc_out's dtype, alignments
+    [max_steps, B, T] float32, lengths [B] in r-groups. It reads whether
+    every row is done every 50 steps and draws the prenet's dropout from
+    the hash PRNG keyed by the seed, as the live route does."""
+    from ..models.tacotron import step_decoder
+
+    out = step_decoder(spec, weights)._decode_loop(enc_out, lengths, max_steps, r,
+                                                   int(seed.reshape(-1)[0]))
+    return tuple(t.contiguous() for t in out)
+
+
+@taco1_step_decode.register_fake
+def _(weights, enc_out, lengths, seed, spec, r, max_steps):
+    n_mels = json.loads(spec)["meta"]["decoder"]["n_mels"]
+    B, T = enc_out.shape[:2]
+    return (enc_out.new_empty(max_steps, B, n_mels * r), enc_out.new_empty(
+        max_steps, B, T, dtype=torch.float32), enc_out.new_empty(max_steps, B),
+        enc_out.new_empty(B, dtype=torch.int64))
 
 
 _GL_CONSTS: dict = {}

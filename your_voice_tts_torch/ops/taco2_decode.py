@@ -740,8 +740,8 @@ def _launch(w, enc_out, pinp, mask, *, r, max_steps, norm, thresh, prenet_dropou
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*[0 if t is None else t.data_ptr() for t in ptrs])
     c_dims = (ctypes.c_int * len(dims))(*dims)
     c_fl = (ctypes.c_float * 3)(float(w["v_b"]), float(thresh), float(w.get("ta_b", 0.0)))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib().taco2_decode(c_ptrs, c_dims, c_fl, seed & 0xFFFFFFFF, stream, probe)
+    with cuda_build.on_device(dev) as stream:
+        err = _lib().taco2_decode(c_ptrs, c_dims, c_fl, seed & 0xFFFFFFFF, stream, probe)
     if err == -1:
         raise RuntimeError("the decode kernel's grid cannot be co-resident")
     cuda_build.check(err, "taco2_decode")

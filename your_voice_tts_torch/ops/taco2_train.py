@@ -574,9 +574,11 @@ def _fwd_scan(w, prenet_t, enc, pinp, maskf, m_a, m_d, norm, probe):
                     ld_a=w["a_w"].shape[1], ld_d=w["d_w"].shape[1],
                     cluster_lstm=plan["cluster"], cluster_attn=plan["attn"]["cluster"],
                     attn_probe=attn_probe, lstm_probe=lstm_probe, serial=serial,
-                    stream=torch.cuda.current_stream(dev).cuda_stream,
                     **{k: _ptr(v) for k, v in ptrs.items()})
-    cuda_build.check(lib.taco2_train_fwd_scan(ctypes.addressof(args)), "taco2_train_fwd_scan")
+    with cuda_build.on_device(dev) as stream:
+        args.stream = stream
+        cuda_build.check(lib.taco2_train_fwd_scan(ctypes.addressof(args)),
+                         "taco2_train_fwd_scan")
     return out
 
 
@@ -671,9 +673,11 @@ def _bwd_scan(w, res, d_dech, d_ctx_out, d_align_out, enc, pinp, maskf, m_a, m_d
                  ld_a=w["a_wT"].shape[1], ld_d=w["d_wT"].shape[1],
                  cluster_a=plan["a"]["cluster"], cluster_d=plan["d"]["cluster"],
                  cluster_attn=plan["attn"]["cluster"], attn_probe=probe, serial=int(serial),
-                 stream=torch.cuda.current_stream(dev).cuda_stream,
                  **{k: _ptr(v) for k, v in ptrs.items()})
-    cuda_build.check(lib.taco2_train_bwd_scan(ctypes.addressof(scan)), "taco2_train_bwd_scan")
+    with cuda_build.on_device(dev) as stream:
+        scan.stream = stream
+        cuda_build.check(lib.taco2_train_bwd_scan(ctypes.addressof(scan)),
+                         "taco2_train_bwd_scan")
     return out
 
 

@@ -217,8 +217,9 @@ def _launch(w: dict, cond, aux, seed: int, bits: int, mode: str, num_mixtures: i
     mu = float(2 ** bits - 1)
     c_fl = (ctypes.c_float * 3)(mu, math.log1p(mu), LOG_SCALE_MIN)
     c_dims = (ctypes.c_int * len(dims))(*dims)
-    args = (c_ptrs, c_dims, c_fl, seed & 0xFFFFFFFF, torch.cuda.current_stream(dev).cuda_stream)
-    err = lib.wavernn_probe(*args, probe) if probe else lib.wavernn_generate(*args)
+    with cuda_build.on_device(dev) as stream:
+        args = (c_ptrs, c_dims, c_fl, seed & 0xFFFFFFFF, stream)
+        err = lib.wavernn_probe(*args, probe) if probe else lib.wavernn_generate(*args)
     if err == -1:
         raise RuntimeError("the WaveRNN kernel's grid cannot be co-resident on this card")
     cuda_build.check(err, "wavernn_probe" if probe else "wavernn_generate")

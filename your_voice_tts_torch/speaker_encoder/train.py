@@ -1,5 +1,5 @@
 """Speaker-encoder trainer (the JAX package's speaker_encoder/train.py):
-GE2E over random N x M batches, one device.
+GE2E over random N x M batches, on one device or data-parallel.
 
 The update is optax's chain(clip_by_global_norm(grad_clip), adam(lr)),
 train/optim.py `ClipAdam` (b1 0.9, b2 0.999, eps 1e-8), over the
@@ -10,6 +10,16 @@ loss's (w, b) as model state ``['ge2e']``, and the Adam state under
 ``opt_state`` in optax's own key paths (``[1][0].count``,
 ``[1][0].mu['model'][...]``, ``[1][0].mu['loss'][...]``, and ``nu``), so
 the JAX package's trainer and both packages' `load_encoder` read it.
+
+Under an initialized process group (parallel/mesh.py) the step is the
+reference's on its mesh, which shards the speaker axis: every rank draws
+the same batch, embeds its N / world speakers' utterances, and the
+embeddings of every rank are summed into the whole [N, M, D] batch by a
+differentiable all-reduce (each rank's rows zero elsewhere); the GE2E loss
+over it enters each rank's loss as its share, and the gradients are summed
+over the ranks. The world size must divide N (the reference shards over
+the largest device count that does). Rank 0's weights are broadcast at the
+start and after `restore`.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel import mesh
 from ..train.checkpoint import (_insert, jax_layouts, params_from_jax, parse_keypath,
                                 read_checkpoint)
 from ..train.optim import ClipAdam
@@ -54,21 +65,43 @@ class SpeakerEncoderTrainer:
         self.mu, self.nu = self.adam.mu, self.adam.nu
         self.output_path = output_path
         self.verbose = verbose
+        self.world, self.rank = mesh.world_size(), mesh.rank()
+        if self.N % self.world:
+            raise ValueError(f"{self.world} ranks do not divide num_speakers_per_batch "
+                             f"{self.N}")
+        self._broadcast()
+
+    def _broadcast(self) -> None:
+        mesh.broadcast_module(self.model)
+        holder = torch.nn.Module()
+        for name, t in self.loss_params.items():
+            holder.register_buffer(name, t.data)
+        mesh.broadcast_module(holder)
 
     def loss(self, mels):
-        """mels [N, M, T, n_mels] -> the GE2E loss of their embeddings."""
+        """mels [N, M, T, n_mels] -> the GE2E loss of their embeddings (in a
+        data-parallel step, this rank's share of it)."""
         N, M = mels.shape[:2]
-        emb = self.model(mels.reshape((N * M,) + mels.shape[2:])).reshape(N, M, -1)
-        return ge2e_loss(emb, self.loss_params["w"], self.loss_params["b"])
+        if not mesh.active():
+            emb = self.model(mels.reshape((N * M,) + mels.shape[2:])).reshape(N, M, -1)
+            return ge2e_loss(emb, self.loss_params["w"], self.loss_params["b"])
+        n = N // self.world
+        mine = mels[self.rank * n:(self.rank + 1) * n]
+        emb = self.model(mine.reshape((n * M,) + mels.shape[2:])).reshape(n, M, -1)
+        pad = [0, 0, 0, 0, self.rank * n, N - (self.rank + 1) * n]
+        emb = mesh.global_sum(torch.nn.functional.pad(emb, pad))
+        return mesh.share(ge2e_loss(emb, self.loss_params["w"], self.loss_params["b"]))
 
     def train_step(self, mels) -> float:
         """One update on a [N, M, T, n_mels] batch (numpy or tensor);
         returns the loss before it."""
         self.model.train()
         mels = torch.as_tensor(mels, dtype=torch.float32, device=self.device)
-        loss = self.loss(mels)
-        self.adam.step(torch.autograd.grad(loss, self.params))
-        return loss.item()
+        with mesh.global_batch():
+            loss = self.loss(mels)
+            grads = torch.autograd.grad(loss, self.params)
+        self.adam.step(mesh.sum_grads(list(grads)))
+        return mesh.sum_metrics({"loss": loss})["loss"].item()
 
     @property
     def step(self) -> int:
@@ -88,7 +121,7 @@ class SpeakerEncoderTrainer:
             last = {"loss": loss, "step_time": time.time() - t0}
             if self.verbose and self.step % print_step == 0:
                 print(f"   --> GE2E STEP {self.step} | loss: {loss:.4f}", flush=True)
-            if self.output_path and self.step % 1000 == 0:
+            if self.output_path and self.step % 1000 == 0 and self.rank == 0:
                 self.save(os.path.join(self.output_path, f"speaker_encoder_{self.step}.npz"))
         return last
 
@@ -145,4 +178,5 @@ class SpeakerEncoderTrainer:
                 m.copy_(sd[name] if name in sd else torch.as_tensor(
                     np.asarray(tree["loss"][name], F32)))
         self.adam.count = int(opt[f"{_OPT}.count"])
+        self._broadcast()
         return meta

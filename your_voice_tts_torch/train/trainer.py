@@ -1,5 +1,5 @@
 """Teacher-forced training of Tacotron2 and Tacotron(1) (the JAX package's
-train/trainer.py), single device.
+train/trainer.py), on one device or data-parallel.
 
 `Trainer(cfg, device=...).fit(max_steps=N)`: gradual (step, r, batch size)
 schedule, the bucketed loader, one train step per batch (loss, backward
@@ -42,7 +42,25 @@ update (`train_step`).
 
 `capture_trace` writes a torch.profiler trace of one call; the JAX
 package's profiler server has no torch counterpart, so `start_profiler`
-raises NotImplementedError. A later slice brings data parallelism.
+raises NotImplementedError.
+
+Data parallelism (the reference's mesh; parallel/mesh.py): under an
+initialized process group (bin/distribute.py) each rank trains on its
+shard of the corpus, train_items[rank::world] cut to an equal count, and
+each step is the reference's step on the global batch, the ranks' local
+batches concatenated in rank order: every batch is padded to the group's
+text and mel lengths (`sync_batch_shapes`) and to a multiple of the world
+size (`pad_batch_to_devices`); the forward runs under `global_batch()`
+(losses over global counts, BatchNorm over the global batch); the float32
+gradients and the loss parts are summed over the ranks, so every rank
+takes the same update. Rank 0's parameters and buffers are broadcast at
+the start and after `restore`; each rank draws dropout from a generator
+seeded 42 + rank. Gradient accumulation splits each rank's local batch,
+so micro-batch i is the ranks' i-th slices together (ROADMAP C). Rank 0
+alone writes checkpoints, TensorBoard events and the test sentences;
+evaluation runs on every rank on the whole eval set, as the reference's
+duplicated eval batches give every process the same numbers. The speaker
+map is built from every item before the corpus is sharded.
 """
 
 from __future__ import annotations
@@ -60,6 +78,7 @@ from ..audio import AudioProcessor
 from ..data import TTSDataset, load_meta_data
 from ..models import setup_model
 from ..models.losses import TacotronLoss
+from ..parallel import mesh
 from ..text import phonemes, symbols
 from ..utils.io import count_parameters
 from ..utils.logging import ConsoleLogger, TensorboardLogger
@@ -120,6 +139,13 @@ class Trainer:
         if sp.use_speaker_embedding:
             names = sorted({it[2] for it in train_items + eval_items})
             speakers = {n: i for i, n in enumerate(names)}
+        self.world, self.rank = mesh.world_size(), mesh.rank()
+        self.is_rank0 = self.rank == 0
+        n_items = len(train_items)
+        if self.world > 1:
+            # equal counts: every rank takes the same number of steps
+            per = len(train_items) // self.world
+            train_items = train_items[self.rank::self.world][:per]
         self.train_data = TTSDataset(train_items, cfg, self.ap, speakers=speakers,
                                      speaker_embeddings=speaker_embeddings,
                                      cache_dir=cfg.data.phoneme_cache_path)
@@ -143,16 +169,20 @@ class Trainer:
         self.optimizer = build_optimizer(self.params, t)
         self.lr_fn = self.optimizer.lr_fn
         self.step = 0
-        self.generator = torch.Generator(device=self.device).manual_seed(42)
+        self.generator = torch.Generator(device=self.device).manual_seed(42 + self.rank)
+        mesh.broadcast_module(self.model)
         self.output_path = output_path
-        if output_path:
+        if output_path and self.is_rank0:
             os.makedirs(output_path, exist_ok=True)
-        self.tb = TensorboardLogger(output_path)
+        self.tb = TensorboardLogger(output_path if self.is_rank0 else None)
         self.console = ConsoleLogger()
         self.best_loss = float("inf")
         if verbose:
             print(f" > Model has {count_parameters(self.model):,} parameters")
             print(f" > Device: {self.device}")
+            if mesh.distributed():
+                print(f" > Rank {self.rank}/{self.world}: {len(self.train_data)} of "
+                      f"{n_items} training items")
 
     # --- steps -------------------------------------------------------------
 
@@ -217,7 +247,10 @@ class Trainer:
         BatchNorm running statistics carried from one to the next; the
         gradients are summed in float32 and divided by A, the loss parts
         averaged, and one update applied, whose gradient norm is the
-        averaged gradients'."""
+        averaged gradients'. Under a process group the batch is this rank's
+        slice of the global batch: the forward runs under `global_batch()`,
+        and the gradients and the loss parts are summed over the ranks
+        before the norm, the clip and the update."""
         b = self._tensors(batch)
         A = self.accum
         B = b["text"].shape[0]
@@ -231,8 +264,9 @@ class Trainer:
         grads, parts = None, []
         for i in range(A):
             micro = {k: v[i * n:(i + 1) * n] for k, v in b.items()}
-            total, p, out = self._loss_fn(micro, r, self.generator)
-            g = torch.autograd.grad(total, self.params, allow_unused=True)
+            with mesh.global_batch():
+                total, p, out = self._loss_fn(micro, r, self.generator)
+                g = torch.autograd.grad(total, self.params, allow_unused=True)
             g = [torch.zeros_like(w, dtype=torch.float32) if x is None else x.float()
                  for w, x in zip(self.params, g)]
             grads = g if grads is None else torch._foreach_add(grads, g)
@@ -240,12 +274,13 @@ class Trainer:
             del total, p, out, g          # this micro-batch's graph, before the next
         if A > 1:
             grads = torch._foreach_div(grads, A)
+        grads = mesh.sum_grads(grads)
         grad_norm = torch.sqrt(sum((g ** 2).sum() for g in grads))
         self.optimizer.step(grads)
         self.step += 1
         keys = list(parts[0])
-        vals = torch.stack([torch.stack([p[k] for p in parts]).mean() for k in keys]
-                           + [grad_norm]).tolist()
+        means = mesh.sum_metrics({k: torch.stack([p[k] for p in parts]).mean() for k in keys})
+        vals = torch.stack([means[k].to(grad_norm.dtype) for k in keys] + [grad_norm]).tolist()
         return dict(zip(keys + ["grad_norm"], vals))
 
     # --- loops -------------------------------------------------------------
@@ -269,6 +304,7 @@ class Trainer:
             t_loader = time.time()
             for batch in self.train_data.batches(bs, r, shuffle=True, seed=epoch):
                 loader_time = time.time() - t_loader
+                batch = mesh.pad_batch_to_devices(mesh.sync_batch_shapes(batch, r), self.world)
                 t0 = time.time()
                 metrics = self.train_step(batch, r)
                 metrics["step_time"] = time.time() - t0
@@ -300,9 +336,9 @@ class Trainer:
             if self.eval_data is not None and cfg.training.run_eval:
                 eval_metrics = self.evaluate(r)
                 self.tb.tb_eval_stats(global_step, eval_metrics)
-                if epoch >= cfg.training.test_delay_epochs:
+                if epoch >= cfg.training.test_delay_epochs and self.is_rank0:
                     self.test_run(global_step)
-                if self.output_path:
+                if self.output_path and self.is_rank0:
                     self.best_loss = save_best_model(
                         eval_metrics.get("loss", float("inf")), self.best_loss,
                         self.output_path, model=self.model, optimizer=self.optimizer,
@@ -414,6 +450,8 @@ class Trainer:
     # --- persistence -------------------------------------------------------
 
     def _save(self, step: int, epoch: int, r: int) -> None:
+        if not self.is_rank0:
+            return
         path = os.path.join(self.output_path, f"checkpoint_{step}.npz")
         save_checkpoint(path, self.model, self.optimizer, step=step, epoch=epoch, r=r,
                         extra={"g2p_backend": self.train_data.g2p_backend_name or ""})
@@ -424,7 +462,8 @@ class Trainer:
         """Resume from a checkpoint: parameters, BatchNorm state, step, r,
         and (unless lenient) the optimizer state. lenient keeps the current
         values of leaves whose name or shape does not match, with a
-        warning, and leaves the optimizer as it is."""
+        warning, and leaves the optimizer as it is. Under a process group
+        rank 0's parameters and buffers are then broadcast."""
         params, state, meta = read_checkpoint(path)
         sd = params_from_jax(params, state, jax_layouts(self.model))
         own = self.model.state_dict()
@@ -435,6 +474,7 @@ class Trainer:
                               stacklevel=2)
             sd = {k: v for k, v in sd.items() if k in own and v.shape == own[k].shape}
         self.model.load_state_dict(sd, strict=not lenient)
+        mesh.broadcast_module(self.model)
         if not lenient:
             opt = read_optimizer_state(path, self.model)
             if opt is not None:

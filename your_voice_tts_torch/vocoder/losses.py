@@ -9,6 +9,12 @@ than n_fft / 2, e.g. 512 samples at n_fft 2048), a Hann window of `win`
 centred in n_fft. Every row of a batch has the same length, so each
 resolution's frame indices and window are built once per (length, device)
 and kept, not once per row and step.
+
+Inside a data-parallel train step (`parallel.mesh.global_batch`) each mean
+is this rank's share of the global batch's (`global_mean`), and the
+spectral convergence, one norm over the whole batch, is taken from the
+squared norms summed over the ranks (`global_sum`) and enters each rank's
+loss as its share (`share`).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import functools
 import torch
 
 from ..ops.dsp import mirror_indices
+from ..parallel.mesh import active, global_mean, global_sum, share
 from ..ops.filters import hann_window
 
 # (n_fft, hop, win): the reference's multi-resolution settings
@@ -44,8 +51,12 @@ def stft_loss(y_hat, y, n_fft: int, hop: int, win: int):
     convergence is one Frobenius norm over the whole batch,
     ||m - m_hat|| / max(||m||, 1e-7), as the reference computes it."""
     m_hat, m = stft_magnitude(y_hat, n_fft, hop, win), stft_magnitude(y, n_fft, hop, win)
-    sc = torch.linalg.vector_norm(m - m_hat) / torch.linalg.vector_norm(m).clamp_min(1e-7)
-    return sc, (torch.log(m) - torch.log(m_hat)).abs().mean()
+    if active():
+        sq = global_sum(torch.stack([((m - m_hat) ** 2).sum(), (m ** 2).sum()]))
+        sc = share(sq[0].sqrt() / sq[1].sqrt().clamp_min(1e-7))
+    else:
+        sc = torch.linalg.vector_norm(m - m_hat) / torch.linalg.vector_norm(m).clamp_min(1e-7)
+    return sc, global_mean((torch.log(m) - torch.log(m_hat)).abs())
 
 
 def multi_scale_stft_loss(y_hat, y, resolutions=DEFAULT_RESOLUTIONS):
@@ -60,19 +71,19 @@ def multi_scale_stft_loss(y_hat, y, resolutions=DEFAULT_RESOLUTIONS):
 
 def gen_adv_loss(fake_scores: list):
     """LSGAN, the generator's side: the mean over scales of mean((D(fake) - 1)^2)."""
-    return sum(((s - 1.0) ** 2).mean() for s in fake_scores) / len(fake_scores)
+    return sum(global_mean((s - 1.0) ** 2) for s in fake_scores) / len(fake_scores)
 
 
 def disc_adv_loss(real_scores: list, fake_scores: list):
     """LSGAN, the discriminator's side: the mean over scales of
     mean((D(real) - 1)^2) + mean(D(fake)^2)."""
-    return sum(((r - 1.0) ** 2).mean() + (f ** 2).mean()
+    return sum(global_mean((r - 1.0) ** 2) + global_mean(f ** 2)
                for r, f in zip(real_scores, fake_scores)) / len(real_scores)
 
 
 def feature_match_loss(fake_feats: list, real_feats: list):
     """The mean over every feature map of every scale of mean |fake -
     real|, the real maps detached."""
-    terms = [(a - b.detach()).abs().mean() for ff, rf in zip(fake_feats, real_feats)
+    terms = [global_mean((a - b.detach()).abs()) for ff, rf in zip(fake_feats, real_feats)
              for a, b in zip(ff, rf)]
     return sum(terms) / max(len(terms), 1)

@@ -17,6 +17,7 @@ import torch
 
 from ...ops.prng import uniform
 from ...ops.taco2_decode import softplus
+from ...parallel.mesh import global_mean
 
 # ln(1e-7): the reference clamps log-scales to keep exp(-log_s) finite in f32
 LOG_SCALE_MIN = float(math.log(1e-7))
@@ -49,7 +50,7 @@ def discretized_mix_logistic_loss(y_hat, y, num_classes: int = 65536, reduce: bo
     log_probs = torch.where(yb < -0.999, log_cdf_plus,
                             torch.where(yb > 0.999, log_one_minus_cdf_min, inner))
     nll = -torch.logsumexp(log_probs + torch.log_softmax(logit_probs, -1), -1)
-    return nll.mean() if reduce else nll
+    return global_mean(nll) if reduce else nll
 
 
 def gaussian_loss(y_hat, y, reduce: bool = True):
@@ -59,7 +60,7 @@ def gaussian_loss(y_hat, y, reduce: bool = True):
     mu = y_hat[..., 0]
     log_s = y_hat[..., 1].clamp_min(LOG_SCALE_MIN)
     nll = 0.5 * math.log(2.0 * math.pi) + log_s + 0.5 * torch.exp(-2.0 * log_s) * (y - mu) ** 2
-    return nll.mean() if reduce else nll
+    return global_mean(nll) if reduce else nll
 
 
 def _gumbel(shape, key: int, salt: int, device):

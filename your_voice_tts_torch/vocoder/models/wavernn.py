@@ -27,6 +27,7 @@ from torch import nn
 from ...nn.core import GAINS, Conv1d, Dense, xavier_uniform_
 from ...nn.rnn import GRUCell
 from ...ops.wavernn_gen import generation_weights, pack_weights, wavernn_generate
+from ...parallel.mesh import global_mean
 from .distribs import discretized_mix_logistic_loss, gaussian_loss
 
 # --- mu-law ------------------------------------------------------------------
@@ -218,7 +219,7 @@ class WaveRNN(nn.Module):
                  else torch.func.functional_call(self, params, (x_in, mels))).float()
         if self.mode == "mulaw":
             logp = torch.log_softmax(y_hat, -1)
-            return -logp.gather(-1, targets[..., None]).mean()
+            return global_mean(-logp.gather(-1, targets[..., None]))
         if self.mode == "mol":
             return discretized_mix_logistic_loss(y_hat, audio.float())
         return gaussian_loss(y_hat, audio.float())

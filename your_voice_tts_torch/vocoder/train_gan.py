@@ -1,6 +1,6 @@
 """GAN vocoder trainer (the JAX package's vocoder/train_gan.py): MelGAN
 against its multi-scale discriminator, or Parallel WaveGAN against its
-one-scale discriminator, one device.
+one-scale discriminator, on one device or data-parallel.
 
 The generator trains alone on the multi-resolution STFT loss until
 training.steps_to_start_discriminator, then each step is a generator step
@@ -26,6 +26,16 @@ for the discriminator step (the reference splits a threefry key, which
 torch cannot reproduce). Checkpoints are the JAX trainer's (params and
 opt_state under 'g' and 'd', extra.vocoder_model), restored strictly by
 either package.
+
+Under an initialized process group (bin/distribute.py; parallel/mesh.py)
+each step is the reference's on the global batch, the ranks' local
+batches in rank order: the global batch rounds training.batch_size up to a
+multiple of the world size, each rank samples its share of it from
+np.random.default_rng(1 + rank), both losses run under `global_batch()`
+(means over the global batch, the spectral convergence from the global
+norms), and each side's gradients are summed over the ranks before its
+update. Rank 0's weights are broadcast at the start and after `restore`,
+and rank 0 alone writes checkpoints.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import torch
 
 from .. import resolve_device
 from ..audio import AudioProcessor
+from ..parallel import mesh
 from ..train.checkpoint import restore_trainer_checkpoint, save_trainer_checkpoint
 from ..train.optim import ClipAdam
 from .config import VocoderConfig
@@ -69,7 +80,8 @@ class GANTrainer:
                  verbose: bool = True, device=None):
         """Trains cfg.model ("melgan" or "pwgan") on `items` ((text, wav
         path, speaker) rows) on `device`, CUDA unless given. The global
-        batch is training.batch_size, on one device."""
+        batch is training.batch_size rounded up to a multiple of the world
+        size."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.ap = AudioProcessor(cfg.audio, self.device)
@@ -103,7 +115,10 @@ class GANTrainer:
         self.d_params = [p for p in self.discriminator.parameters() if p.requires_grad]
         self.g_opt = ClipAdam(self.g_params, t.lr_gen, t.grad_clip, b1=0.5, b2=0.9)
         self.d_opt = ClipAdam(self.d_params, t.lr_disc, t.grad_clip, b1=0.5, b2=0.9)
-        self.global_batch = t.batch_size
+        self.world, self.rank = mesh.world_size(), mesh.rank()
+        self.global_batch = -(-t.batch_size // self.world) * self.world
+        mesh.broadcast_module(self.generator)
+        mesh.broadcast_module(self.discriminator)
         # the inputs', the losses' and the discriminator outputs' dtype:
         # float32 as the reference's; a reference run on float64 copies of
         # the networks sets float64
@@ -187,28 +202,34 @@ class GANTrainer:
         gen = (torch.Generator(device=self.device).manual_seed(seed)
                if self.cfg.model == "pwgan" else None)
         use_disc = self.step >= self.cfg.training.steps_to_start_discriminator
-        loss, parts = self.g_loss(mel, audio, use_disc, noise[0], gen)
-        self.g_opt.step(_grads(loss, self.g_params))
+        with mesh.global_batch():
+            loss, parts = self.g_loss(mel, audio, use_disc, noise[0], gen)
+            grads = _grads(loss, self.g_params)
+        self.g_opt.step(mesh.sum_grads(grads))
         if use_disc:
-            loss, d_parts = self.d_loss(mel, audio, noise[1], gen)
-            self.d_opt.step(_grads(loss, self.d_params))
+            with mesh.global_batch():
+                loss, d_parts = self.d_loss(mel, audio, noise[1], gen)
+                grads = _grads(loss, self.d_params)
+            self.d_opt.step(mesh.sum_grads(grads))
             parts.update(d_parts)
         self.step += 1
+        parts = mesh.sum_metrics(parts)
         keys = list(parts)
         return dict(zip(keys, torch.stack([parts[k].detach().double() for k in keys]).tolist()))
 
     def fit(self, max_steps: int) -> dict:
-        """max_steps steps on batches drawn from np.random.default_rng(1),
-        each followed by the reference's rng.integers(2**31) draw (PWGAN's
-        noise seed); metrics printed at (step + 1) % print_step and a
-        checkpoint every save_step with an output path. Returns the last
-        step's metrics and seconds."""
+        """max_steps steps on batches drawn from np.random.default_rng(1 +
+        rank), this rank's share of the global batch, each followed by the
+        reference's rng.integers(2**31) draw (PWGAN's noise seed); metrics
+        printed at (step + 1) % print_step and a checkpoint every
+        save_step with an output path (rank 0). Returns the last step's
+        metrics and seconds."""
         t = self.cfg.training
-        rng = np.random.default_rng(1)
+        rng = np.random.default_rng(1 + self.rank)
         last: dict = {}
         for _ in range(max_steps):
             step = self.step
-            mel, audio = self.dataset.sample_batch(self.global_batch, rng)
+            mel, audio = self.dataset.sample_batch(self.global_batch // self.world, rng)
             seed = int(rng.integers(2 ** 31))
             t0 = time.time()
             last = self.train_step(mel, audio, seed)
@@ -216,7 +237,7 @@ class GANTrainer:
             if self.verbose and (step + 1) % t.print_step == 0:
                 msg = " | ".join(f"{k}: {v:.4f}" for k, v in last.items())
                 print(f"   --> GAN STEP {step + 1} | {msg}", flush=True)
-            if self.output_path and (step + 1) % t.save_step == 0:
+            if self.output_path and (step + 1) % t.save_step == 0 and self.rank == 0:
                 self.save(os.path.join(self.output_path, f"vocoder_checkpoint_{step + 1}.npz"))
         return last
 
@@ -231,5 +252,7 @@ class GANTrainer:
 
     def restore(self, path: str) -> dict:
         meta = restore_trainer_checkpoint(path, self._parts())
+        mesh.broadcast_module(self.generator)
+        mesh.broadcast_module(self.discriminator)
         self.step = int(meta["step"])
         return meta

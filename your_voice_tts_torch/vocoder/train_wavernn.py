@@ -1,7 +1,7 @@
 """WaveRNN trainer (the JAX package's vocoder/train_wavernn.py): the
 teacher-forced negative log-likelihood by I/O mode (mu-law cross-entropy,
 mixture of logistics, Gaussian; `WaveRNN.loss`) on random segments of a
-corpus, one device.
+corpus, on one device or data-parallel.
 
 The update is optax's chain(clip_by_global_norm(grad_clip), adam(lr_gen)),
 train/optim.py `ClipAdam`. mixed_precision runs the forward on bf16 casts
@@ -12,6 +12,14 @@ after them run in float32 on the bf16 weights (`WaveRNN.forward`), and the
 NLL is float32. Checkpoints are the JAX trainer's
 (`wavernn_checkpoint_{step}.npz`, `extra.vocoder_model = "wavernn"`, the
 Adam state at the chain's place), restored strictly by either package.
+
+Under an initialized process group (bin/distribute.py; parallel/mesh.py)
+each step is the reference's on the global batch, as in train_gan.py: the
+global batch rounds training.batch_size up to a multiple of the world
+size, each rank samples its share from np.random.default_rng(1 + rank),
+the NLL is this rank's share of the global mean (`global_batch()`), the
+gradients are summed over the ranks, rank 0's weights are broadcast at the
+start and after `restore`, and rank 0 alone writes checkpoints.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 
 from .. import resolve_device
 from ..audio import AudioProcessor
+from ..parallel import mesh
 from ..train.checkpoint import restore_trainer_checkpoint, save_trainer_checkpoint
 from ..train.optim import ClipAdam
 from .config import VocoderConfig
@@ -45,7 +54,7 @@ class WaveRNNTrainer:
                  verbose: bool = True, device=None):
         """Trains a WaveRNN of cfg.wavernn on `items` ((text, wav path,
         speaker) rows) on `device`, CUDA unless given. The global batch is
-        training.batch_size, on one device."""
+        training.batch_size rounded up to a multiple of the world size."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.ap = AudioProcessor(cfg.audio, self.device)
@@ -59,7 +68,9 @@ class WaveRNNTrainer:
         self.dataset = GANDataset(items, self.ap, cfg.training.seq_len, pad=w.pad)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = ClipAdam(self.params, cfg.training.lr_gen, cfg.training.grad_clip)
-        self.global_batch = cfg.training.batch_size
+        self.world, self.rank = mesh.world_size(), mesh.rank()
+        self.global_batch = -(-cfg.training.batch_size // self.world) * self.world
+        mesh.broadcast_module(self.model)
         self.output_path = output_path
         self.verbose = verbose
 
@@ -82,20 +93,22 @@ class WaveRNNTrainer:
         seq_len], numpy or tensors); returns the loss before it."""
         mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
         audio = torch.as_tensor(audio, dtype=torch.float32, device=self.device)
-        loss = self.loss(mel, audio)
-        self.optimizer.step(torch.autograd.grad(loss, self.params))
-        return loss.item()
+        with mesh.global_batch():
+            loss = self.loss(mel, audio)
+            grads = torch.autograd.grad(loss, self.params)
+        self.optimizer.step(mesh.sum_grads(list(grads)))
+        return mesh.sum_metrics({"loss": loss})["loss"].item()
 
     def fit(self, max_steps: int) -> dict:
-        """max_steps updates on batches drawn from np.random.default_rng(1),
-        the reference's draws; the loss printed every print_step steps and
-        a checkpoint every save_step with an output path. Returns the last
-        step's loss and seconds."""
+        """max_steps updates on batches drawn from np.random.default_rng(1 +
+        rank), the reference's draws; the loss printed every print_step steps
+        and a checkpoint every save_step with an output path (rank 0).
+        Returns the last step's loss and seconds."""
         cfg = self.cfg.training
-        rng = np.random.default_rng(1)
+        rng = np.random.default_rng(1 + self.rank)
         last: dict = {}
         for _ in range(max_steps):
-            mel, audio = self.dataset.sample_batch(self.global_batch, rng)
+            mel, audio = self.dataset.sample_batch(self.global_batch // self.world, rng)
             t0 = time.time()
             loss = self.train_step(mel, audio)
             last = {"loss": loss, "step_time": time.time() - t0}
@@ -103,7 +116,7 @@ class WaveRNNTrainer:
             if self.verbose and step % cfg.print_step == 0:
                 print(f"   --> WAVERNN STEP {step} | loss: {loss:.4f} "
                       f"| step_time: {last['step_time']:.3f}", flush=True)
-            if self.output_path and step % cfg.save_step == 0:
+            if self.output_path and step % cfg.save_step == 0 and self.rank == 0:
                 self.save(os.path.join(self.output_path, f"wavernn_checkpoint_{step}.npz"))
         return last
 
@@ -112,4 +125,6 @@ class WaveRNNTrainer:
                                        step=self.step, extra={"vocoder_model": "wavernn"})
 
     def restore(self, path: str) -> dict:
-        return restore_trainer_checkpoint(path, {None: (self.model, self.optimizer)})
+        meta = restore_trainer_checkpoint(path, {None: (self.model, self.optimizer)})
+        mesh.broadcast_module(self.model)
+        return meta
